@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNELS = ("eval_snavely", "gather_contract", "contract_reduce", "schur_sy")
+KERNELS = ("eval_snavely", "gather_contract", "contract_reduce", "schur_sy", "schur_p0")
 _launches = {name: 0 for name in KERNELS}
 _lib = None
 
@@ -46,6 +46,9 @@ _SIGNATURES = {
     # F, E, rows_f, y, ncols_f, segs, pt_start, nb, num_points, minv,
     # minv_stride, n, r, te, tf, diff, stream
     "ctt_schur_sy": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    # F, E, rows_e, perm, offsets, minv, cnt_e, n, r, te, tf, ncols_out, out,
+    # stream
+    "ctt_schur_p0": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 

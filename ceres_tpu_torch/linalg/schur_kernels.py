@@ -1,7 +1,11 @@
-"""Kernel B4: the fused implicit-Schur matvec S·y of the PCG loop.
+"""Kernels B4 (the PCG matvec S·y) and B5 (the SCHUR_JACOBI blocks).
 
-Replaces `ceres_tpu/linalg/pallas_schur.py` `_sy_kernel` (via `_seg_call`
-and `sy_apply`). Without the LM diagonal, which the caller adds,
+B4 replaces `ceres_tpu/linalg/pallas_schur.py` `_sy_kernel`, B5 its
+`_p0_kernel`; both read the scale-materialized F and E leaves in place.
+
+B4 (`sy_apply`; `_sy_kernel` via `_seg_call` and `sy_apply`), the fused
+implicit-Schur matvec of the PCG loop. Without the LM diagonal, which the
+caller adds,
 
     t1 = F y;  t2 = (EᵀE + D_e²)⁻¹ Eᵀ t1;  S y = Fᵀ (t1 − E t2)
 
@@ -17,9 +21,20 @@ diff_j = t1_j − E_j·t2 to an [r, n] buffer. A second launch, kernel B3 on
 
 Eligibility (`sy_meta`, the counterpart of pallas_schur.sy_meta:65): one
 signature group, a pure class split, one e-position on a bucket plan and
-one f-position on a onehot plan. The TPU's MIN_LANES threshold is dropped.
+one f-position on a onehot plan, te <= MAX_TE and tf <= MAX_TF (the
+per-thread bounds of the two kernels). The TPU's MIN_LANES threshold is
+dropped.
 On CPU tensors `sy_apply` runs the composed product instead (the path JAX
 takes when sy_meta is None, schur.py:533-541).
+
+B5 (`p0_apply`, csrc/schur_p0.cu; `_p0_kernel` via `p0_apply`:563): per
+camera c, P_c = Σ_l [F_lᵀF_l − (E_lᵀF_l)ᵀ M_p(l)⁻¹ (E_lᵀF_l)] over the
+camera's observations, one block per camera (one warp per row of P_c)
+walking the camera CSR with a fixed-order reduction (bitwise deterministic,
+no atomics), into a [tf², cnt_f] table; tf, te and r are run-time values.
+The plain version is the per-lane math of
+`ceres_tpu.linalg.schur.schur_jacobi_blocks` (schur.py:250-263) followed by
+the camera reduce.
 """
 
 from __future__ import annotations
@@ -32,7 +47,8 @@ from ..gather_reduce import contract_reduce, contract_reduce_plain, gather_contr
 from ..jacobian import gather_T_t, reduce_T
 from .preconditioners import apply_block_T
 
-MAX_TE = 8  # per-thread e-block size bound of csrc/schur_sy.cu
+MAX_TE = 8  # e-block size bound of csrc/schur_sy.cu and csrc/schur_p0.cu
+MAX_TF = 16  # f-block size bound of csrc/schur_p0.cu (one warp per row)
 
 
 def sy_meta(program):
@@ -61,7 +77,7 @@ def sy_meta(program):
         return None
     if f_plan is None or f_plan[0] != "onehot":
         return None
-    if e_pm.tangent_size > MAX_TE:
+    if e_pm.tangent_size > MAX_TE or f_pm.tangent_size > MAX_TF:
         return None
     buckets = e_plan[1]
     return {
@@ -69,6 +85,7 @@ def sy_meta(program):
         "f_pos": f_pos,
         "e_cls": e_pm.t_cls,
         "f_cls": f_pm.t_cls,
+        "cnt_f": program.tangent_class_counts[f_pm.t_cls],
         "te": e_pm.tangent_size,
         "tf": f_pm.tangent_size,
         "r": meta.num_residuals,
@@ -135,3 +152,51 @@ def sy_tables(meta, device):
         torch.as_tensor(meta["segs"], device=device),
         torch.as_tensor(meta["pt_start"], device=device),
     )
+
+
+def p0_apply_plain(meta, F, E, rows_f, rows_e, minv):
+    """The per-lane FᵀF − (EᵀF)ᵀ M⁻¹ (EᵀF), reduced by camera; lanes whose
+    point row is outside the inverse table add FᵀF only."""
+    r, te, tf, cnt_f = meta["r"], meta["te"], meta["tf"], meta["cnt_f"]
+    n = F.shape[1]
+    cnt_e = minv.shape[1]
+    live = (rows_e >= 0) & (rows_e < cnt_e)
+    m = minv[:, torch.where(live, rows_e, torch.zeros_like(rows_e))]
+    m = torch.where(live[None, :], m, torch.zeros_like(m)).reshape(te, te, n)
+    ej = E.reshape(r, te, n)
+    fj = F.reshape(r, tf, n)
+    outer = (fj[:, :, None, :] * fj[:, None, :, :]).sum(dim=0)
+    etf = (ej[:, :, None, :] * fj[:, None, :, :]).sum(dim=0)
+    minvetf = (m[:, :, None, :] * etf[None, :, :, :]).sum(dim=1)
+    corr = (etf[:, :, None, :] * minvetf[:, None, :, :]).sum(dim=0)
+    total = (outer - corr).reshape(tf * tf, n)
+    return contract_reduce_plain(total, rows_f, None, cnt_f + 1, 1)[:, :cnt_f]
+
+
+def p0_apply(meta, F, E, rows_f, rows_e, csr_f, minv):
+    """SCHUR_JACOBI camera blocks without the LM diagonal: [tf², cnt_f] from
+    the scale-materialized leaves F [r*tf, n] and E [r*te, n], the camera
+    and point rows [n], the camera CSR and the [te², cnt_e] inverse table."""
+    if F.device.type == "cpu":
+        return p0_apply_plain(meta, F, E, rows_f, rows_e, minv)
+    r, te, tf, cnt_f = meta["r"], meta["te"], meta["tf"], meta["cnt_f"]
+    dev, dt = F.device, F.dtype
+    n = F.shape[1]
+    perm, offsets = csr_f
+    cnt_e = minv.shape[1]
+    cuda_lib.require("F", F, dt, (r * tf, n), dev)
+    cuda_lib.require("E", E, dt, (r * te, n), dev)
+    cuda_lib.require("rows_e", rows_e, torch.int32, (n,), dev)
+    cuda_lib.require("perm", perm, torch.int32, (n,), dev)
+    cuda_lib.require("offsets", offsets, torch.int32, (cnt_f + 2,), dev)
+    cuda_lib.require("minv", minv, dt, (te * te, cnt_e), dev)
+    out = torch.empty((tf * tf, cnt_f), dtype=dt, device=dev)
+    fn = cuda_lib.kernel_fn("ctt_schur_p0", dt)
+    rc = fn(
+        cuda_lib.ptr(F), cuda_lib.ptr(E), cuda_lib.ptr(rows_e), cuda_lib.ptr(perm),
+        cuda_lib.ptr(offsets), cuda_lib.ptr(minv), cnt_e, n, r, te, tf, cnt_f,
+        cuda_lib.ptr(out), cuda_lib.stream(dev),
+    )
+    cuda_lib.check(rc, "schur_p0")
+    cuda_lib.count("schur_p0")
+    return out

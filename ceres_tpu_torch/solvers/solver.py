@@ -57,7 +57,9 @@ def solve(options, problem) -> Summary:
         summary.total_time_in_seconds = time.time() - total_start
         return summary
 
-    if options.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR:
+    if options.linear_solver_type in (
+        LinearSolverType.ITERATIVE_SCHUR, LinearSolverType.DENSE_SCHUR
+    ):
         # the elimination ordering is preprocessing (reference:
         # trust_region_preprocessor.cc, ReorderProgram); cached per Program
         program.schur_tangent_masks()

@@ -1,10 +1,11 @@
 """Trust-region step computation: the Levenberg-Marquardt strategy.
 
 Port of the LM branch of `ceres_tpu.solvers.strategies`
-(reference: levenberg_marquardt_strategy.cc:68-172) for ITERATIVE_SCHUR,
-with its prepare/finish split: `prepare` builds everything that depends
-only on the Jacobian (cached by the host loop across rejected steps),
-`finish` everything that depends on the radius.
+(reference: levenberg_marquardt_strategy.cc:68-172) for the Schur solvers.
+The step function solves through `schur_solve`; for ITERATIVE_SCHUR with a
+block preconditioner it also carries the prepare/finish split: `prepare`
+builds everything that depends only on the Jacobian (cached by the host
+loop across rejected steps), `finish` everything that depends on the radius.
 """
 
 from __future__ import annotations
@@ -23,52 +24,67 @@ def _model_cost_change(jac_scaled, step, res_groups):
     return mcc
 
 
+def _step_result(jac_s, step, res_groups, scale, lin_iters):
+    """(delta, model cost change, linear iterations, step is valid)."""
+    mcc = _model_cost_change(jac_s, step, res_groups)
+    delta = scale * step
+    valid = bool(torch.isfinite(delta).all()) and float(mcc) > 0
+    return delta, mcc, lin_iters, valid
+
+
 def make_lm_step_fn(program, options, evaluator):
-    """The LM step function with `.prepare` / `.finish` attached.
+    """The LM step function; `.prepare` / `.finish` are attached for
+    ITERATIVE_SCHUR with SCHUR_JACOBI, JACOBI or IDENTITY and neither the
+    explicit complement nor the power-series warm start (the JAX package's
+    condition, strategies.py:142-152).
 
     signature: (jac, res_groups, grad, radius, scale) ->
        (delta, model_cost_change, lin_iters, step_is_valid)
     """
-    if (
-        options.linear_solver_type != LinearSolverType.ITERATIVE_SCHUR
-        or options.preconditioner_type
-        not in (PreconditionerType.JACOBI, PreconditionerType.IDENTITY)
-        or options.use_explicit_schur_complement
-        or options.use_spse_initialization
-        or options.use_mixed_precision_solves
-    ):
+    solver = options.linear_solver_type
+    precond = options.preconditioner_type
+    if solver not in (LinearSolverType.ITERATIVE_SCHUR, LinearSolverType.DENSE_SCHUR):
         raise NotImplementedError(
-            "this port runs LM with ITERATIVE_SCHUR + JACOBI/IDENTITY only; got "
-            f"{options.linear_solver_type.value} + {options.preconditioner_type.value}"
+            f"this port runs LM with ITERATIVE_SCHUR or DENSE_SCHUR only; got {solver.value} "
+            "(ROADMAP Queue A: linear solvers)"
         )
-    from ..linalg.schur import schur_finish, schur_prepare
+    if options.use_mixed_precision_solves:
+        raise NotImplementedError(
+            "use_mixed_precision_solves is not ported yet (ROADMAP Queue A: mixed precision)"
+        )
+    from ..linalg.schur import schur_finish, schur_prepare, schur_solve
 
     min_diag = options.min_lm_diagonal
     max_diag = options.max_lm_diagonal
+
+    def step_fn(jac, res_groups, grad, radius, scale):
+        jac_s = jac.scale_columns(scale)
+        # LM diagonal D^2 = clamp(diag(J'J), min, max) / radius
+        # (levenberg_marquardt_strategy.cc:83-95)
+        dsq = torch.clamp(jac_s.squared_column_norms(), min_diag, max_diag) / radius
+        step, lin_iters = schur_solve(program, options, jac_s, res_groups, grad * scale, dsq)
+        return _step_result(jac_s, step, res_groups, scale, lin_iters)
 
     def prepare_fn(jac, res_groups, grad, scale):
         return schur_prepare(program, options, jac.scale_columns(scale))
 
     def finish_fn(jac, res_groups, grad, radius, scale, cache):
         jac_s = jac.scale_columns(scale)
-        grad_s = grad * scale
-        # LM diagonal D^2 = clamp(diag(J'J), min, max) / radius
-        # (levenberg_marquardt_strategy.cc:83-95)
         dsq = torch.clamp(cache["colnorm2"], min_diag, max_diag) / radius
         step, lin_iters = schur_finish(
-            program, options, jac_s, res_groups, grad_s, dsq, cache
+            program, options, jac_s, res_groups, grad * scale, dsq, cache
         )
-        mcc = _model_cost_change(jac_s, step, res_groups)
-        delta = scale * step
-        valid = bool(torch.isfinite(delta).all()) and float(mcc) > 0
-        return delta, mcc, lin_iters, valid
+        return _step_result(jac_s, step, res_groups, scale, lin_iters)
 
-    def step_fn(jac, res_groups, grad, radius, scale):
-        cache = prepare_fn(jac, res_groups, grad, scale)
-        return finish_fn(jac, res_groups, grad, radius, scale, cache)
-
-    step_fn.prepare = prepare_fn
-    step_fn.finish = finish_fn
+    if (
+        solver == LinearSolverType.ITERATIVE_SCHUR
+        and precond
+        in (PreconditionerType.SCHUR_JACOBI, PreconditionerType.JACOBI, PreconditionerType.IDENTITY)
+        and not options.use_explicit_schur_complement
+        and not options.use_spse_initialization
+    ):
+        step_fn.prepare = prepare_fn
+        step_fn.finish = finish_fn
     return step_fn
 
 

@@ -32,9 +32,9 @@ class TrustRegionMinimizer:
         self.program = program
         self.options = options
         self.evaluator = evaluator
-        step_fn = make_lm_step_fn(program, options, evaluator)
-        self._prepare_fn = step_fn.prepare
-        self._finish_fn = step_fn.finish
+        self._step_fn = make_lm_step_fn(program, options, evaluator)
+        self._prepare_fn = getattr(self._step_fn, "prepare", None)
+        self._finish_fn = getattr(self._step_fn, "finish", None)
         self._prepare_cache = self._prepare_key = None
 
     @staticmethod
@@ -114,14 +114,19 @@ class TrustRegionMinimizer:
                 break
 
             t_solve = time.time()
-            # reuse the cached prepare while the Jacobian is unchanged
-            # (rejected steps only shrink the radius)
-            if self._prepare_key != iteration_of_last_jacobian:
-                self._prepare_cache = self._prepare_fn(jac, res_groups, grad, scale)
-                self._prepare_key = iteration_of_last_jacobian
-            delta, mcc, lin_iters, valid = self._finish_fn(
-                jac, res_groups, grad, radius, scale, self._prepare_cache
-            )
+            if self._prepare_fn is None:
+                delta, mcc, lin_iters, valid = self._step_fn(
+                    jac, res_groups, grad, radius, scale
+                )
+            else:
+                # reuse the cached prepare while the Jacobian is unchanged
+                # (rejected steps only shrink the radius)
+                if self._prepare_key != iteration_of_last_jacobian:
+                    self._prepare_cache = self._prepare_fn(jac, res_groups, grad, scale)
+                    self._prepare_key = iteration_of_last_jacobian
+                delta, mcc, lin_iters, valid = self._finish_fn(
+                    jac, res_groups, grad, radius, scale, self._prepare_cache
+                )
             step_solver_time = time.time() - t_solve
             summary.num_linear_solves += 1
             summary.linear_solver_time_in_seconds += step_solver_time

@@ -5,8 +5,8 @@
                                           # to chiprun_out/profile_solve.txt
 
 Runs the same solve as chip_smoke.py's main run (synthetic_bal(1778, 993923,
-5,000,000, seed=0), Huber(1.0), float32, LM + ITERATIVE_SCHUR + JACOBI, eta
-0.1, PCG <= 25, 5 iterations) on a new Problem under one torch.profiler
+5,000,000, seed=0), Huber(1.0), float32, LM + ITERATIVE_SCHUR + SCHUR_JACOBI,
+eta 0.1, PCG <= 25, 5 iterations) on a new Problem under one torch.profiler
 window, and prints the device time per kernel, each LM iteration's wall ms,
 and the preprocess seconds.
 """

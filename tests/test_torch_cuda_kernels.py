@@ -1,4 +1,4 @@
-"""Kernels B1-B4 on the card against their plain PyTorch versions.
+"""Kernels B1-B5 on the card against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU (CUDA kernels have no CPU mode) and skip
 without one. The file imports no JAX, so it also runs on a machine that has
@@ -6,7 +6,7 @@ only PyTorch: `python -m pytest --noconftest tests/test_torch_cuda_kernels.py`
 (tests/conftest.py configures JAX). Tolerances are relative to the plain
 version's largest magnitude: float32 2e-4 for B1 (the dual-number chain
 rounds differently from torch.func), 1e-5 for B2 (a 9-term dot product),
-1e-4 for B3/B4 (sums over thousands of observations in another order);
+1e-4 for B3/B4/B5 (sums over thousands of observations in another order);
 float64 1e-11."""
 
 import numpy as np
@@ -23,7 +23,14 @@ from ceres_tpu_torch.gather_reduce import (
     gather_contract_plain,
 )
 from ceres_tpu_torch.linalg import schur as tschur
-from ceres_tpu_torch.linalg.schur_kernels import sy_apply, sy_apply_plain, sy_meta, sy_tables
+from ceres_tpu_torch.linalg.schur_kernels import (
+    p0_apply,
+    p0_apply_plain,
+    sy_apply,
+    sy_apply_plain,
+    sy_meta,
+    sy_tables,
+)
 from ceres_tpu_torch.program import camera_csr
 
 pytestmark = pytest.mark.cuda
@@ -42,8 +49,8 @@ def _close(got, want, tol):
     assert float((got - want).abs().max()) <= tol * float(want.abs().max())
 
 
-def _ba(card, dtype, num_obs=40_000):
-    bal = ct.synthetic_bal(32, num_obs // 5, num_obs, seed=1)
+def _ba(card, dtype, num_points=8000, seed=1):
+    bal = ct.synthetic_bal(32, num_points, 40_000, seed=seed)
     program = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))[0].compile(card)
     return program, Evaluator(program, dtype)
 
@@ -105,19 +112,57 @@ def test_schur_sy_kernel_matches_plain(card, dtype):
            1e-4 if dtype == torch.float32 else 1e-11)
 
 
-def test_cuda_solve_matches_cpu_and_launches_every_kernel(card):
-    bal = ct.synthetic_bal(32, 8000, 40_000, seed=2)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("table", ["ridge", "damped"])
+def test_schur_p0_kernel_matches_plain(card, dtype, table):
+    # ridge: schur_prepare's (EᵀE + 100·eps·colnorm2)⁻¹, on a problem whose
+    # points are all seen by two cameras or more; damped: (EᵀE + I)⁻¹ on one
+    # with points seen by one camera only, where the ridge inverse would
+    # amplify rounding (tests/test_torch_schur_jacobi.py, LONE_TOL)
+    program, ev = _ba(card, dtype, *((4000, 2) if table == "ridge" else ()))
+    _c, _r, jac, _g = ev.evaluate_groups(program.state_vector(dtype))
+    meta = sy_meta(program)
+    assert meta is not None
+    jac_e, _ = tschur.schur_views(program, jac)
+    e_gram = tschur.ete_gram_tables(program, jac_e)
+    if table == "ridge":
+        ete = tschur.ridge_ete_solver(program, e_gram, jac.squared_column_norms())
+    else:
+        e_mask = torch.as_tensor(program.schur_tangent_masks()[0], dtype=dtype, device=card)
+        ete = tschur.ete_solver_from_gram(program, e_gram, e_mask)
+    g = ev.arrays["groups"][0]
+    f_pos, e_pos = meta["f_pos"], meta["e_pos"]
+    F, E = jac.jac_groups[0][f_pos], jac.jac_groups[0][e_pos]
+    rows_f, rows_e = g["t_rows"][f_pos], g["t_rows"][e_pos]
+    minv = ete.inv_tables[meta["e_cls"]]
+    out = p0_apply(meta, F, E, rows_f, rows_e, g["csr"][f_pos], minv)
+    assert tuple(out.shape) == (81, meta["cnt_f"])
+    _close(out, p0_apply_plain(meta, F, E, rows_f, rows_e, minv),
+           1e-4 if dtype == torch.float32 else 1e-11)
+    assert torch.equal(out, p0_apply(meta, F, E, rows_f, rows_e, g["csr"][f_pos], minv))
+
+
+@pytest.mark.parametrize(
+    "precond,num_points",
+    # SCHUR_JACOBI launches B5 too; its problem has no point seen by one
+    # camera only (the ridge inverse of its cached blocks would amplify
+    # rounding there, tests/test_torch_schur_jacobi.py LONE_TOL)
+    [("JACOBI", 8000), ("SCHUR_JACOBI", 4000)],
+)
+def test_cuda_solve_matches_cpu_and_launches_every_kernel(card, precond, num_points):
+    bal = ct.synthetic_bal(32, num_points, 40_000, seed=2)
     sums = {}
     for dev in ("cpu", "cuda"):
         problem = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))[0]
         cuda_lib.reset_launch_counts()
         sums[dev] = ct.solve(ct.SolverOptions(
             linear_solver_type=ct.LinearSolverType.ITERATIVE_SCHUR,
-            preconditioner_type=ct.PreconditionerType.JACOBI,
+            preconditioner_type=getattr(ct.PreconditionerType, precond),
             max_num_iterations=3, max_linear_solver_iterations=25,
             function_tolerance=0.0, gradient_tolerance=0.0, parameter_tolerance=0.0,
             device=dev, dtype=torch.float64), problem)
-    assert all(v > 0 for v in cuda_lib.launch_counts().values())
+    unused = {"schur_p0"} if precond == "JACOBI" else set()
+    assert all(v > 0 for k, v in cuda_lib.launch_counts().items() if k not in unused)
     for a, b in zip(sums["cuda"].iterations, sums["cpu"].iterations, strict=True):
         assert a.cost == pytest.approx(b.cost, rel=1e-9)
         assert a.linear_solver_iterations == b.linear_solver_iterations

@@ -1,11 +1,16 @@
-"""End to end: the port's LM + ITERATIVE_SCHUR + JACOBI solve against
-ceres_tpu's, plus the package-level guarantees.
+"""End to end: the port's LM + ITERATIVE_SCHUR solve against ceres_tpu's,
+plus the package-level guarantees.
 
 The same synthetic_bal (Huber(1.0), eta 0.1, PCG <= 25, 5 iterations,
 float64, tolerances off so all 5 iterations run) is solved by both
 packages; the JAX side runs its host loop (fused_execution=False). Every
 iteration must agree: cost to 1e-10 relative, trust-region radius, PCG
-iteration count and the accept/reject decision."""
+iteration count and the accept/reject decision. The preconditioner cases:
+JACOBI and SCHUR_JACOBI through the prepare/finish split (with the layout
+plans, where kernels B4/B5 sit, and without), and SCHUR_JACOBI with the
+power-series warm start, which only schur_solve runs. The SCHUR_JACOBI
+problems have no point seen by one camera only (see
+test_torch_schur_jacobi.py)."""
 
 import pathlib
 import re
@@ -46,21 +51,28 @@ def _options(pkg, **kw):
 @pytest.mark.parametrize(
     "case",
     [
-        ("huber_plans", 16, True, 3, 0.05),
-        ("noloss_plans", 16, False, 5, 0.5),
-        ("huber_fallback", 10**9, True, 4, 0.05),
+        ("huber_plans", 16, True, 3, 0.05, "JACOBI", {}),
+        ("noloss_plans", 16, False, 5, 0.5, "JACOBI", {}),
+        ("huber_fallback", 10**9, True, 4, 0.05, "JACOBI", {}),
+        ("schur_jacobi_plans", 16, True, 3, 0.05, "SCHUR_JACOBI", {}),
+        ("schur_jacobi_fallback", 10**9, True, 4, 0.05, "SCHUR_JACOBI", {}),
+        ("spse_init_plans", 16, True, 3, 0.05, "SCHUR_JACOBI",
+         {"use_spse_initialization": True}),
     ],
     ids=lambda c: c[0],
 )
 def test_lm_solve_matches_jax_per_iteration(monkeypatch, case):
-    _name, threshold, huber, seed, perturb = case
+    _name, threshold, huber, seed, perturb, precond, extra = case
     monkeypatch.setattr(JProgram, "SEG_REDUCE_THRESHOLD", threshold)
     monkeypatch.setattr(TProgram, "SEG_REDUCE_THRESHOLD", threshold)
     bal = synthetic_bal(8, 60, 300, seed=seed, perturb_points=perturb)
     jp, _, _ = j_build(bal, loss=ceres_tpu.HuberLoss(1.0) if huber else None)
     tp, _, _ = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0) if huber else None)
-    js = ceres_tpu.solve(_options(ceres_tpu, fused_execution=False), jp)
-    ts = ct.solve(_options(ct, device="cpu"), tp)
+    js = ceres_tpu.solve(_options(
+        ceres_tpu, fused_execution=False,
+        preconditioner_type=getattr(ceres_tpu.PreconditionerType, precond), **extra), jp)
+    ts = ct.solve(_options(
+        ct, device="cpu", preconditioner_type=getattr(ct.PreconditionerType, precond), **extra), tp)
     assert not js.used_fused_execution and not ts.used_fused_execution
     assert len(ts.iterations) == len(js.iterations) == 6
     for a, b in zip(ts.iterations, js.iterations):
@@ -130,7 +142,7 @@ def test_invalid_and_unsupported_options():
         ct.solve(ct.SolverOptions(device="cpu"), problem)  # DENSE_QR: not ported
     with pytest.raises(NotImplementedError):
         ct.solve(
-            _options(ct, device="cpu", preconditioner_type=ct.PreconditionerType.SCHUR_JACOBI),
+            _options(ct, device="cpu", preconditioner_type=ct.PreconditionerType.CLUSTER_JACOBI),
             problem,
         )
 
