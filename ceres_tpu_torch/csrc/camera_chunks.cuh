@@ -1,0 +1,48 @@
+// The second pass of kernels B3 and B5: combine per-chunk partial sums.
+//
+// Both kernels read a camera-ordered, padded copy of a Jacobian leaf (the
+// "twin", ceres_tpu_torch/jacobian.py make_twin) and run one block per
+// chunk of at most TWIN_CHUNK slots; a chunk never straddles two cameras
+// (program.py camera_layout). Each block writes its k sums to column m of
+// partial [k, nchunks]. This pass adds camera c's chunks
+// [row_chunks[c], row_chunks[c+1]) in index order, one thread per output:
+// the result does not depend on how blocks were scheduled, so two runs are
+// bitwise equal without atomics. A camera without observations gets 0.
+#pragma once
+
+#include <cuda_runtime.h>
+
+// internal linkage: each translation unit that includes this header keeps
+// its own copy of the kernel (no relocatable device code across files)
+namespace camera_chunks {
+namespace {
+
+constexpr int kSumBlock = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kSumBlock)
+    chunk_sum_kernel(const T* __restrict__ partial, const int* __restrict__ row_chunks, int k,
+                     int nchunks, int ncols, T* __restrict__ out) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kSumBlock + threadIdx.x;
+  if (idx >= static_cast<long long>(k) * ncols) return;
+  const int e = static_cast<int>(idx / ncols);
+  const int c = static_cast<int>(idx % ncols);
+  const T* row = partial + static_cast<size_t>(e) * nchunks;
+  T s = T(0);
+  for (int m = row_chunks[c]; m < row_chunks[c + 1]; ++m) s += row[m];
+  out[idx] = s;
+}
+
+template <typename T>
+void launch_chunk_sum(const T* partial, const int* row_chunks, int k, int nchunks, int ncols,
+                      T* out, cudaStream_t stream) {
+  const long long total = static_cast<long long>(k) * ncols;
+  if (total > 0) {
+    const int blocks = static_cast<int>((total + kSumBlock - 1) / kSumBlock);
+    chunk_sum_kernel<T><<<blocks, kSumBlock, 0, stream>>>(partial, row_chunks, k, nchunks, ncols,
+                                                          out);
+  }
+}
+
+}  // namespace
+}  // namespace camera_chunks

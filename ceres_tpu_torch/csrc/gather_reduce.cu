@@ -8,30 +8,42 @@
 //
 // B3 contract_reduce replaces pallas_onehot.py _contract_reduce_kernel (via
 // contract_reduce):
-//     out[j, c] = sum_{l : rows[l] = c} sum_i jac[i*t + j, l] * u[i, l]
-// (u == nullptr means u = 1 with r = 1: a plain segmented sum of jac's rows).
-// One block per (class row c, group of kRowsPerBlock rows j). The block walks
-// the camera CSR — perm[offsets[c] .. offsets[c+1]) lists row c's lanes in
-// lane order — with a fixed thread-to-lane assignment, then reduces its
-// threads' partial sums with a fixed shared-memory tree. The result is
-// bitwise reproducible from run to run: no atomics.
+//     out[j, c] = sum_{slots k of c} sum_i twin[i*t + j, k] * u[i, perm[k]]
+// (u == nullptr means u = 1 with r = 1: a plain segmented sum of the twin's
+// rows). The twin is the leaf copied into camera order: camera c's
+// observations fill slots [offsets[c], offsets[c+1]), padded with zero
+// columns (perm = -1) to a multiple of 32, so every run starts 128-byte
+// aligned in float32 (program.py camera_layout, jacobian.py make_twin).
+// One block per chunk of at most 2048 slots of one camera, with all t rows
+// in the block (passes of kRows rows, each reading rows of its own): a warp
+// reads 32 consecutive slots of a row, i.e. whole 128-byte lines, and
+// gathers only u (2 values per slot, from an [r, n] array that the
+// previous kernel has just left in L2). A warp-shuffle tree and a fixed
+// pass over the warps give the chunk's sums; camera_chunks.cuh adds a
+// camera's chunks in index order. Bitwise reproducible, no atomics.
 //
 // Bound on an H100: device memory. B2 streams the [r*t, n] leaf once
 // (coalesced: neighbouring threads read neighbouring lanes) and gathers from a
 // [t, ncols] table small enough to stay in L2 (9 x 1779 values at BAL-1778).
-// B3 reads the same leaf once, but in CSR order, so its reads are gathers
-// spread over the leaf; the TPU kernel's one-hot matmul has no counterpart to
-// port here, and the design trades coalescing for determinism without a
-// sort of the leaf. The one-hot planes, integer mantissa splits and MXU
-// passes of the TPU kernels are dropped: plain FMAs are exact enough in f32.
+// B3 streams the [r*t, n_pad] twin once, coalesced, plus perm and u. The
+// TPU kernel's one-hot matmul into a resident output has no counterpart: H100
+// blocks run in no order, so the camera order is made in memory instead. The
+// one-hot planes, integer mantissa splits and MXU passes of the TPU kernels
+// are dropped: plain FMAs are exact enough in f32. Loads are plain per-thread
+// loads: each value is used once, by the thread that loads it, so staging
+// through shared memory would add a copy and no reuse. B3 loads the twin
+// with ld.global.cs (evict-first in L2), so its stream does not push u out
+// of L2.
 
 #include <cuda_runtime.h>
+
+#include "camera_chunks.cuh"
 
 namespace {
 
 constexpr int kGatherBlock = 256;
 constexpr int kReduceBlock = 256;
-constexpr int kRowsPerBlock = 8;
+constexpr int kRows = 16;  // output rows per pass of a B3 block
 
 template <typename T>
 __global__ void __launch_bounds__(kGatherBlock)
@@ -56,41 +68,57 @@ __global__ void __launch_bounds__(kGatherBlock)
 
 template <typename T>
 __global__ void __launch_bounds__(kReduceBlock)
-    contract_reduce_kernel(const T* __restrict__ jac, const int* __restrict__ perm,
-                           const int* __restrict__ offsets, const T* __restrict__ u, int n, int r,
-                           int t, int ncols, T* __restrict__ out) {
-  __shared__ T sh[kRowsPerBlock][kReduceBlock];
-  const int c = blockIdx.x;
-  const int j0 = blockIdx.y * kRowsPerBlock;
-  const int nj = min(kRowsPerBlock, t - j0);
+    contract_reduce_kernel(const T* __restrict__ twin, const int* __restrict__ perm,
+                           const int* __restrict__ chunk_start, const T* __restrict__ u, int n,
+                           int n_pad, int r, int t, int nchunks, T* __restrict__ partial) {
+  __shared__ T sh[kReduceBlock / 32][kRows];
+  const int m = blockIdx.x;
+  const int beg = chunk_start[m];
+  const int end = chunk_start[m + 1];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t NP = static_cast<size_t>(n_pad);
   const size_t N = static_cast<size_t>(n);
-  T acc[kRowsPerBlock];
+  for (int j0 = 0; j0 < t; j0 += kRows) {
+    const int nj = min(kRows, t - j0);
+    T acc[kRows];
 #pragma unroll
-  for (int q = 0; q < kRowsPerBlock; ++q) acc[q] = T(0);
-  const int beg = offsets[c];
-  const int end = offsets[c + 1];
-  for (int k = beg + threadIdx.x; k < end; k += kReduceBlock) {
-    const int l = perm[k];
-    for (int i = 0; i < r; ++i) {
-      const T w = u ? u[static_cast<size_t>(i) * N + l] : T(1);
+    for (int q = 0; q < kRows; ++q) acc[q] = T(0);
+    for (int k = beg + threadIdx.x; k < end; k += kReduceBlock) {
+      if (u != nullptr) {
+        const int l = perm[k];
+        if (l < 0) continue;  // padding: the twin is zero there
+        for (int i = 0; i < r; ++i) {
+          const T w = u[static_cast<size_t>(i) * N + l];
+          const T* col = twin + static_cast<size_t>(i * t + j0) * NP + k;
 #pragma unroll
-      for (int q = 0; q < kRowsPerBlock; ++q) {
-        if (q < nj) acc[q] += jac[static_cast<size_t>(i * t + j0 + q) * N + l] * w;
+          for (int q = 0; q < kRows; ++q) {
+            if (q < nj) acc[q] += __ldcs(col + q * NP) * w;
+          }
+        }
+      } else {
+        const T* col = twin + static_cast<size_t>(j0) * NP + k;
+#pragma unroll
+        for (int q = 0; q < kRows; ++q) {
+          if (q < nj) acc[q] += __ldcs(col + q * NP);
+        }
       }
     }
-  }
 #pragma unroll
-  for (int q = 0; q < kRowsPerBlock; ++q) sh[q][threadIdx.x] = acc[q];
-  __syncthreads();
-  for (int w = kReduceBlock / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) {
+    for (int q = 0; q < kRows; ++q) {
+      T v = acc[q];
 #pragma unroll
-      for (int q = 0; q < kRowsPerBlock; ++q) sh[q][threadIdx.x] += sh[q][threadIdx.x + w];
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0) sh[warp][q] = v;
     }
     __syncthreads();
-  }
-  if (threadIdx.x < nj) {
-    out[static_cast<size_t>(j0 + threadIdx.x) * ncols + c] = sh[threadIdx.x][0];
+    if (threadIdx.x < nj) {
+      T s = T(0);
+#pragma unroll
+      for (int w = 0; w < kReduceBlock / 32; ++w) s += sh[w][threadIdx.x];
+      partial[static_cast<size_t>(j0 + threadIdx.x) * nchunks + m] = s;
+    }
+    __syncthreads();
   }
 }
 
@@ -106,13 +134,16 @@ int launch_gather(const T* jac, const int* rows, const T* table, int n, int r, i
 }
 
 template <typename T>
-int launch_reduce(const T* jac, const int* perm, const int* offsets, const T* u, int n, int r,
-                  int t, int ncols, T* out, cudaStream_t stream) {
-  if (ncols > 0 && t > 0) {
-    dim3 grid(ncols, (t + kRowsPerBlock - 1) / kRowsPerBlock);
-    contract_reduce_kernel<T><<<grid, kReduceBlock, 0, stream>>>(jac, perm, offsets, u, n, r, t,
-                                                                 ncols, out);
+int launch_reduce(const T* twin, const int* perm, const int* chunk_start, const int* row_chunks,
+                  const T* u, int n, int n_pad, int r, int t, int nchunks, int ncols, T* partial,
+                  T* out, cudaStream_t stream) {
+  if (t > 0 && nchunks > 0) {
+    contract_reduce_kernel<T><<<nchunks, kReduceBlock, 0, stream>>>(twin, perm, chunk_start, u, n,
+                                                                    n_pad, r, t, nchunks, partial);
   }
+  const cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  camera_chunks::launch_chunk_sum<T>(partial, row_chunks, t, nchunks, ncols, out, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -130,16 +161,19 @@ extern "C" int ctt_gather_contract_f64(const double* jac, const int* rows, const
                                static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int ctt_contract_reduce_f32(const float* jac, const int* perm, const int* offsets,
-                                       const float* u, int n, int r, int t, int ncols, float* out,
-                                       void* stream) {
-  return launch_reduce<float>(jac, perm, offsets, u, n, r, t, ncols, out,
-                              static_cast<cudaStream_t>(stream));
+extern "C" int ctt_contract_reduce_f32(const float* twin, const int* perm, const int* chunk_start,
+                                       const int* row_chunks, const float* u, int n, int n_pad,
+                                       int r, int t, int nchunks, int ncols, float* partial,
+                                       float* out, void* stream) {
+  return launch_reduce<float>(twin, perm, chunk_start, row_chunks, u, n, n_pad, r, t, nchunks,
+                              ncols, partial, out, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int ctt_contract_reduce_f64(const double* jac, const int* perm, const int* offsets,
-                                       const double* u, int n, int r, int t, int ncols,
-                                       double* out, void* stream) {
-  return launch_reduce<double>(jac, perm, offsets, u, n, r, t, ncols, out,
-                               static_cast<cudaStream_t>(stream));
+extern "C" int ctt_contract_reduce_f64(const double* twin, const int* perm,
+                                       const int* chunk_start, const int* row_chunks,
+                                       const double* u, int n, int n_pad, int r, int t,
+                                       int nchunks, int ncols, double* partial, double* out,
+                                       void* stream) {
+  return launch_reduce<double>(twin, perm, chunk_start, row_chunks, u, n, n_pad, r, t, nchunks,
+                               ncols, partial, out, static_cast<cudaStream_t>(stream));
 }

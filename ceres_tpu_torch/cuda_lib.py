@@ -26,7 +26,7 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 KERNELS = ("eval_snavely", "gather_contract", "contract_reduce", "schur_sy", "schur_p0")
@@ -41,14 +41,15 @@ _SIGNATURES = {
     "ctt_eval_snavely": [_P, _P, _P, _P, _P, _I, _I, _D, _I, _P, _P, _P, _P, _P, _P],
     # jac, rows, table, n, r, t, ncols, out, stream
     "ctt_gather_contract": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
-    # jac, perm, offsets, u, n, r, t, ncols, out, stream
-    "ctt_contract_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # twin, perm, chunk_start, row_chunks, u, n, n_pad, r, t, nchunks, ncols,
+    # partial, out, stream
+    "ctt_contract_reduce": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # F, E, rows_f, y, ncols_f, segs, pt_start, nb, num_points, minv,
     # minv_stride, n, r, te, tf, diff, stream
     "ctt_schur_sy": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P],
-    # F, E, rows_e, perm, offsets, minv, cnt_e, n, r, te, tf, ncols_out, out,
-    # stream
-    "ctt_schur_p0": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # F twin, E twin, point rows, chunk_start, row_chunks, minv, cnt_e, n_pad,
+    # r, te, tf, nchunks, ncols_out, partial, out, stream
+    "ctt_schur_p0": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -63,9 +64,10 @@ def nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the cached shared library; returns its path.
-    The compiler's output (ptxas register / spill report) is kept in
-    _build/build.log."""
+    """Compile csrc/*.cu (with the headers they include) into the cached
+    shared library; returns its path. One nvcc per source, all started
+    together, then one link. The compilers' output (ptxas register / spill
+    report) is kept in _build/build.log."""
     srcs = sorted(SRC_DIR.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sorted(SRC_DIR.glob("*.cu*")):
@@ -75,14 +77,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
+    procs = [
+        subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        for s, o in zip(srcs, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(s.name, p.returncode) for s, p in zip(srcs, procs) if p.returncode != 0]
+    tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        logs.append(link.stdout)
+        if link.returncode != 0:
+            failed.append(("link", link.returncode))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    (BUILD_DIR / "build.log").write_text("".join(logs))
+    if failed:
+        raise RuntimeError(f"nvcc failed {failed}:\n{''.join(logs)[-4000:]}")
     os.replace(tmp, out)
     return out
 

@@ -7,15 +7,18 @@ position's Jacobian leaf and rows [n] its class rows:
   B2 gather_contract: out[i, l] = sum_j jac[i*t+j, l] * table[j, rows[l]]
       (F·y; the last table column is the dump column of constant blocks
       and gathers zero)
-  B3 contract_reduce: out[j, c] = sum_{l: rows[l]=c} sum_i jac[i*t+j, l] * u[i, l]
+  B3 contract_reduce: out[j, c] = sum_{slots k of c} sum_i twin[i*t+j, k] * u[i, perm[k]]
       (Fᵀu into the [t, ncols] class table; with u=None it is the plain
-      segmented sum of jac's rows, r=1 — reduce_T's onehot plan)
+      segmented sum of the twin's rows, r=1 — reduce_T's onehot plan)
 
-B3 walks the camera CSR (program.camera_csr) with one block per class row
-and a fixed-order tree reduce: bitwise deterministic, no atomics (the JAX
-package's decision 3 in docs/architecture.md). On CPU tensors both run their
-plain PyTorch versions below; on CUDA tensors they launch the kernel in
-csrc/gather_reduce.cu or raise.
+B2 reads the leaf in lane order. B3 reads the leaf's twin: a copy in the
+slot order of the padded camera CSR (program.camera_layout,
+jacobian.make_twin), where each camera's observations are contiguous. One
+block per chunk of a camera's run and a fixed-order combine of the chunks
+make it bitwise deterministic without atomics (the JAX package's decision 3
+in docs/architecture.md). On CPU tensors both run their plain PyTorch
+versions below, on the same inputs; on CUDA tensors they launch the kernels
+in csrc/gather_reduce.cu or raise.
 """
 
 from __future__ import annotations
@@ -57,40 +60,51 @@ def gather_contract(jac, rows, table_t, r):
     return out
 
 
-def contract_reduce_plain(jac, rows, u, ncols, r):
-    rt, n = jac.shape
+def contract_reduce_plain(twin, layout, u, r):
+    """B3's plain version, on the kernel's inputs."""
+    rt, n_pad = twin.shape
     t = rt // r
+    x = twin.reshape(r, t, n_pad)
     if u is None:
-        contrib = jac.reshape(r, t, n).sum(dim=0)
+        contrib = x.sum(dim=0)
     else:
-        contrib = (jac.reshape(r, t, n) * u[:, None, :]).sum(dim=0)
-    out = torch.zeros((t, ncols), dtype=jac.dtype, device=jac.device)
-    return out.index_add_(1, rows, contrib)
+        live = layout.perm >= 0
+        us = u[:, layout.perm.clamp(min=0)]
+        contrib = (x * torch.where(live[None, :], us, torch.zeros_like(us))[:, None, :]).sum(dim=0)
+    out = torch.zeros((t, len(layout.offsets) - 1), dtype=twin.dtype, device=twin.device)
+    return out.index_add_(1, layout.slot_row, contrib)
 
 
-def contract_reduce(jac, rows, csr, u, r):
-    """Fᵀu for a onehot-plan position: [t, ncols] from jac [r*t, n], rows
-    [n], csr = (perm [n], offsets [ncols+1]) and u [r, n] (or None with
-    r == 1). The dump column (constant blocks) is produced; callers drop it."""
-    perm, offsets = csr
-    ncols = offsets.shape[0] - 1
-    if jac.device.type == "cpu":
-        return contract_reduce_plain(jac, rows, u, ncols, r)
-    rt, n = jac.shape
+def contract_reduce(twin, layout, u, r):
+    """Fᵀu for a onehot-plan position: [t, ncols] from its twin [r*t, n_pad]
+    (the leaf in the slot order of `layout`, a program.CameraLayout; zero on
+    padding), and u [r, n] in lane order (or None with r == 1: the
+    segmented sum of the twin's rows). The dump column (constant blocks) is
+    produced; callers drop it."""
+    if twin.device.type == "cpu":
+        return contract_reduce_plain(twin, layout, u, r)
+    rt, n_pad = twin.shape
     t = rt // r
+    ncols = len(layout.offsets) - 1
     if u is None and r != 1:
         raise ValueError("contract_reduce: u=None needs r == 1")
-    cuda_lib.require("jac", jac)
-    cuda_lib.require("perm", perm, torch.int32, (n,), jac.device)
-    cuda_lib.require("offsets", offsets, torch.int32, (ncols + 1,), jac.device)
+    dev = twin.device
+    cuda_lib.require("twin", twin, None, (r * t, layout.perm.shape[0]), dev)
+    cuda_lib.require("perm", layout.perm, torch.int32, None, dev)
+    cuda_lib.require("chunk_start", layout.chunk_start, torch.int32, None, dev)
+    cuda_lib.require("row_chunks", layout.row_chunks, torch.int32, (ncols + 1,), dev)
+    n = 0
     if u is not None:
-        cuda_lib.require("u", u, jac.dtype, (r, n), jac.device)
-    out = torch.empty((t, ncols), dtype=jac.dtype, device=jac.device)
-    fn = cuda_lib.kernel_fn("ctt_contract_reduce", jac.dtype)
+        n = u.shape[1]
+        cuda_lib.require("u", u, twin.dtype, (r, n), dev)
+    nchunks = layout.num_chunks
+    partial = torch.empty((t, nchunks), dtype=twin.dtype, device=dev)
+    out = torch.empty((t, ncols), dtype=twin.dtype, device=dev)
+    fn = cuda_lib.kernel_fn("ctt_contract_reduce", twin.dtype)
     rc = fn(
-        cuda_lib.ptr(jac), cuda_lib.ptr(perm), cuda_lib.ptr(offsets),
-        cuda_lib.ptr(u), n, r, t, ncols, cuda_lib.ptr(out),
-        cuda_lib.stream(jac.device),
+        cuda_lib.ptr(twin), cuda_lib.ptr(layout.perm), cuda_lib.ptr(layout.chunk_start),
+        cuda_lib.ptr(layout.row_chunks), cuda_lib.ptr(u), n, n_pad, r, t, nchunks, ncols,
+        cuda_lib.ptr(partial), cuda_lib.ptr(out), cuda_lib.stream(dev),
     )
     cuda_lib.check(rc, "contract_reduce")
     cuda_lib.count("contract_reduce")

@@ -7,9 +7,22 @@ picks:
 
 - "bucket" (the owner class, BA points): gathers are slice+broadcast and
   reductions reshape+sum over the interleaved bucket lanes;
-- "onehot" (small classes, BA cameras): an indexed gather, and the
-  deterministic CSR reduce — kernels B2/B3 (gather_reduce.py) on a card;
+- "onehot" (small classes, BA cameras): an indexed gather (kernel B2,
+  gather_reduce.py, on a card) of the lane-order leaf, and the deterministic
+  reduce (kernel B3) of a twin;
 - no plan: index_select / index_add_.
+
+The twin of a lane-order array is its copy in the slot order of the padded
+camera CSR (program.camera_layout): each camera's observations contiguous,
+each run padded with zero columns to a multiple of 32 slots, so the
+reducing kernels B3 and B5 read whole cache lines. This module is where
+that order is decided. `reduce_T` takes lane-order input on every plan and
+makes the twin of what it reduces; a BlockJacobian makes the twins of its
+onehot leaves with the leaves (`build`; `materialize_scale` scales the raw
+twin slot by slot) and shares them with every view of the same leaves, and
+its reductions of a leaf work on the leaf's twin. Each onehot leaf then
+exists twice, in lane order (read by B2 and B4) and as its twin: at
+BAL-1778 in float32 ~0.36 GB more per camera leaf.
 
 The one-hot MXU machinery of the JAX package (ceres_tpu/jacobian.py:71-143)
 exists only to serve a TPU and has no counterpart here.
@@ -54,10 +67,27 @@ def gather_T_t(plan, table_t, rows):
     return table_t[:, _clip_rows(rows, table_t.shape[1])]
 
 
+def make_twin(leaf, layout):
+    """The twin of a lane-order array [k, n]: its copy [k, n_pad] in the
+    slot order of a program.CameraLayout, zero on the padding slots."""
+    twin = leaf.index_select(1, layout.perm.clamp(min=0))
+    return twin.index_fill_(1, layout.pad.long(), 0)
+
+
+def scale_twin(twin, layout, table, r):
+    """The twin of leaf·scale from the leaf's twin [r*t, n_pad], for a scale
+    table [cnt+1, t] gathered by class row: the products materialize_scale
+    forms in lane order, one slot at a time (bitwise the same)."""
+    t = table.shape[1]
+    sg = table.T.contiguous().index_select(1, layout.slot_row)  # [t, n_pad], coalesced
+    return (twin.reshape(r, t, -1) * sg[None]).reshape(r * t, -1)
+
+
 def reduce_T(plan, contrib, rows, num_out, csr=None):
-    """Segment-reduce transposed contributions [k, n] -> [k, num_out];
-    num_out includes the dump column. The onehot plan reduces through the
-    CSR (kernel B3 on a card), the bucket plan by reshape+sum."""
+    """Segment-reduce lane-order contributions [k, n] -> [k, num_out];
+    num_out includes the dump column. The bucket plan reduces by
+    reshape+sum; the onehot plan reduces the contributions' twin in the
+    slot order of its layout `csr` (kernel B3 on a card)."""
     k = contrib.shape[0]
     if plan is not None and plan[0] == "bucket":
         out = contrib.new_zeros((k, num_out))
@@ -68,14 +98,14 @@ def reduce_T(plan, contrib, rows, num_out, csr=None):
             out[:, out_row : out_row + n_seg] = seg
         return out
     if plan is not None and plan[0] == "onehot":
-        return contract_reduce(contrib.contiguous(), rows, csr, None, 1)
+        return contract_reduce(make_twin(contrib, csr), csr, None, 1)
     return contrib.new_zeros((k, num_out)).index_add_(1, rows, contrib)
 
 
 class BlockJacobian:
     """Per-(group, position) Jacobian blocks stored as [r*t, n] tensors."""
 
-    def __init__(self, program, jac_groups, garrs, positions=None, col_scale=None):
+    def __init__(self, program, jac_groups, garrs, positions=None, col_scale=None, twins=None):
         self.program = program
         self.jac_groups = jac_groups  # tuple over groups of tuple over view positions
         self.garrs = garrs  # per-group arrays (t_rows, csr)
@@ -85,22 +115,58 @@ class BlockJacobian:
         # lazy Jacobi column scaling J diag(col_scale); products apply it at
         # the tangent-vector boundary (see ceres_tpu/jacobian.py)
         self.col_scale = col_scale
+        # camera-ordered copies of the leaves, keyed by (group, position,
+        # order position): they belong to these leaves, and every view of
+        # the same leaves shares them
+        self.twins = {} if twins is None else twins
         self.t_rows = tuple(
             tuple(g["t_rows"][p] for p in pos) for g, pos in zip(garrs, positions)
         )
 
     @classmethod
     def build(cls, program, arrays, jac_groups):
-        return cls(program, tuple(jac_groups), arrays["groups"])
+        """The Jacobian of one evaluation, with the twins of its onehot
+        leaves."""
+        jac = cls(program, tuple(jac_groups), arrays["groups"])
+        for gi in range(len(jac.jac_groups)):
+            for pos, pm, _jac, _tr, csr in jac._iter(gi):
+                if csr is not None and pm.t_cls >= 0:
+                    jac.twin(gi, pos)
+        return jac
 
-    def _with(self, jac_groups=None, positions=None, col_scale="keep"):
+    def _with(self, jac_groups=None, positions=None, col_scale="keep", twins=None):
+        """A view; new leaves (jac_groups) start without twins unless given."""
+        if twins is None and jac_groups is None:
+            twins = self.twins
         return BlockJacobian(
             self.program,
             self.jac_groups if jac_groups is None else jac_groups,
             self.garrs,
             self.positions if positions is None else positions,
             self.col_scale if col_scale == "keep" else col_scale,
+            twins,
         )
+
+    def leaf(self, gi, pos):
+        return self.jac_groups[gi][self.positions[gi].index(pos)]
+
+    def twin(self, gi, pos, order_pos=None):
+        """The twin of the leaf at `pos` in the slot order of the onehot
+        position `order_pos` (default: its own); made once per leaf."""
+        order_pos = pos if order_pos is None else order_pos
+        key = (gi, pos, order_pos)
+        if key not in self.twins:
+            self.twins[key] = make_twin(self.leaf(gi, pos), self.garrs[gi]["csr"][order_pos])
+        return self.twins[key]
+
+    def _reduce_leaf(self, gi, pos, lanewise, num_out):
+        """reduce_T of lanewise(leaf) [k, n], for a function that treats
+        each lane alone: on the onehot plan it runs on the leaf's twin,
+        whose result is already in slot order."""
+        plan, csr = self.plan(gi, pos), self.garrs[gi]["csr"].get(pos)
+        if plan is not None and plan[0] == "onehot":
+            return contract_reduce(lanewise(self.twin(gi, pos)).contiguous(), csr, None, 1)
+        return reduce_T(plan, lanewise(self.leaf(gi, pos)), self.garrs[gi]["t_rows"][pos], num_out)
 
     def position_view(self, keep_positions):
         """Restrict to a subset of positions per group — the E or F half of
@@ -110,7 +176,7 @@ class BlockJacobian:
             orig = self.positions[gi]
             jac_groups.append(tuple(self.jac_groups[gi][orig.index(p)] for p in keep))
             positions.append(tuple(keep))
-        return self._with(tuple(jac_groups), tuple(positions))
+        return self._with(tuple(jac_groups), tuple(positions), twins=self.twins)
 
     @property
     def num_cols(self) -> int:
@@ -133,7 +199,7 @@ class BlockJacobian:
         return self.program.device
 
     def _iter(self, gi):
-        """Yields (pos, pos_meta, jac [r*t, n], t_rows [n], csr|None)."""
+        """Yields (pos, pos_meta, jac [r*t, n], t_rows [n], layout|None)."""
         meta = self.program.groups[gi]
         garr = self.garrs[gi]
         for vpos, jac in enumerate(self.jac_groups[gi]):
@@ -231,7 +297,7 @@ class BlockJacobian:
                 plan = self.plan(gi, pos)
                 width = acc[pm.t_cls].shape[1]
                 if plan is not None and plan[0] == "onehot":
-                    part = contract_reduce(jac, tr, csr, u.contiguous(), r)
+                    part = contract_reduce(self.twin(gi, pos), csr, u.contiguous(), r)
                 else:
                     contrib = (jac.reshape(r, t, -1) * u[:, None, :]).sum(dim=0)
                     part = reduce_T(plan, contrib, tr, width, csr)
@@ -264,12 +330,17 @@ class BlockJacobian:
         acc = self._class_tables_T()
         for gi in range(len(self.jac_groups)):
             r = self.program.groups[gi].num_residuals
-            for pos, pm, jac, tr, csr in self._iter(gi):
+            for pos, pm, _jac, _tr, _csr in self._iter(gi):
                 if pm.t_cls < 0:
                     continue
-                j3 = jac.reshape(r, pm.tangent_size, -1)
-                acc[pm.t_cls] = acc[pm.t_cls] + reduce_T(
-                    self.plan(gi, pos), (j3 * j3).sum(dim=0), tr, acc[pm.t_cls].shape[1], csr
+                t = pm.tangent_size
+
+                def sq(j):
+                    j3 = j.reshape(r, t, -1)
+                    return (j3 * j3).sum(dim=0)
+
+                acc[pm.t_cls] = acc[pm.t_cls] + self._reduce_leaf(
+                    gi, pos, sq, acc[pm.t_cls].shape[1]
                 )
         out = self._flatten_classes_T(acc)
         if self.col_scale is not None:
@@ -283,23 +354,27 @@ class BlockJacobian:
         )
 
     def materialize_scale(self):
-        """Fold `col_scale` into new [r*t, n] leaves."""
+        """Fold `col_scale` into new [r*t, n] leaves, with the twins of the
+        new onehot leaves."""
         if self.col_scale is None:
             return self
         st = self._v_tables(self.col_scale)
-        new_groups = []
+        new_groups, twins = [], {}
         for gi in range(len(self.jac_groups)):
             r = self.program.groups[gi].num_residuals
             jacs = []
-            for pos, pm, jac, tr, _csr in self._iter(gi):
+            for pos, pm, jac, tr, csr in self._iter(gi):
                 if pm.t_cls < 0:
                     jacs.append(jac)
                     continue
                 t = pm.tangent_size
-                sg = gather_T(self.plan(gi, pos), st[pm.t_cls], tr)
+                plan = self.plan(gi, pos)
+                sg = gather_T(plan, st[pm.t_cls], tr)
                 jacs.append((jac.reshape(r, t, -1) * sg[None]).reshape(r * t, -1))
+                if plan is not None and plan[0] == "onehot":
+                    twins[(gi, pos, pos)] = scale_twin(self.twin(gi, pos), csr, st[pm.t_cls], r)
             new_groups.append(tuple(jacs))
-        return self._with(tuple(new_groups), col_scale=None)
+        return self._with(tuple(new_groups), col_scale=None, twins=twins)
 
     def block_diag_jtj(self, dsq=None, class_ids=None):
         """Per-block diagonal blocks of JᵀJ (+ diag(dsq)) as a list over
@@ -314,15 +389,17 @@ class BlockJacobian:
         ]
         for gi in range(len(self.jac_groups)):
             r = p.groups[gi].num_residuals
-            for pos, pm, jac, tr, csr in self._iter(gi):
+            for pos, pm, _jac, _tr, _csr in self._iter(gi):
                 if pm.t_cls < 0 or (class_ids is not None and pm.t_cls not in class_ids):
                     continue
                 t = pm.tangent_size
-                j3 = jac.reshape(r, t, -1)
-                outer = (j3[:, :, None, :] * j3[:, None, :, :]).sum(dim=0)
-                per_class[pm.t_cls] = per_class[pm.t_cls] + reduce_T(
-                    self.plan(gi, pos), outer.reshape(t * t, -1), tr,
-                    per_class[pm.t_cls].shape[1], csr,
+
+                def outer(j):
+                    j3 = j.reshape(r, t, -1)
+                    return (j3[:, :, None, :] * j3[:, None, :, :]).sum(dim=0).reshape(t * t, -1)
+
+                per_class[pm.t_cls] = per_class[pm.t_cls] + self._reduce_leaf(
+                    gi, pos, outer, per_class[pm.t_cls].shape[1]
                 )
         dt = tangent_tables(p, dsq) if dsq is not None else None
         sc = tangent_tables(p, self.col_scale) if self.col_scale is not None else None

@@ -90,6 +90,7 @@ class BlockDiagSolver:
     def __init__(self, program, tables_per_class, only_classes=None):
         self.program = program
         self.inv_tables = {}
+        self._records = {}
         for cls, table in enumerate(tables_per_class):
             if table is None or (only_classes is not None and cls not in only_classes):
                 continue
@@ -100,7 +101,16 @@ class BlockDiagSolver:
         self = cls.__new__(cls)
         self.program = program
         self.inv_tables = dict(inv_tables)
+        self._records = {}
         return self
+
+    def inv_records(self, cls):
+        """The inverse blocks of class `cls` point-major, [cnt, s*s]: each
+        block's entries in one record, the table kernel B5 gathers slot by
+        slot. Made once per solver."""
+        if cls not in self._records:
+            self._records[cls] = self.inv_tables[cls].T.contiguous()
+        return self._records[cls]
 
     @property
     def classes(self):

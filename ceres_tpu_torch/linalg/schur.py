@@ -181,10 +181,9 @@ def schur_jacobi_blocks(program, jac_e, jac_f, ete_solver, dsq_f):
             fj = f_jac.reshape(r, tf, n)
             etf = (ej[:, :, None, :] * fj[:, None, :, :]).sum(dim=0)
             minvetf = (minv[:, :, None, :] * etf[None, :, :, :]).sum(dim=1)
-            corr = (etf[:, :, None, :] * minvetf[:, None, :, :]).sum(dim=0)
+            corr = (etf[:, :, None, :] * minvetf[:, None, :, :]).sum(dim=0).reshape(tf * tf, n)
             tbl = reduce_T(
-                jac_f.plan(gi, f_pos), corr.reshape(tf * tf, n), garr["t_rows"][f_pos],
-                cnt + 1, garr["csr"].get(f_pos),
+                jac_f.plan(gi, f_pos), corr, garr["t_rows"][f_pos], cnt + 1, garr["csr"].get(f_pos)
             )[:, :cnt]
             if scale_tables is not None:
                 stf = scale_tables[pm.t_cls][:cnt].T  # [tf, cnt]
@@ -197,14 +196,17 @@ def _sy_meta(program):
     return program.cached("sy_meta", schur_kernels.sy_meta)
 
 
-def _p0_tables(program, jac_m, meta, minv):
+def _p0_tables(program, jac_m, meta, ete):
     """Per-class SCHUR_JACOBI tables without the LM diagonal through B5, from
-    the scale-materialized Jacobian and an e-class inverse table."""
-    garr = jac_m.garrs[0]
+    the twins of the scale-materialized Jacobian (E's in F's camera order,
+    made here once per Jacobian) and the e-class inverse blocks of the
+    BlockDiagSolver `ete`."""
     f_pos, e_pos = meta["f_pos"], meta["e_pos"]
+    F_twin = jac_m.twin(0, f_pos)
     tbl = schur_kernels.p0_apply(
-        meta, jac_m.jac_groups[0][f_pos], jac_m.jac_groups[0][e_pos],
-        garr["t_rows"][f_pos], garr["t_rows"][e_pos], garr["csr"][f_pos], minv,
+        meta, F_twin, jac_m.twin(0, e_pos, f_pos),
+        program.slot_rows(0, e_pos, f_pos, F_twin.device), jac_m.garrs[0]["csr"][f_pos],
+        ete.inv_records(meta["e_cls"]),
     )
     return [
         tbl if cls == meta["f_cls"] else None
@@ -226,7 +228,8 @@ def schur_prepare(program, options, jac_s):
     """J-dependent (radius-independent) half of an ITERATIVE_SCHUR step:
     column norms, the EᵀE grams, the preconditioner's tables (JACOBI: FᵀF
     blocks; SCHUR_JACOBI: FᵀF − FᵀE M0⁻¹ EᵀF blocks, kernel B5) and the
-    scale-materialized leaves that B5 and the PCG matvec read. Reused while
+    scale-materialized leaves and their twins that B5 and the PCG matvec
+    read. Reused while
     steps are rejected (reference: Preconditioner::Update split from
     creation)."""
     precond = options.preconditioner_type
@@ -246,7 +249,7 @@ def schur_prepare(program, options, jac_s):
         minv0 = ridge_ete_solver(program, e_gram0, colnorm2)
         meta = _sy_meta(program)
         if meta is not None:
-            p0 = _p0_tables(program, jac_m, meta, minv0.inv_tables[meta["e_cls"]])
+            p0 = _p0_tables(program, jac_m, meta, minv0)
         else:
             p0 = schur_jacobi_blocks(program, jac_e, jac_f, minv0, torch.zeros_like(colnorm2))
     elif precond == PreconditionerType.JACOBI:
@@ -256,6 +259,7 @@ def schur_prepare(program, options, jac_s):
         "e_gram0": e_gram0,
         "p0": p0,
         "jac_mv_groups": jac_m.jac_groups,
+        "jac_mv_twins": jac_m.twins,
     }
 
 
@@ -308,10 +312,11 @@ def _s_apply_t(program, jac_m, ete, dsq_f_tv, f_set):
 
     f_cls, cnt_f = meta_sy["f_cls"], meta_sy["cnt_f"]
     garr = jac_m.garrs[0]
-    F = jac_m.jac_groups[0][meta_sy["f_pos"]]
+    f_pos = meta_sy["f_pos"]
+    F = jac_m.jac_groups[0][f_pos]
     E = jac_m.jac_groups[0][meta_sy["e_pos"]]
-    rows_f = garr["t_rows"][meta_sy["f_pos"]]
-    csr_f = garr["csr"][meta_sy["f_pos"]]
+    rows_f = garr["t_rows"][f_pos]
+    F_twin, layout_f = jac_m.twin(0, f_pos), garr["csr"][f_pos]
     minv = ete.inv_tables[meta_sy["e_cls"]]
     segs = program.cached(
         ("sy_tables", F.device), lambda p: schur_kernels.sy_tables(meta_sy, F.device)
@@ -319,7 +324,7 @@ def _s_apply_t(program, jac_m, ete, dsq_f_tv, f_set):
 
     def s_apply_t(y_tv):
         out_f = schur_kernels.sy_apply(
-            meta_sy, F, E, rows_f, csr_f, y_tv[f_cls].contiguous(), minv, segs
+            meta_sy, F, E, rows_f, F_twin, layout_f, y_tv[f_cls].contiguous(), minv, segs
         )
         out_f[:, cnt_f:] = 0  # the dump column stays out of the CG vectors
         return [
@@ -384,7 +389,9 @@ def schur_finish_solve(program, options, jac_s, grad_s, dsq, cache, inter):
         if inter["prec_inv"] is not None
         else None
     )
-    jac_m = jac_s._with(jac_groups=cache["jac_mv_groups"], col_scale=None)
+    jac_m = jac_s._with(
+        jac_groups=cache["jac_mv_groups"], col_scale=None, twins=cache["jac_mv_twins"]
+    )
     x, iterations = _tvec_pcg(
         program, options, jac_s, jac_m, ete, dsq * f_mask, inter["rhs"], prec
     )
@@ -458,7 +465,7 @@ def _schur_jacobi_preconditioner(program, jac_m, jac_e, jac_f, ete, dsq_f):
     meta = _sy_meta(program)
     if meta is None:
         return BlockDiagSolver(program, schur_jacobi_blocks(program, jac_e, jac_f, ete, dsq_f))
-    p0 = _p0_tables(program, jac_m, meta, ete.inv_tables[meta["e_cls"]])
+    p0 = _p0_tables(program, jac_m, meta, ete)
     return BlockDiagSolver(program, add_dsq_T(program, p0, dsq_f))
 
 

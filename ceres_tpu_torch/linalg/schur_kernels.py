@@ -17,24 +17,25 @@ one thread per point straight on the scale-materialized F and E leaves:
 gather y for each of its d observations, form t1_j = F_j·y, s = Σ_j E_jᵀt1_j,
 t2 = M_p⁻¹ s from the [te², cnt_e] inverse table, and write
 diff_j = t1_j − E_j·t2 to an [r, n] buffer. A second launch, kernel B3 on
-(F, camera CSR, diff), reduces Fᵀ·diff into [tf, ncols_f] deterministically.
+(the F twin, the camera layout, diff), reduces Fᵀ·diff into [tf, ncols_f]
+deterministically.
 
 Eligibility (`sy_meta`, the counterpart of pallas_schur.sy_meta:65): one
 signature group, a pure class split, one e-position on a bucket plan and
-one f-position on a onehot plan, te <= MAX_TE and tf <= MAX_TF (the
-per-thread bounds of the two kernels). The TPU's MIN_LANES threshold is
-dropped.
+one f-position on a onehot plan, te <= MAX_TE, tf <= MAX_TF, r <= MAX_R and
+r·tf <= MAX_RTF (the per-thread and shared-memory bounds of the two
+kernels). The TPU's MIN_LANES threshold is dropped.
 On CPU tensors `sy_apply` runs the composed product instead (the path JAX
 takes when sy_meta is None, schur.py:533-541).
 
 B5 (`p0_apply`, csrc/schur_p0.cu; `_p0_kernel` via `p0_apply`:563): per
 camera c, P_c = Σ_l [F_lᵀF_l − (E_lᵀF_l)ᵀ M_p(l)⁻¹ (E_lᵀF_l)] over the
-camera's observations, one block per camera (one warp per row of P_c)
-walking the camera CSR with a fixed-order reduction (bitwise deterministic,
-no atomics), into a [tf², cnt_f] table; tf, te and r are run-time values.
-The plain version is the per-lane math of
-`ceres_tpu.linalg.schur.schur_jacobi_blocks` (schur.py:250-263) followed by
-the camera reduce.
+camera's observations, read from the camera-ordered twins of F and E and
+the point row of each slot, one block per chunk of a camera's run with a
+fixed-order combine (bitwise deterministic, no atomics), into a
+[tf², cnt_f] table; tf, te and r are run-time values. The plain version is
+the per-lane math of `ceres_tpu.linalg.schur.schur_jacobi_blocks`
+(schur.py:250-263) on the same slots, followed by the camera reduce.
 """
 
 from __future__ import annotations
@@ -48,7 +49,9 @@ from ..jacobian import gather_T_t, reduce_T
 from .preconditioners import apply_block_T
 
 MAX_TE = 8  # e-block size bound of csrc/schur_sy.cu and csrc/schur_p0.cu
-MAX_TF = 16  # f-block size bound of csrc/schur_p0.cu (one warp per row)
+MAX_TF = 16  # f-block size bound of csrc/schur_p0.cu (its upper triangle)
+MAX_R = 4  # residual bound of csrc/schur_p0.cu (its r x r Q per slot)
+MAX_RTF = 32  # r·tf bound of csrc/schur_p0.cu (its shared-memory F and H tiles)
 
 
 def sy_meta(program):
@@ -77,7 +80,10 @@ def sy_meta(program):
         return None
     if f_plan is None or f_plan[0] != "onehot":
         return None
+    r = meta.num_residuals
     if e_pm.tangent_size > MAX_TE or f_pm.tangent_size > MAX_TF:
+        return None
+    if r > MAX_R or r * f_pm.tangent_size > MAX_RTF:
         return None
     buckets = e_plan[1]
     return {
@@ -88,7 +94,7 @@ def sy_meta(program):
         "cnt_f": program.tangent_class_counts[f_pm.t_cls],
         "te": e_pm.tangent_size,
         "tf": f_pm.tangent_size,
-        "r": meta.num_residuals,
+        "r": r,
         "buckets": buckets,
         "segs": np.asarray([list(b) for b in buckets], dtype=np.int32).reshape(-1),
         "pt_start": np.concatenate(
@@ -97,7 +103,7 @@ def sy_meta(program):
     }
 
 
-def sy_apply_plain(meta, F, E, rows_f, y_table, minv):
+def sy_apply_plain(meta, F, E, rows_f, F_twin, layout_f, y_table, minv):
     """The composed product t1 = F y, s = Eᵀt1, t2 = M⁻¹ s, Fᵀ(t1 − E t2)."""
     r, te = meta["r"], meta["te"]
     n = F.shape[1]
@@ -108,16 +114,18 @@ def sy_apply_plain(meta, F, E, rows_f, y_table, minv):
     s = reduce_T(plan, (e3 * t1[:, None, :]).sum(dim=0), None, cnt_e)
     t2 = apply_block_T(minv, s, te)
     et2 = (e3 * gather_T_t(plan, t2, None)[None]).sum(dim=1)
-    return contract_reduce_plain(F, rows_f, t1 - et2, y_table.shape[1], r)
+    return contract_reduce_plain(F_twin, layout_f, t1 - et2, r)
 
 
-def sy_apply(meta, F, E, rows_f, csr_f, y_table, minv, segs):
+def sy_apply(meta, F, E, rows_f, F_twin, layout_f, y_table, minv, segs):
     """Fᵀ(I − E (EᵀE + D_e²)⁻¹ Eᵀ) F y for a camera table y_table
     [tf, ncols_f] (last column = dump) -> [tf, ncols_f]; D_f²·y is the
     caller's. F [r*tf, n] and E [r*te, n] are the scale-materialized leaves,
-    minv the [te², cnt_e] inverse table. `segs` = sy_tables(meta, F.device)."""
+    F_twin F's camera-ordered copy in the slot order of layout_f (for the
+    B3 reduce), minv the [te², cnt_e] inverse table.
+    `segs` = sy_tables(meta, F.device)."""
     if F.device.type == "cpu":
-        return sy_apply_plain(meta, F, E, rows_f, y_table, minv)
+        return sy_apply_plain(meta, F, E, rows_f, F_twin, layout_f, y_table, minv)
     r, te, tf = meta["r"], meta["te"], meta["tf"]
     dev, dt = F.device, F.dtype
     n = F.shape[1]
@@ -142,7 +150,7 @@ def sy_apply(meta, F, E, rows_f, csr_f, y_table, minv, segs):
     )
     cuda_lib.check(rc, "schur_sy")
     cuda_lib.count("schur_sy")
-    return contract_reduce(F, rows_f, csr_f, diff, r)
+    return contract_reduce(F_twin, layout_f, diff, r)
 
 
 def sy_tables(meta, device):
@@ -154,48 +162,53 @@ def sy_tables(meta, device):
     )
 
 
-def p0_apply_plain(meta, F, E, rows_f, rows_e, minv):
-    """The per-lane FᵀF − (EᵀF)ᵀ M⁻¹ (EᵀF), reduced by camera; lanes whose
-    point row is outside the inverse table add FᵀF only."""
+def p0_apply_plain(meta, F_twin, E_twin, prow, layout_f, minv_pm):
+    """The per-slot FᵀF − (EᵀF)ᵀ M⁻¹ (EᵀF), reduced by camera; slots whose
+    point row is outside the inverse table (padding: -1) add FᵀF only."""
     r, te, tf, cnt_f = meta["r"], meta["te"], meta["tf"], meta["cnt_f"]
-    n = F.shape[1]
-    cnt_e = minv.shape[1]
-    live = (rows_e >= 0) & (rows_e < cnt_e)
-    m = minv[:, torch.where(live, rows_e, torch.zeros_like(rows_e))]
-    m = torch.where(live[None, :], m, torch.zeros_like(m)).reshape(te, te, n)
-    ej = E.reshape(r, te, n)
-    fj = F.reshape(r, tf, n)
+    n_pad = F_twin.shape[1]
+    cnt_e = minv_pm.shape[0]
+    live = (prow >= 0) & (prow < cnt_e)
+    m = minv_pm.T[:, torch.where(live, prow, torch.zeros_like(prow))]
+    m = torch.where(live[None, :], m, torch.zeros_like(m)).reshape(te, te, n_pad)
+    ej = E_twin.reshape(r, te, n_pad)
+    fj = F_twin.reshape(r, tf, n_pad)
     outer = (fj[:, :, None, :] * fj[:, None, :, :]).sum(dim=0)
     etf = (ej[:, :, None, :] * fj[:, None, :, :]).sum(dim=0)
     minvetf = (m[:, :, None, :] * etf[None, :, :, :]).sum(dim=1)
     corr = (etf[:, :, None, :] * minvetf[:, None, :, :]).sum(dim=0)
-    total = (outer - corr).reshape(tf * tf, n)
-    return contract_reduce_plain(total, rows_f, None, cnt_f + 1, 1)[:, :cnt_f]
+    total = (outer - corr).reshape(tf * tf, n_pad)
+    return contract_reduce_plain(total, layout_f, None, 1)[:, :cnt_f]
 
 
-def p0_apply(meta, F, E, rows_f, rows_e, csr_f, minv):
+def p0_apply(meta, F_twin, E_twin, prow, layout_f, minv_pm):
     """SCHUR_JACOBI camera blocks without the LM diagonal: [tf², cnt_f] from
-    the scale-materialized leaves F [r*tf, n] and E [r*te, n], the camera
-    and point rows [n], the camera CSR and the [te², cnt_e] inverse table."""
-    if F.device.type == "cpu":
-        return p0_apply_plain(meta, F, E, rows_f, rows_e, minv)
+    the camera-ordered twins of the scale-materialized leaves, F_twin
+    [r*tf, n_pad] and E_twin [r*te, n_pad] (zero on padding), the point row
+    of each slot prow [n_pad] (-1 on padding), the camera layout and the
+    point-major inverse blocks minv_pm [cnt_e, te²]
+    (BlockDiagSolver.inv_records)."""
+    if F_twin.device.type == "cpu":
+        return p0_apply_plain(meta, F_twin, E_twin, prow, layout_f, minv_pm)
     r, te, tf, cnt_f = meta["r"], meta["te"], meta["tf"], meta["cnt_f"]
-    dev, dt = F.device, F.dtype
-    n = F.shape[1]
-    perm, offsets = csr_f
-    cnt_e = minv.shape[1]
-    cuda_lib.require("F", F, dt, (r * tf, n), dev)
-    cuda_lib.require("E", E, dt, (r * te, n), dev)
-    cuda_lib.require("rows_e", rows_e, torch.int32, (n,), dev)
-    cuda_lib.require("perm", perm, torch.int32, (n,), dev)
-    cuda_lib.require("offsets", offsets, torch.int32, (cnt_f + 2,), dev)
-    cuda_lib.require("minv", minv, dt, (te * te, cnt_e), dev)
+    dev, dt = F_twin.device, F_twin.dtype
+    n_pad = F_twin.shape[1]
+    cnt_e = minv_pm.shape[0]
+    cuda_lib.require("F_twin", F_twin, dt, (r * tf, n_pad), dev)
+    cuda_lib.require("E_twin", E_twin, dt, (r * te, n_pad), dev)
+    cuda_lib.require("prow", prow, torch.int32, (n_pad,), dev)
+    cuda_lib.require("chunk_start", layout_f.chunk_start, torch.int32, None, dev)
+    cuda_lib.require("row_chunks", layout_f.row_chunks, torch.int32, (cnt_f + 2,), dev)
+    cuda_lib.require("minv_pm", minv_pm, dt, (cnt_e, te * te), dev)
+    nchunks = layout_f.live_chunks
+    partial = torch.empty((tf * tf, nchunks), dtype=dt, device=dev)
     out = torch.empty((tf * tf, cnt_f), dtype=dt, device=dev)
     fn = cuda_lib.kernel_fn("ctt_schur_p0", dt)
     rc = fn(
-        cuda_lib.ptr(F), cuda_lib.ptr(E), cuda_lib.ptr(rows_e), cuda_lib.ptr(perm),
-        cuda_lib.ptr(offsets), cuda_lib.ptr(minv), cnt_e, n, r, te, tf, cnt_f,
-        cuda_lib.ptr(out), cuda_lib.stream(dev),
+        cuda_lib.ptr(F_twin), cuda_lib.ptr(E_twin), cuda_lib.ptr(prow),
+        cuda_lib.ptr(layout_f.chunk_start), cuda_lib.ptr(layout_f.row_chunks),
+        cuda_lib.ptr(minv_pm), cnt_e, n_pad, r, te, tf, nchunks, cnt_f,
+        cuda_lib.ptr(partial), cuda_lib.ptr(out), cuda_lib.stream(dev),
     )
     cuda_lib.check(rc, "schur_p0")
     cuda_lib.count("schur_p0")

@@ -201,13 +201,14 @@ class Problem:
     # ---- lowering ---- #
 
     def compile(self, device=None):
-        """Lower to a Program on `device` (cached until the structure
-        changes; a new device only re-targets the cached Program)."""
+        """Lower to a Program on `device`, by default the card when there is
+        one, as `solve` picks it (utils.dtypes.resolve_device). Cached until
+        the structure changes; a new device only re-targets the cached
+        Program."""
         from .program import Program
+        from .utils.dtypes import resolve_device
 
         if self._dirty or self._program is None:
             self._program = Program(self._blocks, self._batches)
             self._dirty = False
-        if device is not None:
-            self._program.to(device)
-        return self._program
+        return self._program.to(resolve_device(device))

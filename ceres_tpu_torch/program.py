@@ -7,17 +7,22 @@ signature groups with their per-position row tables, the bucket/onehot
 reduction plans, and the Schur partition. `arrays()` and `state_vector()`
 materialize tensors on the Program's device.
 
-One table has no JAX counterpart: the camera CSR. For every position on the
-"onehot" plan it holds a stable permutation of the group's lanes sorted by
-class row, plus offsets [ncols+1]. The contract-reduce kernel (B3,
-gather_reduce.py) walks it with one block per class row, which makes the
-Jᵀu reduction deterministic without atomics.
+One table has no JAX counterpart: the padded camera CSR (`camera_layout`).
+For every position on the "onehot" plan it lists the group's lanes stably
+sorted by class row, each row's run padded with -1 to a multiple of
+TWIN_ALIGN slots, and cuts the slots into chunks of at most TWIN_CHUNK that
+never straddle two rows. The Jacobian keeps a "twin" of each onehot leaf in
+this slot order (jacobian.make_twin), so kernels B3 and B5 read every
+camera's observations contiguously, one block per chunk, and combine the
+chunks of a row in a fixed order: deterministic without atomics.
+`slot_rows` gives another position's class rows in that slot order (B5's
+point row of each slot).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -96,6 +101,57 @@ def camera_csr(t_rows: np.ndarray, ncols: int):
     return perm, offsets.astype(np.int32)
 
 
+TWIN_ALIGN = 32  # slots: a run starts 128-byte aligned in float32
+TWIN_CHUNK = 2048  # slots per block of kernels B3 and B5 (a multiple of TWIN_ALIGN)
+
+
+class CameraLayout(NamedTuple):
+    """The padded camera CSR of one onehot position (numpy, or tensors on a
+    device). Slot k of row c lies in [offsets[c], offsets[c+1])."""
+
+    perm: object  # [n_pad] int32: the lane in slot k, -1 on padding
+    offsets: object  # [ncols+1] int32: run starts, multiples of TWIN_ALIGN
+    slot_row: object  # [n_pad] int32: the class row owning slot k
+    pad: object  # [n_pad - n] int32: the padding slots
+    chunk_start: object  # [nchunks+1] int32: chunk m is [chunk_start[m], chunk_start[m+1])
+    row_chunks: object  # [ncols+1] int32: row c's chunks are [row_chunks[c], row_chunks[c+1])
+    live_chunks: int  # chunks of every row but the last (the dump column)
+
+    @property
+    def num_chunks(self) -> int:
+        return len(self.chunk_start) - 1
+
+    def to(self, device):
+        def ints(a):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32, device=device)
+
+        return self._replace(**{f: ints(getattr(self, f)) for f in self._fields[:-1]})
+
+
+def camera_layout(t_rows: np.ndarray, ncols: int) -> CameraLayout:
+    """The padded camera CSR of class rows t_rows [n] over ncols rows (the
+    last one the dump column); see CameraLayout."""
+    perm, offsets = camera_csr(t_rows, ncols)
+    counts = np.diff(offsets).astype(np.int64)
+    padded = -(-counts // TWIN_ALIGN) * TWIN_ALIGN
+    offsets_pad = np.concatenate([[0], np.cumsum(padded)])
+    n_pad = int(offsets_pad[-1])
+    slot_row = np.repeat(np.arange(ncols), padded)
+    live = np.arange(n_pad) - offsets_pad[slot_row] < counts[slot_row]
+    perm_pad = np.full(n_pad, -1, dtype=np.int32)
+    perm_pad[live] = perm
+    nch = -(-padded // TWIN_CHUNK)
+    row_chunks = np.concatenate([[0], np.cumsum(nch)])
+    chunk_row = np.repeat(np.arange(ncols), nch)
+    within = np.arange(int(row_chunks[-1])) - row_chunks[chunk_row]
+    chunk_start = np.concatenate([offsets_pad[chunk_row] + within * TWIN_CHUNK, [n_pad]])
+    return CameraLayout(
+        perm_pad, offsets_pad.astype(np.int32), slot_row.astype(np.int32),
+        np.nonzero(~live)[0].astype(np.int32), chunk_start.astype(np.int32),
+        row_chunks.astype(np.int32), int(row_chunks[ncols - 1]),
+    )
+
+
 class Program:
     """Executable lowering of a Problem. See module docstring."""
 
@@ -127,6 +183,20 @@ class Program:
         if key not in self.schur_cache:
             self.schur_cache[key] = fn(self)
         return self.schur_cache[key]
+
+    def slot_rows(self, gi, pos, order_pos, device):
+        """The class rows of position `pos` of group `gi` in the slot order of
+        the onehot position `order_pos` ([n_pad] int32 on `device`, -1 on
+        padding): kernel B5's point row of each camera-ordered slot.
+        Computed once per Program and device."""
+
+        def build(p):
+            idx = p.group_idx[gi]
+            perm = idx["csr"][order_pos].perm
+            rows = np.where(perm >= 0, idx["t_rows"][pos][np.maximum(perm, 0)], -1)
+            return torch.as_tensor(rows.astype(np.int32), device=device)
+
+        return self.cached(("slot_rows", gi, pos, order_pos, torch.device(device)), build)
 
     def _compute_block_degrees(self):
         """Residual-row count per parameter block (its 'degree'); tangent
@@ -415,7 +485,7 @@ class Program:
                 t_rows.append(tr)
                 block_ids.append(ids.astype(np.int32))
                 if plans.get(pos, ("",))[0] == "onehot":
-                    csr[pos] = camera_csr(tr, cnt + 1)
+                    csr[pos] = camera_layout(tr, cnt + 1)
             meta.red_plans = plans
             meta.owner = owner
             if owner >= 0:
@@ -555,10 +625,7 @@ class Program:
                         )
                         for d in idx["data"]
                     ),
-                    "csr": {
-                        pos: (ints(perm), ints(offs))
-                        for pos, (perm, offs) in idx["csr"].items()
-                    },
+                    "csr": {pos: lay.to(dev) for pos, lay in idx["csr"].items()},
                 }
             )
         return {

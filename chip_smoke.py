@@ -2,16 +2,20 @@
 """Drive the PyTorch port's bundle-adjustment solve on one CUDA card.
 
     python3 chip_smoke.py            # one NVIDIA H100 (sm_90a), nvcc on the path
+    python3 chip_smoke.py --phase 2  # phases 1 and 2 only, no result line
 
 Phases, one line each (a failed phase raises, so the script exits non-zero
 and prints no result):
   1. the device, its name and power limit, and the build of the CUDA
      kernels (ceres_tpu_torch/csrc, compiled here with nvcc);
   2. each kernel B1-B5 against its plain PyTorch version on the card, at
-     BAL-1778 shapes in float32: max relative error vs a stated tolerance
-     and the median time of each over 10 runs (CUDA events); B3 and B5
-     bitwise equal across two runs; then schur_prepare's time per new
-     Jacobian for JACOBI and SCHUR_JACOBI;
+     BAL-1778 shapes in float32: max relative error vs a stated tolerance,
+     the median time of each over 10 runs (CUDA events), its bound (the
+     least time for its bytes and operations at the data sheet's rates)
+     and, for B2 and B3, the time of one PyTorch sparse product for the same
+     function; B3 and B5 bitwise equal across two runs; the time to build
+     the camera-ordered twins of one new Jacobian (B3's and B5's inputs);
+     then schur_prepare's time per new Jacobian for JACOBI and SCHUR_JACOBI;
   3. a small float64 solve (48,000 observations, so the layout plans
      engage) for 5 LM iterations on the card and on the CPU, for JACOBI,
      SCHUR_JACOBI, and SCHUR_JACOBI with the power-series warm start (which
@@ -26,13 +30,25 @@ and prints no result):
      the main run's.
 Then a JSON line describing the kernels, the card's name and power limit,
 and the last line {"ok": true, "device": {...}}.
+
+A bound counts what the function must move and compute at the problem's
+n observations: each leaf once, its row tables, u or y, the inverse
+table and the output. The twins' padding, the chunk tables and the
+layout's permutation are the kernels' choices and are not counted.
+
+With `--phase 2` the script stops after phase 2 and prints no result: run
+it in two checkouts (say a parent unpacked with `git archive` into a
+gitignored directory, and the change) one after another in one call on the
+card, parent, change, change, parent, to compare two versions of a kernel.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -44,6 +60,14 @@ import numpy as np
 # Final set): no cut
 NUM_POINTS = 993_923
 NUM_OBSERVATIONS = 5_000_000
+# NVIDIA's H100 SXM data sheet: device memory rate and float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# B1's float operations per observation, counted from csrc/eval_snavely.cu
+# (the large-angle path: 29 dual products of 12 tangents, 24 dual sums,
+# 5 dual quotients, 3 dual sqrt/sin/cos, then the Huber/Triggs scaling of
+# 26 outputs)
+B1_OPS_PER_OBS = 1900
 # (name, source, TPU kernel it replaces, tolerance on max|k - p| / max|p|)
 KERNELS = [
     ("eval_snavely", "ceres_tpu_torch/csrc/eval_snavely.cu",
@@ -85,6 +109,25 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(log: str) -> list[str]:
+    """One line per compiled kernel from nvcc's -Xptxas -v output: its name
+    (with f32/f64 for the template's type), registers, spills."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            mangled = m.group(1)
+            kernel = re.search(r"(\d+)([a-z_0-9]+_kernel)I([fd])", mangled)
+            name = (f"{kernel.group(2)}<{'f32' if kernel.group(3) == 'f' else 'f64'}>"
+                    if kernel else mangled)
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
+
+
 def rel_err(got, want) -> tuple[float, float]:
     """(max |got - want|, that over max |want|)."""
     diff = float((got.double() - want.double()).abs().max())
@@ -110,9 +153,79 @@ def median_ms(fn, reps=10, warmup=2) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes, ops) -> tuple[float, str]:
+    """(least ms on the card, what bounds it): the bytes the function must
+    move over the memory rate, or its float32 operations over the float32
+    rate, whichever is larger."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / F32_FLOPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_b2(jac, rows, table, r):
+    """F·y as one PyTorch call: an int32-indexed CSR of F [r*n, t*ncols]
+    (built here, outside the timed call) times the table; the port never
+    calls it."""
+    import torch
+
+    rt, n = jac.shape
+    t, ncols = rt // r, table.shape[1]
+    dev = jac.device
+    crow = torch.arange(0, r * n * t + 1, t, dtype=torch.int32, device=dev)
+    col = rows.long()[None, :, None] * t + torch.arange(t, device=dev)[None, None, :]
+    col = col.expand(r, n, t).reshape(-1).int()
+    val = jac.reshape(r, t, n).permute(0, 2, 1).reshape(-1)
+    a = torch.sparse_csr_tensor(crow, col, val, (r * n, t * ncols))
+    x = table.T.contiguous().reshape(-1)
+    return lambda: (a @ x).reshape(r, n)
+
+
+def library_b3(jac, rows, u, ncols, r):
+    """Fᵀu as one PyTorch call (cuSPARSE SpMV): an int32-indexed CSR of Fᵀ
+    [t*ncols, r*n] (row j*ncols + c) (built here, outside the timed call) times u; the port
+    never calls it."""
+    import torch
+
+    rt, n = jac.shape
+    t = rt // r
+    dev = jac.device
+    row = torch.arange(t, device=dev)[None, :, None] * ncols + rows.long()[None, None, :]
+    col = torch.arange(r, device=dev)[:, None, None] * n + torch.arange(n, device=dev)[None, None, :]
+    idx = torch.stack([row.expand(r, t, n).reshape(-1), col.expand(r, t, n).reshape(-1)])
+    coo = torch.sparse_coo_tensor(idx, jac.reshape(-1), (t * ncols, r * n)).coalesce()
+    del idx
+    csr = coo.to_sparse_csr()
+    del coo
+    a = torch.sparse_csr_tensor(
+        csr.crow_indices().int(), csr.col_indices().int(), csr.values(), csr.shape
+    )
+    x = u.reshape(-1)
+    return lambda: (a @ x).reshape(t, ncols)
+
+
+def time_library(name, make, want, results):
+    """results[name]["library_ms"]: the median time of one PyTorch call for
+    the same function, checked against the kernel's result; None (and the
+    reason printed) where that call is not available on this install."""
+    import torch
+
+    try:
+        fn = make()
+        err = rel_err(fn(), want)[1]
+        results[name]["library_ms"] = median_ms(fn)
+        print(f"phase 2: {name}: library call rel err {err:.3e} vs the kernel", flush=True)
+        del fn
+    except (RuntimeError, NotImplementedError) as exc:
+        results[name]["library_ms"] = None
+        print(f"phase 2: {name}: library call not timed: {exc}", flush=True)
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(program, dev, results):
     """Phase 2: every kernel against its plain version at the main path's
-    shapes (the problem's own Jacobian, tables and layout)."""
+    shapes (the problem's own Jacobian, tables and layout), with its bound
+    and, for B2 and B3, one PyTorch call for the same function; then the
+    twin builds."""
     import torch
 
     from ceres_tpu_torch import HuberLoss
@@ -121,7 +234,7 @@ def phase_kernels(program, dev, results):
     from ceres_tpu_torch.gather_reduce import (
         contract_reduce, contract_reduce_plain, gather_contract, gather_contract_plain,
     )
-    from ceres_tpu_torch.jacobian import BlockJacobian
+    from ceres_tpu_torch.jacobian import BlockJacobian, make_twin, scale_twin
     from ceres_tpu_torch.linalg.schur import (
         ete_gram_tables, ete_solver_from_gram, ridge_ete_solver, schur_views,
     )
@@ -130,6 +243,7 @@ def phase_kernels(program, dev, results):
     )
 
     f32 = torch.float32
+    w = 4  # bytes per float32 and per int32
     gen = torch.Generator(device=dev).manual_seed(0)
     ev = Evaluator(program, f32)
     state = program.state_vector(f32)
@@ -139,6 +253,13 @@ def phase_kernels(program, dev, results):
     p0, p1 = meta.positions
     args = (st2d[p0.a_cls], garr["a_rows"][0], st2d[p1.a_cls], garr["a_rows"][1],
             garr["data"][0], HuberLoss(1.0), True)
+    n = meta.n
+
+    def record(name, err, fn, plain, nbytes, ops):
+        t_k, t_p = median_ms(fn), median_ms(plain)
+        b_ms, b_by = bound(nbytes, ops)
+        results[name] = {"err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": None}
 
     # B1
     cost_k, res_k, (j0, j1) = snavely_evaluate(*args)
@@ -146,33 +267,54 @@ def phase_kernels(program, dev, results):
     errs = [rel_err(a, b) for a, b in ((res_k, res_p), (j0, j0_p), (j1, j1_p))]
     errs.append(rel_err(cost_k.reshape(1), cost_p.reshape(1)))
     b1 = (max(e[0] for e in errs), max(e[1] for e in errs))
-    t_k = median_ms(lambda: snavely_evaluate(*args))
-    t_p = median_ms(lambda: snavely_evaluate_plain(*args))
-    results["eval_snavely"] = (b1, t_k, t_p)
     del res_p, j0_p, j1_p
+    ncam, npts = st2d[p0.a_cls].shape[0], st2d[p1.a_cls].shape[0]
+    record("eval_snavely", b1, lambda: snavely_evaluate(*args),
+           lambda: snavely_evaluate_plain(*args),
+           w * (2 * n + 2 * n + 9 * ncam + 3 * npts + 2 * n + 24 * n), B1_OPS_PER_OBS * n)
+
+    # the twins of one new Jacobian: F's, made with the leaf; the
+    # scale-materialized F's, scaled slot by slot from it; and the
+    # materialized E's in camera order (for B5)
+    layout = garr["csr"][0]
+    n_pad = layout.perm.shape[0]
+    ncols_f = layout.offsets.shape[0] - 1
+    f_twin = make_twin(j0, layout)
+    scale = 0.5 + torch.rand((ncols_f, 9), generator=gen, device=dev, dtype=f32)
+    t_f = median_ms(lambda: make_twin(j0, layout))
+    t_s = median_ms(lambda: scale_twin(f_twin, layout, scale, 2))
+    t_e = median_ms(lambda: make_twin(j1, layout))
+    print(
+        f"phase 2: twin builds per new Jacobian: F {t_f:.4f} ms, scaled F from F's twin "
+        f"{t_s:.4f} ms, E in camera order {t_e:.4f} ms, total {t_f + t_s + t_e:.4f} ms; "
+        f"n_pad {n_pad} ({n_pad - n} padding slots); twin memory "
+        f"{w * (18 + 18 + 6) * n_pad / 1e9:.3f} GB",
+        flush=True,
+    )
+    del scale
 
     # B2 / B3 on the camera leaf
-    rows_f, csr_f = garr["t_rows"][0], garr["csr"][0]
-    ncols_f = csr_f[1].shape[0] - 1
+    rows_f = garr["t_rows"][0]
     y = torch.randn((9, ncols_f), generator=gen, device=dev, dtype=f32)
     y[:, -1] = 0
-    u = torch.randn((2, j0.shape[1]), generator=gen, device=dev, dtype=f32)
-    b2 = rel_err(gather_contract(j0, rows_f, y, 2), gather_contract_plain(j0, rows_f, y, 2))
-    results["gather_contract"] = (
-        b2,
-        median_ms(lambda: gather_contract(j0, rows_f, y, 2)),
-        median_ms(lambda: gather_contract_plain(j0, rows_f, y, 2)),
-    )
-    out1 = contract_reduce(j0, rows_f, csr_f, u, 2)
-    out2 = contract_reduce(j0, rows_f, csr_f, u, 2)
+    u = torch.randn((2, n), generator=gen, device=dev, dtype=f32)
+    out_b2 = gather_contract(j0, rows_f, y, 2)
+    b2 = rel_err(out_b2, gather_contract_plain(j0, rows_f, y, 2))
+    record("gather_contract", b2, lambda: gather_contract(j0, rows_f, y, 2),
+           lambda: gather_contract_plain(j0, rows_f, y, 2),
+           w * (18 * n + n + 9 * ncols_f + 2 * n), 2 * 18 * n)
+    time_library("gather_contract", lambda: library_b2(j0, rows_f, y, 2), out_b2, results)
+    del out_b2
+    out1 = contract_reduce(f_twin, layout, u, 2)
+    out2 = contract_reduce(f_twin, layout, u, 2)
     if not torch.equal(out1, out2):
         raise AssertionError("contract_reduce is not bitwise reproducible")
-    b3 = rel_err(out1, contract_reduce_plain(j0, rows_f, u, ncols_f, 2))
-    results["contract_reduce"] = (
-        b3,
-        median_ms(lambda: contract_reduce(j0, rows_f, csr_f, u, 2)),
-        median_ms(lambda: contract_reduce_plain(j0, rows_f, u, ncols_f, 2)),
-    )
+    b3 = rel_err(out1, contract_reduce_plain(f_twin, layout, u, 2))
+    # Fᵀu: F, u and the camera row of each observation in, the table out
+    record("contract_reduce", b3, lambda: contract_reduce(f_twin, layout, u, 2),
+           lambda: contract_reduce_plain(f_twin, layout, u, 2),
+           w * (18 * n + 2 * n + n + 9 * ncols_f), 2 * 18 * n)
+    time_library("contract_reduce", lambda: library_b3(j0, rows_f, u, ncols_f, 2), out1, results)
 
     # B4 with the real (E'E + I)^-1 table of this Jacobian
     sy = sy_meta(program)
@@ -185,38 +327,50 @@ def phase_kernels(program, dev, results):
     minv = ete.inv_tables[sy["e_cls"]]
     F, E = j0, j1
     segs = sy_tables(sy, dev)
+    cnt_e = minv.shape[1]
     b4 = rel_err(
-        sy_apply(sy, F, E, rows_f, csr_f, y, minv, segs),
-        sy_apply_plain(sy, F, E, rows_f, y, minv),
+        sy_apply(sy, F, E, rows_f, f_twin, layout, y, minv, segs),
+        sy_apply_plain(sy, F, E, rows_f, f_twin, layout, y, minv),
     )
-    results["schur_sy"] = (
-        b4,
-        median_ms(lambda: sy_apply(sy, F, E, rows_f, csr_f, y, minv, segs)),
-        median_ms(lambda: sy_apply_plain(sy, F, E, rows_f, y, minv)),
-    )
+    # Fᵀ(I − E M⁻¹ Eᵀ) F y, its own launch and its B3 launch together: F and
+    # E once, the camera rows, the point buckets (the point rows), y, the
+    # inverse table in, the table out
+    b4_in = 18 * n + 6 * n + n + segs[0].numel() + segs[1].numel() + 9 * ncols_f + 9 * cnt_e
+    record("schur_sy", b4, lambda: sy_apply(sy, F, E, rows_f, f_twin, layout, y, minv, segs),
+           lambda: sy_apply_plain(sy, F, E, rows_f, f_twin, layout, y, minv),
+           w * (b4_in + 9 * ncols_f), n * (4 * 18 + 4 * 6) + cnt_e * 2 * 9)
+    own_ms, own_by = bound(w * (b4_in + 2 * n), n * (2 * 18 + 4 * 6 + 2) + cnt_e * 2 * 9)
+    print(f"phase 2: schur_sy: its own launch (diff = t1 − E M⁻¹ Eᵀ t1 out, [2, n]) is bound "
+          f"at {own_ms:.4f} ms ({own_by})", flush=True)
     del ete, minv
 
     # B5 with the ridge (E'E)^-1 table of this Jacobian, as schur_prepare
     # builds it
     e_gram = ete_gram_tables(program, jac_e)
-    minv0 = ridge_ete_solver(program, e_gram, jac.squared_column_norms()).inv_tables[sy["e_cls"]]
-    rows_e = garr["t_rows"][sy["e_pos"]]
-    p0_args = (sy, F, E, rows_f, rows_e, csr_f, minv0)
+    minv0 = ridge_ete_solver(program, e_gram, jac.squared_column_norms()).inv_records(sy["e_cls"])
+    e_pos, f_pos = sy["e_pos"], sy["f_pos"]
+    p0_args = (sy, jac.twin(0, f_pos), jac.twin(0, e_pos, f_pos),
+               program.slot_rows(0, e_pos, f_pos, dev), layout, minv0)
     p0_1, p0_2 = p0_apply(*p0_args), p0_apply(*p0_args)
     if not torch.equal(p0_1, p0_2):
         raise AssertionError("schur_p0 is not bitwise reproducible")
-    b5 = rel_err(p0_1, p0_apply_plain(sy, F, E, rows_f, rows_e, minv0))
-    results["schur_p0"] = (
-        b5,
-        median_ms(lambda: p0_apply(*p0_args)),
-        median_ms(lambda: p0_apply_plain(sy, F, E, rows_f, rows_e, minv0)),
-    )
+    b5 = rel_err(p0_1, p0_apply_plain(*p0_args))
+    # F and E once, the camera and the point row of each observation, the
+    # inverse table in, the blocks out
+    r, te, tf, cnt_f = sy["r"], sy["te"], sy["tf"], sy["cnt_f"]
+    record("schur_p0", b5, lambda: p0_apply(*p0_args), lambda: p0_apply_plain(*p0_args),
+           w * (r * tf * n + r * te * n + 2 * n + te * te * cnt_e + tf * tf * cnt_f),
+           n * (2 * r * te * te + 2 * r * r * te + 2 * r * r * tf + r * tf * (tf + 1)))
     for name, _src, _rep, tol in KERNELS:
-        (abs_err, rel), t_k, t_p = results[name]
+        res = results[name]
+        abs_err, rel = res["err"]
         ok = rel <= tol
+        lib = "none" if res["library_ms"] is None else f"{res['library_ms']:.4f} ms"
         print(
             f"phase 2: {name}: max rel err {rel:.3e} (tol {tol:.0e}, max abs {abs_err:.3e}) "
-            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms{'' if ok else '  FAILED'}",
+            f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']}; {100 * res['bound_ms'] / res['ms']:.1f}% "
+            f"of it), library {lib}{'' if ok else '  FAILED'}",
             flush=True,
         )
         if not ok:
@@ -340,6 +494,12 @@ def run_main_path(bal, precond):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description="Drive the port's BA solve on one CUDA card.")
+    parser.add_argument(
+        "--phase", type=int, choices=(2,),
+        help="stop after phase 2 (the kernels, the twin builds, schur_prepare); no result line",
+    )
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -356,10 +516,8 @@ def main() -> int:
     t0 = time.time()
     cuda_lib.library()
     build_s = time.time() - t0
-    regs = [
-        ln.strip() for ln in (cuda_lib.BUILD_DIR / "build.log").read_text().splitlines()
-        if "registers" in ln or "spill" in ln
-    ] if (cuda_lib.BUILD_DIR / "build.log").exists() else []
+    log = cuda_lib.BUILD_DIR / "build.log"
+    regs = ptxas_report(log.read_text()) if log.exists() else []
     print(
         f"phase 1: {torch.cuda.get_device_name(0)} | {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | kernels built in {build_s:.1f} s",
@@ -384,6 +542,9 @@ def main() -> int:
     phase_kernels(program, dev, results)
     del problem, program
     torch.cuda.empty_cache()
+    if args.phase == 2:
+        print(f"phase 2 only: {time.time() - t_start:.1f} s; no result", flush=True)
+        return 0
 
     phase_f64_parity()
 
@@ -408,10 +569,12 @@ def main() -> int:
 
     kernels = []
     for name, src, replaces, _tol in KERNELS:
-        (abs_err, _rel), t_k, t_p = results[name]
+        res = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": abs_err, "ms": t_k, "plain_ms": t_p,
+            "launches": launches[name], "max_abs_err": res["err"][0], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(f"total {time.time() - t_start:.1f} s")

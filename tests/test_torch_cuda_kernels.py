@@ -7,7 +7,9 @@ only PyTorch: `python -m pytest --noconftest tests/test_torch_cuda_kernels.py`
 version's largest magnitude: float32 2e-4 for B1 (the dual-number chain
 rounds differently from torch.func), 1e-5 for B2 (a 9-term dot product),
 1e-4 for B3/B4/B5 (sums over thousands of observations in another order);
-float64 1e-11."""
+float64 1e-11. B3 and B5 read camera-ordered twins of the leaves; their
+tests use ragged camera runs (1, 31, 32, 33 and thousands of observations,
+one camera with none) and check that two runs are bitwise equal."""
 
 import numpy as np
 import pytest
@@ -31,7 +33,8 @@ from ceres_tpu_torch.linalg.schur_kernels import (
     sy_meta,
     sy_tables,
 )
-from ceres_tpu_torch.program import camera_csr
+from ceres_tpu_torch.jacobian import make_twin
+from ceres_tpu_torch.program import camera_layout
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.float64]
@@ -81,15 +84,68 @@ def test_gather_reduce_kernels_match_plain(card, dtype):
     table = torch.tensor(rng.normal(size=(9, ncols)), dtype=dtype, device=card)
     table[:, -1] = 0
     u = torch.tensor(rng.normal(size=(2, n)), dtype=dtype, device=card)
-    csr = tuple(torch.tensor(a, device=card) for a in camera_csr(rows_np, ncols))
+    layout = camera_layout(rows_np, ncols).to(card)
     f32 = dtype == torch.float32
     _close(gather_contract(jac, rows, table, 2), gather_contract_plain(jac, rows, table, 2),
            1e-5 if f32 else 1e-11)
-    out = contract_reduce(jac, rows, csr, u, 2)
-    _close(out, contract_reduce_plain(jac, rows, u, ncols, 2), 1e-4 if f32 else 1e-11)
-    assert torch.equal(out, contract_reduce(jac, rows, csr, u, 2))  # deterministic
-    _close(contract_reduce(jac[:9].contiguous(), rows, csr, None, 1),
-           contract_reduce_plain(jac[:9], rows, None, ncols, 1), 1e-4 if f32 else 1e-11)
+    twin = make_twin(jac, layout)
+    out = contract_reduce(twin, layout, u, 2)
+    _close(out, contract_reduce_plain(twin, layout, u, 2), 1e-4 if f32 else 1e-11)
+    assert torch.equal(out, contract_reduce(twin, layout, u, 2))  # deterministic
+    twin9 = make_twin(jac[:9].contiguous(), layout)
+    _close(contract_reduce(twin9, layout, None, 1),
+           contract_reduce_plain(twin9, layout, None, 1), 1e-4 if f32 else 1e-11)
+
+
+# observations per camera: runs around the 32-slot padding and the
+# 2048-slot chunk, one camera with none (column 4), the dump column last
+RAGGED = (1, 31, 32, 33, 0, 2047, 2048, 2049, 7000, 40)
+
+
+def _ragged_layout(card, seed):
+    rows = np.repeat(np.arange(len(RAGGED)), RAGGED).astype(np.int32)
+    rows = np.random.default_rng(seed).permutation(rows)
+    return rows, camera_layout(rows, len(RAGGED)).to(card)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,r,with_u", [(9, 2, True), (6, 2, True), (16, 1, True), (81, 1, False)])
+def test_contract_reduce_ragged_runs(card, dtype, t, r, with_u):
+    rows, layout = _ragged_layout(card, t)
+    rng = np.random.default_rng(t + r)
+    n = rows.size
+    twin = make_twin(torch.tensor(rng.normal(size=(r * t, n)), dtype=dtype, device=card), layout)
+    u = torch.tensor(rng.normal(size=(r, n)), dtype=dtype, device=card) if with_u else None
+    out = contract_reduce(twin, layout, u, r)
+    assert torch.equal(out, contract_reduce(twin, layout, u, r))
+    assert torch.all(out[:, 4] == 0)
+    _close(out, contract_reduce_plain(twin, layout, u, r),
+           1e-4 if dtype == torch.float32 else 1e-11)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tf,te", [(6, 3), (9, 3), (16, 3), (9, 8), (16, 8)])
+def test_schur_p0_ragged_runs(card, dtype, tf, te):
+    rows, layout = _ragged_layout(card, tf * 10 + te)
+    rng = np.random.default_rng(tf + te)
+    n, cnt_f, cnt_e, r = rows.size, len(RAGGED) - 1, 300, 2
+    rows_e = torch.tensor(rng.integers(-1, cnt_e + 1, n), dtype=torch.int32, device=card)
+    prow = torch.where(layout.perm >= 0, rows_e[layout.perm.clamp(min=0).long()], -1)
+    prow = prow.to(torch.int32).contiguous()
+
+    def leaf(k):
+        return torch.tensor(rng.normal(size=(k, n)), dtype=dtype, device=card)
+
+    F_twin, E_twin = make_twin(leaf(r * tf), layout), make_twin(leaf(r * te), layout)
+    a = torch.tensor(rng.normal(size=(cnt_e, te, te)), dtype=dtype, device=card)
+    minv = (a @ a.transpose(1, 2)).reshape(cnt_e, te * te)  # symmetric blocks, point-major
+    meta = {"r": r, "te": te, "tf": tf, "cnt_f": cnt_f}
+    out = p0_apply(meta, F_twin, E_twin, prow, layout, minv)
+    assert tuple(out.shape) == (tf * tf, cnt_f)
+    assert torch.equal(out, p0_apply(meta, F_twin, E_twin, prow, layout, minv))
+    assert torch.all(out[:, 4] == 0)
+    _close(out, p0_apply_plain(meta, F_twin, E_twin, prow, layout, minv),
+           1e-4 if dtype == torch.float32 else 1e-11)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -103,12 +159,13 @@ def test_schur_sy_kernel_matches_plain(card, dtype):
     ete = tschur.ete_solver_from_gram(program, tschur.ete_gram_tables(program, jac_e), e_mask)
     g = ev.arrays["groups"][0]
     F, E = jac.jac_groups[0][meta["f_pos"]], jac.jac_groups[0][meta["e_pos"]]
-    rows_f, csr_f = g["t_rows"][meta["f_pos"]], g["csr"][meta["f_pos"]]
-    y = torch.randn((9, csr_f[1].shape[0] - 1), dtype=dtype, device=card)
+    rows_f, layout_f = g["t_rows"][meta["f_pos"]], g["csr"][meta["f_pos"]]
+    F_twin = jac.twin(0, meta["f_pos"])
+    y = torch.randn((9, layout_f.offsets.shape[0] - 1), dtype=dtype, device=card)
     y[:, -1] = 0
     minv = ete.inv_tables[meta["e_cls"]]
-    _close(sy_apply(meta, F, E, rows_f, csr_f, y, minv, sy_tables(meta, card)),
-           sy_apply_plain(meta, F, E, rows_f, y, minv),
+    _close(sy_apply(meta, F, E, rows_f, F_twin, layout_f, y, minv, sy_tables(meta, card)),
+           sy_apply_plain(meta, F, E, rows_f, F_twin, layout_f, y, minv),
            1e-4 if dtype == torch.float32 else 1e-11)
 
 
@@ -130,16 +187,15 @@ def test_schur_p0_kernel_matches_plain(card, dtype, table):
     else:
         e_mask = torch.as_tensor(program.schur_tangent_masks()[0], dtype=dtype, device=card)
         ete = tschur.ete_solver_from_gram(program, e_gram, e_mask)
-    g = ev.arrays["groups"][0]
     f_pos, e_pos = meta["f_pos"], meta["e_pos"]
-    F, E = jac.jac_groups[0][f_pos], jac.jac_groups[0][e_pos]
-    rows_f, rows_e = g["t_rows"][f_pos], g["t_rows"][e_pos]
-    minv = ete.inv_tables[meta["e_cls"]]
-    out = p0_apply(meta, F, E, rows_f, rows_e, g["csr"][f_pos], minv)
+    args = (meta, jac.twin(0, f_pos), jac.twin(0, e_pos, f_pos),
+            program.slot_rows(0, e_pos, f_pos, card),
+            ev.arrays["groups"][0]["csr"][f_pos],
+            ete.inv_records(meta["e_cls"]))
+    out = p0_apply(*args)
     assert tuple(out.shape) == (81, meta["cnt_f"])
-    _close(out, p0_apply_plain(meta, F, E, rows_f, rows_e, minv),
-           1e-4 if dtype == torch.float32 else 1e-11)
-    assert torch.equal(out, p0_apply(meta, F, E, rows_f, rows_e, g["csr"][f_pos], minv))
+    _close(out, p0_apply_plain(*args), 1e-4 if dtype == torch.float32 else 1e-11)
+    assert torch.equal(out, p0_apply(*args))
 
 
 @pytest.mark.parametrize(

@@ -3,7 +3,11 @@ products that route through them, against ceres_tpu.
 
 - The plain versions against pallas_onehot.gather_contract /
   contract_reduce run in interpret mode (float32), at the JAX kernel tests'
-  tolerance 5e-4.
+  tolerance 5e-4; B3 on the twin (the leaf in padded camera order) against
+  the lane-order segmented sum in float64 at 1e-12, on ragged camera runs
+  (1, 31, 32, 33 and 3000 observations, one camera with none); reduce_T's
+  onehot plan on lane-order input, and the scaled twin made from the raw
+  one bitwise equal to the twin of the scaled leaf.
 - BlockJacobian products (right/left multiply, their tvec forms, column
   norms, block-diagonal grams, scale folding) against the JAX XLA path in
   float64 at 1e-12, on a problem with a constant camera so the dump column
@@ -30,8 +34,9 @@ from ceres_tpu_torch.gather_reduce import (
     gather_contract,
     gather_contract_plain,
 )
+from ceres_tpu_torch.jacobian import make_twin, reduce_T, scale_twin
 from ceres_tpu_torch.program import Program as TProgram
-from ceres_tpu_torch.program import camera_csr
+from ceres_tpu_torch.program import camera_layout
 
 torch.set_num_threads(1)
 TOL_F32 = 5e-4
@@ -62,8 +67,8 @@ def test_contract_reduce_matches_pallas(monkeypatch, n):
     jac, rows, table, u = _kernel_inputs(1, n)
     ncols = table.shape[1]
     want = np.asarray(po.contract_reduce(jnp.asarray(jac), jnp.asarray(rows), jnp.asarray(u), ncols, 2))
-    csr = tuple(torch.tensor(a) for a in camera_csr(rows, ncols))
-    got = contract_reduce(torch.tensor(jac), torch.tensor(rows), csr, torch.tensor(u), 2)
+    layout = camera_layout(rows, ncols).to("cpu")
+    got = contract_reduce(make_twin(torch.tensor(jac), layout), layout, torch.tensor(u), 2)
     assert got.shape == (9, ncols)
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL_F32, atol=TOL_F32 * np.abs(want).max())
 
@@ -83,12 +88,99 @@ def test_dump_rows_gather_zero():
 def test_contract_reduce_without_u_is_segment_sum():
     jac, rows, table, _ = _kernel_inputs(3, 400, r=1, t=81)
     ncols = table.shape[1]
-    csr = tuple(torch.tensor(a) for a in camera_csr(rows, ncols))
-    got = contract_reduce(torch.tensor(jac), torch.tensor(rows), csr, None, 1)
+    layout = camera_layout(rows, ncols).to("cpu")
+    twin = make_twin(torch.tensor(jac), layout)
+    got = contract_reduce(twin, layout, None, 1)
     want = np.zeros((81, ncols), np.float64)
     np.add.at(want.T, rows, jac.T.astype(np.float64))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
-    assert torch.equal(got, contract_reduce_plain(torch.tensor(jac), torch.tensor(rows), None, ncols, 1))
+    assert torch.equal(got, contract_reduce_plain(twin, layout, None, 1))
+
+
+# observations per camera: ragged runs around the 32-slot padding, one
+# camera with none (column 4); the last column is the dump column
+RAGGED = (1, 31, 32, 33, 0, 3000, 5)
+
+
+def _ragged_rows(seed, sizes=RAGGED):
+    rows = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    return np.random.default_rng(seed).permutation(rows)
+
+
+def _lane_reduce(jac, rows, u, ncols, r):
+    """B3's function in lane order (index_add_ over the lanes)."""
+    rt, n = jac.shape
+    x = jac.reshape(r, rt // r, n)
+    contrib = x.sum(dim=0) if u is None else (x * u[:, None, :]).sum(dim=0)
+    out = torch.zeros((rt // r, ncols), dtype=jac.dtype)
+    return out.index_add_(1, torch.as_tensor(rows).long(), contrib)
+
+
+@pytest.mark.parametrize("with_u", [True, False], ids=["u", "segment_sum"])
+def test_twin_contract_reduce_matches_lane_order_f64(with_u):
+    rows = _ragged_rows(5)
+    n, ncols, r = rows.size, len(RAGGED), 2 if with_u else 1
+    rng = np.random.default_rng(6)
+    jac = torch.tensor(rng.normal(size=(r * 9, n)))
+    u = torch.tensor(rng.normal(size=(r, n))) if with_u else None
+    layout = camera_layout(rows, ncols).to("cpu")
+    assert len(layout.pad) > 0
+    got = contract_reduce(make_twin(jac, layout), layout, u, r)
+    want = _lane_reduce(jac, rows, u, ncols, r)
+    assert torch.all(got[:, 4] == 0)  # the camera without observations
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                               atol=1e-12 * float(want.abs().max()))
+
+
+def test_twin_padding_contributes_zero():
+    """make_twin zeroes the padding slots, and B3's padding slots add
+    nothing even where u, gathered at the clamped lane 0, is not finite."""
+    rows = _ragged_rows(7)
+    n, ncols = rows.size, len(RAGGED)
+    rng = np.random.default_rng(8)
+    jac = torch.tensor(rng.normal(size=(18, n)))
+    u = torch.tensor(rng.normal(size=(2, n)))
+    u[:, 0] = float("inf")
+    layout = camera_layout(rows, ncols).to("cpu")
+    twin = make_twin(jac, layout)
+    live = layout.perm >= 0
+    assert torch.all(twin[:, ~live] == 0)
+    assert torch.equal(twin[:, live], jac[:, layout.perm[live].long()])
+    got = contract_reduce(twin, layout, u, 2)
+    others = torch.arange(ncols) != int(rows[0])
+    assert torch.isfinite(got[:, others]).all()
+    want = _lane_reduce(jac, rows, u, ncols, 2)
+    np.testing.assert_allclose(got[:, others].numpy(), want[:, others].numpy(), rtol=1e-12,
+                               atol=1e-12 * float(want[:, others].abs().max()))
+
+
+@pytest.mark.parametrize("k", [1, 9, 81])
+def test_reduce_T_onehot_takes_lane_order(k):
+    """reduce_T's onehot plan takes lane-order contributions, as the bucket
+    plan does, and makes their twin itself."""
+    rows = _ragged_rows(9)
+    ncols = len(RAGGED)
+    contrib = torch.tensor(np.random.default_rng(k).normal(size=(k, rows.size)))
+    layout = camera_layout(rows, ncols).to("cpu")
+    got = reduce_T(("onehot",), contrib, torch.tensor(rows), ncols, layout)
+    want = _lane_reduce(contrib, rows, None, ncols, 1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                               atol=1e-12 * float(want.abs().max()))
+
+
+def test_scale_twin_is_twin_of_scaled_leaf():
+    """The scaled twin made from the raw twin slot by slot is bitwise the
+    twin of the scaled leaf, zero on padding."""
+    rows = _ragged_rows(10)
+    ncols, r, t = len(RAGGED), 2, 9
+    rng = np.random.default_rng(11)
+    jac = torch.tensor(rng.normal(size=(r * t, rows.size)))
+    table = torch.tensor(rng.uniform(0.5, 2.0, size=(ncols, t)))
+    layout = camera_layout(rows, ncols).to("cpu")
+    scaled = (jac.reshape(r, t, -1) * table[torch.tensor(rows)].T[None]).reshape(r * t, -1)
+    got = scale_twin(make_twin(jac, layout), layout, table, r)
+    assert torch.equal(got, make_twin(scaled, layout))
+    assert torch.all(got[:, layout.pad.long()] == 0)
 
 
 @pytest.fixture(scope="module")

@@ -15,6 +15,7 @@ import ceres_tpu_torch as ct
 from ceres_tpu.io.bal import build_ba_problem as j_build
 from ceres_tpu.io.bal import synthetic_bal
 from ceres_tpu.program import Program as JProgram
+from ceres_tpu_torch import program as program_mod
 from ceres_tpu_torch.interop import from_jax_program_arrays, state_from_numpy
 from ceres_tpu_torch.program import Program as TProgram
 
@@ -36,7 +37,7 @@ def _programs(constant_camera=False, seed=2):
     if constant_camera:
         jp.set_parameter_block_constant(jcams[0])
         tp.set_parameter_block_constant(tcams[0])
-    return jp.compile(), tp.compile()
+    return jp.compile(), tp.compile("cpu")
 
 
 LAYOUT_ATTRS = [
@@ -95,21 +96,40 @@ def test_schur_partition_equal(threshold, constant_camera):
 
 @pytest.mark.parametrize("constant_camera", [False, True], ids=["free", "constant_cam"])
 def test_camera_csr_is_stable_sort(constant_camera, monkeypatch):
+    """The padded camera CSR: every camera's lanes in lane order, its run
+    padded with -1 to a multiple of TWIN_ALIGN, and chunks that tile each
+    run without straddling two cameras."""
     monkeypatch.setattr(TProgram, "SEG_REDUCE_THRESHOLD", 16)
+    monkeypatch.setattr(program_mod, "TWIN_CHUNK", 64)
     _, tprog = _programs(constant_camera, seed=5)
     meta, idx = tprog.groups[0], tprog.group_idx[0]
     onehot = [p for p, plan in meta.red_plans.items() if plan[0] == "onehot"]
     assert onehot == list(idx["csr"])
     for pos in onehot:
-        perm, offsets = idx["csr"][pos]
+        lay = idx["csr"][pos]
         rows = idx["t_rows"][pos]
         ncols = tprog.tangent_class_counts[meta.positions[pos].t_cls] + 1
-        assert offsets.shape == (ncols + 1,) and offsets[0] == 0 and offsets[-1] == meta.n
-        assert np.array_equal(np.sort(perm), np.arange(meta.n))
+        offsets, n_pad = lay.offsets, len(lay.perm)
+        assert offsets.shape == (ncols + 1,) and offsets[0] == 0 and offsets[-1] == n_pad
+        assert np.all(offsets % program_mod.TWIN_ALIGN == 0)
+        assert np.array_equal(np.sort(lay.perm[lay.perm >= 0]), np.arange(meta.n))
+        assert np.array_equal(lay.pad, np.nonzero(lay.perm < 0)[0])
+        assert lay.chunk_start[0] == 0 and lay.chunk_start[-1] == n_pad
+        assert lay.live_chunks == lay.row_chunks[ncols - 1]
         for c in range(ncols):
-            lanes = perm[offsets[c] : offsets[c + 1]]
+            run = lay.perm[offsets[c] : offsets[c + 1]]
+            lanes = run[run >= 0]
+            assert np.all(run[: lanes.size] >= 0)  # padding at the end
+            assert run.size - lanes.size < program_mod.TWIN_ALIGN
             assert np.all(rows[lanes] == c)
             assert np.all(np.diff(lanes) > 0)  # stable: lane order kept
+            assert np.all(lay.slot_row[offsets[c] : offsets[c + 1]] == c)
+            cuts = lay.chunk_start[lay.row_chunks[c] : lay.row_chunks[c + 1] + 1]
+            if run.size:
+                assert cuts[0] == offsets[c] and cuts[-1] == offsets[c + 1]
+                assert np.all(np.diff(cuts) > 0) and np.all(np.diff(cuts) <= 64)
+            else:
+                assert lay.row_chunks[c] == lay.row_chunks[c + 1]
         if constant_camera:
             assert offsets[ncols] - offsets[ncols - 1] > 0  # the dump run
 
@@ -159,3 +179,15 @@ def test_problem_counts_match_jax():
         assert getattr(tp, name)() == getattr(jp, name)(), name
     assert tp.is_parameter_block_constant(tc[1])
     np.testing.assert_array_equal(tp.parameter_block_value(tc[2]), bal.cameras[2])
+
+
+def test_compile_defaults_to_the_solve_device(monkeypatch):
+    """Problem.compile() with no device lowers to the device `solve` picks
+    (utils.dtypes.resolve_device): the card when there is one, else the
+    CPU; a named device wins."""
+    problem, _, _ = ct.build_ba_problem(synthetic_bal(3, 10, 30, seed=4))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert problem.compile().device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert problem.compile().device == torch.device("cuda")
+    assert problem.compile("cpu").device == torch.device("cpu")

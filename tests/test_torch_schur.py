@@ -27,6 +27,7 @@ from ceres_tpu.linalg import preconditioners as jpre
 from ceres_tpu.linalg import schur as jschur
 from ceres_tpu.program import Program as JProgram
 from ceres_tpu_torch.evaluator import Evaluator
+from ceres_tpu_torch.jacobian import make_twin
 from ceres_tpu_torch.linalg import cg as tcg
 from ceres_tpu_torch.linalg import preconditioners as tpre
 from ceres_tpu_torch.linalg import schur as tschur
@@ -72,7 +73,8 @@ def _port_sy(tprog, jac, ete, y, dtype):
     minv = torch.tensor(np.asarray(ete.inv_tables[meta["e_cls"]]))
     rows_f = g["t_rows"][meta["f_pos"]]
     y = torch.tensor(np.asarray(y))
-    return meta, sy_apply(meta, F, E, rows_f, g["csr"][meta["f_pos"]], y, minv,
+    layout = g["csr"][meta["f_pos"]]
+    return meta, sy_apply(meta, F, E, rows_f, make_twin(F, layout), layout, y, minv,
                           sy_tables(meta, F.device))
 
 

@@ -1,10 +1,13 @@
 """Kernel B5 (SCHUR_JACOBI blocks) and schur_solve of ceres_tpu_torch
 against ceres_tpu.
 
-- p0_apply (its plain version on CPU tensors) against pallas_schur.p0_apply,
-  run in interpret mode in float32 (MIN_LANES lowered so the kernel path
-  engages at small n), at 5e-4; and against schur_jacobi_blocks of both
-  packages in float64 at 1e-12.
+- p0_apply (its plain version on CPU tensors, on the camera-ordered twins)
+  against pallas_schur.p0_apply, run in interpret mode in float32
+  (MIN_LANES lowered so the kernel path engages at small n), at 5e-4;
+  against schur_jacobi_blocks of both packages in float64 at 1e-12; and
+  against its lane-order function in float64 at 1e-12, on ragged camera
+  runs with an empty camera, for several (tf, te), and on the twins of a
+  second evaluation and of materialize_scale (twin staleness).
 - schur_prepare + schur_finish with SCHUR_JACOBI give the same step (1e-9
   relative) after the same number of PCG iterations, on the layout plans
   (B5's path) and without them (schur_jacobi_blocks' path), on a problem
@@ -35,9 +38,12 @@ from ceres_tpu.linalg import pallas_schur as ps
 from ceres_tpu.linalg import schur as jschur
 from ceres_tpu.program import Program as JProgram
 from ceres_tpu_torch.evaluator import Evaluator
+from ceres_tpu_torch.jacobian import make_twin
 from ceres_tpu_torch.linalg import schur as tschur
+from ceres_tpu_torch.linalg.preconditioners import BlockDiagSolver
 from ceres_tpu_torch.linalg.schur_kernels import p0_apply, sy_meta
 from ceres_tpu_torch.program import Program as TProgram
+from ceres_tpu_torch.program import camera_layout
 
 torch.set_num_threads(1)
 
@@ -90,12 +96,98 @@ def _to_torch(x):
 def _port_p0(tprog, jac_groups, minv, dtype):
     """p0_apply on the given (materialized) leaves and inverse table."""
     meta = sy_meta(tprog)
-    g = Evaluator(tprog, dtype).arrays["groups"][0]
+    garr = Evaluator(tprog, dtype).arrays["groups"][0]
+    layout = garr["csr"][meta["f_pos"]]
     f_pos, e_pos = meta["f_pos"], meta["e_pos"]
     return p0_apply(
-        meta, _to_torch(jac_groups[0][f_pos]), _to_torch(jac_groups[0][e_pos]),
-        g["t_rows"][f_pos], g["t_rows"][e_pos], g["csr"][f_pos], _to_torch(minv),
+        meta, make_twin(_to_torch(jac_groups[0][f_pos]), layout),
+        make_twin(_to_torch(jac_groups[0][e_pos]), layout),
+        tprog.slot_rows(0, e_pos, f_pos, "cpu"), layout, _to_torch(minv).T.contiguous(),
     )
+
+
+def _lane_p0(meta, F, E, rows_f, rows_e, minv):
+    """B5's function in lane order: the per-lane FᵀF − (EᵀF)ᵀ M⁻¹ (EᵀF)
+    (zero correction where the point row is outside the table), then
+    index_add_ by camera, dump column dropped."""
+    r, te, tf, cnt_f = meta["r"], meta["te"], meta["tf"], meta["cnt_f"]
+    n = F.shape[1]
+    live = (rows_e >= 0) & (rows_e < minv.shape[1])
+    m = minv[:, torch.where(live, rows_e, torch.zeros_like(rows_e))]
+    m = torch.where(live[None, :], m, torch.zeros_like(m)).reshape(te, te, n)
+    ej, fj = E.reshape(r, te, n), F.reshape(r, tf, n)
+    etf = (ej[:, :, None, :] * fj[:, None, :, :]).sum(dim=0)
+    corr = (etf[:, :, None, :] * (m[:, :, None, :] * etf[None]).sum(dim=1)[:, None]).sum(dim=0)
+    total = ((fj[:, :, None, :] * fj[:, None, :, :]).sum(dim=0) - corr).reshape(tf * tf, n)
+    out = torch.zeros((tf * tf, cnt_f + 1), dtype=F.dtype)
+    return out.index_add_(1, rows_f.long(), total)[:, :cnt_f]
+
+
+def _close_t(got, want, tol):
+    _close(got.numpy(), want.numpy(), tol)
+
+
+# observations per camera: ragged runs around the 32-slot padding, one
+# camera with none (column 4), the dump column last
+RAGGED = (1, 31, 32, 33, 0, 700, 9)
+
+
+@pytest.mark.parametrize("tf,te", [(6, 3), (9, 3), (16, 8)])
+def test_twin_p0_matches_lane_order_f64(tf, te):
+    rng = np.random.default_rng(tf * 10 + te)
+    rows_f = rng.permutation(np.repeat(np.arange(len(RAGGED)), RAGGED)).astype(np.int32)
+    n, cnt_f, cnt_e, r = rows_f.size, len(RAGGED) - 1, 50, 2
+    # point rows include -1 and cnt_e (constant points): FᵀF only
+    rows_e = torch.tensor(rng.integers(-1, cnt_e + 1, n), dtype=torch.int32)
+    F = torch.tensor(rng.normal(size=(r * tf, n)))
+    E = torch.tensor(rng.normal(size=(r * te, n)))
+    minv = torch.tensor(rng.normal(size=(te * te, cnt_e)))
+    layout = camera_layout(rows_f, cnt_f + 1).to("cpu")
+    live = layout.perm >= 0
+    prow = torch.where(live, rows_e[layout.perm.clamp(min=0).long()], -1).to(torch.int32)
+    meta = {"r": r, "te": te, "tf": tf, "cnt_f": cnt_f}
+    got = p0_apply(meta, make_twin(F, layout), make_twin(E, layout), prow, layout,
+                   minv.T.contiguous())
+    assert tuple(got.shape) == (tf * tf, cnt_f)
+    assert torch.all(got[:, 4] == 0)  # the camera without observations
+    _close_t(got, _lane_p0(meta, F, E, torch.tensor(rows_f), rows_e, minv), 1e-12)
+
+
+def test_twins_follow_new_leaves(monkeypatch):
+    """Twin staleness: after a second evaluation at another state, and after
+    materialize_scale, the twins are those of the new leaves, and B3 (the
+    gradient's camera part) and B5 on them equal the lane-order functions
+    of the new leaves."""
+    _, tprog = _programs(6, monkeypatch=monkeypatch)
+    meta = sy_meta(tprog)
+    f_pos, e_pos, f_cls, cnt_f = meta["f_pos"], meta["e_pos"], meta["f_cls"], meta["cnt_f"]
+    ev = Evaluator(tprog, torch.float64)
+    garr = ev.arrays["groups"][0]
+    layout, rows_f, rows_e = garr["csr"][f_pos], garr["t_rows"][f_pos], garr["t_rows"][e_pos]
+    x0 = tprog.state_vector(torch.float64)
+    _c, _r, jac0, _g = ev.evaluate_groups(x0)
+    step = torch.tensor(np.random.default_rng(3).normal(size=tprog.num_effective_parameters))
+    _c, res1, jac1, grad1 = ev.evaluate_groups(ev.plus(x0, 1e-2 * step))
+    F1 = jac1.leaf(0, f_pos)
+    assert not torch.equal(F1, jac0.leaf(0, f_pos))
+    assert torch.equal(jac1.twin(0, f_pos), make_twin(F1, layout))
+    base, cnt, s = tprog.tangent_class_slice(f_cls)
+    x = F1.reshape(2, s, -1) * res1[0][:, None, :]
+    want = torch.zeros((s, cnt + 1), dtype=F1.dtype).index_add_(1, rows_f.long(), x.sum(dim=0))
+    _close_t(grad1[base : base + cnt * s].reshape(cnt, s).T, want[:, :cnt], 1e-12)
+
+    minv = torch.tensor(np.random.default_rng(4).normal(size=(9, tprog.tangent_class_counts[meta["e_cls"]])))
+    jms = []
+    for jac in (jac0, jac1):
+        jm = jac.scale_columns(1.0 / (1.0 + torch.sqrt(jac.squared_column_norms()))).materialize_scale()
+        Fm, Em = jm.leaf(0, f_pos), jm.leaf(0, e_pos)
+        assert torch.equal(jm.twin(0, f_pos), make_twin(Fm, layout))
+        assert torch.equal(jm.twin(0, e_pos, f_pos), make_twin(Em, layout))
+        ete = BlockDiagSolver.from_inverse_tables(tprog, {meta["e_cls"]: minv})
+        got = tschur._p0_tables(tprog, jm, meta, ete)[f_cls]
+        _close_t(got, _lane_p0(meta, Fm, Em, rows_f, rows_e, minv), 1e-12)
+        jms.append(got)
+    assert not torch.allclose(jms[0], jms[1])
 
 
 def _close(got, want, tol):
@@ -150,9 +242,7 @@ def test_p0_matches_jax_schur_jacobi_blocks_f64(monkeypatch, impl, scaled):
     if impl == "p0_apply":
         meta = sy_meta(tprog)
         assert meta is not None
-        got = tschur._p0_tables(
-            tprog, tjac.materialize_scale(), meta, tete.inv_tables[meta["e_cls"]]
-        )[f_cls]
+        got = tschur._p0_tables(tprog, tjac.materialize_scale(), meta, tete)[f_cls]
     else:
         got = tschur.schur_jacobi_blocks(
             tprog, t_e, t_f, tete, torch.zeros(tprog.num_effective_parameters, dtype=torch.float64)

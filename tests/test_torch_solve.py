@@ -95,7 +95,8 @@ def test_no_jax_import_in_port():
     imports jax into every interpreter (tests/conftest.py), a subprocess
     check could not tell."""
     pattern = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+ceres_tpu\b|from\s+ceres_tpu\b|from\s+ceres_tpu\s)", re.M)
-    files = sorted((REPO / "ceres_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    scripts = ["chip_smoke.py", "profile_torch_solve.py"]
+    files = sorted((REPO / "ceres_tpu_torch").rglob("*.py")) + [REPO / f for f in scripts]
     assert len(files) > 15
     offenders = [str(f.relative_to(REPO)) for f in files if pattern.search(f.read_text())]
     assert offenders == []
