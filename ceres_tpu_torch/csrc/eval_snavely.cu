@@ -7,10 +7,14 @@
 // One thread per observation l:
 //   - gathers camera row rows0[l] of tbl0 [cnt0, 9] and point row rows1[l]
 //     of tbl1 [cnt1, 3] (the gather_T of evaluator._group_eval_pallas,
-//     fused) and the observation obs[l] (2 values);
-//   - evaluates the residual with forward-mode duals over the 12 block
-//     parameters (Jet<T, 12>), in the same operation order as the PyTorch
-//     and JAX functors, including the small-angle branch of the rotation;
+//     fused) and the observation pair obs[l] (one 8- or 16-byte load);
+//   - evaluates the residual in the order of the PyTorch and JAX functors,
+//     including the small-angle branch of the rotation, and, in the
+//     Jacobian instantiation, its 2 x 12 Jacobian by a hand-derived chain:
+//     rotation (R = dRX/dX and dRX/d(angle-axis), from the rotation's own
+//     sin, cos, 1/theta and axis), translation (the identity), projection
+//     (one reciprocal of the depth), distortion and focal length (a 2 x 2
+//     block), then two 2 x 3 by 3 x 3 products;
 //   - applies TrivialLoss or Huber(a) and the Triggs correction exactly as
 //     pallas_eval._lane_corrector / corrector.correct_batched;
 //   - writes res [2, n], jac0 [18, n], jac1 [6, n] (row rr*t + j,
@@ -19,128 +23,25 @@
 // A second single-block launch sums the per-block partials in a fixed
 // order: the cost is deterministic without atomics.
 //
-// Bound on an H100: device memory. Each observation reads 12 parameters
-// through two row gathers (the tables are small enough to stay in L2) and
-// its 2 observed values, and writes 26 values; the dual arithmetic is
-// ~400 flops per observation, far below the card's rate for those bytes.
-// The design keeps every intermediate (rotation, projection, duals, loss,
-// correction) in registers, so device memory sees only the unavoidable
-// reads and the final [r*t, n] leaves — the same bytes the TPU kernel moves.
-// Not built with fast math: sin/cos/sqrt round as PyTorch's do.
+// Bound on an H100: its arithmetic, in the earlier design of this kernel,
+// which carried forward-mode duals over all 12 parameters (Jet<T, 12>)
+// through every operation, 12 IEEE divides per dual quotient and separate
+// sin and cos calls: the residual-only launch, which stores 2 of the 26
+// rows, took 85% of the Jacobian launch's time (0.4270 against 0.5029 ms at
+// BAL-1778 in float32 on an H100 80GB HBM3 at 700 W). Here each derivative is formed once, where it is born: the
+// rotation's 3 x 3 blocks from its values, one reciprocal per denominator
+// and one sincos, ~540 operations per observation against ~1,900, and
+// the residual-only launch is its own instantiation with no derivative
+// code. What is left is the 612 MB it must move (device memory) and the
+// two row gathers: the camera table (64 KB) stays in L1, the point table
+// in L2. Not built with fast math: sin/cos/sqrt round as PyTorch's do.
 
 #include <cuda_runtime.h>
 #include <float.h>
 
 namespace {
 
-constexpr int kN = 12;  // 9 camera + 3 point parameters
 constexpr int kBlock = 256;
-
-template <typename T>
-struct Jet {
-  T a;
-  T v[kN];
-};
-
-template <typename T>
-__device__ __forceinline__ Jet<T> jconst(T c) {
-  Jet<T> r;
-  r.a = c;
-#pragma unroll
-  for (int i = 0; i < kN; ++i) r.v[i] = T(0);
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Jet<T> jvar(T c, int k) {
-  Jet<T> r = jconst<T>(c);
-  r.v[k] = T(1);
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Jet<T> operator+(const Jet<T>& x, const Jet<T>& y) {
-  Jet<T> r;
-  r.a = x.a + y.a;
-#pragma unroll
-  for (int i = 0; i < kN; ++i) r.v[i] = x.v[i] + y.v[i];
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Jet<T> operator-(const Jet<T>& x, const Jet<T>& y) {
-  Jet<T> r;
-  r.a = x.a - y.a;
-#pragma unroll
-  for (int i = 0; i < kN; ++i) r.v[i] = x.v[i] - y.v[i];
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Jet<T> operator-(const Jet<T>& x) {
-  Jet<T> r;
-  r.a = -x.a;
-#pragma unroll
-  for (int i = 0; i < kN; ++i) r.v[i] = -x.v[i];
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Jet<T> operator*(const Jet<T>& x, const Jet<T>& y) {
-  Jet<T> r;
-  r.a = x.a * y.a;
-#pragma unroll
-  for (int i = 0; i < kN; ++i) r.v[i] = x.v[i] * y.a + x.a * y.v[i];
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Jet<T> operator*(T s, const Jet<T>& x) {
-  Jet<T> r;
-  r.a = s * x.a;
-#pragma unroll
-  for (int i = 0; i < kN; ++i) r.v[i] = s * x.v[i];
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Jet<T> operator/(const Jet<T>& x, const Jet<T>& y) {
-  Jet<T> r;
-  r.a = x.a / y.a;
-#pragma unroll
-  for (int i = 0; i < kN; ++i) r.v[i] = (x.v[i] - r.a * y.v[i]) / y.a;
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Jet<T> jsqrt(const Jet<T>& x) {
-  Jet<T> r;
-  r.a = sqrt(x.a);
-  const T h = T(0.5) / r.a;
-#pragma unroll
-  for (int i = 0; i < kN; ++i) r.v[i] = x.v[i] * h;
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Jet<T> jsin(const Jet<T>& x) {
-  Jet<T> r;
-  r.a = sin(x.a);
-  const T c = cos(x.a);
-#pragma unroll
-  for (int i = 0; i < kN; ++i) r.v[i] = c * x.v[i];
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Jet<T> jcos(const Jet<T>& x) {
-  Jet<T> r;
-  r.a = cos(x.a);
-  const T s = -sin(x.a);
-#pragma unroll
-  for (int i = 0; i < kN; ++i) r.v[i] = s * x.v[i];
-  return r;
-}
 
 template <typename T>
 __device__ __forceinline__ T tiny_of();
@@ -149,63 +50,128 @@ __device__ __forceinline__ float tiny_of<float>() { return FLT_MIN; }
 template <>
 __device__ __forceinline__ double tiny_of<double>() { return DBL_MIN; }
 
-// Residual of snavely_reprojection_error as duals over (camera, point).
-template <typename T>
-__device__ __forceinline__ void snavely_residual(const T* cam, const T* pt, T ox, T oy,
-                                                 Jet<T>& r0, Jet<T>& r1) {
-  Jet<T> aa[3], p[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    aa[k] = jvar<T>(cam[k], k);
-    p[k] = jvar<T>(pt[k], 9 + k);
-  }
-  // angle_axis_rotate_point (snavely.py:18-35)
-  Jet<T> theta2 = aa[0] * aa[0] + aa[1] * aa[1] + aa[2] * aa[2];
-  const bool small = theta2.a < T(1e-24);
-  Jet<T> rot[3];
-  if (small) {
-    // p + aa x p
-    rot[0] = p[0] + (aa[1] * p[2] - aa[2] * p[1]);
-    rot[1] = p[1] + (aa[2] * p[0] - aa[0] * p[2]);
-    rot[2] = p[2] + (aa[0] * p[1] - aa[1] * p[0]);
-  } else {
-    Jet<T> theta = theta2.a > T(1e-32) ? jsqrt(theta2) : jconst<T>(sqrt(T(1e-32)));
-    Jet<T> cos_t = jcos(theta);
-    Jet<T> sin_t = jsin(theta);
-    Jet<T> ax[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) ax[k] = aa[k] / theta;
-    Jet<T> wxp0 = ax[1] * p[2] - ax[2] * p[1];
-    Jet<T> wxp1 = ax[2] * p[0] - ax[0] * p[2];
-    Jet<T> wxp2 = ax[0] * p[1] - ax[1] * p[0];
-    Jet<T> tmp = (ax[0] * p[0] + ax[1] * p[1] + ax[2] * p[2]) * (jconst<T>(T(1)) - cos_t);
-    rot[0] = cos_t * p[0] + sin_t * wxp0 + tmp * ax[0];
-    rot[1] = cos_t * p[1] + sin_t * wxp1 + tmp * ax[1];
-    rot[2] = cos_t * p[2] + sin_t * wxp2 + tmp * ax[2];
-  }
-  Jet<T> q0 = rot[0] + jvar<T>(cam[3], 3);
-  Jet<T> q1 = rot[1] + jvar<T>(cam[4], 4);
-  Jet<T> q2 = rot[2] + jvar<T>(cam[5], 5);
-  // BAL convention: negative z plane projection
-  Jet<T> xp = -q0 / q2;
-  Jet<T> yp = -q1 / q2;
-  Jet<T> f = jvar<T>(cam[6], 6);
-  Jet<T> k1 = jvar<T>(cam[7], 7);
-  Jet<T> k2 = jvar<T>(cam[8], 8);
-  Jet<T> r2 = xp * xp + yp * yp;
-  Jet<T> distortion = jconst<T>(T(1)) + r2 * (k1 + k2 * r2);
-  Jet<T> fd = f * distortion;
-  r0 = fd * xp - jconst<T>(ox);
-  r1 = fd * yp - jconst<T>(oy);
+__device__ __forceinline__ void sin_cos(float x, float* s, float* c) { sincosf(x, s, c); }
+__device__ __forceinline__ void sin_cos(double x, double* s, double* c) { sincos(x, s, c); }
+
+__device__ __forceinline__ void load_pair(const float* p, float* x, float* y) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  *x = v.x;
+  *y = v.y;
+}
+__device__ __forceinline__ void load_pair(const double* p, double* x, double* y) {
+  const double2 v = *reinterpret_cast<const double2*>(p);
+  *x = v.x;
+  *y = v.y;
 }
 
-template <typename T>
+// Residual of snavely_reprojection_error (snavely.py) for camera c [9] and
+// point X [3], and, when kJac, its Jacobian J [2][12] (columns: angle-axis,
+// translation, f, k1, k2, then the point).
+template <typename T, bool kJac>
+__device__ __forceinline__ void snavely(const T* c, const T* X, T ox, T oy, T res[2],
+                                        T J[2][12]) {
+  const T a0 = c[0], a1 = c[1], a2 = c[2];
+  // angle_axis_rotate_point (snavely.py:17-32): rot = R(a) X; R[i][j] =
+  // d rot_i / d X_j, dRa[i][j] = d rot_i / d a_j
+  const T theta2 = a0 * a0 + a1 * a1 + a2 * a2;
+  T rot[3], R[3][3], dRa[3][3];
+  if (theta2 < T(1e-24)) {
+    // p + a x p
+    rot[0] = X[0] + (a1 * X[2] - a2 * X[1]);
+    rot[1] = X[1] + (a2 * X[0] - a0 * X[2]);
+    rot[2] = X[2] + (a0 * X[1] - a1 * X[0]);
+    if (kJac) {
+      R[0][0] = T(1), R[0][1] = -a2, R[0][2] = a1;
+      R[1][0] = a2, R[1][1] = T(1), R[1][2] = -a0;
+      R[2][0] = -a1, R[2][1] = a0, R[2][2] = T(1);
+      dRa[0][0] = T(0), dRa[0][1] = X[2], dRa[0][2] = -X[1];
+      dRa[1][0] = -X[2], dRa[1][1] = T(0), dRa[1][2] = X[0];
+      dRa[2][0] = X[1], dRa[2][1] = -X[0], dRa[2][2] = T(0);
+    }
+  } else {
+    const T theta = sqrt(theta2);  // theta2 >= 1e-24: the 1e-32 clamp is idle
+    T sn, cs;
+    sin_cos(theta, &sn, &cs);
+    const T inv = T(1) / theta;
+    const T w[3] = {a0 * inv, a1 * inv, a2 * inv};
+    const T wxX[3] = {w[1] * X[2] - w[2] * X[1], w[2] * X[0] - w[0] * X[2],
+                      w[0] * X[1] - w[1] * X[0]};
+    const T wX = w[0] * X[0] + w[1] * X[1] + w[2] * X[2];
+    const T omc = T(1) - cs;
+    const T tmp = wX * omc;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) rot[i] = cs * X[i] + sn * wxX[i] + tmp * w[i];
+    if (kJac) {
+      // R = cos I + sin [w]x + (1 - cos) w wᵀ
+      const T K[3][3] = {{T(0), -w[2], w[1]}, {w[2], T(0), -w[0]}, {-w[1], w[0], T(0)}};
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) R[i][j] = (i == j ? cs : T(0)) + sn * K[i][j] + omc * w[i] * w[j];
+      }
+      // d/da_j: theta' = w_j, cos' = -sin w_j, sin' = cos w_j,
+      // w' = (e_j - w w_j) / theta
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        T dw[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) dw[k] = ((k == j ? T(1) : T(0)) - w[k] * w[j]) * inv;
+        const T dwxX[3] = {dw[1] * X[2] - dw[2] * X[1], dw[2] * X[0] - dw[0] * X[2],
+                           dw[0] * X[1] - dw[1] * X[0]};
+        const T dwX = dw[0] * X[0] + dw[1] * X[1] + dw[2] * X[2];
+        const T coef = sn * w[j] * wX + omc * dwX;
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          dRa[i][j] = -sn * w[j] * X[i] + cs * w[j] * wxX[i] + sn * dwxX[i] + coef * w[i] +
+                      tmp * dw[i];
+        }
+      }
+    }
+  }
+  const T q0 = rot[0] + c[3];
+  const T q1 = rot[1] + c[4];
+  const T q2 = rot[2] + c[5];
+  // BAL convention: negative z plane projection
+  const T iz = T(1) / q2;
+  const T xp = -q0 * iz;
+  const T yp = -q1 * iz;
+  const T f = c[6], k1 = c[7], k2 = c[8];
+  const T r2 = xp * xp + yp * yp;
+  const T dist = T(1) + r2 * (k1 + k2 * r2);
+  const T fd = f * dist;
+  res[0] = fd * xp - ox;
+  res[1] = fd * yp - oy;
+  if (kJac) {
+    // P = d(r0, r1) / d(xp, yp); M = d(r0, r1) / dq = P d(xp, yp) / dq
+    const T g = T(2) * f * (k1 + T(2) * k2 * r2);
+    const T p00 = fd + g * xp * xp;
+    const T p01 = g * xp * yp;
+    const T p11 = fd + g * yp * yp;
+    const T M[2][3] = {{-p00 * iz, -p01 * iz, -(p00 * xp + p01 * yp) * iz},
+                       {-p01 * iz, -p11 * iz, -(p01 * xp + p11 * yp) * iz}};
+    const T pr[2] = {xp, yp};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        J[i][j] = M[i][0] * dRa[0][j] + M[i][1] * dRa[1][j] + M[i][2] * dRa[2][j];
+        J[i][3 + j] = M[i][j];
+        J[i][9 + j] = M[i][0] * R[0][j] + M[i][1] * R[1][j] + M[i][2] * R[2][j];
+      }
+      J[i][6] = dist * pr[i];
+      J[i][7] = f * r2 * pr[i];
+      J[i][8] = f * r2 * r2 * pr[i];
+    }
+  }
+}
+
+template <typename T, bool kJac>
 __global__ void __launch_bounds__(kBlock)
     eval_snavely_kernel(const T* __restrict__ tbl0, const int* __restrict__ rows0,
                         const T* __restrict__ tbl1, const int* __restrict__ rows1,
                         const T* __restrict__ obs, int n, int loss_kind, double loss_a,
-                        int with_jac, T* __restrict__ res, T* __restrict__ jac0,
-                        T* __restrict__ jac1, T* __restrict__ partials) {
+                        T* __restrict__ res, T* __restrict__ jac0, T* __restrict__ jac1,
+                        T* __restrict__ partials) {
   __shared__ T sh[kBlock];
   const int l = blockIdx.x * kBlock + threadIdx.x;
   T rho0 = T(0);
@@ -213,15 +179,15 @@ __global__ void __launch_bounds__(kBlock)
     const size_t N = static_cast<size_t>(n);
     const T* cam = tbl0 + static_cast<size_t>(rows0[l]) * 9;
     const T* pt = tbl1 + static_cast<size_t>(rows1[l]) * 3;
-    T c[9], x[3];
+    T c[9], x[3], ox, oy;
 #pragma unroll
     for (int k = 0; k < 9; ++k) c[k] = cam[k];
 #pragma unroll
     for (int k = 0; k < 3; ++k) x[k] = pt[k];
-    Jet<T> r0, r1;
-    snavely_residual<T>(c, x, obs[2 * static_cast<size_t>(l)], obs[2 * static_cast<size_t>(l) + 1],
-                        r0, r1);
-    const T s = r0.a * r0.a + r1.a * r1.a;
+    load_pair(obs + 2 * static_cast<size_t>(l), &ox, &oy);
+    T r[2], J[2][12];
+    snavely<T, kJac>(c, x, ox, oy, r, J);
+    const T s = r[0] * r[0] + r[1] * r[1];
     T res_scale = T(1), jac_scale = T(1), alpha_sq_norm = T(0);
     if (loss_kind == 0) {
       rho0 = s;
@@ -238,9 +204,9 @@ __global__ void __launch_bounds__(kBlock)
         const T two_a = static_cast<T>(2.0 * loss_a);
         const bool out = s > a2;
         const T sm = s > a2 ? s : a2;
-        const T r = sqrt(sm);
-        rho0 = out ? two_a * r - a2 : s;
-        const T q = a / r;
+        const T rt = sqrt(sm);
+        rho0 = out ? two_a * rt - a2 : s;
+        const T q = a / rt;
         rho1 = out ? (q > tiny_of<T>() ? q : tiny_of<T>()) : T(1);
         rho2 = out ? -rho1 / (T(2) * sm) : T(0);
       }
@@ -255,14 +221,14 @@ __global__ void __launch_bounds__(kBlock)
       jac_scale = sqrt_rho1;
       alpha_sq_norm = inlier ? alpha / safe_sq_norm : T(0);
     }
-    res[l] = res_scale * r0.a;
-    res[N + l] = res_scale * r1.a;
-    if (with_jac) {
+    res[l] = res_scale * r[0];
+    res[N + l] = res_scale * r[1];
+    if (kJac) {
 #pragma unroll
-      for (int k = 0; k < kN; ++k) {
-        const T rtj = r0.a * r0.v[k] + r1.a * r1.v[k];
-        const T j0 = jac_scale * (r0.v[k] - alpha_sq_norm * r0.a * rtj);
-        const T j1 = jac_scale * (r1.v[k] - alpha_sq_norm * r1.a * rtj);
+      for (int k = 0; k < 12; ++k) {
+        const T rtj = r[0] * J[0][k] + r[1] * J[1][k];
+        const T j0 = jac_scale * (J[0][k] - alpha_sq_norm * r[0] * rtj);
+        const T j1 = jac_scale * (J[1][k] - alpha_sq_norm * r[1] * rtj);
         if (k < 9) {
           jac0[static_cast<size_t>(k) * N + l] = j0;
           jac0[static_cast<size_t>(9 + k) * N + l] = j1;
@@ -303,10 +269,17 @@ int launch(const T* tbl0, const int* rows0, const T* tbl1, const int* rows1, con
            int loss_kind, double loss_a, int with_jac, T* res, T* jac0, T* jac1, T* partials,
            T* cost, cudaStream_t stream) {
   const int blocks = (n + kBlock - 1) / kBlock;
+  if (reinterpret_cast<size_t>(obs) % (2 * sizeof(T)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (blocks > 0) {
-    eval_snavely_kernel<T><<<blocks, kBlock, 0, stream>>>(tbl0, rows0, tbl1, rows1, obs, n,
-                                                          loss_kind, loss_a, with_jac, res, jac0,
-                                                          jac1, partials);
+    if (with_jac) {
+      eval_snavely_kernel<T, true><<<blocks, kBlock, 0, stream>>>(
+          tbl0, rows0, tbl1, rows1, obs, n, loss_kind, loss_a, res, jac0, jac1, partials);
+    } else {
+      eval_snavely_kernel<T, false><<<blocks, kBlock, 0, stream>>>(
+          tbl0, rows0, tbl1, rows1, obs, n, loss_kind, loss_a, res, jac0, jac1, partials);
+    }
   }
   sum_partials_kernel<T><<<1, 1024, 0, stream>>>(partials, blocks, cost);
   return static_cast<int>(cudaGetLastError());

@@ -143,7 +143,8 @@ int launch_reduce(const T* twin, const int* perm, const int* chunk_start, const 
   }
   const cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  camera_chunks::launch_chunk_sum<T>(partial, row_chunks, t, nchunks, ncols, out, stream);
+  camera_chunks::launch_chunk_sum<T>(partial, row_chunks, t, nchunks, ncols, ncols, nullptr,
+                                     nullptr, out, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

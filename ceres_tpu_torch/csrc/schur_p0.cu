@@ -325,7 +325,8 @@ int launch(const T* F, const T* E, const int* prow, const int* chunk_start, cons
     }
     if (rc != 0) return rc;
   }
-  camera_chunks::launch_chunk_sum<T>(partial, row_chunks, tf * tf, nchunks, ncols_out, out, stream);
+  camera_chunks::launch_chunk_sum<T>(partial, row_chunks, tf * tf, nchunks, ncols_out, ncols_out,
+                                     nullptr, nullptr, out, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

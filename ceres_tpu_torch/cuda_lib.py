@@ -44,9 +44,14 @@ _SIGNATURES = {
     # twin, perm, chunk_start, row_chunks, u, n, n_pad, r, t, nchunks, ncols,
     # partial, out, stream
     "ctt_contract_reduce": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # F, E, rows_f, y, ncols_f, segs, pt_start, nb, num_points, minv,
-    # minv_stride, n, r, te, tf, diff, stream
-    "ctt_schur_sy": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    # F, E, rows_f, y, ncols_f, segs, pt_start, nb, num_points, minv, cnt_e,
+    # n, r, te, tf, t2, ld, stream
+    "ctt_schur_sy_point": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P],
+    # F twin, E twin, point rows, chunk_start, row_chunks, slot_row, y, dsq,
+    # ncols_f, t2, ld, cnt_e, n_pad, r, te, tf, nchunks, partial, out, stream
+    "ctt_schur_sy_fold": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+    ],
     # F twin, E twin, point rows, chunk_start, row_chunks, minv, cnt_e, n_pad,
     # r, te, tf, nchunks, ncols_out, partial, out, stream
     "ctt_schur_p0": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],

@@ -5,11 +5,14 @@ pallas_eval.py:571) for the Snavely 9+3 functor. One CUDA thread per
 observation (csrc/eval_snavely.cu): it gathers its camera and point rows
 from the [cnt, s] state tables (the gather_T of
 evaluator._group_eval_pallas:182-220, fused), computes the residual and its
-2x9 / 2x3 Jacobians with forward-mode duals, applies TrivialLoss or
-Huber(a), the Triggs correction exactly as `_lane_corrector`, and writes
-res [2, n], jac0 [18, n], jac1 [6, n] (row rr*t + j, as pallas_eval.py:514-524)
-plus a per-block cost partial; a second launch sums the partials in a
-fixed order (no atomics). The residual-only variant skips the Jacobian.
+2x9 / 2x3 Jacobians by a hand-derived chain (rotation, translation,
+projection, distortion: each derivative formed once, one reciprocal per
+denominator, one sincos), applies TrivialLoss or Huber(a), the Triggs
+correction exactly as `_lane_corrector`, and writes res [2, n], jac0 [18, n],
+jac1 [6, n] (row rr*t + j, as pallas_eval.py:514-524) plus a per-block cost
+partial; a second launch sums the partials in a fixed order (no atomics).
+The residual-only launch is an instantiation of its own, without the
+derivative code.
 
 On CPU tensors the plain version runs: the torch.func path plus the gather,
 the loss and correct_batched (evaluator.evaluate_batch).

@@ -228,8 +228,8 @@ def schur_prepare(program, options, jac_s):
     """J-dependent (radius-independent) half of an ITERATIVE_SCHUR step:
     column norms, the EᵀE grams, the preconditioner's tables (JACOBI: FᵀF
     blocks; SCHUR_JACOBI: FᵀF − FᵀE M0⁻¹ EᵀF blocks, kernel B5) and the
-    scale-materialized leaves and their twins that B5 and the PCG matvec
-    read. Reused while
+    scale-materialized leaves and their twins (F's, and E's in F's camera
+    order) that B5 and the PCG matvec B4 read. Reused while
     steps are rejected (reference: Preconditioner::Update split from
     creation)."""
     precond = options.preconditioner_type
@@ -244,10 +244,14 @@ def schur_prepare(program, options, jac_s):
     colnorm2 = jac_s.squared_column_norms()
     e_gram0 = ete_gram_tables(program, jac_e)
     jac_m = jac_s.materialize_scale()
+    meta = _sy_meta(program)
+    if meta is not None:
+        # E's twin in F's camera order, read by B4 (every preconditioner)
+        # and B5
+        jac_m.twin(0, meta["e_pos"], meta["f_pos"])
     p0 = None
     if precond == PreconditionerType.SCHUR_JACOBI:
         minv0 = ridge_ete_solver(program, e_gram0, colnorm2)
-        meta = _sy_meta(program)
         if meta is not None:
             p0 = _p0_tables(program, jac_m, meta, minv0)
         else:
@@ -310,27 +314,29 @@ def _s_apply_t(program, jac_m, ete, dsq_f_tv, f_set):
 
         return s_apply_t
 
-    f_cls, cnt_f = meta_sy["f_cls"], meta_sy["cnt_f"]
+    f_cls = meta_sy["f_cls"]
     garr = jac_m.garrs[0]
-    f_pos = meta_sy["f_pos"]
-    F = jac_m.jac_groups[0][f_pos]
-    E = jac_m.jac_groups[0][meta_sy["e_pos"]]
-    rows_f = garr["t_rows"][f_pos]
-    F_twin, layout_f = jac_m.twin(0, f_pos), garr["csr"][f_pos]
+    f_pos, e_pos = meta_sy["f_pos"], meta_sy["e_pos"]
+    F, E = jac_m.jac_groups[0][f_pos], jac_m.jac_groups[0][e_pos]
+    # the slot pass's camera-ordered inputs: the F and E twins, each slot's
+    # point row and the camera layout
+    slot_order = (
+        jac_m.twin(0, f_pos), jac_m.twin(0, e_pos, f_pos),
+        program.slot_rows(0, e_pos, f_pos, F.device), garr["csr"][f_pos],
+    )
     minv = ete.inv_tables[meta_sy["e_cls"]]
+    dsq = dsq_f_tv[f_cls].contiguous()
     segs = program.cached(
         ("sy_tables", F.device), lambda p: schur_kernels.sy_tables(meta_sy, F.device)
     )
 
     def s_apply_t(y_tv):
+        # + D_f² y, and the dump column stays out of the CG vectors
         out_f = schur_kernels.sy_apply(
-            meta_sy, F, E, rows_f, F_twin, layout_f, y_tv[f_cls].contiguous(), minv, segs
+            meta_sy, F, E, garr["t_rows"][f_pos], *slot_order, y_tv[f_cls].contiguous(), minv,
+            segs, dsq,
         )
-        out_f[:, cnt_f:] = 0  # the dump column stays out of the CG vectors
-        return [
-            out_f + dsq_f_tv[cls] * y_tv[cls] if cls == f_cls else torch.zeros_like(y)
-            for cls, y in enumerate(y_tv)
-        ]
+        return [out_f if cls == f_cls else torch.zeros_like(y) for cls, y in enumerate(y_tv)]
 
     return s_apply_t
 

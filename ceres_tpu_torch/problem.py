@@ -201,14 +201,16 @@ class Problem:
     # ---- lowering ---- #
 
     def compile(self, device=None):
-        """Lower to a Program on `device`, by default the card when there is
-        one, as `solve` picks it (utils.dtypes.resolve_device). Cached until
-        the structure changes; a new device only re-targets the cached
+        """Lower to a Program on `device`, by default the card, as `solve`
+        picks it (utils.dtypes.resolve_device: with no device named and no
+        card visible it raises; pass "cpu" for the CPU). Cached until the
+        structure changes; a new device only re-targets the cached
         Program."""
         from .program import Program
         from .utils.dtypes import resolve_device
 
+        device = resolve_device(device)
         if self._dirty or self._program is None:
             self._program = Program(self._blocks, self._batches)
             self._dirty = False
-        return self._program.to(resolve_device(device))
+        return self._program.to(device)

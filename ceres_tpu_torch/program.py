@@ -15,8 +15,8 @@ never straddle two rows. The Jacobian keeps a "twin" of each onehot leaf in
 this slot order (jacobian.make_twin), so kernels B3 and B5 read every
 camera's observations contiguously, one block per chunk, and combine the
 chunks of a row in a fixed order: deterministic without atomics.
-`slot_rows` gives another position's class rows in that slot order (B5's
-point row of each slot).
+`slot_rows` gives another position's class rows in that slot order (the
+point row of each slot, read by kernels B4 and B5).
 """
 
 from __future__ import annotations
@@ -187,7 +187,8 @@ class Program:
     def slot_rows(self, gi, pos, order_pos, device):
         """The class rows of position `pos` of group `gi` in the slot order of
         the onehot position `order_pos` ([n_pad] int32 on `device`, -1 on
-        padding): kernel B5's point row of each camera-ordered slot.
+        padding): the point row of each camera-ordered slot, read by kernels
+        B4 and B5.
         Computed once per Program and device."""
 
         def build(p):

@@ -206,8 +206,8 @@ class SolverOptions:
     # --- numerics ---
     # torch dtype of the evaluation / linear-algebra path; None -> float64.
     dtype: Any = None
-    # torch device (or its name) the solve runs on; None -> "cuda" when a
-    # card is present, else "cpu".
+    # torch device (or its name) the solve runs on; None -> "cuda", and
+    # solve raises when no card is visible (pass "cpu" for the CPU).
     device: Any = None
 
     # --- multi-device (accepted; not ported) ---

@@ -13,8 +13,10 @@ and prints no result):
      the median time of each over 10 runs (CUDA events), its bound (the
      least time for its bytes and operations at the data sheet's rates)
      and, for B2 and B3, the time of one PyTorch sparse product for the same
-     function; B3 and B5 bitwise equal across two runs; the time to build
-     the camera-ordered twins of one new Jacobian (B3's and B5's inputs);
+     function; B1's residual-only launch beside the one with the Jacobian;
+     B4 (S·y) whole and each of its two launches, also with D_f² y folded
+     in; B3, B4 and B5 bitwise equal across two runs; the time to build the
+     camera-ordered twins of one new Jacobian (B3's, B4's and B5's inputs);
      then schur_prepare's time per new Jacobian for JACOBI and SCHUR_JACOBI;
   3. a small float64 solve (48,000 observations, so the layout plans
      engage) for 5 LM iterations on the card and on the CPU, for JACOBI,
@@ -64,10 +66,13 @@ NUM_OBSERVATIONS = 5_000_000
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 # B1's float operations per observation, counted from csrc/eval_snavely.cu
-# (the large-angle path: 29 dual products of 12 tangents, 24 dual sums,
-# 5 dual quotients, 3 dual sqrt/sin/cos, then the Huber/Triggs scaling of
-# 26 outputs)
-B1_OPS_PER_OBS = 1900
+# (the large-angle path, an FMA as 2, a sqrt, sincos or quotient as 1): the
+# residual chain ~90, R ~45, dR/d(angle-axis) ~180, the projection block and
+# the two 2 x 3 by 3 x 3 products ~100, the Huber/Triggs scaling of the 26
+# outputs ~150
+B1_OPS_PER_OBS = 540
+# the residual-only instantiation: the residual chain, Huber, Triggs scale
+B1_RES_OPS_PER_OBS = 110
 # (name, source, TPU kernel it replaces, tolerance on max|k - p| / max|p|)
 KERNELS = [
     ("eval_snavely", "ceres_tpu_torch/csrc/eval_snavely.cu",
@@ -109,6 +114,19 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """`name<f32,args...>` of a template kernel from its mangled name: the
+    length-prefixed identifier ending in _kernel, then its template
+    arguments (the value type, then integers and booleans)."""
+    for m in re.finditer(r"_kernelI([fd])((?:L[ib]\d+E)*)", mangled):
+        end = m.start() + len("_kernel")
+        for size in range(len("_kernel"), end):
+            if mangled[:end - size].endswith(str(size)):
+                args = "".join(f",{a}" for a in re.findall(r"L[ib](\d+)E", m.group(2)))
+                return f"{mangled[end - size:end]}<{'f32' if m.group(1) == 'f' else 'f64'}{args}>"
+    return mangled
+
+
 def ptxas_report(log: str) -> list[str]:
     """One line per compiled kernel from nvcc's -Xptxas -v output: its name
     (with f32/f64 for the template's type), registers, spills."""
@@ -116,10 +134,7 @@ def ptxas_report(log: str) -> list[str]:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            mangled = m.group(1)
-            kernel = re.search(r"(\d+)([a-z_0-9]+_kernel)I([fd])", mangled)
-            name = (f"{kernel.group(2)}<{'f32' if kernel.group(3) == 'f' else 'f64'}>"
-                    if kernel else mangled)
+            name = kernel_name(m.group(1))
         elif "spill" in ln:
             spill = ln.strip()
         elif "Used" in ln and "registers" in ln and name:
@@ -239,7 +254,8 @@ def phase_kernels(program, dev, results):
         ete_gram_tables, ete_solver_from_gram, ridge_ete_solver, schur_views,
     )
     from ceres_tpu_torch.linalg.schur_kernels import (
-        p0_apply, p0_apply_plain, sy_apply, sy_apply_plain, sy_meta, sy_tables,
+        p0_apply, p0_apply_plain, sy_apply, sy_apply_plain, sy_fold_pass, sy_meta,
+        sy_point_pass, sy_tables,
     )
 
     f32 = torch.float32
@@ -267,15 +283,29 @@ def phase_kernels(program, dev, results):
     errs = [rel_err(a, b) for a, b in ((res_k, res_p), (j0, j0_p), (j1, j1_p))]
     errs.append(rel_err(cost_k.reshape(1), cost_p.reshape(1)))
     b1 = (max(e[0] for e in errs), max(e[1] for e in errs))
-    del res_p, j0_p, j1_p
+    del j0_p, j1_p
     ncam, npts = st2d[p0.a_cls].shape[0], st2d[p1.a_cls].shape[0]
     record("eval_snavely", b1, lambda: snavely_evaluate(*args),
            lambda: snavely_evaluate_plain(*args),
            w * (2 * n + 2 * n + 9 * ncam + 3 * npts + 2 * n + 24 * n), B1_OPS_PER_OBS * n)
+    # the residual-only launch (the accept step's evaluation): the same
+    # gathers and observations in, [2, n] out
+    res_args = args[:-1] + (False,)
+    cost_r, res_r, _ = snavely_evaluate(*res_args)
+    rel = max(rel_err(res_r, res_p)[1], rel_err(cost_r.reshape(1), cost_p.reshape(1))[1])
+    r_ms = median_ms(lambda: snavely_evaluate(*res_args))
+    rb_ms, rb_by = bound(w * (2 * n + 2 * n + 9 * ncam + 3 * npts + 2 * n), B1_RES_OPS_PER_OBS * n)
+    print(f"phase 2: eval_snavely residual-only: max rel err {rel:.3e} (tol 2e-04) kernel "
+          f"{r_ms:.4f} ms, bound {rb_ms:.4f} ms ({rb_by}; {100 * rb_ms / r_ms:.1f}% of it); "
+          f"with the Jacobian {results['eval_snavely']['ms']:.4f} ms"
+          f"{'' if rel <= 2e-4 else '  FAILED'}", flush=True)
+    if not rel <= 2e-4:
+        raise AssertionError("eval_snavely residual-only: kernel disagrees with its plain version")
+    del res_p, res_r
 
     # the twins of one new Jacobian: F's, made with the leaf; the
     # scale-materialized F's, scaled slot by slot from it; and the
-    # materialized E's in camera order (for B5)
+    # materialized E's in camera order (for B4 and B5)
     layout = garr["csr"][0]
     n_pad = layout.perm.shape[0]
     ncols_f = layout.offsets.shape[0] - 1
@@ -316,7 +346,8 @@ def phase_kernels(program, dev, results):
            w * (18 * n + 2 * n + n + 9 * ncols_f), 2 * 18 * n)
     time_library("contract_reduce", lambda: library_b3(j0, rows_f, u, ncols_f, 2), out1, results)
 
-    # B4 with the real (E'E + I)^-1 table of this Jacobian
+    # B4 with the real (E'E + I)^-1 table of this Jacobian, whole and each
+    # of its two launches
     sy = sy_meta(program)
     if sy is None:
         raise AssertionError("the BA problem is not on the fused S·y path")
@@ -325,32 +356,46 @@ def phase_kernels(program, dev, results):
     e_mask = torch.as_tensor(program.schur_tangent_masks()[0], dtype=f32, device=dev)
     ete = ete_solver_from_gram(program, ete_gram_tables(program, jac_e), e_mask)
     minv = ete.inv_tables[sy["e_cls"]]
+    e_pos, f_pos = sy["e_pos"], sy["f_pos"]
     F, E = j0, j1
+    e_twin = jac.twin(0, e_pos, f_pos)
+    prow = program.slot_rows(0, e_pos, f_pos, dev)
     segs = sy_tables(sy, dev)
     cnt_e = minv.shape[1]
-    b4 = rel_err(
-        sy_apply(sy, F, E, rows_f, f_twin, layout, y, minv, segs),
-        sy_apply_plain(sy, F, E, rows_f, f_twin, layout, y, minv),
-    )
-    # Fᵀ(I − E M⁻¹ Eᵀ) F y, its own launch and its B3 launch together: F and
-    # E once, the camera rows, the point buckets (the point rows), y, the
-    # inverse table in, the table out
+    dsq = 0.5 + torch.rand((9, ncols_f), generator=gen, device=dev, dtype=f32)
+    sy_args = (sy, F, E, rows_f, f_twin, e_twin, prow, layout, y, minv, segs)
+    out1, out2 = sy_apply(*sy_args), sy_apply(*sy_args)
+    if not torch.equal(out1, out2):
+        raise AssertionError("schur_sy is not bitwise reproducible")
+    b4 = rel_err(out1, sy_apply_plain(sy, F, E, rows_f, f_twin, layout, y, minv))
+    b4_dsq = rel_err(sy_apply(*sy_args, dsq),
+                     sy_apply_plain(sy, F, E, rows_f, f_twin, layout, y, minv, dsq))
+    b4 = (max(b4[0], b4_dsq[0]), max(b4[1], b4_dsq[1]))
+    del out1, out2
+    # Fᵀ(I − E M⁻¹ Eᵀ) F y as a function: F and E once, the camera rows, the
+    # point buckets (the point rows), y, the inverse table in, the table out
     b4_in = 18 * n + 6 * n + n + segs[0].numel() + segs[1].numel() + 9 * ncols_f + 9 * cnt_e
-    record("schur_sy", b4, lambda: sy_apply(sy, F, E, rows_f, f_twin, layout, y, minv, segs),
+    record("schur_sy", b4, lambda: sy_apply(*sy_args),
            lambda: sy_apply_plain(sy, F, E, rows_f, f_twin, layout, y, minv),
            w * (b4_in + 9 * ncols_f), n * (4 * 18 + 4 * 6) + cnt_e * 2 * 9)
-    own_ms, own_by = bound(w * (b4_in + 2 * n), n * (2 * 18 + 4 * 6 + 2) + cnt_e * 2 * 9)
-    print(f"phase 2: schur_sy: its own launch (diff = t1 − E M⁻¹ Eᵀ t1 out, [2, n]) is bound "
-          f"at {own_ms:.4f} ms ({own_by})", flush=True)
-    del ete, minv
+    t2 = sy_point_pass(sy, F, E, rows_f, y, minv, segs)
+    a_ms = median_ms(lambda: sy_point_pass(sy, F, E, rows_f, y, minv, segs))
+    b_ms = median_ms(lambda: sy_fold_pass(sy, f_twin, e_twin, prow, layout, y, t2))
+    # pass (a): F, E, the camera rows, the buckets, y and the inverse table
+    # in, t2 out; pass (b): the twins (not their padding), the point rows, y
+    # and t2 in, the table out
+    a_bound = bound(w * (b4_in + 3 * cnt_e), n * (2 * 18 + 2 * 6) + cnt_e * 2 * 9)
+    b_bound = bound(w * (24 * n + n + 9 * ncols_f + 3 * cnt_e + 9 * ncols_f), n * (4 * 18 + 2 * 6))
+    print(f"phase 2: schur_sy launches: point pass {a_ms:.4f} ms (bound {a_bound[0]:.4f} ms, "
+          f"{a_bound[1]}), slot pass with its chunk sum {b_ms:.4f} ms (bound {b_bound[0]:.4f} ms, "
+          f"{b_bound[1]}); with D_f² y folded in, max rel err {b4_dsq[1]:.3e}", flush=True)
+    del ete, minv, t2, dsq
 
     # B5 with the ridge (E'E)^-1 table of this Jacobian, as schur_prepare
     # builds it
     e_gram = ete_gram_tables(program, jac_e)
     minv0 = ridge_ete_solver(program, e_gram, jac.squared_column_norms()).inv_records(sy["e_cls"])
-    e_pos, f_pos = sy["e_pos"], sy["f_pos"]
-    p0_args = (sy, jac.twin(0, f_pos), jac.twin(0, e_pos, f_pos),
-               program.slot_rows(0, e_pos, f_pos, dev), layout, minv0)
+    p0_args = (sy, jac.twin(0, f_pos), e_twin, prow, layout, minv0)
     p0_1, p0_2 = p0_apply(*p0_args), p0_apply(*p0_args)
     if not torch.equal(p0_1, p0_2):
         raise AssertionError("schur_p0 is not bitwise reproducible")
@@ -375,7 +420,8 @@ def phase_kernels(program, dev, results):
         )
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain version")
-    print("phase 2: contract_reduce and schur_p0 bitwise equal across two runs", flush=True)
+    print("phase 2: contract_reduce, schur_sy and schur_p0 bitwise equal across two runs",
+          flush=True)
     phase_prepare(program, jac)
 
 
@@ -493,13 +539,13 @@ def run_main_path(bal, precond):
     return summary, launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the port's BA solve on one CUDA card.")
     parser.add_argument(
         "--phase", type=int, choices=(2,),
         help="stop after phase 2 (the kernels, the twin builds, schur_prepare); no result line",
     )
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():

@@ -7,9 +7,11 @@ only PyTorch: `python -m pytest --noconftest tests/test_torch_cuda_kernels.py`
 version's largest magnitude: float32 2e-4 for B1 (the dual-number chain
 rounds differently from torch.func), 1e-5 for B2 (a 9-term dot product),
 1e-4 for B3/B4/B5 (sums over thousands of observations in another order);
-float64 1e-11. B3 and B5 read camera-ordered twins of the leaves; their
-tests use ragged camera runs (1, 31, 32, 33 and thousands of observations,
-one camera with none) and check that two runs are bitwise equal."""
+float64 1e-11. B3, B4's slot pass and B5 read camera-ordered twins of the
+leaves; their tests use ragged camera runs (1, 31, 32, 33 and thousands of
+observations, one camera with none) and check that two runs are bitwise
+equal. `synthetic_sy_case` also serves the CPU tests of B4's plain passes
+(tests/test_torch_schur.py)."""
 
 import numpy as np
 import pytest
@@ -30,7 +32,11 @@ from ceres_tpu_torch.linalg.schur_kernels import (
     p0_apply_plain,
     sy_apply,
     sy_apply_plain,
+    sy_fold_pass,
+    sy_fold_plain,
     sy_meta,
+    sy_point_pass,
+    sy_point_plain,
     sy_tables,
 )
 from ceres_tpu_torch.jacobian import make_twin
@@ -75,6 +81,37 @@ def test_eval_kernel_matches_plain(card, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("loss", [ct.HuberLoss(1.0), ct.TrivialLoss(), None],
+                         ids=["huber", "trivial", "none"])
+def test_eval_kernel_branches(card, dtype, loss):
+    """Both branches of the rotation (angle-axis 0 and |a|² < 1e-24: the
+    small-angle linearization; the rest: Rodrigues), observations far off
+    (Huber outliers) and near (inliers), with and without the Jacobian."""
+    rng = np.random.default_rng(7)
+    ncam, npts, n = 30, 200, 6000
+    cams = rng.normal(size=(ncam, 9)) * [0.3, 0.3, 0.3, 1, 1, 1, 1, 0.1, 0.01]
+    cams[:, 5] -= 6.0
+    cams[:, 6] = 1.0 + 0.2 * rng.random(ncam)
+    cams[:10, :3] = 0.0
+    cams[10:20, :3] = rng.normal(size=(10, 3)) * 1e-13
+    pts = rng.normal(size=(npts, 3))
+    rows0 = rng.integers(0, ncam, n).astype(np.int32)
+    rows1 = rng.integers(0, npts, n).astype(np.int32)
+    obs = rng.normal(size=(n, 2)) * np.where(rng.random((n, 1)) < 0.3, 3.0, 0.05)
+    tol = 2e-4 if dtype == torch.float32 else 1e-11
+    for with_jac in (True, False):
+        args = (torch.tensor(cams, dtype=dtype, device=card), torch.tensor(rows0, device=card),
+                torch.tensor(pts, dtype=dtype, device=card), torch.tensor(rows1, device=card),
+                torch.tensor(obs, dtype=dtype, device=card), loss, with_jac)
+        k = eval_kernel.snavely_evaluate(*args)
+        p = eval_kernel.snavely_evaluate_plain(*args)
+        for a, b in [(k[0].reshape(1), p[0].reshape(1)), (k[1], p[1])] + list(zip(k[2], p[2])):
+            _close(a, b, tol)
+        if with_jac:  # both rotation branches reach the camera Jacobian
+            _close(k[2][0][:, rows0 < 20], p[2][0][:, rows0 < 20], tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_gather_reduce_kernels_match_plain(card, dtype):
     rng = np.random.default_rng(4)
     n, ncols = 50_000, 40
@@ -106,6 +143,48 @@ def _ragged_layout(card, seed):
     rows = np.repeat(np.arange(len(RAGGED)), RAGGED).astype(np.int32)
     rows = np.random.default_rng(seed).permutation(rows)
     return rows, camera_layout(rows, len(RAGGED)).to(card)
+
+
+def synthetic_sy_case(r, te, tf, dtype, device, seed=0):
+    """Inputs of B4 (sy_apply) for any block sizes: the RAGGED camera runs
+    (the last one the dump column) and points on a bucket layout of ragged
+    degrees (1 to 40) and bucket lengths, three points without observations
+    at the end. Returns (meta, F, E, rows_f, F_twin, E_twin, prow, layout,
+    y, minv, dsq): leaves, twins, slot point rows, the [te², cnt_e] inverse
+    table (symmetric blocks), a camera table y with the dump column 0 and
+    an LM diagonal dsq, both [tf, ncols]."""
+    rng = np.random.default_rng(seed)
+    rows_np, layout = _ragged_layout(device, seed)
+    n, ncols = rows_np.size, len(RAGGED)
+    buckets, lane, point = [], 0, 0
+    while lane < n:
+        d = min(int(rng.choice([1, 2, 3, 5, 7, 40])), n - lane)
+        n_seg = max(1, min(int(rng.integers(1, 60)), (n - lane) // d))
+        buckets.append((lane, n_seg, d, point))
+        lane, point = lane + n_seg * d, point + n_seg
+    cnt_e = point + 3
+    point_of_lane = np.concatenate([
+        out_row + np.tile(np.arange(n_seg), d) for _ls, n_seg, d, out_row in buckets
+    ]).astype(np.int32)
+    meta = {
+        "r": r, "te": te, "tf": tf, "cnt_f": ncols - 1, "buckets": tuple(buckets),
+        "segs": np.asarray(buckets, dtype=np.int32).reshape(-1),
+        "pt_start": np.concatenate([[0], np.cumsum([b[1] for b in buckets])]).astype(np.int32),
+    }
+
+    def tensor(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    F, E = tensor(rng.normal(size=(r * tf, n))), tensor(rng.normal(size=(r * te, n)))
+    perm = layout.perm.cpu().numpy()
+    prow = torch.tensor(np.where(perm >= 0, point_of_lane[np.maximum(perm, 0)], -1),
+                        dtype=torch.int32, device=device)
+    a = rng.normal(size=(cnt_e, te, te))
+    minv = tensor((a @ a.transpose(0, 2, 1)).reshape(cnt_e, te * te).T.copy())
+    y, dsq = tensor(rng.normal(size=(tf, ncols))), tensor(rng.uniform(0.5, 2.0, (tf, ncols)))
+    y[:, -1] = 0
+    return (meta, F, E, torch.tensor(rows_np, device=device), make_twin(F, layout),
+            make_twin(E, layout), prow, layout, y, minv, dsq)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -161,12 +240,43 @@ def test_schur_sy_kernel_matches_plain(card, dtype):
     F, E = jac.jac_groups[0][meta["f_pos"]], jac.jac_groups[0][meta["e_pos"]]
     rows_f, layout_f = g["t_rows"][meta["f_pos"]], g["csr"][meta["f_pos"]]
     F_twin = jac.twin(0, meta["f_pos"])
+    E_twin = jac.twin(0, meta["e_pos"], meta["f_pos"])
+    prow = program.slot_rows(0, meta["e_pos"], meta["f_pos"], card)
     y = torch.randn((9, layout_f.offsets.shape[0] - 1), dtype=dtype, device=card)
     y[:, -1] = 0
     minv = ete.inv_tables[meta["e_cls"]]
-    _close(sy_apply(meta, F, E, rows_f, F_twin, layout_f, y, minv, sy_tables(meta, card)),
-           sy_apply_plain(meta, F, E, rows_f, F_twin, layout_f, y, minv),
+    args = (meta, F, E, rows_f, F_twin, E_twin, prow, layout_f, y, minv, sy_tables(meta, card))
+    out = sy_apply(*args)
+    assert torch.equal(out, sy_apply(*args))  # deterministic
+    _close(out, sy_apply_plain(meta, F, E, rows_f, F_twin, layout_f, y, minv),
            1e-4 if dtype == torch.float32 else 1e-11)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("r,te,tf", [(2, 3, 9), (1, 1, 1), (2, 8, 16), (4, 3, 8), (3, 5, 6)])
+def test_schur_sy_passes_ragged_runs(card, dtype, r, te, tf):
+    """Each launch of B4 against its plain version, and the whole S·y with
+    the LM diagonal folded in, on ragged camera runs and point degrees."""
+    (meta, F, E, rows_f, F_twin, E_twin, prow, layout, y, minv,
+     dsq) = synthetic_sy_case(r, te, tf, dtype, card, seed=r * 100 + te * 10 + tf)
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    segs = sy_tables(meta, card)
+    t2 = sy_point_pass(meta, F, E, rows_f, y, minv, segs)
+    npts = int(meta["pt_start"][-1])  # the points with observations
+    assert t2.shape[1] % 4 == 0 and torch.all(t2[:npts, te:] == 0)
+    _close(t2[:npts, :te], sy_point_plain(meta, F, E, rows_f, y, minv)[:npts], tol)
+    # y's and dsq's dump columns nonzero: the fold leaves that column 0
+    y_dump = y.clone()
+    y_dump[:, -1] = 1.5
+    fold = sy_fold_pass(meta, F_twin, E_twin, prow, layout, y_dump, t2, dsq)
+    assert torch.all(fold[:, -1] == 0)
+    _close(fold, sy_fold_plain(meta, F_twin, E_twin, prow, layout, y_dump, t2, dsq), tol)
+    args = (meta, F, E, rows_f, F_twin, E_twin, prow, layout, y, minv, segs, dsq)
+    launched = cuda_lib.launch_counts()["schur_sy"]
+    out = sy_apply(*args)
+    assert cuda_lib.launch_counts()["schur_sy"] == launched + 1  # one count per S·y
+    assert torch.equal(out, sy_apply(*args))
+    _close(out, sy_apply_plain(meta, F, E, rows_f, F_twin, layout, y, minv, dsq), tol)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -183,11 +183,12 @@ def test_problem_counts_match_jax():
 
 def test_compile_defaults_to_the_solve_device(monkeypatch):
     """Problem.compile() with no device lowers to the device `solve` picks
-    (utils.dtypes.resolve_device): the card when there is one, else the
-    CPU; a named device wins."""
+    (utils.dtypes.resolve_device): the card; with no card visible it
+    raises rather than fall back to the CPU; a named device wins."""
     problem, _, _ = ct.build_ba_problem(synthetic_bal(3, 10, 30, seed=4))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert problem.compile().device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        problem.compile()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert problem.compile().device == torch.device("cuda")
     assert problem.compile("cpu").device == torch.device("cpu")

@@ -4,7 +4,9 @@ against ceres_tpu.
 - The plain S·y against pallas_schur.sy_apply, run in interpret mode in
   float32 (MIN_LANES lowered so the kernel path engages at small n), at
   5e-4; and against the JAX composed four-product operator in float64 at
-  1e-12.
+  1e-12. So are the plain versions of B4's two passes (t2 against the JAX
+  t2, and with the LM diagonal folded in), and they compose to
+  sy_apply_plain on ragged layouts of any block sizes.
 - For fixed J, D and r, schur_prepare + schur_finish give the same step
   (1e-9 relative) after the same number of PCG iterations.
 - The block inverses and PCG against their JAX counterparts.
@@ -31,8 +33,16 @@ from ceres_tpu_torch.jacobian import make_twin
 from ceres_tpu_torch.linalg import cg as tcg
 from ceres_tpu_torch.linalg import preconditioners as tpre
 from ceres_tpu_torch.linalg import schur as tschur
-from ceres_tpu_torch.linalg.schur_kernels import sy_apply, sy_apply_plain, sy_meta, sy_tables
+from ceres_tpu_torch.linalg.schur_kernels import (
+    sy_apply,
+    sy_apply_plain,
+    sy_fold_plain,
+    sy_meta,
+    sy_point_plain,
+    sy_tables,
+)
 from ceres_tpu_torch.program import Program as TProgram
+from test_torch_cuda_kernels import synthetic_sy_case
 
 torch.set_num_threads(1)
 
@@ -74,8 +84,9 @@ def _port_sy(tprog, jac, ete, y, dtype):
     rows_f = g["t_rows"][meta["f_pos"]]
     y = torch.tensor(np.asarray(y))
     layout = g["csr"][meta["f_pos"]]
-    return meta, sy_apply(meta, F, E, rows_f, make_twin(F, layout), layout, y, minv,
-                          sy_tables(meta, F.device))
+    prow = tprog.slot_rows(0, meta["e_pos"], meta["f_pos"], F.device)
+    return meta, sy_apply(meta, F, E, rows_f, make_twin(F, layout), make_twin(E, layout), prow,
+                          layout, y, minv, sy_tables(meta, F.device))
 
 
 def test_plain_sy_matches_pallas_sy_apply_f32(monkeypatch):
@@ -107,6 +118,69 @@ def test_plain_sy_matches_composed_f64():
     want = np.asarray(jac_f.left_multiply_t([a - b for a, b in zip(t1, et2)])[f_cls])
     _, got = _port_sy(tprog, jac, ete, y, torch.float64)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("with_dsq", [False, True], ids=["no_dsq", "dsq"])
+def test_sy_passes_match_jax_f64(with_dsq):
+    """B4's two passes, plain, on the port's tables: t2 (point-major) equals
+    JAX's M⁻¹Eᵀ(F y), the fold equals JAX's composed S·y (+ D_f² y with the
+    dump column 0), and both equal sy_apply_plain; sy_apply runs it on CPU
+    tensors."""
+    jprog, tprog = _programs(seed=6)
+    jac, jac_e, jac_f, ete, y = _jax_sy_setup(jprog, jnp.float64)
+    meta = sy_meta(tprog)
+    f_cls, e_cls = meta["f_cls"], meta["e_cls"]
+    tv = [jnp.zeros((t, c + 1)) for t, c in zip(jprog.tangent_class_sizes, jprog.tangent_class_counts)]
+    tv[f_cls] = y
+    t1 = jac_f.right_multiply_t(tv)
+    jt2 = ete.apply_t(jac_e.left_multiply_t(t1))
+    et2 = jac_e.right_multiply_t(jt2)
+    want = np.asarray(jac_f.left_multiply_t([a - b for a, b in zip(t1, et2)])[f_cls]).copy()
+    dsq = None
+    if with_dsq:
+        # nonzero on the dump column too: the result is 0 there all the same
+        dsq = np.random.default_rng(1).uniform(0.5, 2.0, want.shape)
+        want = want + dsq * np.asarray(y)
+        want[:, -1] = 0.0
+        dsq = torch.tensor(dsq)
+    g = Evaluator(tprog, torch.float64).arrays["groups"][0]
+    F = torch.tensor(np.asarray(jac.jac_groups[0][meta["f_pos"]]))
+    E = torch.tensor(np.asarray(jac.jac_groups[0][meta["e_pos"]]))
+    minv = torch.tensor(np.asarray(ete.inv_tables[e_cls]))
+    rows_f, layout = g["t_rows"][meta["f_pos"]], g["csr"][meta["f_pos"]]
+    prow = tprog.slot_rows(0, meta["e_pos"], meta["f_pos"], "cpu")
+    yt = torch.tensor(np.asarray(y))
+    t2 = sy_point_plain(meta, F, E, rows_f, yt, minv)
+    cnt_e = minv.shape[1]
+    want_t2 = np.asarray(jt2[e_cls])[:, :cnt_e].T
+    np.testing.assert_allclose(t2.numpy(), want_t2, rtol=1e-12, atol=1e-12 * np.abs(want_t2).max())
+    F_twin, E_twin = make_twin(F, layout), make_twin(E, layout)
+    # the fold ignores y's dump column (its slots add only to the dump column)
+    y_dump = yt.clone()
+    y_dump[:, -1] = 1.5
+    got = sy_fold_plain(meta, F_twin, E_twin, prow, layout, y_dump, t2, dsq)
+    tol = dict(rtol=1e-12, atol=1e-12 * np.abs(want).max())
+    np.testing.assert_allclose(got.numpy(), want, **tol)
+    composed = sy_apply_plain(meta, F, E, rows_f, F_twin, layout, yt, minv, dsq)
+    np.testing.assert_allclose(got.numpy(), composed.numpy(), **tol)
+    on_cpu = sy_apply(meta, F, E, rows_f, F_twin, E_twin, prow, layout, yt, minv,
+                      sy_tables(meta, F.device), dsq)
+    assert torch.equal(on_cpu, composed)
+
+
+@pytest.mark.parametrize("r,te,tf", [(2, 3, 9), (1, 1, 1), (2, 8, 16), (4, 3, 8), (3, 5, 6)])
+def test_sy_passes_compose_to_plain_on_ragged_layouts(r, te, tf):
+    """The plain passes of B4 (what its kernels compute) against the composed
+    product, f64, on ragged camera runs and point degrees of any block sizes
+    within sy_meta's bounds, with the LM diagonal folded in."""
+    (meta, F, E, rows_f, F_twin, E_twin, prow, layout, y, minv,
+     dsq) = synthetic_sy_case(r, te, tf, torch.float64, torch.device("cpu"), seed=tf)
+    t2 = sy_point_plain(meta, F, E, rows_f, y, minv)
+    got = sy_fold_plain(meta, F_twin, E_twin, prow, layout, y, t2, dsq)
+    want = sy_apply_plain(meta, F, E, rows_f, F_twin, layout, y, minv, dsq)
+    assert torch.all(got[:, -1] == 0)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                               atol=1e-12 * float(want.abs().max()))
 
 
 def test_sy_meta_eligibility(monkeypatch):

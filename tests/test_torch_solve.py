@@ -123,7 +123,7 @@ def test_solve_is_deterministic():
     for _ in range(2):
         problem, _, _ = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))
         ct.solve(_options(ct, device="cpu", max_num_iterations=3), problem)
-        out.append(problem.compile().state0.copy())
+        out.append(problem.compile("cpu").state0.copy())
     np.testing.assert_array_equal(out[0], out[1])
 
 
@@ -155,9 +155,26 @@ def test_empty_problem_converges():
     assert s.termination_type == ct.TerminationType.CONVERGENCE
 
 
+@pytest.mark.parametrize("device,expect", [(None, RuntimeError), ("cpu", "cpu")])
+def test_solve_never_falls_back_to_the_cpu(monkeypatch, device, expect):
+    """With no device named, solve runs on the card; with no card visible it
+    raises and leaves the problem as it was. A named "cpu" runs there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bal = synthetic_bal(4, 20, 80, seed=5)
+    problem, _, pts = ct.build_ba_problem(bal)
+    options = _options(ct, device=device, max_num_iterations=1)
+    if expect is RuntimeError:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ct.solve(options, problem)
+        np.testing.assert_array_equal(problem.parameter_block_value(pts[0]), bal.points[0])
+    else:
+        assert ct.solve(options, problem).final_cost < np.inf
+        assert problem.compile("cpu").device == torch.device(expect)
+
+
 def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
     import chip_smoke
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert chip_smoke.main() != 0
+    assert chip_smoke.main([]) != 0
     assert '"ok"' not in capsys.readouterr().out
