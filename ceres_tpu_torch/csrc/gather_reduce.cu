@@ -34,10 +34,19 @@
 // through shared memory would add a copy and no reuse. B3 loads the twin
 // with ld.global.cs (evict-first in L2), so its stream does not push u out
 // of L2.
+//
+// Each is instantiated for float and double, and for bfloat16 leaves
+// (leaf.cuh: the mixed-precision solves, half the leaf bytes): B2 rounds the
+// table to bfloat16 as the TPU kernel reads a bfloat16 table
+// (pallas_onehot.py:120-126), B3 rounds u (:153-162); products and sums
+// are float, and so are the table, u and the outputs. A warp then reads 64
+// contiguous bytes of a leaf row, two whole 32-byte sectors.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "camera_chunks.cuh"
+#include "leaf.cuh"
 
 namespace {
 
@@ -45,33 +54,40 @@ constexpr int kGatherBlock = 256;
 constexpr int kReduceBlock = 256;
 constexpr int kRows = 16;  // output rows per pass of a B3 block
 
-template <typename T>
+template <typename L>
 __global__ void __launch_bounds__(kGatherBlock)
-    gather_contract_kernel(const T* __restrict__ jac, const int* __restrict__ rows,
-                           const T* __restrict__ table, int n, int r, int t, int ncols,
-                           T* __restrict__ out) {
+    gather_contract_kernel(const L* __restrict__ jac, const int* __restrict__ rows,
+                           const typename leaf::Leaf<L>::V* __restrict__ table, int n, int r,
+                           int t, int ncols, typename leaf::Leaf<L>::V* __restrict__ out) {
+  using Lf = leaf::Leaf<L>;
+  using V = typename Lf::V;
   const int l = blockIdx.x * kGatherBlock + threadIdx.x;
   if (l >= n) return;
   const size_t N = static_cast<size_t>(n);
   const int c = rows[l];
   const bool live = c >= 0 && c < ncols - 1;
   for (int i = 0; i < r; ++i) {
-    T acc = T(0);
+    V acc = V(0);
     if (live) {
       for (int j = 0; j < t; ++j) {
-        acc += jac[static_cast<size_t>(i * t + j) * N + l] * table[static_cast<size_t>(j) * ncols + c];
+        acc += Lf::ld(jac + static_cast<size_t>(i * t + j) * N + l) *
+               Lf::round(table[static_cast<size_t>(j) * ncols + c]);
       }
     }
     out[static_cast<size_t>(i) * N + l] = acc;
   }
 }
 
-template <typename T>
+template <typename L>
 __global__ void __launch_bounds__(kReduceBlock)
-    contract_reduce_kernel(const T* __restrict__ twin, const int* __restrict__ perm,
-                           const int* __restrict__ chunk_start, const T* __restrict__ u, int n,
-                           int n_pad, int r, int t, int nchunks, T* __restrict__ partial) {
-  __shared__ T sh[kReduceBlock / 32][kRows];
+    contract_reduce_kernel(const L* __restrict__ twin, const int* __restrict__ perm,
+                           const int* __restrict__ chunk_start,
+                           const typename leaf::Leaf<L>::V* __restrict__ u, int n, int n_pad,
+                           int r, int t, int nchunks,
+                           typename leaf::Leaf<L>::V* __restrict__ partial) {
+  using Lf = leaf::Leaf<L>;
+  using V = typename Lf::V;
+  __shared__ V sh[kReduceBlock / 32][kRows];
   const int m = blockIdx.x;
   const int beg = chunk_start[m];
   const int end = chunk_start[m + 1];
@@ -81,39 +97,39 @@ __global__ void __launch_bounds__(kReduceBlock)
   const size_t N = static_cast<size_t>(n);
   for (int j0 = 0; j0 < t; j0 += kRows) {
     const int nj = min(kRows, t - j0);
-    T acc[kRows];
+    V acc[kRows];
 #pragma unroll
-    for (int q = 0; q < kRows; ++q) acc[q] = T(0);
+    for (int q = 0; q < kRows; ++q) acc[q] = V(0);
     for (int k = beg + threadIdx.x; k < end; k += kReduceBlock) {
       if (u != nullptr) {
         const int l = perm[k];
         if (l < 0) continue;  // padding: the twin is zero there
         for (int i = 0; i < r; ++i) {
-          const T w = u[static_cast<size_t>(i) * N + l];
-          const T* col = twin + static_cast<size_t>(i * t + j0) * NP + k;
+          const V w = Lf::round(u[static_cast<size_t>(i) * N + l]);
+          const L* col = twin + static_cast<size_t>(i * t + j0) * NP + k;
 #pragma unroll
           for (int q = 0; q < kRows; ++q) {
-            if (q < nj) acc[q] += __ldcs(col + q * NP) * w;
+            if (q < nj) acc[q] += Lf::ldcs(col + q * NP) * w;
           }
         }
       } else {
-        const T* col = twin + static_cast<size_t>(j0) * NP + k;
+        const L* col = twin + static_cast<size_t>(j0) * NP + k;
 #pragma unroll
         for (int q = 0; q < kRows; ++q) {
-          if (q < nj) acc[q] += __ldcs(col + q * NP);
+          if (q < nj) acc[q] += Lf::ldcs(col + q * NP);
         }
       }
     }
 #pragma unroll
     for (int q = 0; q < kRows; ++q) {
-      T v = acc[q];
+      V v = acc[q];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
       if (lane == 0) sh[warp][q] = v;
     }
     __syncthreads();
     if (threadIdx.x < nj) {
-      T s = T(0);
+      V s = V(0);
 #pragma unroll
       for (int w = 0; w < kReduceBlock / 32; ++w) s += sh[w][threadIdx.x];
       partial[static_cast<size_t>(j0 + threadIdx.x) * nchunks + m] = s;
@@ -122,28 +138,28 @@ __global__ void __launch_bounds__(kReduceBlock)
   }
 }
 
-template <typename T>
-int launch_gather(const T* jac, const int* rows, const T* table, int n, int r, int t, int ncols,
-                  T* out, cudaStream_t stream) {
+template <typename L, typename V = typename leaf::Leaf<L>::V>
+int launch_gather(const L* jac, const int* rows, const V* table, int n, int r, int t, int ncols,
+                  V* out, cudaStream_t stream) {
   const int blocks = (n + kGatherBlock - 1) / kGatherBlock;
   if (blocks > 0) {
-    gather_contract_kernel<T><<<blocks, kGatherBlock, 0, stream>>>(jac, rows, table, n, r, t,
+    gather_contract_kernel<L><<<blocks, kGatherBlock, 0, stream>>>(jac, rows, table, n, r, t,
                                                                    ncols, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_reduce(const T* twin, const int* perm, const int* chunk_start, const int* row_chunks,
-                  const T* u, int n, int n_pad, int r, int t, int nchunks, int ncols, T* partial,
-                  T* out, cudaStream_t stream) {
+template <typename L, typename V = typename leaf::Leaf<L>::V>
+int launch_reduce(const L* twin, const int* perm, const int* chunk_start, const int* row_chunks,
+                  const V* u, int n, int n_pad, int r, int t, int nchunks, int ncols, V* partial,
+                  V* out, cudaStream_t stream) {
   if (t > 0 && nchunks > 0) {
-    contract_reduce_kernel<T><<<nchunks, kReduceBlock, 0, stream>>>(twin, perm, chunk_start, u, n,
+    contract_reduce_kernel<L><<<nchunks, kReduceBlock, 0, stream>>>(twin, perm, chunk_start, u, n,
                                                                     n_pad, r, t, nchunks, partial);
   }
   const cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  camera_chunks::launch_chunk_sum<T>(partial, row_chunks, t, nchunks, ncols, ncols, nullptr,
+  camera_chunks::launch_chunk_sum<V>(partial, row_chunks, t, nchunks, ncols, ncols, nullptr,
                                      nullptr, out, stream);
   return static_cast<int>(cudaGetLastError());
 }
@@ -177,4 +193,21 @@ extern "C" int ctt_contract_reduce_f64(const double* twin, const int* perm,
                                        void* stream) {
   return launch_reduce<double>(twin, perm, chunk_start, row_chunks, u, n, n_pad, r, t, nchunks,
                                ncols, partial, out, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ctt_gather_contract_bf16(const __nv_bfloat16* jac, const int* rows,
+                                        const float* table, int n, int r, int t, int ncols,
+                                        float* out, void* stream) {
+  return launch_gather<__nv_bfloat16>(jac, rows, table, n, r, t, ncols, out,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ctt_contract_reduce_bf16(const __nv_bfloat16* twin, const int* perm,
+                                        const int* chunk_start, const int* row_chunks,
+                                        const float* u, int n, int n_pad, int r, int t,
+                                        int nchunks, int ncols, float* partial, float* out,
+                                        void* stream) {
+  return launch_reduce<__nv_bfloat16>(twin, perm, chunk_start, row_chunks, u, n, n_pad, r, t,
+                                      nchunks, ncols, partial, out,
+                                      static_cast<cudaStream_t>(stream));
 }

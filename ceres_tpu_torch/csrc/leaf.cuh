@@ -1,0 +1,46 @@
+// The leaf types of kernels B2, B3 and B4: how a Jacobian leaf is loaded
+// and what precision the vectors it meets are rounded to.
+//
+// Leaf<T> for float and double: leaves, vectors and sums all in T, and
+// nothing rounded. Leaf<__nv_bfloat16> serves the mixed-precision solves
+// (ceres_tpu/linalg/pallas_schur.py _sy_kernel with bf16=True,
+// pallas_onehot.py _gather_contract_kernel and _contract_reduce_kernel on
+// bf16 leaves): the leaves are bfloat16 and are widened exactly to float;
+// vectors, accumulators and outputs are float. A vector operand is rounded
+// to bfloat16 (round) where the TPU kernel casts it to the leaf type, and
+// its product with a leaf is then formed in float, where it is exact (two
+// 8-bit significands). The TPU kernels round those products, and some
+// sums, to bfloat16: a deliberate deviation toward precision.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace leaf {
+namespace {
+
+template <typename T>
+struct Leaf {
+  using V = T;  // vectors, accumulators, outputs
+  __device__ __forceinline__ static V ld(const T* p) { return *p; }
+  // evict-first (ld.global.cs): a streamed leaf does not push the
+  // kernel's reused vectors out of L2
+  __device__ __forceinline__ static V ldcs(const T* p) { return __ldcs(p); }
+  __device__ __forceinline__ static V round(V x) { return x; }
+};
+
+template <>
+struct Leaf<__nv_bfloat16> {
+  using V = float;
+  __device__ __forceinline__ static V ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+  __device__ __forceinline__ static V ldcs(const __nv_bfloat16* p) {
+    return __bfloat162float(
+        __ushort_as_bfloat16(__ldcs(reinterpret_cast<const unsigned short*>(p))));
+  }
+  __device__ __forceinline__ static V round(V x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+};
+
+}  // namespace
+}  // namespace leaf

@@ -47,10 +47,24 @@
 // bounds run a generic one, sized for the largest (in float32 its slot pass
 // takes 128 registers against 48, and S·y at BAL-1778 on an H100 runs
 // ~1.6x slower on it: PERF.md, PR 4).
+//
+// Leaves of float, double or bfloat16 (leaf.cuh). bfloat16 leaves are the
+// mixed-precision solves' matvec (_sy_kernel with bf16=True): F, E and their
+// twins are bfloat16, everything else float. The vector operands are rounded
+// to bfloat16 where _sy_kernel casts them to the leaf type: y as it is
+// gathered (pallas_schur.py:308-309), t1 before Eᵀt1 (:319-320), t2 before
+// E t2 (:335-338) and diff before Fᵀdiff (:343); t2 = M⁻¹ s, every product
+// and every sum stay float, and the output is float. _sy_kernel forms t1 in
+// bfloat16 and subtracts that value in diff = t1 − E t2, so the slot pass
+// subtracts the rounded t1 too: the point pass derived t2 from it, and diff
+// stays the projection of one t1 (linalg/schur_kernels.py). The passes, their
+// loads and the combine are those of float, with half the leaf bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "camera_chunks.cuh"
+#include "leaf.cuh"
 
 namespace {
 
@@ -87,13 +101,17 @@ __device__ __forceinline__ void store4(double* p, const double* v) {
 
 // Pass (a). kExact: r, tf, te are kR, kTf, kTe (and ld == 4 == kTe + 1);
 // otherwise they are run-time values bounded by them.
-template <typename T, int kR, int kTf, int kTe, bool kExact>
+template <typename L, int kR, int kTf, int kTe, bool kExact>
 __global__ void __launch_bounds__(kBlock)
-    sy_point_kernel(const T* __restrict__ F, const T* __restrict__ E,
-                    const int* __restrict__ rows_f, const T* __restrict__ y, int ncols_f,
-                    const int* __restrict__ segs, const int* __restrict__ pt_start, int nb,
-                    int num_points, const T* __restrict__ minv, int cnt_e, int n, int r_rt,
-                    int te_rt, int tf_rt, int ld, T* __restrict__ t2) {
+    sy_point_kernel(const L* __restrict__ F, const L* __restrict__ E,
+                    const int* __restrict__ rows_f,
+                    const typename leaf::Leaf<L>::V* __restrict__ y, int ncols_f,
+                    const int* __restrict__ segs, const int* __restrict__ pt_start,
+                    int nb, int num_points, const typename leaf::Leaf<L>::V* __restrict__ minv,
+                    int cnt_e, int n, int r_rt, int te_rt, int tf_rt, int ld,
+                    typename leaf::Leaf<L>::V* __restrict__ t2) {
+  using Lf = leaf::Leaf<L>;
+  using T = typename Lf::V;
   const int r = kExact ? kR : r_rt;
   const int te = kExact ? kTe : te_rt;
   const int tf = kExact ? kTf : tf_rt;
@@ -130,18 +148,21 @@ __global__ void __launch_bounds__(kBlock)
     if (c < 0 || c >= ncols_f - 1) continue;  // dump column: t1 = 0
     T yc[kTf];
 #pragma unroll
-    for (int k = 0; k < kTf; ++k) yc[k] = k < tf ? y[static_cast<size_t>(k) * ncols_f + c] : T(0);
+    for (int k = 0; k < kTf; ++k) {
+      yc[k] = k < tf ? Lf::round(y[static_cast<size_t>(k) * ncols_f + c]) : T(0);
+    }
 #pragma unroll
     for (int i = 0; i < kR; ++i) {
       if (i >= r) continue;
       T t1 = T(0);
 #pragma unroll
       for (int k = 0; k < kTf; ++k) {
-        if (k < tf) t1 += __ldcs(F + static_cast<size_t>(i * tf + k) * N + lane) * yc[k];
+        if (k < tf) t1 += Lf::ldcs(F + static_cast<size_t>(i * tf + k) * N + lane) * yc[k];
       }
+      t1 = Lf::round(t1);
 #pragma unroll
       for (int a = 0; a < kTe; ++a) {
-        if (a < te) s[a] += __ldcs(E + static_cast<size_t>(i * te + a) * N + lane) * t1;
+        if (a < te) s[a] += Lf::ldcs(E + static_cast<size_t>(i * te + a) * N + lane) * t1;
       }
     }
   }
@@ -171,13 +192,17 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 // Pass (b), over the chunks of every camera but the dump column.
-template <typename T, int kR, int kTf, int kTe, bool kExact>
+template <typename L, int kR, int kTf, int kTe, bool kExact>
 __global__ void __launch_bounds__(kBlock)
-    sy_fold_kernel(const T* __restrict__ F, const T* __restrict__ E,
+    sy_fold_kernel(const L* __restrict__ F, const L* __restrict__ E,
                    const int* __restrict__ prow, const int* __restrict__ chunk_start,
-                   const int* __restrict__ slot_row, const T* __restrict__ y, int ncols_f,
-                   const T* __restrict__ t2, int ld, int cnt_e, int n_pad, int r_rt, int te_rt,
-                   int tf_rt, int nchunks, T* __restrict__ partial) {
+                   const int* __restrict__ slot_row,
+                   const typename leaf::Leaf<L>::V* __restrict__ y, int ncols_f,
+                   const typename leaf::Leaf<L>::V* __restrict__ t2, int ld, int cnt_e, int n_pad,
+                   int r_rt, int te_rt, int tf_rt, int nchunks,
+                   typename leaf::Leaf<L>::V* __restrict__ partial) {
+  using Lf = leaf::Leaf<L>;
+  using T = typename Lf::V;
   __shared__ T sh[kWarps][kTf];
   const int r = kExact ? kR : r_rt;
   const int te = kExact ? kTe : te_rt;
@@ -192,7 +217,9 @@ __global__ void __launch_bounds__(kBlock)
 
   T yc[kTf];
 #pragma unroll
-  for (int k = 0; k < kTf; ++k) yc[k] = k < tf ? y[static_cast<size_t>(k) * ncols_f + c] : T(0);
+  for (int k = 0; k < kTf; ++k) {
+    yc[k] = k < tf ? Lf::round(y[static_cast<size_t>(k) * ncols_f + c]) : T(0);
+  }
   T acc[kTf];
 #pragma unroll
   for (int k = 0; k < kTf; ++k) acc[k] = T(0);
@@ -204,6 +231,8 @@ __global__ void __launch_bounds__(kBlock)
     if (kExact) {
       if (p < cnt_e) {
         load4(t2 + static_cast<size_t>(p) * ld, tt);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) tt[a] = Lf::round(tt[a]);
       } else {
 #pragma unroll
         for (int a = 0; a < 4; ++a) tt[a] = T(0);
@@ -211,7 +240,7 @@ __global__ void __launch_bounds__(kBlock)
     } else {
 #pragma unroll
       for (int a = 0; a < kTe; ++a) {
-        tt[a] = (a < te && p < cnt_e) ? t2[static_cast<size_t>(p) * ld + a] : T(0);
+        tt[a] = (a < te && p < cnt_e) ? Lf::round(t2[static_cast<size_t>(p) * ld + a]) : T(0);
       }
     }
     T f[kR][kTf];
@@ -219,7 +248,8 @@ __global__ void __launch_bounds__(kBlock)
     for (int i = 0; i < kR; ++i) {
 #pragma unroll
       for (int a = 0; a < kTf; ++a) {
-        f[i][a] = (i < r && a < tf) ? __ldcs(F + static_cast<size_t>(i * tf + a) * NP + k) : T(0);
+        f[i][a] =
+            (i < r && a < tf) ? Lf::ldcs(F + static_cast<size_t>(i * tf + a) * NP + k) : T(0);
       }
     }
     T diff[kR];
@@ -234,10 +264,10 @@ __global__ void __launch_bounds__(kBlock)
         }
 #pragma unroll
         for (int b = 0; b < kTe; ++b) {
-          if (b < te) et2 += __ldcs(E + static_cast<size_t>(i * te + b) * NP + k) * tt[b];
+          if (b < te) et2 += Lf::ldcs(E + static_cast<size_t>(i * te + b) * NP + k) * tt[b];
         }
       }
-      diff[i] = t1 - et2;
+      diff[i] = Lf::round(Lf::round(t1) - et2);
     }
 #pragma unroll
     for (int a = 0; a < kTf; ++a) {
@@ -272,8 +302,8 @@ bool shape_ok(int r, int te, int tf) {
 
 bool exact_ba(int r, int te, int tf, int ld) { return r == 2 && tf == 9 && te == 3 && ld == 4; }
 
-template <typename T>
-int launch_point(const T* F, const T* E, const int* rows_f, const T* y, int ncols_f,
+template <typename L, typename T = typename leaf::Leaf<L>::V>
+int launch_point(const L* F, const L* E, const int* rows_f, const T* y, int ncols_f,
                  const int* segs, const int* pt_start, int nb, int num_points, const T* minv,
                  int cnt_e, int n, int r, int te, int tf, T* t2, int ld, cudaStream_t stream) {
   if (!shape_ok(r, te, tf) || ld < te || ld > kMaxTe || ld % 4 != 0 ||
@@ -283,11 +313,11 @@ int launch_point(const T* F, const T* E, const int* rows_f, const T* y, int ncol
   const int blocks = (num_points + kBlock - 1) / kBlock;
   if (blocks > 0) {
     if (exact_ba(r, te, tf, ld)) {
-      sy_point_kernel<T, 2, 9, 3, true><<<blocks, kBlock, 0, stream>>>(
+      sy_point_kernel<L, 2, 9, 3, true><<<blocks, kBlock, 0, stream>>>(
           F, E, rows_f, y, ncols_f, segs, pt_start, nb, num_points, minv, cnt_e, n, r, te, tf,
           ld, t2);
     } else {
-      sy_point_kernel<T, kMaxR, kMaxTf, kMaxTe, false><<<blocks, kBlock, 0, stream>>>(
+      sy_point_kernel<L, kMaxR, kMaxTf, kMaxTe, false><<<blocks, kBlock, 0, stream>>>(
           F, E, rows_f, y, ncols_f, segs, pt_start, nb, num_points, minv, cnt_e, n, r, te, tf,
           ld, t2);
     }
@@ -295,8 +325,8 @@ int launch_point(const T* F, const T* E, const int* rows_f, const T* y, int ncol
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_fold(const T* F, const T* E, const int* prow, const int* chunk_start,
+template <typename L, typename T = typename leaf::Leaf<L>::V>
+int launch_fold(const L* F, const L* E, const int* prow, const int* chunk_start,
                 const int* row_chunks, const int* slot_row, const T* y, const T* dsq,
                 int ncols_f, const T* t2, int ld, int cnt_e, int n_pad, int r, int te, int tf,
                 int nchunks, T* partial, T* out, cudaStream_t stream) {
@@ -305,11 +335,11 @@ int launch_fold(const T* F, const T* E, const int* prow, const int* chunk_start,
   }
   if (nchunks > 0) {
     if (exact_ba(r, te, tf, ld)) {
-      sy_fold_kernel<T, 2, 9, 3, true><<<nchunks, kBlock, 0, stream>>>(
+      sy_fold_kernel<L, 2, 9, 3, true><<<nchunks, kBlock, 0, stream>>>(
           F, E, prow, chunk_start, slot_row, y, ncols_f, t2, ld, cnt_e, n_pad, r, te, tf,
           nchunks, partial);
     } else {
-      sy_fold_kernel<T, kMaxR, kMaxTf, kMaxTe, false><<<nchunks, kBlock, 0, stream>>>(
+      sy_fold_kernel<L, kMaxR, kMaxTf, kMaxTe, false><<<nchunks, kBlock, 0, stream>>>(
           F, E, prow, chunk_start, slot_row, y, ncols_f, t2, ld, cnt_e, n_pad, r, te, tf,
           nchunks, partial);
     }
@@ -362,4 +392,25 @@ extern "C" int ctt_schur_sy_fold_f64(const double* F, const double* E, const int
   return launch_fold<double>(F, E, prow, chunk_start, row_chunks, slot_row, y, dsq, ncols_f, t2,
                              ld, cnt_e, n_pad, r, te, tf, nchunks, partial, out,
                              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ctt_schur_sy_point_bf16(const __nv_bfloat16* F, const __nv_bfloat16* E,
+                                       const int* rows_f, const float* y, int ncols_f,
+                                       const int* segs, const int* pt_start, int nb,
+                                       int num_points, const float* minv, int cnt_e, int n, int r,
+                                       int te, int tf, float* t2, int ld, void* stream) {
+  return launch_point<__nv_bfloat16>(F, E, rows_f, y, ncols_f, segs, pt_start, nb, num_points,
+                                     minv, cnt_e, n, r, te, tf, t2, ld,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ctt_schur_sy_fold_bf16(const __nv_bfloat16* F, const __nv_bfloat16* E,
+                                      const int* prow, const int* chunk_start,
+                                      const int* row_chunks, const int* slot_row, const float* y,
+                                      const float* dsq, int ncols_f, const float* t2, int ld,
+                                      int cnt_e, int n_pad, int r, int te, int tf, int nchunks,
+                                      float* partial, float* out, void* stream) {
+  return launch_fold<__nv_bfloat16>(F, E, prow, chunk_start, row_chunks, slot_row, y, dsq,
+                                    ncols_f, t2, ld, cnt_e, n_pad, r, te, tf, nchunks, partial,
+                                    out, static_cast<cudaStream_t>(stream));
 }

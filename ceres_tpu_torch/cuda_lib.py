@@ -10,6 +10,11 @@ Each kernel wrapper calls `count(name)` once per launch of its kernel, and
 a replayed CUDA graph adds the launches it captured once per replay
 (utils/graphs.py); `launch_counts()` / `reset_launch_counts()` let a run
 show which kernels its main path went through.
+
+Every kernel is instantiated for float32 and float64; B2, B3 and B4 also
+for bfloat16 leaves (the mixed-precision solves), whose vectors,
+accumulators and outputs are float32. Those instantiations count under
+their own names (`counter`): `schur_sy_bf16`, ...
 """
 
 from __future__ import annotations
@@ -31,7 +36,9 @@ NVCC_FLAGS = (
 )
 
 KERNELS = ("eval_snavely", "gather_contract", "contract_reduce", "schur_sy", "schur_p0")
-_launches = {name: 0 for name in KERNELS}
+# the kernels with a bfloat16-leaf instantiation (B2, B3, B4)
+BF16_KERNELS = ("gather_contract", "contract_reduce", "schur_sy")
+_launches = {name: 0 for name in KERNELS + tuple(k + "_bf16" for k in BF16_KERNELS)}
 _lib = None
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -57,6 +64,10 @@ _SIGNATURES = {
     # r, te, tf, nchunks, ncols_out, partial, out, stream
     "ctt_schur_p0": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
+_BF16_PREFIXES = (
+    "ctt_gather_contract", "ctt_contract_reduce", "ctt_schur_sy_point", "ctt_schur_sy_fold",
+)
+_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64", torch.bfloat16: "_bf16"}
 
 
 def nvcc() -> str:
@@ -118,7 +129,7 @@ def library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         for prefix, argtypes in _SIGNATURES.items():
-            for suffix in ("_f32", "_f64"):
+            for suffix in ("_f32", "_f64") + (("_bf16",) if prefix in _BF16_PREFIXES else ()):
                 fn = getattr(lib, prefix + suffix)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -127,10 +138,24 @@ def library():
 
 
 def kernel_fn(prefix: str, dtype):
-    suffix = {torch.float32: "_f32", torch.float64: "_f64"}.get(dtype)
-    if suffix is None:
-        raise TypeError(f"{prefix}: unsupported dtype {dtype} (float32/float64)")
+    """The instantiation of a kernel for its leaves' dtype: float32,
+    float64, or bfloat16 where the kernel has one."""
+    suffix = _SUFFIX.get(dtype)
+    if suffix is None or (suffix == "_bf16" and prefix not in _BF16_PREFIXES):
+        kinds = "float32/float64" + ("/bfloat16" if prefix in _BF16_PREFIXES else "")
+        raise TypeError(f"{prefix}: unsupported dtype {dtype} ({kinds})")
     return getattr(library(), prefix + suffix)
+
+
+def vector_dtype(leaf_dtype):
+    """The dtype of a kernel's vectors, accumulators and outputs for leaves
+    of `leaf_dtype`: float32 for bfloat16 leaves, else the leaves' own."""
+    return torch.float32 if leaf_dtype == torch.bfloat16 else leaf_dtype
+
+
+def counter(name: str, leaf_dtype) -> str:
+    """The launch counter of kernel `name` for leaves of `leaf_dtype`."""
+    return name + "_bf16" if leaf_dtype == torch.bfloat16 else name
 
 
 def ptr(t) -> ctypes.c_void_p:

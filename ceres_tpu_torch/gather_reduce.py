@@ -19,6 +19,14 @@ make it bitwise deterministic without atomics (the JAX package's decision 3
 in docs/architecture.md). On CPU tensors both run their plain PyTorch
 versions below, on the same inputs; on CUDA tensors they launch the kernels
 in csrc/gather_reduce.cu or raise.
+
+Leaves may be float32, float64 or bfloat16 (the mixed-precision solves). On
+bfloat16 leaves the table, u and the output are float32, the table (B2) or
+u (B3) is rounded to bfloat16 (`leaf_operand`) as the TPU kernels read it
+at leaf precision, and every product and sum is float32. The TPU kernel of
+B3 also rounds its products and their sum over r to bfloat16
+(pallas_onehot.py:159-161); here a product of two bfloat16 values is exact
+in float32, a deliberate deviation toward precision.
 """
 
 from __future__ import annotations
@@ -28,6 +36,21 @@ import torch
 from . import cuda_lib
 
 
+def leaf_operand(x, leaf_dtype):
+    """A vector operand of products with leaves of `leaf_dtype`: for bfloat16
+    leaves x rounded to bfloat16 (through float32, as the kernels round it)
+    and held in float32, so that each product with a leaf is exact in
+    float32 (csrc/leaf.cuh); otherwise x itself."""
+    if leaf_dtype != torch.bfloat16:
+        return x
+    return x.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+
+
+def widen(leaf):
+    """A leaf in its products' dtype: bfloat16 widened (exactly) to float32."""
+    return leaf.to(torch.float32) if leaf.dtype == torch.bfloat16 else leaf
+
+
 def gather_contract_plain(jac, rows, table_t, r):
     rt, n = jac.shape
     t = rt // r
@@ -35,28 +58,30 @@ def gather_contract_plain(jac, rows, table_t, r):
     live = rows < dump
     y = table_t[:, torch.where(live, rows, torch.zeros_like(rows))]
     y = torch.where(live[None, :], y, torch.zeros_like(y))
-    return (jac.reshape(r, t, n) * y[None]).sum(dim=1)
+    return (widen(jac).reshape(r, t, n) * leaf_operand(y, jac.dtype)[None]).sum(dim=1)
 
 
 def gather_contract(jac, rows, table_t, r):
     """F·y for a onehot-plan position: [r, n] from jac [r*t, n], rows [n]
-    int32, table_t [t, ncols] whose last column is the dump column."""
+    int32, table_t [t, ncols] whose last column is the dump column; table
+    and output in cuda_lib.vector_dtype(jac.dtype)."""
     if jac.device.type == "cpu":
         return gather_contract_plain(jac, rows, table_t, r)
     rt, n = jac.shape
     t = rt // r
     ncols = table_t.shape[1]
+    vdt = cuda_lib.vector_dtype(jac.dtype)
     cuda_lib.require("jac", jac)
     cuda_lib.require("rows", rows, torch.int32, (n,), jac.device)
-    cuda_lib.require("table_t", table_t, jac.dtype, (t, ncols), jac.device)
-    out = torch.empty((r, n), dtype=jac.dtype, device=jac.device)
+    cuda_lib.require("table_t", table_t, vdt, (t, ncols), jac.device)
+    out = torch.empty((r, n), dtype=vdt, device=jac.device)
     fn = cuda_lib.kernel_fn("ctt_gather_contract", jac.dtype)
     rc = fn(
         cuda_lib.ptr(jac), cuda_lib.ptr(rows), cuda_lib.ptr(table_t),
         n, r, t, ncols, cuda_lib.ptr(out), cuda_lib.stream(jac.device),
     )
     cuda_lib.check(rc, "gather_contract")
-    cuda_lib.count("gather_contract")
+    cuda_lib.count(cuda_lib.counter("gather_contract", jac.dtype))
     return out
 
 
@@ -64,14 +89,14 @@ def contract_reduce_plain(twin, layout, u, r):
     """B3's plain version, on the kernel's inputs."""
     rt, n_pad = twin.shape
     t = rt // r
-    x = twin.reshape(r, t, n_pad)
+    x = widen(twin).reshape(r, t, n_pad)
     if u is None:
         contrib = x.sum(dim=0)
     else:
         live = layout.perm >= 0
-        us = u[:, layout.perm.clamp(min=0)]
+        us = leaf_operand(u, twin.dtype)[:, layout.perm.clamp(min=0)]
         contrib = (x * torch.where(live[None, :], us, torch.zeros_like(us))[:, None, :]).sum(dim=0)
-    out = torch.zeros((t, len(layout.offsets) - 1), dtype=twin.dtype, device=twin.device)
+    out = torch.zeros((t, len(layout.offsets) - 1), dtype=x.dtype, device=twin.device)
     return out.index_add_(1, layout.slot_row, contrib)
 
 
@@ -79,7 +104,8 @@ def contract_reduce(twin, layout, u, r):
     """Fᵀu for a onehot-plan position: [t, ncols] from its twin [r*t, n_pad]
     (the leaf in the slot order of `layout`, a program.CameraLayout; zero on
     padding), and u [r, n] in lane order (or None with r == 1: the
-    segmented sum of the twin's rows). The dump column (constant blocks) is
+    segmented sum of the twin's rows); u and the output in
+    cuda_lib.vector_dtype(twin.dtype). The dump column (constant blocks) is
     produced; callers drop it."""
     if twin.device.type == "cpu":
         return contract_reduce_plain(twin, layout, u, r)
@@ -89,6 +115,7 @@ def contract_reduce(twin, layout, u, r):
     if u is None and r != 1:
         raise ValueError("contract_reduce: u=None needs r == 1")
     dev = twin.device
+    vdt = cuda_lib.vector_dtype(twin.dtype)
     cuda_lib.require("twin", twin, None, (r * t, layout.perm.shape[0]), dev)
     cuda_lib.require("perm", layout.perm, torch.int32, None, dev)
     cuda_lib.require("chunk_start", layout.chunk_start, torch.int32, None, dev)
@@ -96,10 +123,10 @@ def contract_reduce(twin, layout, u, r):
     n = 0
     if u is not None:
         n = u.shape[1]
-        cuda_lib.require("u", u, twin.dtype, (r, n), dev)
+        cuda_lib.require("u", u, vdt, (r, n), dev)
     nchunks = layout.num_chunks
-    partial = torch.empty((t, nchunks), dtype=twin.dtype, device=dev)
-    out = torch.empty((t, ncols), dtype=twin.dtype, device=dev)
+    partial = torch.empty((t, nchunks), dtype=vdt, device=dev)
+    out = torch.empty((t, ncols), dtype=vdt, device=dev)
     fn = cuda_lib.kernel_fn("ctt_contract_reduce", twin.dtype)
     rc = fn(
         cuda_lib.ptr(twin), cuda_lib.ptr(layout.perm), cuda_lib.ptr(layout.chunk_start),
@@ -107,5 +134,5 @@ def contract_reduce(twin, layout, u, r):
         cuda_lib.ptr(partial), cuda_lib.ptr(out), cuda_lib.stream(dev),
     )
     cuda_lib.check(rc, "contract_reduce")
-    cuda_lib.count("contract_reduce")
+    cuda_lib.count(cuda_lib.counter("contract_reduce", twin.dtype))
     return out

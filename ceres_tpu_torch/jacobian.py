@@ -24,6 +24,12 @@ its reductions of a leaf work on the leaf's twin. Each onehot leaf then
 exists twice, in lane order (read by B2 and B4) and as its twin: at
 BAL-1778 in float32 ~0.36 GB more per camera leaf.
 
+Leaves may be bfloat16 (`astype`, the mixed-precision solves' matvec
+copy): the products then round their vector operand to bfloat16, form each
+product exactly in float32 and accumulate and return float32 (`_acc_dtype`,
+as ceres_tpu/jacobian.py:430-434), through the `_bf16` kernels B2 and B3 on
+the onehot plan.
+
 The one-hot MXU machinery of the JAX package (ceres_tpu/jacobian.py:71-143)
 exists only to serve a TPU and has no counterpart here.
 """
@@ -32,7 +38,7 @@ from __future__ import annotations
 
 import torch
 
-from .gather_reduce import contract_reduce, gather_contract
+from .gather_reduce import contract_reduce, gather_contract, leaf_operand
 from .linalg.preconditioners import diag_rows
 
 
@@ -192,6 +198,27 @@ class BlockJacobian:
                 return j.dtype
         return torch.float64
 
+    def _acc_dtype(self):
+        """The products' dtype: bfloat16 leaves accumulate in float32."""
+        dt = self._dtype()
+        return torch.float32 if dt == torch.bfloat16 else dt
+
+    def astype(self, dtype):
+        """The same operator with its leaves, and the twins they already
+        have, cast to `dtype` (the mixed-precision solves' bfloat16 copy
+        for the PCG matvec; ceres_tpu/jacobian.py:436-458); the lazy column
+        scale stays."""
+        if dtype == self._dtype():
+            return self
+        return BlockJacobian(
+            self.program,
+            tuple(tuple(j.to(dtype) for j in jacs) for jacs in self.jac_groups),
+            self.garrs,
+            self.positions,
+            self.col_scale,
+            {k: t.to(dtype) for k, t in self.twins.items()},
+        )
+
     def _device(self):
         for jacs in self.jac_groups:
             for j in jacs:
@@ -225,7 +252,7 @@ class BlockJacobian:
             for t, cnt in zip(tables, self.program.tangent_class_counts)
         ]
         if not parts:
-            return torch.zeros(0, dtype=self._dtype(), device=self._device())
+            return torch.zeros(0, dtype=self._acc_dtype(), device=self._device())
         return torch.cat(parts)
 
     # -- table-vector ("tvec") form: per-class [s, cnt+1] tables -------- #
@@ -246,7 +273,7 @@ class BlockJacobian:
     def tvec_zeros(self, dtype=None):
         p = self.program
         return [
-            torch.zeros((s, cnt + 1), dtype=dtype or self._dtype(), device=self._device())
+            torch.zeros((s, cnt + 1), dtype=dtype or self._acc_dtype(), device=self._device())
             for cnt, s in zip(p.tangent_class_counts, p.tangent_class_sizes)
         ]
 
@@ -264,6 +291,7 @@ class BlockJacobian:
         """J v for a tvec v -> per-group residuals [r, n] (col_scale must be
         folded into the leaves first: materialize_scale)."""
         assert self.col_scale is None, "tvec products require materialize_scale() first"
+        acc_dt = self._acc_dtype()
         out = []
         for gi in range(len(self.jac_groups)):
             meta = self.program.groups[gi]
@@ -275,21 +303,22 @@ class BlockJacobian:
                 t = pm.tangent_size
                 plan = self.plan(gi, pos)
                 if plan is not None and plan[0] == "onehot":
-                    part = gather_contract(jac, tr, tv[pm.t_cls].contiguous(), r)
+                    part = gather_contract(jac, tr, tv[pm.t_cls].to(acc_dt).contiguous(), r)
                 else:
-                    vg = gather_T_t(plan, tv[pm.t_cls], tr)
+                    vg = leaf_operand(gather_T_t(plan, tv[pm.t_cls], tr), jac.dtype)
                     part = (jac.reshape(r, t, -1) * vg[None]).sum(dim=1)
                 acc = part if acc is None else acc + part
             if acc is None:
-                acc = torch.zeros((r, meta.n), dtype=self._dtype(), device=self._device())
+                acc = torch.zeros((r, meta.n), dtype=acc_dt, device=self._device())
             out.append(acc)
         return out
 
     def _left(self, u_groups):
         acc = self._class_tables_T()
+        acc_dt = self._acc_dtype()
         for gi in range(len(self.jac_groups)):
             r = self.program.groups[gi].num_residuals
-            u = u_groups[gi]
+            u = u_groups[gi].to(acc_dt)
             for pos, pm, jac, tr, csr in self._iter(gi):
                 if pm.t_cls < 0:
                     continue
@@ -299,7 +328,8 @@ class BlockJacobian:
                 if plan is not None and plan[0] == "onehot":
                     part = contract_reduce(self.twin(gi, pos), csr, u.contiguous(), r)
                 else:
-                    contrib = (jac.reshape(r, t, -1) * u[:, None, :]).sum(dim=0)
+                    ul = leaf_operand(u, jac.dtype)
+                    contrib = (jac.reshape(r, t, -1) * ul[:, None, :]).sum(dim=0)
                     part = reduce_T(plan, contrib, tr, width, csr)
                 acc[pm.t_cls] = acc[pm.t_cls] + part
         return acc

@@ -14,8 +14,17 @@ the same structure:
     t1 = F y;  t2 = (EᵀE + D_e²)⁻¹ Eᵀ t1;  S y = Fᵀ(t1 − E t2) + D_f² y
     back-substitution: dx_e = −(EᵀE + D_e²)⁻¹ (g_e + EᵀF dx_f)
 
+Mixed-precision solves (`use_mixed_precision_solves`, as
+ceres_tpu/types.py:247-255): the PCG matvec reads a bfloat16 copy of the
+scale-materialized leaves and twins (B4's `_bf16` instantiation on the BA
+structure, B2's and B3's in the composed products) and accumulates in
+float32. The preconditioner (B5 reads the float32 leaves first), the rhs,
+the back-substitution and the explicit or dense S stay in the working
+dtype, and DENSE_SCHUR factors S in float32 and refines in the working
+dtype (dense.cholesky_solve_mixed).
+
 Not ported: the visibility preconditioners (CLUSTER_JACOBI,
-CLUSTER_TRIDIAGONAL) and the mixed-precision branches; they raise.
+CLUSTER_TRIDIAGONAL); they raise.
 """
 
 from __future__ import annotations
@@ -23,9 +32,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import cuda_lib
 from ..types import LinearSolverType, PreconditionerType
 from . import schur_kernels
 from .cg import conjugate_gradients
+from .dense import cholesky_solve_mixed
 from ..utils.graphs import read
 from .preconditioners import BlockDiagSolver, diag_rows
 
@@ -232,14 +243,21 @@ def ridge_ete_solver(program, e_gram0, colnorm2):
     return ete_solver_from_gram(program, e_gram0, ridge * colnorm2 * e_mask)
 
 
+def _matvec_jacobian(options, jac_m):
+    """The scale-materialized Jacobian the PCG matvec reads: under
+    mixed-precision solves its bfloat16 copy, with the twins it has."""
+    return jac_m.astype(torch.bfloat16) if options.use_mixed_precision_solves else jac_m
+
+
 def schur_prepare(program, options, jac_s):
     """J-dependent (radius-independent) half of an ITERATIVE_SCHUR step:
     column norms, the EᵀE grams, the preconditioner's tables (JACOBI: FᵀF
     blocks; SCHUR_JACOBI: FᵀF − FᵀE M0⁻¹ EᵀF blocks, kernel B5) and the
     scale-materialized leaves and their twins (F's, and E's in F's camera
-    order) that B5 and the PCG matvec B4 read. Reused while
-    steps are rejected (reference: Preconditioner::Update split from
-    creation)."""
+    order) that B5 and the PCG matvec B4 read; under mixed-precision solves
+    the cache keeps only their bfloat16 copies, cast after B5 has read them
+    (ceres_tpu/linalg/schur.py:349-362). Reused while steps are rejected
+    (reference: Preconditioner::Update split from creation)."""
     precond = options.preconditioner_type
     if precond not in (
         PreconditionerType.SCHUR_JACOBI, PreconditionerType.JACOBI, PreconditionerType.IDENTITY
@@ -266,12 +284,13 @@ def schur_prepare(program, options, jac_s):
             p0 = schur_jacobi_blocks(program, jac_e, jac_f, minv0, torch.zeros_like(colnorm2))
     elif precond == PreconditionerType.JACOBI:
         p0 = jac_f.block_diag_jtj(dsq=None)
+    jac_mv = _matvec_jacobian(options, jac_m)
     return {
         "colnorm2": colnorm2,
         "e_gram0": e_gram0,
         "p0": p0,
-        "jac_mv_groups": jac_m.jac_groups,
-        "jac_mv_twins": jac_m.twins,
+        "jac_mv_groups": jac_mv.jac_groups,
+        "jac_mv_twins": jac_mv.twins,
     }
 
 
@@ -308,8 +327,9 @@ def schur_finish_rhs(program, options, jac_s, grad_s, dsq, cache):
 
 
 def _s_apply_t(program, jac_m, ete, dsq_f_tv, f_set):
-    """S·y on (f-only) tvecs from the scale-materialized Jacobian jac_m:
-    kernel B4 on the fusable BA structure, else the composed products."""
+    """S·y on (f-only) tvecs from the scale-materialized Jacobian jac_m
+    (float32, float64 or a bfloat16 copy): kernel B4 on the fusable BA
+    structure, else the composed products."""
     meta_sy = _sy_meta(program)
     if meta_sy is None:
         jac_e_mv, jac_f_mv = schur_views(program, jac_m)
@@ -351,7 +371,10 @@ def _sy_operands(program, jac_m, ete, dsq_f_tv):
 
 def _sy_matvec(program, jac_m, ops):
     """S·y (+ D_f² y, the dump column out of the CG vectors) on f-only tvecs
-    through kernel B4, reading only the tensors of `ops` (_sy_operands)."""
+    through kernel B4, reading only the tensors of `ops` (_sy_operands).
+    Under mixed-precision solves in float64 the kernel's float32 operands
+    are cast here, inside the matvec, so that `ops` stay the tensors a graph
+    holds in place."""
     meta_sy = _sy_meta(program)
     f_cls = meta_sy["f_cls"]
     F, E, rows_f, F_twin, E_twin, prow, chunk_start, row_chunks, slot_row, minv, dsq = ops[:11]
@@ -359,12 +382,14 @@ def _sy_matvec(program, jac_m, ops):
     layout = jac_m.garrs[0]["csr"][meta_sy["f_pos"]]._replace(
         chunk_start=chunk_start, row_chunks=row_chunks, slot_row=slot_row
     )
+    vdt = cuda_lib.vector_dtype(F.dtype)
 
     def s_apply_t(y_tv):
+        y = y_tv[f_cls]
         out_f = schur_kernels.sy_apply(
-            meta_sy, F, E, rows_f, F_twin, E_twin, prow, layout, y_tv[f_cls].contiguous(), minv,
-            segs, dsq,
-        )
+            meta_sy, F, E, rows_f, F_twin, E_twin, prow, layout, y.to(vdt).contiguous(),
+            minv.to(vdt), segs, dsq.to(vdt),
+        ).to(y.dtype)
         return [out_f if cls == f_cls else torch.zeros_like(y) for cls, y in enumerate(y_tv)]
 
     return s_apply_t
@@ -382,11 +407,12 @@ def _graph_fits(program, prec, f_set):
 
 def _tvec_pcg(program, options, jac_s, jac_m, ete, dsq_f_tv, rhs, prec, x0=None, graph=None):
     """PCG on the reduced camera system in tvec form (D_f² as _f_tvec
-    tables). `prec` is a BlockDiagSolver, a flat-vector preconditioner or
-    None. With a StepGraph (on a card) the iteration is replayed where
-    _graph_fits; it reads the leaves, twins, tables and inverses in place.
-    Returns the flat solution (unmasked) and the iteration count (a 0-d
-    tensor)."""
+    tables), its matvec on the scale-materialized jac_m (the bfloat16 copy
+    under mixed-precision solves). `prec` is a BlockDiagSolver, a
+    flat-vector preconditioner or None. With a StepGraph (on a card) the
+    iteration is replayed where _graph_fits; it reads the leaves, twins,
+    tables and inverses in place. Returns the flat solution (unmasked) and
+    the iteration count (a 0-d tensor)."""
     b_tv = _f_tvec(program, jac_s, rhs)
     x0_tv = None if x0 is None else _f_tvec(program, jac_s, x0)
     widths = [cnt + 1 for cnt in program.tangent_class_counts]
@@ -537,11 +563,12 @@ def _schur_jacobi_preconditioner(program, jac_m, jac_e, jac_f, ete, dsq_f):
 
 def _iterative_schur(program, options, jac_s, ete, dsq_f, rhs, s_apply):
     """The ITERATIVE_SCHUR branch of schur_solve: the preconditioner, the
-    optional explicit S and power-series warm start, and the PCG. Returns
-    (dx_f unmasked, iterations)."""
+    optional explicit S (from s_apply, the working-precision operator) and
+    power-series warm start, and the PCG (its matvec on bfloat16 leaves
+    under mixed-precision solves). Returns (dx_f unmasked, iterations)."""
     precond = options.preconditioner_type
     jac_e, jac_f = schur_views(program, jac_s)
-    jac_m = jac_s.materialize_scale()  # read by B5 and by the tvec PCG
+    jac_m = jac_s.materialize_scale()  # read by B5; the tvec PCG reads its matvec copy
     _, f_mask = _masks(program, rhs)
     explicit = options.use_explicit_schur_complement
     if explicit:
@@ -552,6 +579,11 @@ def _iterative_schur(program, options, jac_s, ete, dsq_f, rhs, s_apply):
 
         def s_apply(y):
             return torch.zeros_like(y).index_copy(0, f_pos, s_dense @ y[f_pos])
+
+    elif options.use_mixed_precision_solves:
+        s_apply = _schur_operator(
+            *schur_views(program, jac_s.astype(torch.bfloat16)), ete, dsq_f
+        )
 
     prec = None
     if precond == PreconditionerType.SCHUR_JACOBI:
@@ -586,21 +618,34 @@ def _iterative_schur(program, options, jac_s, ete, dsq_f, rhs, s_apply):
         )
         return result.x, result.iterations
     return _tvec_pcg(
-        program, options, jac_s, jac_m, ete, _f_tvec(program, jac_s, dsq_f), rhs, prec, x0
+        program, options, jac_s, _matvec_jacobian(options, jac_m), ete,
+        _f_tvec(program, jac_s, dsq_f), rhs, prec, x0,
     )
+
+
+def _schur_operator(jac_e, jac_f, ete, dsq_f):
+    """S·y on flat vectors from the (lazily scaled) E and F views."""
+
+    def s_apply(y):
+        t1 = jac_f.right_multiply(y)
+        t2 = ete(jac_e.left_multiply(t1))
+        et2 = jac_e.right_multiply(t2)
+        return jac_f.left_multiply([a - b for a, b in zip(t1, et2)]) + dsq_f * y
+
+    return s_apply
 
 
 def schur_solve(program, options, jac_s, res_groups, grad_s, dsq):
     """Solve (JᵀJ + diag(dsq)) step = −grad through the Schur complement:
     the implicit S with PCG (ITERATIVE_SCHUR), or the dense S materialized
-    through the implicit operator and factored (DENSE_SCHUR). Returns
-    (step [num_eff], linear iterations)."""
+    through the implicit operator and factored (DENSE_SCHUR). Under
+    mixed-precision solves the PCG matvec reads bfloat16 leaves, the
+    explicit and dense S stay in the working precision (bfloat16 reads
+    would leave S asymmetric at ~1e-3, ceres_tpu/linalg/schur.py:666-669)
+    and DENSE_SCHUR factors in float32 and refines. Returns (step [num_eff],
+    linear iterations)."""
     precond = options.preconditioner_type
     iterative = options.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR
-    if options.use_mixed_precision_solves:
-        raise NotImplementedError(
-            "use_mixed_precision_solves is not ported yet (ROADMAP Queue A: mixed precision)"
-        )
     if iterative and precond in (
         PreconditionerType.CLUSTER_JACOBI, PreconditionerType.CLUSTER_TRIDIAGONAL
     ):
@@ -612,12 +657,7 @@ def schur_solve(program, options, jac_s, res_groups, grad_s, dsq):
     dsq_f = dsq * f_mask
     g_e = grad_s * e_mask
     ete = make_ete_solver(program, jac_e, dsq * e_mask)
-
-    def s_apply(y):
-        t1 = jac_f.right_multiply(y)
-        t2 = ete(jac_e.left_multiply(t1))
-        et2 = jac_e.right_multiply(t2)
-        return jac_f.left_multiply([a - b for a, b in zip(t1, et2)]) + dsq_f * y
+    s_apply = _schur_operator(jac_e, jac_f, ete, dsq_f)
 
     # rhs = -g_f + F^T E M^-1 g_e
     rhs = -(grad_s * f_mask) + jac_f.left_multiply(jac_e.right_multiply(ete(g_e)))
@@ -626,12 +666,21 @@ def schur_solve(program, options, jac_s, res_groups, grad_s, dsq):
         dx_f = x * f_mask
     else:
         # DENSE_SCHUR: Cholesky of the dense S (reference:
-        # schur_complement_solver.cc dense path); a failed factorization
-        # gives a non-finite step, which the trust-region loop rejects
+        # schur_complement_solver.cc dense path), under mixed-precision
+        # solves a float32 factor refined in the working dtype
+        # (max(1, max_num_refinement_iterations or 3) sweeps, as
+        # ceres_tpu/linalg/schur.py:905-913); a failed factorization gives a
+        # non-finite step, which the trust-region loop rejects
         f_pos = _f_positions(program, grad_s.device)
-        chol, info = torch.linalg.cholesky_ex(_dense_schur(program, s_apply, f_pos, grad_s))
-        y = torch.cholesky_solve(rhs[f_pos][:, None], chol)[:, 0]
-        y = torch.where(info == 0, y, torch.full_like(y, float("nan")))
+        s_dense = _dense_schur(program, s_apply, f_pos, grad_s)
+        if options.use_mixed_precision_solves:
+            y = cholesky_solve_mixed(
+                s_dense, rhs[f_pos], max(1, options.max_num_refinement_iterations or 3)
+            )
+        else:
+            chol, info = torch.linalg.cholesky_ex(s_dense)
+            y = torch.cholesky_solve(rhs[f_pos][:, None], chol)[:, 0]
+            y = torch.where(info == 0, y, torch.full_like(y, float("nan")))
         dx_f = torch.zeros_like(grad_s).index_copy(0, f_pos, y)
         lin_iters = torch.ones((), dtype=torch.int32, device=grad_s.device)
     return _back_substitute(jac_e, jac_f, ete, g_e, e_mask, dx_f), lin_iters

@@ -29,6 +29,21 @@ Both passes stream the leaves (device memory bounds them): about 1.05 GB per
 S·y at BAL-1778 in float32, against ~1.2 GB plus a random gather of an
 [r, n] diff buffer by a second (B3) launch in the earlier design.
 
+Under mixed-precision solves F, E and their twins are bfloat16 (the
+`_bf16` instantiation, counted as `schur_sy_bf16`) and everything else is
+float32: y, t1, t2 and diff are rounded to bfloat16 where `_sy_kernel`
+casts them to the leaf type (y as gathered, t1 before Eᵀt1, t2 before E t2,
+diff before Fᵀdiff; gather_reduce.leaf_operand), products and sums are
+float32. `_sy_kernel` forms t1 in bfloat16 and subtracts that same value in
+diff = t1 − E t2; so does this one (the rounded t1 in both passes), which
+keeps diff the projection of one t1: subtracting the unrounded t1 instead
+nearly doubles the error against exact arithmetic on the bfloat16 leaves
+(3.3e-3 against 2.0e-3 of the largest output, synthetic_bal(6, 60, 300),
+tests/test_torch_mixed_precision.py). `_sy_kernel` also rounds the products
+and some sums to bfloat16 (pallas_schur.py:309); here a product of two
+bfloat16 values is exact in float32, a deliberate deviation toward
+precision.
+
 Eligibility (`sy_meta`, the counterpart of pallas_schur.sy_meta:65): one
 signature group, a pure class split, one e-position on a bucket plan and
 one f-position on a onehot plan, te <= MAX_TE, tf <= MAX_TF, r <= MAX_R and
@@ -54,7 +69,7 @@ import numpy as np
 import torch
 
 from .. import cuda_lib
-from ..gather_reduce import contract_reduce_plain, gather_contract_plain
+from ..gather_reduce import contract_reduce_plain, gather_contract_plain, leaf_operand, widen
 from ..jacobian import gather_T_t, reduce_T
 from .preconditioners import apply_block_T
 
@@ -128,11 +143,11 @@ def sy_apply_plain(meta, F, E, rows_f, F_twin, layout_f, y_table, minv, dsq=None
     n = F.shape[1]
     plan = ("bucket", meta["buckets"])
     cnt_e = minv.shape[1]
-    t1 = gather_contract_plain(F, rows_f, y_table, r)
-    e3 = E.reshape(r, te, n)
+    t1 = leaf_operand(gather_contract_plain(F, rows_f, y_table, r), E.dtype)
+    e3 = widen(E).reshape(r, te, n)
     s = reduce_T(plan, (e3 * t1[:, None, :]).sum(dim=0), None, cnt_e)
     t2 = apply_block_T(minv, s, te)
-    et2 = (e3 * gather_T_t(plan, t2, None)[None]).sum(dim=1)
+    et2 = (e3 * leaf_operand(gather_T_t(plan, t2, None), E.dtype)[None]).sum(dim=1)
     out = contract_reduce_plain(F_twin, layout_f, t1 - et2, r)
     return _finish_plain(out, y_table, dsq)
 
@@ -143,9 +158,9 @@ def sy_point_plain(meta, F, E, rows_f, y_table, minv):
     r, te = meta["r"], meta["te"]
     n = F.shape[1]
     plan = ("bucket", meta["buckets"])
-    t1 = gather_contract_plain(F, rows_f, y_table, r)
-    s = reduce_T(plan, (E.reshape(r, te, n) * t1[:, None, :]).sum(dim=0), None, minv.shape[1])
-    return apply_block_T(minv, s, te).T
+    t1 = leaf_operand(gather_contract_plain(F, rows_f, y_table, r), E.dtype)
+    s = (widen(E).reshape(r, te, n) * t1[:, None, :]).sum(dim=0)
+    return apply_block_T(minv, reduce_T(plan, s, None, minv.shape[1]), te).T
 
 
 def sy_fold_plain(meta, F_twin, E_twin, prow, layout_f, y_table, t2, dsq=None):
@@ -154,13 +169,14 @@ def sy_fold_plain(meta, F_twin, E_twin, prow, layout_f, y_table, t2, dsq=None):
     dump column zeroed and + dsq·y."""
     r, te, tf = meta["r"], meta["te"], meta["tf"]
     n_pad = F_twin.shape[1]
-    f3 = F_twin.reshape(r, tf, n_pad)
-    t1 = (f3 * y_table[:, layout_f.slot_row][None]).sum(dim=1)
+    dt = F_twin.dtype
+    f3 = widen(F_twin).reshape(r, tf, n_pad)
+    t1 = leaf_operand((f3 * leaf_operand(y_table, dt)[:, layout_f.slot_row][None]).sum(dim=1), dt)
     live = (prow >= 0) & (prow < t2.shape[0])
-    tt = t2[torch.where(live, prow, torch.zeros_like(prow)), :te].T
+    tt = leaf_operand(t2[torch.where(live, prow, torch.zeros_like(prow)), :te].T, dt)
     tt = torch.where(live[None, :], tt, torch.zeros_like(tt))
-    diff = t1 - (E_twin.reshape(r, te, n_pad) * tt[None]).sum(dim=1)
-    out = F_twin.new_zeros((tf, len(layout_f.offsets) - 1))
+    diff = leaf_operand(t1 - (widen(E_twin).reshape(r, te, n_pad) * tt[None]).sum(dim=1), dt)
+    out = f3.new_zeros((tf, len(layout_f.offsets) - 1))
     out.index_add_(1, layout_f.slot_row, (f3 * diff[:, None, :]).sum(dim=0))
     return _finish_plain(out, y_table, dsq)
 
@@ -169,11 +185,13 @@ def sy_point_pass(meta, F, E, rows_f, y_table, minv, segs):
     """Pass (a) of `sy_apply`: t2 point-major [cnt_e, ld], ld = te rounded
     up to 4 (the record past te is 0). F [r*tf, n] and E [r*te, n] are the
     lane-order leaves, minv the [te², cnt_e] inverse table, `segs` =
-    sy_tables(meta, F.device)."""
+    sy_tables(meta, F.device); y, minv and t2 in
+    cuda_lib.vector_dtype(F.dtype)."""
     if F.device.type == "cpu":
         return sy_point_plain(meta, F, E, rows_f, y_table, minv)
     r, te, tf = meta["r"], meta["te"], meta["tf"]
-    dev, dt = F.device, F.dtype
+    dev, lt = F.device, F.dtype
+    dt = cuda_lib.vector_dtype(lt)
     n = F.shape[1]
     ncols_f = y_table.shape[1]
     cnt_e = minv.shape[1]
@@ -181,14 +199,14 @@ def sy_point_pass(meta, F, E, rows_f, y_table, minv, segs):
     nb = len(meta["buckets"])
     cuda_lib.require("segs", seg_t, torch.int32, (nb * 4,), dev)
     cuda_lib.require("pt_start", pt_start, torch.int32, (nb + 1,), dev)
-    cuda_lib.require("F", F, dt, (r * tf, n), dev)
-    cuda_lib.require("E", E, dt, (r * te, n), dev)
+    cuda_lib.require("F", F, lt, (r * tf, n), dev)
+    cuda_lib.require("E", E, lt, (r * te, n), dev)
     cuda_lib.require("rows_f", rows_f, torch.int32, (n,), dev)
     cuda_lib.require("y_table", y_table, dt, (tf, ncols_f), dev)
     cuda_lib.require("minv", minv, dt, (te * te, cnt_e), dev)
     ld = -(-te // 4) * 4
     t2 = torch.empty((cnt_e, ld), dtype=dt, device=dev)
-    rc = cuda_lib.kernel_fn("ctt_schur_sy_point", dt)(
+    rc = cuda_lib.kernel_fn("ctt_schur_sy_point", lt)(
         cuda_lib.ptr(F), cuda_lib.ptr(E), cuda_lib.ptr(rows_f), cuda_lib.ptr(y_table),
         ncols_f, cuda_lib.ptr(seg_t), cuda_lib.ptr(pt_start), nb, int(meta["pt_start"][-1]),
         cuda_lib.ptr(minv), cnt_e, n, r, te, tf, cuda_lib.ptr(t2), ld, cuda_lib.stream(dev),
@@ -202,15 +220,16 @@ def sy_fold_pass(meta, F_twin, E_twin, prow, layout_f, y_table, t2, dsq=None):
     F_twin [r*tf, n_pad] and E_twin [r*te, n_pad] (zero on padding), the
     point row of each slot prow [n_pad] (-1 on padding), the camera layout
     and t2 [cnt_e, ld]; + dsq·y when dsq [tf, ncols_f] is given; the dump
-    column 0."""
+    column 0. y, t2, dsq and the output in cuda_lib.vector_dtype(F_twin.dtype)."""
     if F_twin.device.type == "cpu":
         return sy_fold_plain(meta, F_twin, E_twin, prow, layout_f, y_table, t2, dsq)
     r, te, tf = meta["r"], meta["te"], meta["tf"]
-    dev, dt = F_twin.device, F_twin.dtype
+    dev, lt = F_twin.device, F_twin.dtype
+    dt = cuda_lib.vector_dtype(lt)
     n_pad = F_twin.shape[1]
     ncols_f = y_table.shape[1]
-    cuda_lib.require("F_twin", F_twin, dt, (r * tf, n_pad), dev)
-    cuda_lib.require("E_twin", E_twin, dt, (r * te, n_pad), dev)
+    cuda_lib.require("F_twin", F_twin, lt, (r * tf, n_pad), dev)
+    cuda_lib.require("E_twin", E_twin, lt, (r * te, n_pad), dev)
     cuda_lib.require("prow", prow, torch.int32, (n_pad,), dev)
     cuda_lib.require("chunk_start", layout_f.chunk_start, torch.int32, None, dev)
     cuda_lib.require("row_chunks", layout_f.row_chunks, torch.int32, (ncols_f + 1,), dev)
@@ -222,7 +241,7 @@ def sy_fold_pass(meta, F_twin, E_twin, prow, layout_f, y_table, t2, dsq=None):
     nchunks = layout_f.live_chunks
     partial = torch.empty((tf, nchunks), dtype=dt, device=dev)
     out = torch.empty((tf, ncols_f), dtype=dt, device=dev)
-    rc = cuda_lib.kernel_fn("ctt_schur_sy_fold", dt)(
+    rc = cuda_lib.kernel_fn("ctt_schur_sy_fold", lt)(
         cuda_lib.ptr(F_twin), cuda_lib.ptr(E_twin), cuda_lib.ptr(prow),
         cuda_lib.ptr(layout_f.chunk_start), cuda_lib.ptr(layout_f.row_chunks),
         cuda_lib.ptr(layout_f.slot_row), cuda_lib.ptr(y_table), cuda_lib.ptr(dsq), ncols_f,
@@ -230,7 +249,7 @@ def sy_fold_pass(meta, F_twin, E_twin, prow, layout_f, y_table, t2, dsq=None):
         cuda_lib.ptr(partial), cuda_lib.ptr(out), cuda_lib.stream(dev),
     )
     cuda_lib.check(rc, "schur_sy fold pass")
-    cuda_lib.count("schur_sy")  # one per S·y: the fold pass ends it
+    cuda_lib.count(cuda_lib.counter("schur_sy", lt))  # one per S·y: the fold pass ends it
     return out
 
 
@@ -241,8 +260,10 @@ def sy_apply(meta, F, E, rows_f, F_twin, E_twin, prow, layout_f, y_table, minv, 
     E_twin their copies in the slot order of layout_f, prow the point row of
     each slot (program.slot_rows), minv the [te², cnt_e] inverse table,
     dsq the LM diagonal D_f² as a [tf, ncols_f] table or None.
-    `segs` = sy_tables(meta, F.device). Two launches; the fold pass counts
-    them as one S·y."""
+    `segs` = sy_tables(meta, F.device). Leaves and twins are float32,
+    float64 or bfloat16; y, minv, dsq and the output are in
+    cuda_lib.vector_dtype of them. Two launches; the fold pass counts them
+    as one S·y."""
     if F.device.type == "cpu":
         return sy_apply_plain(meta, F, E, rows_f, F_twin, layout_f, y_table, minv, dsq)
     t2 = sy_point_pass(meta, F, E, rows_f, y_table, minv, segs)

@@ -36,11 +36,11 @@ device->host reads (utils.graphs.read counts them; the projected line search
 adds one per cost evaluation and one to start).
 
 Eligibility (the host loop in trust_region.py stays the general path): no
-inner iterations, no callbacks, no update_state_every_iteration, no dumped
-iterations. Bounds run fused: Plus clamps to the box, the active-set mask
-zeroes frozen columns, the projected Armijo search and the projected
-gradient norms are on the card; the prepare cache is not used under bounds
-(the mask changes the scale every iteration). Per-iteration times are the
+callbacks, no update_state_every_iteration. Bounds run fused: Plus clamps
+to the box, the active-set mask zeroes frozen columns, the projected
+Armijo search and the projected gradient norms are on the card; the
+prepare cache is not used under bounds (the mask changes the scale every
+iteration). Per-iteration times are the
 chunk's time over its iterations (exact at fused_execution_chunk_iters=1).
 """
 
@@ -104,15 +104,15 @@ def chunk_iters(options) -> int:
 
 
 def eligible(options, step_fn) -> bool:
-    """ceres_tpu/solvers/fused_loop.py:90-116 without the sharded and the
-    evaluation-callback clauses (the port has neither)."""
+    """ceres_tpu/solvers/fused_loop.py:90-116 without the sharded, the
+    evaluation-callback, the inner-iteration and the dump clauses (solve
+    refuses the last two options, solver.refuse_unported; the port has no
+    sharding or evaluation callbacks)."""
     return bool(
         options.fused_execution
         and getattr(step_fn, "jittable", True)
-        and not options.use_inner_iterations
         and not options.callbacks
         and not options.update_state_every_iteration
-        and not options.trust_region_minimizer_iterations_to_dump
     )
 
 

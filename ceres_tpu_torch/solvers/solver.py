@@ -10,10 +10,37 @@ from __future__ import annotations
 import time
 
 from ..evaluator import Evaluator
-from ..types import LinearSolverType, MinimizerType, Summary, TerminationType
+from ..types import (
+    LinearSolverType, MinimizerType, Summary, TerminationType, TrustRegionStrategyType,
+)
 from ..utils.dtypes import default_dtype, resolve_device
 from ..utils.execution_summary import ExecutionSummary
 from ..utils.graphs import graph_stats, read_count
+
+
+# options the port does not run yet, each with the ROADMAP item that ports
+# it: solve raises for them instead of running something else
+_MINIMIZER_BREADTH = "ROADMAP Queue A item 6, minimizer breadth"
+_UNPORTED = (
+    (lambda o: o.minimizer_type != MinimizerType.TRUST_REGION,
+     "the line-search minimizer", _MINIMIZER_BREADTH),
+    (lambda o: o.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG,
+     "trust_region_strategy_type=DOGLEG", _MINIMIZER_BREADTH),
+    (lambda o: o.use_inner_iterations, "use_inner_iterations", _MINIMIZER_BREADTH),
+    (lambda o: o.trust_region_minimizer_iterations_to_dump,
+     "trust_region_minimizer_iterations_to_dump", _MINIMIZER_BREADTH),
+    (lambda o: o.linear_solver_ordering is not None, "linear_solver_ordering",
+     "ROADMAP Queue A item 4, ordering.py"),
+    (lambda o: o.check_gradients, "check_gradients", "ROADMAP Queue A item 7, modeling breadth"),
+    (lambda o: o.mesh is not None, "mesh", "ROADMAP Queue A item 11, multi-GPU"),
+)
+
+
+def refuse_unported(options):
+    """Raise NotImplementedError for the first option the port does not run."""
+    for unported, what, item in _UNPORTED:
+        if unported(options):
+            raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 def solve(options, problem) -> Summary:
@@ -26,8 +53,7 @@ def solve(options, problem) -> Summary:
         summary.termination_type = TerminationType.FAILURE
         summary.message = f"Invalid options: {msg}"
         return summary
-    if options.minimizer_type != MinimizerType.TRUST_REGION:
-        raise NotImplementedError("the line-search minimizer is not ported yet")
+    refuse_unported(options)
 
     # ---- preprocess (reference: trust_region_preprocessor.cc:373-405) ----
     t0 = time.time()

@@ -42,7 +42,9 @@ def make_lm_step_fn(program, options, evaluator):
     """The LM step function; `.prepare` / `.finish` are attached for
     ITERATIVE_SCHUR with SCHUR_JACOBI, JACOBI or IDENTITY and neither the
     explicit complement nor the power-series warm start (the JAX package's
-    condition, strategies.py:142-152).
+    condition, strategies.py:142-152). Under mixed-precision solves the
+    prepare cache holds the bfloat16 matvec leaves and twins, which the
+    finish's PCG reads (linalg/schur.py).
 
     signature: (jac, res_groups, grad, radius, scale) ->
        (delta, model_cost_change, lin_iters, step_is_valid); radius is a
@@ -54,10 +56,6 @@ def make_lm_step_fn(program, options, evaluator):
         raise NotImplementedError(
             f"this port runs LM with ITERATIVE_SCHUR or DENSE_SCHUR only; got {solver.value} "
             "(ROADMAP Queue A: linear solvers)"
-        )
-    if options.use_mixed_precision_solves:
-        raise NotImplementedError(
-            "use_mixed_precision_solves is not ported yet (ROADMAP Queue A: mixed precision)"
         )
     from ..jacobian import BlockJacobian
     from ..linalg.schur import (

@@ -197,6 +197,12 @@ class SolverOptions:
     callbacks: list = dataclasses.field(default_factory=list)
     update_state_every_iteration: bool = False
 
+    # Mixed-precision linear solves (ceres_tpu/types.py:247-255): the PCG
+    # matvec reads a bfloat16 copy of the scaled Jacobian (kernels B2, B3,
+    # B4 in their bfloat16 instantiation) and accumulates in float32; the
+    # preconditioner, rhs and back-substitution stay in the working dtype;
+    # DENSE_SCHUR factors in float32 and refines
+    # max(1, max_num_refinement_iterations or 3) times.
     use_mixed_precision_solves: bool = False
     split_step_dispatch: bool = False
     max_num_refinement_iterations: int = 0
@@ -208,7 +214,7 @@ class SolverOptions:
     # solve raises when no card is visible (pass "cpu" for the CPU).
     device: Any = None
 
-    # --- multi-device (accepted; not ported) ---
+    # --- multi-device (not ported: solve raises for a mesh) ---
     mesh: Any = None
     mesh_axis: str = "dp"
 

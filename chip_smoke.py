@@ -9,7 +9,8 @@ and prints no result):
   1. the device, its name and power limit, and the build of the CUDA
      kernels (ceres_tpu_torch/csrc, compiled here with nvcc);
   2. each kernel B1-B5 against its plain PyTorch version on the card, at
-     BAL-1778 shapes in float32: max relative error vs a stated tolerance,
+     BAL-1778 shapes in float32, and B2, B3 and B4 on bfloat16 leaves and
+     twins (the mixed-precision solves): max relative error vs a stated tolerance,
      the median time of each over 10 runs (CUDA events), its bound (the
      least time for its bytes and operations at the data sheet's rates)
      and, for B2 and B3, the time of one PyTorch sparse product for the same
@@ -17,13 +18,17 @@ and prints no result):
      B4 (S·y) whole and each of its two launches, also with D_f² y folded
      in; B3, B4 and B5 bitwise equal across two runs; the time to build the
      camera-ordered twins of one new Jacobian (B3's, B4's and B5's inputs);
-     then schur_prepare's time per new Jacobian for JACOBI and SCHUR_JACOBI;
+     then schur_prepare's time per new Jacobian for JACOBI and SCHUR_JACOBI,
+     with and without mixed-precision solves (which add the bfloat16 casts);
   3. a small float64 solve (48,000 observations, so the layout plans
      engage) for 5 LM iterations on the card and on the CPU, for JACOBI,
      SCHUR_JACOBI, and SCHUR_JACOBI with the power-series warm start (which
      only schur_solve runs) on the host loop, and SCHUR_JACOBI on the fused
      device loop: per-iteration cost within 1e-9 relative and equal PCG
-     counts, and each case's kernels launched;
+     counts, and each case's kernels launched; then SCHUR_JACOBI with
+     use_mixed_precision_solves on the fused loop (bfloat16 leaves, float64
+     elsewhere), whose float32 matvec sums run in another order on the card:
+     cost within 1e-6;
   4. the main run: synthetic_bal(1778, 993923, 5,000,000) with Huber(1.0)
      in float32 through ceres_tpu_torch.solve (LM + ITERATIVE_SCHUR +
      SCHUR_JACOBI, eta 0.1, PCG <= 25, 5 iterations, on the fused device
@@ -36,8 +41,16 @@ and prints no result):
      the same PCG counts and accept/reject sequence, final cost within 1e-4
      relative (float32 decisions round in the dtype on the card and in
      Python doubles on the host), both runs' iteration ms side by side.
-     Then the fused solve with JACOBI on another new Problem (B1-B4), its
-     PCG counts and iteration ms beside the main run's.
+     Then the fused solve with JACOBI on another new Problem (B1-B4, 3
+     iterations), its PCG counts and iteration ms beside the main run's.
+     Then the mixed-precision main run: the same solve with
+     use_mixed_precision_solves=True on a new Problem, its PCG on B4's
+     bfloat16 instantiation (and never the float32 one), per iteration
+     beside the float32 run, and its final cost's gap to it. Last the
+     composed-path problem: BAL-1778 with a camera prior as a second
+     residual group, where B4 does not apply and the mixed PCG runs the
+     composed products through B2's and B3's bfloat16 instantiations (3
+     iterations, fused loop).
 Then a JSON line describing the kernels, the card's name and power limit,
 and the last line {"ok": true, "device": {...}}.
 
@@ -93,11 +106,23 @@ KERNELS = [
      "ceres_tpu/linalg/pallas_schur.py:262", 1e-4),
     ("schur_p0", "ceres_tpu_torch/csrc/schur_p0.cu",
      "ceres_tpu/linalg/pallas_schur.py:442", 1e-4),
+    # the bfloat16-leaf instantiations (mixed-precision solves)
+    ("gather_contract_bf16", "ceres_tpu_torch/csrc/gather_reduce.cu",
+     "ceres_tpu/pallas_onehot.py:111", 1e-5),
+    ("contract_reduce_bf16", "ceres_tpu_torch/csrc/gather_reduce.cu",
+     "ceres_tpu/pallas_onehot.py:142", 1e-4),
+    ("schur_sy_bf16", "ceres_tpu_torch/csrc/schur_sy.cu",
+     "ceres_tpu/linalg/pallas_schur.py:262", 1e-3),
 ]
+BF16_KERNELS = {"gather_contract_bf16", "contract_reduce_bf16", "schur_sy_bf16"}
 # B1's float32 tolerance covers the dual-number chain (rotation, projection,
 # distortion, Huber, Triggs correction) rounded differently from
 # torch.func's; B2 is a 9-term dot product; B3/B4/B5 sum ~2,800 observations
-# per camera in another order than index_add_.
+# per camera in another order than index_add_. On bfloat16 leaves B2 and B3
+# round only the table or u they are given (the same values in kernel and
+# plain version), so their float32 tolerances hold; B4 rounds t1, t2 and
+# diff, which kernel and plain version sum in other orders, so a few land on
+# the other side of a bfloat16 rounding boundary (one term off by 2^-8): 1e-3.
 # Phase 3's SCHUR_JACOBI problems have no point seen by one camera only.
 # Such a point's EᵀE is singular, and SCHUR_JACOBI's cached correction
 # (whose inverse carries only a 100·eps ridge) amplifies rounding there:
@@ -106,14 +131,21 @@ KERNELS = [
 # (tests/test_torch_schur_jacobi.py::test_lone_points_reference_against_itself),
 # far above phase 3's 1e-9. JACOBI keeps the problem with such points.
 PARITY_CASES = (
-    # (name, preconditioner, extra options, synthetic_bal sizes)
-    ("JACOBI", "JACOBI", {"fused_execution": False}, (96, 10_000, 48_000)),
-    ("SCHUR_JACOBI", "SCHUR_JACOBI", {"fused_execution": False}, (96, 4000, 48_000)),
+    # (name, preconditioner, extra options, synthetic_bal sizes, cost tolerance)
+    ("JACOBI", "JACOBI", {"fused_execution": False}, (96, 10_000, 48_000), 1e-9),
+    ("SCHUR_JACOBI", "SCHUR_JACOBI", {"fused_execution": False}, (96, 4000, 48_000), 1e-9),
     ("SCHUR_JACOBI+spse_init", "SCHUR_JACOBI",
-     {"use_spse_initialization": True, "fused_execution": False}, (96, 4000, 48_000)),
+     {"use_spse_initialization": True, "fused_execution": False}, (96, 4000, 48_000), 1e-9),
     ("SCHUR_JACOBI fused", "SCHUR_JACOBI", {"fused_execution_chunk_iters": 1},
-     (96, 4000, 48_000)),
+     (96, 4000, 48_000), 1e-9),
+    # bfloat16 matvec leaves whose float32 sums run in another order on the
+    # card than on the CPU
+    ("SCHUR_JACOBI mixed fused", "SCHUR_JACOBI",
+     {"fused_execution_chunk_iters": 1, "use_mixed_precision_solves": True},
+     (96, 4000, 48_000), 1e-6),
 )
+# a composed-path problem: the camera prior's weight
+PRIOR_WEIGHT = 0.1
 
 
 def nvidia_smi_line() -> str:
@@ -128,12 +160,13 @@ def kernel_name(mangled: str) -> str:
     """`name<f32,args...>` of a template kernel from its mangled name: the
     length-prefixed identifier ending in _kernel, then its template
     arguments (the value type, then integers and booleans)."""
-    for m in re.finditer(r"_kernelI([fd])((?:L[ib]\d+E)*)", mangled):
+    types = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16"}
+    for m in re.finditer(r"_kernelI(f|d|13__nv_bfloat16)((?:L[ib]\d+E)*)", mangled):
         end = m.start() + len("_kernel")
         for size in range(len("_kernel"), end):
             if mangled[:end - size].endswith(str(size)):
                 args = "".join(f",{a}" for a in re.findall(r"L[ib](\d+)E", m.group(2)))
-                return f"{mangled[end - size:end]}<{'f32' if m.group(1) == 'f' else 'f64'}{args}>"
+                return f"{mangled[end - size:end]}<{types[m.group(1)]}{args}>"
     return mangled
 
 
@@ -240,10 +273,19 @@ def time_library(name, make, want, results):
         results[name]["library_ms"] = median_ms(fn)
         print(f"phase 2: {name}: library call rel err {err:.3e} vs the kernel", flush=True)
         del fn
-    except (RuntimeError, NotImplementedError) as exc:
+    except (RuntimeError, NotImplementedError, TypeError) as exc:
         results[name]["library_ms"] = None
         print(f"phase 2: {name}: library call not timed: {exc}", flush=True)
     torch.cuda.empty_cache()
+
+
+def record_kernel(results, name, err, fn, plain, nbytes, ops):
+    """results[name]: the error against the plain version, the median ms of
+    the kernel and of the plain version, the bound for nbytes and ops."""
+    t_k, t_p = median_ms(fn), median_ms(plain)
+    b_ms, b_by = bound(nbytes, ops)
+    results[name] = {"err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None}
 
 
 def phase_kernels(program, dev, results):
@@ -282,10 +324,7 @@ def phase_kernels(program, dev, results):
     n = meta.n
 
     def record(name, err, fn, plain, nbytes, ops):
-        t_k, t_p = median_ms(fn), median_ms(plain)
-        b_ms, b_by = bound(nbytes, ops)
-        results[name] = {"err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
-                         "bound_by": b_by, "library_ms": None}
+        record_kernel(results, name, err, fn, plain, nbytes, ops)
 
     # B1
     cost_k, res_k, (j0, j1) = snavely_evaluate(*args)
@@ -399,7 +438,9 @@ def phase_kernels(program, dev, results):
     print(f"phase 2: schur_sy launches: point pass {a_ms:.4f} ms (bound {a_bound[0]:.4f} ms, "
           f"{a_bound[1]}), slot pass with its chunk sum {b_ms:.4f} ms (bound {b_bound[0]:.4f} ms, "
           f"{b_bound[1]}); with D_f² y folded in, max rel err {b4_dsq[1]:.3e}", flush=True)
-    del ete, minv, t2, dsq
+    del ete, t2, dsq
+    phase_kernels_bf16(results, sy, j0, j1, rows_f, layout, y, u, e_twin, prow, segs, minv)
+    del minv
 
     # B5 with the ridge (E'E)^-1 table of this Jacobian, as schur_prepare
     # builds it
@@ -430,15 +471,82 @@ def phase_kernels(program, dev, results):
         )
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain version")
-    print("phase 2: contract_reduce, schur_sy and schur_p0 bitwise equal across two runs",
-          flush=True)
+    print("phase 2: contract_reduce, schur_sy and schur_p0 bitwise equal across two runs, "
+          "and so are contract_reduce_bf16 and schur_sy_bf16", flush=True)
     phase_prepare(program, jac)
+
+
+def phase_kernels_bf16(results, sy, F, E, rows_f, layout, y, u, e_twin, prow, segs, minv):
+    """Phase 2: B2, B3 and B4 on bfloat16 copies of the leaves and twins
+    phase_kernels used (float32 y, u, (EᵀE + I)⁻¹ table and outputs), each
+    against its plain version on the same inputs; the bounds count the
+    leaves and twins at 2 bytes."""
+    import torch
+
+    from ceres_tpu_torch.gather_reduce import (
+        contract_reduce, contract_reduce_plain, gather_contract, gather_contract_plain,
+    )
+    from ceres_tpu_torch.jacobian import make_twin
+    from ceres_tpu_torch.linalg.schur_kernels import (
+        sy_apply, sy_apply_plain, sy_fold_pass, sy_point_pass,
+    )
+
+    bf16, w, h = torch.bfloat16, 4, 2  # bytes per float32 / int32, per bfloat16
+    n = F.shape[1]
+    ncols_f = y.shape[1]
+    cnt_e = minv.shape[1]
+    F16, E16 = F.to(bf16), E.to(bf16)
+    f_twin16, e_twin16 = make_twin(F16, layout), e_twin.to(bf16)
+
+    def record(name, err, fn, plain, nbytes, ops):
+        record_kernel(results, name, err, fn, plain, nbytes, ops)
+
+    out = gather_contract(F16, rows_f, y, 2)
+    record("gather_contract_bf16", rel_err(out, gather_contract_plain(F16, rows_f, y, 2)),
+           lambda: gather_contract(F16, rows_f, y, 2), lambda: gather_contract_plain(F16, rows_f, y, 2),
+           h * 18 * n + w * (n + 9 * ncols_f + 2 * n), 2 * 18 * n)
+    # cuSPARSE's bfloat16 SpMV takes a bfloat16 vector and writes bfloat16:
+    # the same products on the same rounded table, the output rounded
+    time_library("gather_contract_bf16",
+                 lambda: library_b2(F16, rows_f, y.to(bf16), 2), out, results)
+    out1, out2 = contract_reduce(f_twin16, layout, u, 2), contract_reduce(f_twin16, layout, u, 2)
+    if not torch.equal(out1, out2):
+        raise AssertionError("contract_reduce_bf16 is not bitwise reproducible")
+    record("contract_reduce_bf16", rel_err(out1, contract_reduce_plain(f_twin16, layout, u, 2)),
+           lambda: contract_reduce(f_twin16, layout, u, 2),
+           lambda: contract_reduce_plain(f_twin16, layout, u, 2),
+           h * 18 * n + w * (2 * n + n + 9 * ncols_f), 2 * 18 * n)
+    time_library("contract_reduce_bf16",
+                 lambda: library_b3(F16, rows_f, u.to(bf16), ncols_f, 2), out1, results)
+    del out, out1, out2
+
+    args = (sy, F16, E16, rows_f, f_twin16, e_twin16, prow, layout, y, minv, segs)
+    out1, out2 = sy_apply(*args), sy_apply(*args)
+    if not torch.equal(out1, out2):
+        raise AssertionError("schur_sy_bf16 is not bitwise reproducible")
+    err = rel_err(out1, sy_apply_plain(sy, F16, E16, rows_f, f_twin16, layout, y, minv))
+    b4_in = h * 24 * n + w * (n + segs[0].numel() + segs[1].numel() + 9 * ncols_f + 9 * cnt_e)
+    record("schur_sy_bf16", err, lambda: sy_apply(*args),
+           lambda: sy_apply_plain(sy, F16, E16, rows_f, f_twin16, layout, y, minv),
+           b4_in + w * 9 * ncols_f, n * (4 * 18 + 4 * 6) + cnt_e * 2 * 9)
+    t2 = sy_point_pass(sy, F16, E16, rows_f, y, minv, segs)
+    a_ms = median_ms(lambda: sy_point_pass(sy, F16, E16, rows_f, y, minv, segs))
+    b_ms = median_ms(lambda: sy_fold_pass(sy, f_twin16, e_twin16, prow, layout, y, t2))
+    a_bound = bound(b4_in + w * 3 * cnt_e, n * (2 * 18 + 2 * 6) + cnt_e * 2 * 9)
+    b_bound = bound(h * 24 * n + w * (n + 9 * ncols_f + 3 * cnt_e + 9 * ncols_f),
+                    n * (4 * 18 + 2 * 6))
+    print(f"phase 2: schur_sy_bf16 launches: point pass {a_ms:.4f} ms (bound {a_bound[0]:.4f} ms, "
+          f"{a_bound[1]}), slot pass with its chunk sum {b_ms:.4f} ms (bound {b_bound[0]:.4f} ms, "
+          f"{b_bound[1]}); bfloat16 leaves and twins {h * (24 + 24) * n / 1e9:.3f} GB "
+          f"against {w * (24 + 24) * n / 1e9:.3f} GB in float32 (not their padding)", flush=True)
+    del t2, out1, out2, F16, E16, f_twin16, e_twin16
+    torch.cuda.empty_cache()
 
 
 def phase_prepare(program, jac):
     """Phase 2, last line: schur_prepare's device time per new Jacobian
     (the Jacobi-scaled Jacobian, as the solve hands it over) for each
-    preconditioner."""
+    preconditioner, without and with mixed-precision solves."""
     import torch
 
     from ceres_tpu_torch.linalg.schur import schur_prepare
@@ -446,8 +554,11 @@ def phase_prepare(program, jac):
     jac_s = jac.scale_columns(1.0 / (1.0 + torch.sqrt(jac.squared_column_norms())))
     times = {}
     for name in ("JACOBI", "SCHUR_JACOBI"):
-        options = lm_options("cuda", torch.float32, preconditioner_type=name)
-        times[name] = median_ms(lambda: schur_prepare(program, options, jac_s), reps=5)
+        for mixed in (False, True):
+            options = lm_options("cuda", torch.float32, preconditioner_type=name,
+                                 use_mixed_precision_solves=mixed)
+            times[name + (" mixed" if mixed else "")] = median_ms(
+                lambda: schur_prepare(program, options, jac_s), reps=5)
     print(
         "phase 2: schur_prepare per new Jacobian: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()),
@@ -483,7 +594,7 @@ def phase_f64_parity():
     import ceres_tpu_torch as ct
     from ceres_tpu_torch import cuda_lib
 
-    for name, precond, extra, sizes in PARITY_CASES:
+    for name, precond, extra, sizes, tol in PARITY_CASES:
         bal = ct.synthetic_bal(*sizes, seed=1)
         sums = {}
         for dev in ("cuda", "cpu"):
@@ -502,24 +613,58 @@ def phase_f64_parity():
         print(
             f"phase 3: {name}: float64 synthetic_bal{sizes} solve, CUDA vs CPU: "
             f"{len(sums['cpu'].iterations)} iterations, max per-iteration cost rel diff "
-            f"{worst:.3e} (tol 1e-9), pcg {[it.linear_solver_iterations for it in sums['cuda'].iterations]}, "
+            f"{worst:.3e} (tol {tol:.0e}), pcg {[it.linear_solver_iterations for it in sums['cuda'].iterations]}, "
             f"final cost {sums['cuda'].final_cost:.12e}, launches {json.dumps(launches)}",
             flush=True,
         )
-        if not worst <= 1e-9:
+        if not worst <= tol:
             raise AssertionError(f"{name}: float64 CUDA solve disagrees with the CPU solve")
         fused = extra.get("fused_execution", True)
         if not sums["cuda"].used_fused_execution == sums["cpu"].used_fused_execution == fused:
             raise AssertionError(f"{name}: the solve did not take the {'fused' if fused else 'host'} loop")
-        missing = [k for k, v in launches.items() if v <= 0 and (k, precond) != ("schur_p0", "JACOBI")]
+        # the BA structure's mixed PCG runs B4's bfloat16 instantiation only
+        mixed = extra.get("use_mixed_precision_solves", False)
+        unused = {"schur_sy"} if mixed else set(BF16_KERNELS)
+        unused |= {"gather_contract_bf16", "contract_reduce_bf16"}
+        if precond == "JACOBI":
+            unused.add("schur_p0")
+        missing = [k for k, v in launches.items() if v <= 0 and k not in unused]
         if missing:
             raise AssertionError(f"{name}: the CUDA solve did not launch {missing}")
+        if mixed and launches["schur_sy"] != 0:
+            raise AssertionError(f"{name}: the mixed PCG launched B4's float32 instantiation")
 
 
-def run_main_path(bal, precond, **overrides):
-    """One full-size float32 solve on a new Problem, so that its preprocess
-    and first iteration pay every one-time cost a user's solve pays; the
-    launch counts are set to 0 just before it and read just after."""
+def build_prior_problem(bal):
+    """The composed-path problem: BAL-1778 with a second residual group, a
+    prior pulling every camera toward its start (9 residuals per camera).
+    With two groups B4 does not apply (schur_kernels.sy_meta), so the PCG
+    runs the composed products, B2 and B3 on the cameras' onehot plan."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.examples.snavely import snavely_reprojection_error
+
+    def camera_prior(params, data):
+        return PRIOR_WEIGHT * (params[0] - data[0])
+
+    problem = ct.Problem()
+    cams = problem.add_parameter_blocks(bal.cameras)
+    pts = problem.add_parameter_blocks(bal.points)
+    problem.add_residual_blocks(
+        ct.CostFunction(camera_prior, 9, name="camera_prior"), None, cams[:, None], (bal.cameras,)
+    )
+    problem.add_residual_blocks(
+        ct.CostFunction(snavely_reprojection_error, 2, name="snavely", kernel="snavely"),
+        ct.HuberLoss(1.0), np.stack([cams[bal.camera_index], pts[bal.point_index]], axis=1),
+        (bal.observations,),
+    )
+    return problem
+
+
+def run_main_path(bal, precond, build=None, **overrides):
+    """One full-size float32 solve on a new Problem (build_ba_problem's, or
+    `build(bal)`), so that its preprocess and first iteration pay every
+    one-time cost a user's solve pays; the launch counts are set to 0 just
+    before it and read just after."""
     import gc
 
     import torch
@@ -530,7 +675,10 @@ def run_main_path(bal, precond, **overrides):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.time()
-    problem, _, _ = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))
+    if build is None:
+        problem, _, _ = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))
+    else:
+        problem = build(bal)
     t_problem = time.time() - t0
     options = lm_options("cuda", torch.float32, precond, **overrides)
     cuda_lib.reset_launch_counts()
@@ -543,6 +691,10 @@ def run_main_path(bal, precond, **overrides):
         np.isfinite(problem.compile().state0).all()
     )
     loop = "fused" if summary.used_fused_execution else "host loop"
+    if overrides.get("use_mixed_precision_solves"):
+        loop += ", mixed"
+    if build is not None:
+        loop += ", camera prior"
     capture = summary.execution_summary
     print(
         f"phase 4: {precond} ({loop}): Problem built in {t_problem:.1f} s; solve {wall:.1f} s "
@@ -629,7 +781,7 @@ def main(argv=None) -> int:
     main, launches = run_main_path(bal, "SCHUR_JACOBI", fused_execution_chunk_iters=1)
     if not main.used_fused_execution:
         raise AssertionError("the main run did not take the fused loop")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in launches.items() if v <= 0 and k not in BF16_KERNELS]
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
     host, _ = run_main_path(bal, "SCHUR_JACOBI", fused_execution=False)
@@ -644,13 +796,49 @@ def main(argv=None) -> int:
     print(f"phase 4: fused vs host loop final cost rel diff {rel:.3e} (tol 1e-4)", flush=True)
     if not rel <= 1e-4:
         raise AssertionError("the fused and host loops end at different costs")
-    jacobi, jacobi_launches = run_main_path(bal, "JACOBI", fused_execution_chunk_iters=1)
-    missing = [k for k, v in jacobi_launches.items() if v <= 0 and k != "schur_p0"]
+    jacobi, jacobi_launches = run_main_path(bal, "JACOBI", fused_execution_chunk_iters=1,
+                                            max_num_iterations=3)
+    missing = [k for k, v in jacobi_launches.items()
+               if v <= 0 and k != "schur_p0" and k not in BF16_KERNELS]
     if missing:
         raise AssertionError(f"kernels not launched by the JACOBI path: {missing}")
     for a, b in zip(main.iterations, jacobi.iterations):
         print(f"phase 4: iter {a.iteration}: SCHUR_JACOBI {_iteration_line(a)} | JACOBI "
               f"{_iteration_line(b)}", flush=True)
+
+    # the mixed-precision main run: B4's bfloat16 instantiation is its PCG
+    mixed, mixed_launches = run_main_path(
+        bal, "SCHUR_JACOBI", fused_execution_chunk_iters=1, use_mixed_precision_solves=True
+    )
+    if not mixed.used_fused_execution:
+        raise AssertionError("the mixed run did not take the fused loop")
+    for a, b in zip(main.iterations, mixed.iterations):
+        print(f"phase 4: iter {a.iteration}: float32 {_iteration_line(a)} | mixed "
+              f"{_iteration_line(b)}", flush=True)
+    gap = abs(mixed.final_cost - main.final_cost) / abs(main.final_cost)
+    print(f"phase 4: mixed vs float32 final cost rel gap {gap:.3e}", flush=True)
+    if not (mixed_launches["schur_sy_bf16"] > 0 and mixed_launches["schur_sy"] == 0):
+        raise AssertionError("the mixed PCG did not run B4's bfloat16 instantiation alone")
+    missing = [k for k, v in mixed_launches.items()
+               if v <= 0 and k not in ("schur_sy", "gather_contract_bf16", "contract_reduce_bf16")]
+    if missing:
+        raise AssertionError(f"kernels not launched by the mixed path: {missing}")
+    # the composed path: a second residual group; B2 and B3 in bfloat16
+    composed, composed_launches = run_main_path(
+        bal, "SCHUR_JACOBI", build=build_prior_problem, fused_execution_chunk_iters=1,
+        use_mixed_precision_solves=True, max_num_iterations=3,
+    )
+    for it in composed.iterations:
+        print(f"phase 4: camera prior, mixed: iter {it.iteration}: {_iteration_line(it)}",
+              flush=True)
+    if not (composed_launches["gather_contract_bf16"] > 0
+            and composed_launches["contract_reduce_bf16"] > 0):
+        raise AssertionError("the composed path did not run B2's and B3's bfloat16 instantiations")
+    if composed_launches["schur_sy"] or composed_launches["schur_sy_bf16"]:
+        raise AssertionError("the composed path launched B4")
+    # each kernel's launches on the run that is its main path
+    launches.update({k: mixed_launches[k] for k in ("schur_sy_bf16",)})
+    launches.update({k: composed_launches[k] for k in ("gather_contract_bf16", "contract_reduce_bf16")})
 
     kernels = []
     for name, src, replaces, _tol in KERNELS:
@@ -669,7 +857,7 @@ def main(argv=None) -> int:
         "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
-            "count": 1,  # every phase drives one card
+            "count": torch.cuda.device_count(),
         },
     }))
     return 0

@@ -21,6 +21,13 @@ of the kernel, copy and memset intervals inside it.
 With --compare N it runs the fused and the host loop N times each, in turns
 (fused, host, fused, host, ...), each on a new Problem, and prints every
 run's iteration ms and the per-iteration medians.
+
+With --mixed the two variants are the fused loop in float32 and the fused
+loop with use_mixed_precision_solves=True (bfloat16 matvec leaves), for the
+profile (its tables in chiprun_out/profile_solve_mixed.txt) and for
+--compare alike:
+
+    python3 profile_torch_solve.py --mixed --compare 3
 """
 
 from __future__ import annotations
@@ -135,11 +142,18 @@ def warm_up_profiler(ct, torch, options):
         torch.cuda.synchronize()
 
 
-def compare(ct, torch, bal, lm_options, runs):
-    """Iteration ms of the fused and the host loop, `runs` times each, in
-    turns, each on a new Problem, no profiler."""
-    variants = (("fused", {"fused_execution_chunk_iters": 1}),
-                ("host", {"fused_execution": False}))
+def variants(mixed):
+    """(label, solve options) of the two runs: fused and host loop, or with
+    `mixed` the fused loop in float32 and with mixed-precision solves."""
+    fused = {"fused_execution_chunk_iters": 1}
+    if mixed:
+        return (("fused", fused), ("mixed", {**fused, "use_mixed_precision_solves": True}))
+    return (("fused", fused), ("host", {"fused_execution": False}))
+
+
+def compare(ct, torch, bal, lm_options, runs, variants):
+    """Iteration ms of the two variants, `runs` times each, in turns, each
+    on a new Problem, no profiler."""
     ms = {label: [] for label, _ in variants}
     for k in range(runs * len(variants)):
         label, extra = variants[k % len(variants)]
@@ -165,6 +179,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Profile the port's BAL-1778 solve.")
     parser.add_argument("--compare", type=int, default=0,
                         help="run the fused and host loops this many times each, in turns")
+    parser.add_argument("--mixed", action="store_true",
+                        help="the fused loop in float32 and with mixed-precision solves instead")
     args = parser.parse_args(argv)
     import torch
 
@@ -185,14 +201,14 @@ def main(argv=None) -> int:
     cuda_lib.library()
     bal = ct.synthetic_bal(1778, NUM_POINTS, NUM_OBSERVATIONS, seed=0)
     if args.compare:
-        compare(ct, torch, bal, lm_options, args.compare)
+        compare(ct, torch, bal, lm_options, args.compare, variants(args.mixed))
         return 0
 
     out_dir = os.path.join(root, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     report = [f"{smi} | torch {torch.__version__} cuda {torch.version.cuda}"]
-    loops = (("fused", lm_options("cuda", torch.float32, fused_execution_chunk_iters=1)),
-             ("host", lm_options("cuda", torch.float32, fused_execution=False)))
+    loops = [(label, lm_options("cuda", torch.float32, **extra))
+             for label, extra in variants(args.mixed)]
     warm_up_profiler(ct, torch, [options for _, options in loops])
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         for label, options in loops:
@@ -200,7 +216,8 @@ def main(argv=None) -> int:
             lines = profile_one(ct, torch, bal, options, label, tmp)
             report += lines + [""]
             print("\n".join(lines[:30]), flush=True)
-    with open(os.path.join(out_dir, "profile_solve.txt"), "w") as f:
+    name = "profile_solve_mixed.txt" if args.mixed else "profile_solve.txt"
+    with open(os.path.join(out_dir, name), "w") as f:
         f.write("\n".join(report) + "\n")
     return 0
 

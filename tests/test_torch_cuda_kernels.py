@@ -7,7 +7,12 @@ only PyTorch: `python -m pytest --noconftest tests/test_torch_cuda_kernels.py`
 version's largest magnitude: float32 2e-4 for B1 (the dual-number chain
 rounds differently from torch.func), 1e-5 for B2 (a 9-term dot product),
 1e-4 for B3/B4/B5 (sums over thousands of observations in another order);
-float64 1e-11. B3, B4's slot pass and B5 read camera-ordered twins of the
+float64 1e-11. B2, B3 and B4 also run on bfloat16 leaves (float32 vectors
+and outputs): B2 and B3 round only their given table or u, so they keep
+float32's tolerances; B4 rounds t1, t2 and diff, which the kernel and the
+plain version sum in other orders, so one of them can land on the other
+side of a bfloat16 rounding boundary (one term off by 2^-8 of itself):
+1e-3. B3, B4's slot pass and B5 read camera-ordered twins of the
 leaves; their tests use ragged camera runs (1, 31, 32, 33 and thousands of
 observations, one camera with none) and check that two runs are bitwise
 equal. `synthetic_sy_case` also serves the CPU tests of B4's plain passes
@@ -44,6 +49,7 @@ from ceres_tpu_torch.program import camera_layout
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.float64]
+BF16 = torch.bfloat16
 
 
 @pytest.fixture
@@ -202,6 +208,48 @@ def test_contract_reduce_ragged_runs(card, dtype, t, r, with_u):
            1e-4 if dtype == torch.float32 else 1e-11)
 
 
+def test_bf16_gather_reduce_kernels_match_plain(card):
+    """B2 and B3 on bfloat16 leaves and twins, float32 table and u."""
+    rng = np.random.default_rng(5)
+    n, ncols = 50_000, 40
+    jac = torch.tensor(rng.normal(size=(18, n)), dtype=BF16, device=card)
+    rows_np = rng.integers(0, ncols, n).astype(np.int32)
+    rows = torch.tensor(rows_np, device=card)
+    table = torch.tensor(rng.normal(size=(9, ncols)), dtype=torch.float32, device=card)
+    table[:, -1] = 0
+    u = torch.tensor(rng.normal(size=(2, n)), dtype=torch.float32, device=card)
+    layout = camera_layout(rows_np, ncols).to(card)
+    counts = cuda_lib.launch_counts()
+    out = gather_contract(jac, rows, table, 2)
+    assert out.dtype == torch.float32
+    _close(out, gather_contract_plain(jac, rows, table, 2), 1e-5)
+    twin = make_twin(jac, layout)
+    out = contract_reduce(twin, layout, u, 2)
+    assert out.dtype == torch.float32
+    _close(out, contract_reduce_plain(twin, layout, u, 2), 1e-4)
+    after = cuda_lib.launch_counts()
+    assert after["gather_contract_bf16"] == counts["gather_contract_bf16"] + 1
+    assert after["contract_reduce_bf16"] == counts["contract_reduce_bf16"] + 1
+    assert after["gather_contract"] == counts["gather_contract"]
+    assert after["contract_reduce"] == counts["contract_reduce"]
+    with pytest.raises(TypeError):  # float32 vectors only
+        contract_reduce(twin, layout, u.double(), 2)
+
+
+@pytest.mark.parametrize("t,r,with_u", [(9, 2, True), (6, 2, True), (16, 1, True), (81, 1, False)])
+def test_bf16_contract_reduce_ragged_runs(card, t, r, with_u):
+    rows, layout = _ragged_layout(card, t)
+    rng = np.random.default_rng(t + r)
+    n = rows.size
+    twin = make_twin(torch.tensor(rng.normal(size=(r * t, n)), dtype=BF16, device=card), layout)
+    u = torch.tensor(rng.normal(size=(r, n)), dtype=torch.float32, device=card) if with_u else None
+    out = contract_reduce(twin, layout, u, r)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, contract_reduce(twin, layout, u, r))
+    assert torch.all(out[:, 4] == 0)
+    _close(out, contract_reduce_plain(twin, layout, u, r), 1e-4)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("tf,te", [(6, 3), (9, 3), (16, 3), (9, 8), (16, 8)])
 def test_schur_p0_ragged_runs(card, dtype, tf, te):
@@ -279,6 +327,33 @@ def test_schur_sy_passes_ragged_runs(card, dtype, r, te, tf):
     _close(out, sy_apply_plain(meta, F, E, rows_f, F_twin, layout, y, minv, dsq), tol)
 
 
+@pytest.mark.parametrize("r,te,tf", [(2, 3, 9), (1, 1, 1), (2, 8, 16), (4, 3, 8), (3, 5, 6)])
+def test_bf16_schur_sy_passes_ragged_runs(card, r, te, tf):
+    """B4 on bfloat16 leaves and twins (float32 y, inverse table, D_f² and
+    output): each launch against its plain version, the whole S·y twice
+    bitwise, counted as schur_sy_bf16."""
+    (meta, F, E, rows_f, _Ft, _Et, prow, layout, y, minv,
+     dsq) = synthetic_sy_case(r, te, tf, torch.float32, card, seed=r * 100 + te * 10 + tf)
+    F, E = F.to(BF16), E.to(BF16)
+    F_twin, E_twin = make_twin(F, layout), make_twin(E, layout)
+    segs = sy_tables(meta, card)
+    t2 = sy_point_pass(meta, F, E, rows_f, y, minv, segs)
+    npts = int(meta["pt_start"][-1])
+    assert t2.dtype == torch.float32
+    _close(t2[:npts, :te], sy_point_plain(meta, F, E, rows_f, y, minv)[:npts], 1e-3)
+    fold = sy_fold_pass(meta, F_twin, E_twin, prow, layout, y, t2, dsq)
+    assert fold.dtype == torch.float32 and torch.all(fold[:, -1] == 0)
+    _close(fold, sy_fold_plain(meta, F_twin, E_twin, prow, layout, y, t2, dsq), 1e-3)
+    args = (meta, F, E, rows_f, F_twin, E_twin, prow, layout, y, minv, segs, dsq)
+    counts = cuda_lib.launch_counts()
+    out = sy_apply(*args)
+    after = cuda_lib.launch_counts()
+    assert after["schur_sy_bf16"] == counts["schur_sy_bf16"] + 1
+    assert after["schur_sy"] == counts["schur_sy"]
+    assert torch.equal(out, sy_apply(*args))
+    _close(out, sy_apply_plain(meta, F, E, rows_f, F_twin, layout, y, minv, dsq), 1e-3)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("table", ["ridge", "damped"])
 def test_schur_p0_kernel_matches_plain(card, dtype, table):
@@ -330,8 +405,11 @@ def test_cuda_solve_matches_cpu_and_launches_every_kernel(card, precond, num_poi
             max_num_iterations=3, max_linear_solver_iterations=25,
             function_tolerance=0.0, gradient_tolerance=0.0, parameter_tolerance=0.0,
             fused_execution=fused, device=dev, dtype=torch.float64), problem)
-    unused = {"schur_p0"} if precond == "JACOBI" else set()
+    # the bfloat16 instantiations run only under mixed-precision solves
+    unused = {k + "_bf16" for k in cuda_lib.BF16_KERNELS}
+    unused |= {"schur_p0"} if precond == "JACOBI" else set()
     assert all(v > 0 for k, v in cuda_lib.launch_counts().items() if k not in unused)
+    assert all(cuda_lib.launch_counts()[k] == 0 for k in unused if k.endswith("_bf16"))
     for a, b in zip(sums["cuda"].iterations, sums["cpu"].iterations, strict=True):
         assert a.cost == pytest.approx(b.cost, rel=1e-9)
         assert a.linear_solver_iterations == b.linear_solver_iterations

@@ -184,6 +184,47 @@ def test_fused_loop_syncs_only_through_counted_reads(card, dtype, case):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_mixed_fused_loop_syncs_only_through_counted_reads(card, dtype):
+    """use_mixed_precision_solves on the fused loop under
+    set_sync_debug_mode("error"): at most 2 + its PCG iterations reads per
+    iteration, the PCG graph replays B4's bfloat16 instantiation and never
+    its float32 one, and in float64 the run follows the CPU's (the matvec's
+    float32 sums run in another order on the card: cost 1e-6, the same PCG
+    counts and decisions)."""
+    options = _options(dtype, use_mixed_precision_solves=True)
+    program = _problem().compile(card)
+    minimizer = TrustRegionMinimizer(program, options, Evaluator(program, dtype))
+    warm = ct.Summary()
+    minimizer.minimize(program.state_vector(dtype), warm)
+    assert warm.used_fused_execution and warm.num_successful_steps >= 2
+    state = program.state_vector(dtype)
+    summary = ct.Summary()
+    g0 = graph_stats()
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        minimizer.minimize(state, summary)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = cuda_lib.launch_counts()
+    assert g0["captures"] == graph_stats()["captures"]
+    assert [it.cost for it in summary.iterations] == [it.cost for it in warm.iterations]
+    for it in summary.iterations[1:]:
+        assert it.num_device_reads <= 2 + it.linear_solver_iterations
+    pcg = sum(it.linear_solver_iterations for it in summary.iterations)
+    assert counts["schur_sy_bf16"] >= pcg > 0 and counts["schur_sy"] == 0
+    assert counts["schur_p0"] > 0  # the SCHUR_JACOBI blocks stay float32
+    if dtype == torch.float64:
+        cpu = ct.solve(_options(dtype, use_mixed_precision_solves=True, device="cpu"), _problem())
+        assert len(cpu.iterations) == len(summary.iterations)
+        for a, b in zip(summary.iterations, cpu.iterations):
+            assert a.cost == pytest.approx(b.cost, rel=1e-6)
+            assert a.linear_solver_iterations == b.linear_solver_iterations
+            assert a.step_is_successful == b.step_is_successful
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_fused_graphs_equal_the_eager_fused_loop(card, dtype, monkeypatch):
     """The fused loop with its graphs (evaluate, prepare, the finish's head,
     PCG iteration and tail, decide) against the same loop run eagerly: the

@@ -154,8 +154,9 @@ def test_twin_p0_matches_lane_order_f64(tf, te):
 
 
 def test_twins_follow_new_leaves(monkeypatch):
-    """Twin staleness: after a second evaluation at another state, and after
-    materialize_scale, the twins are those of the new leaves, and B3 (the
+    """Twin staleness: after a second evaluation at another state, after
+    materialize_scale and after astype (the bfloat16 matvec copy of
+    mixed-precision solves), the twins are those of the new leaves, and B3 (the
     gradient's camera part) and B5 on them equal the lane-order functions
     of the new leaves."""
     _, tprog = _programs(6, monkeypatch=monkeypatch)
@@ -183,6 +184,11 @@ def test_twins_follow_new_leaves(monkeypatch):
         Fm, Em = jm.leaf(0, f_pos), jm.leaf(0, e_pos)
         assert torch.equal(jm.twin(0, f_pos), make_twin(Fm, layout))
         assert torch.equal(jm.twin(0, e_pos, f_pos), make_twin(Em, layout))
+        # the mixed-precision matvec copy: its twins are those of its leaves
+        j16 = jm.astype(torch.bfloat16)
+        assert j16.leaf(0, f_pos).dtype == torch.bfloat16
+        assert torch.equal(j16.twin(0, f_pos), make_twin(Fm.to(torch.bfloat16), layout))
+        assert torch.equal(j16.twin(0, e_pos, f_pos), make_twin(Em.to(torch.bfloat16), layout))
         ete = BlockDiagSolver.from_inverse_tables(tprog, {meta["e_cls"]: minv})
         got = tschur._p0_tables(tprog, jm, meta, ete)[f_cls]
         _close_t(got, _lane_p0(meta, Fm, Em, rows_f, rows_e, minv), 1e-12)
@@ -366,14 +372,43 @@ def test_schur_solve_matches_jax_f64(monkeypatch, case):
     _close(tstep.numpy(), jstep, 1e-9)
 
 
+@pytest.mark.parametrize("case", list(SOLVE_CASES))
+def test_schur_solve_mixed_matches_jax(monkeypatch, case):
+    """Every schur_solve branch under use_mixed_precision_solves: the PCG
+    matvec reads bfloat16 leaves in both packages, while the explicit and the
+    dense S stay float64 (so those steps are the float64 ones, the dense one
+    through a refined float32 factor). The mixed step is held to JAX's mixed
+    step and to the port's float64 step at bfloat16's resolution (1e-2 of
+    the largest entry), and must differ from the float64 step where the PCG
+    read bfloat16 leaves."""
+    precond, kw = SOLVE_CASES[case]
+    radius = 10.0
+    jprog, tprog = _programs(8, PLANS, monkeypatch)
+    jopt, topt = _options(precond, use_mixed_precision_solves=True, **kw)
+    _, topt64 = _options(precond, **kw)
+    (jjs, jres, jgs), (tjs, tres, tgs) = _scaled_problem(jprog, tprog)
+    jdsq = jnp.clip(jjs.squared_column_norms(), jopt.min_lm_diagonal, jopt.max_lm_diagonal) / radius
+    jstep, jits = jschur.schur_solve(jprog, jopt, jjs, jres, jgs, jdsq)
+    tdsq = torch.clamp(tjs.squared_column_norms(), topt.min_lm_diagonal, topt.max_lm_diagonal) / radius
+    tstep, tits = tschur.schur_solve(tprog, topt, tjs, tres, tgs, tdsq)
+    t64, _ = tschur.schur_solve(tprog, topt64, tjs, tres, tgs, tdsq)
+    assert int(tits) > 0 and abs(int(tits) - int(jits)) <= 1
+    jstep, tstep, t64 = np.asarray(jstep), tstep.numpy(), t64.numpy()
+    gap64 = float(np.abs(tstep - t64).max() / np.abs(t64).max())
+    _close(tstep, jstep, 1e-2)
+    if case in ("explicit", "dense_schur"):
+        assert gap64 <= 1e-9
+    else:
+        assert 1e-6 < gap64 <= 1e-2
+
+
 @pytest.mark.parametrize(
     "kw",
     [
         {"preconditioner_type": "CLUSTER_JACOBI"},
         {"preconditioner_type": "CLUSTER_TRIDIAGONAL"},
-        {"use_mixed_precision_solves": True},
     ],
-    ids=["cluster_jacobi", "cluster_tridiagonal", "mixed_precision"],
+    ids=["cluster_jacobi", "cluster_tridiagonal"],
 )
 def test_schur_solve_refuses_unported_branches(monkeypatch, kw):
     _, tprog = _programs(8, PLANS, monkeypatch)

@@ -140,17 +140,47 @@ def test_float32_solve_decreases_cost():
     assert s.final_cost < 0.5 * s.initial_cost
 
 
-def test_invalid_and_unsupported_options():
+UNSUPPORTED = {
+    # case: (options, the ROADMAP item its message names, or None)
+    "invalid": ({"max_num_iterations": -1}, None),
+    "dense_qr": ({"linear_solver_type": "DENSE_QR"}, None),
+    "cluster_jacobi": ({"preconditioner_type": "CLUSTER_JACOBI"}, None),
+    "dogleg": ({"trust_region_strategy_type": "DOGLEG"}, "Queue A item 6"),
+    "inner_iterations": ({"use_inner_iterations": True}, "Queue A item 6"),
+    "iterations_to_dump": ({"trust_region_minimizer_iterations_to_dump": (1,)}, "Queue A item 6"),
+    "linear_solver_ordering": ({"linear_solver_ordering": [0, 1]}, "Queue A item 4"),
+    "check_gradients": ({"check_gradients": True}, "Queue A item 7"),
+    "mesh": ({"mesh": object()}, "Queue A item 11"),
+}
+
+
+@pytest.mark.parametrize("case", list(UNSUPPORTED))
+def test_invalid_and_unsupported_options(monkeypatch, case):
+    """Invalid options fail the solve; an option the port does not run
+    raises NotImplementedError naming its ROADMAP item, the six Queue C
+    options before the Problem is compiled, instead of being accepted and
+    ignored."""
+    kw, item = UNSUPPORTED[case]
+    enums = {"linear_solver_type": ct.LinearSolverType, "preconditioner_type": ct.PreconditionerType,
+             "trust_region_strategy_type": ct.TrustRegionStrategyType}
+    kw = {k: getattr(enums[k], v) if k in enums else v for k, v in kw.items()}
     problem, _, _ = ct.build_ba_problem(synthetic_bal(3, 10, 30, seed=4))
-    s = ct.solve(ct.SolverOptions(max_num_iterations=-1, device="cpu"), problem)
-    assert s.termination_type == ct.TerminationType.FAILURE and "Invalid" in s.message
-    with pytest.raises(NotImplementedError):
-        ct.solve(ct.SolverOptions(device="cpu"), problem)  # DENSE_QR: not ported
-    with pytest.raises(NotImplementedError):
-        ct.solve(
-            _options(ct, device="cpu", preconditioner_type=ct.PreconditionerType.CLUSTER_JACOBI),
-            problem,
-        )
+    options = _options(ct, device="cpu", **kw)
+    if case == "invalid":
+        s = ct.solve(options, problem)
+        assert s.termination_type == ct.TerminationType.FAILURE and "Invalid" in s.message
+        return
+    if item is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ct.solve(options, problem)
+        return
+
+    def compiled(*args, **kwargs):
+        raise AssertionError("the Problem was compiled before the option was refused")
+
+    monkeypatch.setattr(problem, "compile", compiled)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        ct.solve(options, problem)
 
 
 def test_empty_problem_converges():
