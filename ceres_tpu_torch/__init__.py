@@ -2,13 +2,16 @@
 
 A second package beside `ceres_tpu` (which stays the JAX reference). It
 mirrors ceres_tpu's module layout and names, and runs the bundle-adjustment
-solve — Levenberg-Marquardt with ITERATIVE_SCHUR + JACOBI on the Snavely
-functor — on one NVIDIA H100 through four hand-written CUDA kernels:
+solve — Levenberg-Marquardt with ITERATIVE_SCHUR on the Snavely functor,
+with angle-axis or quaternion cameras — on one NVIDIA H100 through five
+hand-written CUDA kernels:
 
-  B1 eval_kernel.py          fused Snavely evaluation (csrc/eval_snavely.cu)
+  B1 eval_kernel.py          fused Snavely evaluation, angle-axis and
+                             quaternion cameras (csrc/eval_snavely.cu)
   B2 gather_reduce.py        camera gather-contract F·y (csrc/gather_reduce.cu)
   B3 gather_reduce.py        deterministic camera contract-reduce Fᵀu
   B4 linalg/schur_kernels.py the fused implicit-Schur matvec (csrc/schur_sy.cu)
+  B5 linalg/schur_kernels.py the SCHUR_JACOBI block build (csrc/schur_p0.cu)
 
 On CPU tensors every kernel wrapper runs its plain PyTorch version instead.
 Importing the package builds nothing; the kernels compile on first use on a
@@ -16,9 +19,27 @@ card (cuda_lib.py).
 """
 
 from .autodiff import CostFunction
-from .io.bal import build_ba_problem, synthetic_bal
-from .loss import HuberLoss, LossFunction, TrivialLoss
-from .manifolds import EuclideanManifold, Manifold
+from .io.bal import BalProblem, build_ba_problem, load_bal, synthetic_bal
+from .loss import (
+    ArctanLoss,
+    CauchyLoss,
+    ComposedLoss,
+    HuberLoss,
+    LossFunction,
+    LossFunctionWrapper,
+    ScaledLoss,
+    SoftLOneLoss,
+    TolerantLoss,
+    TrivialLoss,
+    TukeyLoss,
+)
+from .manifolds import (
+    EigenQuaternionManifold,
+    EuclideanManifold,
+    Manifold,
+    ProductManifold,
+    QuaternionManifold,
+)
 from .problem import Problem
 from .solvers.solver import solve
 from .types import (
@@ -34,23 +55,36 @@ from .types import (
 )
 
 __all__ = [
+    "ArctanLoss",
+    "BalProblem",
+    "CauchyLoss",
+    "ComposedLoss",
     "CostFunction",
+    "EigenQuaternionManifold",
     "EuclideanManifold",
     "HuberLoss",
     "IterationSummary",
     "LinearSolverType",
     "LoggingType",
     "LossFunction",
+    "LossFunctionWrapper",
     "Manifold",
     "MinimizerType",
     "PreconditionerType",
     "Problem",
+    "ProductManifold",
+    "QuaternionManifold",
+    "ScaledLoss",
+    "SoftLOneLoss",
     "SolverOptions",
     "Summary",
     "TerminationType",
+    "TolerantLoss",
     "TrivialLoss",
     "TrustRegionStrategyType",
+    "TukeyLoss",
     "build_ba_problem",
+    "load_bal",
     "solve",
     "synthetic_bal",
 ]

@@ -36,17 +36,24 @@ NVCC_FLAGS = (
 )
 
 KERNELS = ("eval_snavely", "gather_contract", "contract_reduce", "schur_sy", "schur_p0")
+# B1's quaternion instantiations (eval_kernel.snavely_quat_evaluate): on the
+# camera's product manifold (tangent 9) and without a manifold (tangent 10)
+QUAT_KERNELS = ("eval_snavely_quat", "eval_snavely_quat_nomanifold")
 # the kernels with a bfloat16-leaf instantiation (B2, B3, B4)
 BF16_KERNELS = ("gather_contract", "contract_reduce", "schur_sy")
-_launches = {name: 0 for name in KERNELS + tuple(k + "_bf16" for k in BF16_KERNELS)}
+_launches = {
+    name: 0 for name in KERNELS + QUAT_KERNELS + tuple(k + "_bf16" for k in BF16_KERNELS)
+}
 _lib = None
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C signatures: every function returns cudaGetLastError() as an int
 _SIGNATURES = {
-    # tbl0, rows0, tbl1, rows1, obs, n, loss_kind, loss_a, with_jac,
-    # res, jac0, jac1, partials, cost, stream
-    "ctt_eval_snavely": [_P, _P, _P, _P, _P, _I, _I, _D, _I, _P, _P, _P, _P, _P, _P],
+    # model, tbl0, rows0, tbl1, rows1, obs, n, loss kind, a, b, c, scale,
+    # with_jac, res, jac0, jac1, partials, cost, stream
+    "ctt_eval_snavely": [
+        _I, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _D, _I, _P, _P, _P, _P, _P, _P,
+    ],
     # jac, rows, table, n, r, t, ncols, out, stream
     "ctt_gather_contract": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     # twin, perm, chunk_start, row_chunks, u, n, n_pad, r, t, nchunks, ncols,

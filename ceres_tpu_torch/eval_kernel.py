@@ -1,55 +1,103 @@
 """Kernel B1: fused Snavely evaluation of one signature group.
 
 Replaces `ceres_tpu/pallas_eval.py` GroupKernel (the kernel launched at
-pallas_eval.py:571) for the Snavely 9+3 functor. One CUDA thread per
-observation (csrc/eval_snavely.cu): it gathers its camera and point rows
-from the [cnt, s] state tables (the gather_T of
+pallas_eval.py:571) for the Snavely functors, one instantiation per camera
+model (csrc/eval_snavely.cu):
+  - "snavely": the angle-axis camera, Euclidean (9, 3) blocks;
+  - "snavely_quat": the quaternion camera [q(4) | t(3) | f k1 k2], (10, 3)
+    blocks, on Quaternion x Euclidean(6) with the plus-Jacobian fused in
+    (Jacobian columns in its 9-wide tangent space, GroupKernel's manifold
+    branch, pallas_eval.py:306-314) or without a manifold (10 columns).
+One CUDA thread per observation: it gathers its camera and point rows from
+the [cnt, s] state tables (the gather_T of
 evaluator._group_eval_pallas:182-220, fused), computes the residual and its
-2x9 / 2x3 Jacobians by a hand-derived chain (rotation, translation,
-projection, distortion: each derivative formed once, one reciprocal per
-denominator, one sincos), applies TrivialLoss or Huber(a), the Triggs
-correction exactly as `_lane_corrector`, and writes res [2, n], jac0 [18, n],
-jac1 [6, n] (row rr*t + j, as pallas_eval.py:514-524) plus a per-block cost
-partial; a second launch sums the partials in a fixed order (no atomics).
-The residual-only launch is an instantiation of its own, without the
-derivative code.
+Jacobians by a hand-derived chain (rotation, translation, projection,
+distortion: each derivative formed once, one reciprocal per denominator),
+applies the loss by its code (`loss_code`) and the Triggs correction exactly
+as `_lane_corrector`, and writes res [2, n], jac0 [2 t, n], jac1 [6, n] (row
+rr*t + j, as pallas_eval.py:514-524) plus a per-block cost partial; a second
+launch sums the partials in a fixed order (no atomics). The residual-only
+launch is an instantiation of its own, without the derivative code.
 
 On CPU tensors the plain version runs: the torch.func path plus the gather,
-the loss and correct_batched (evaluator.evaluate_batch).
+the plus-Jacobian chain, the loss and correct_batched
+(evaluator.evaluate_batch). A group the kernel has no code for (another
+functor, a ComposedLoss or LossFunctionWrapper, another manifold) is not
+`eligible` and takes the torch.func path.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import cuda_lib
-from .loss import HuberLoss, TrivialLoss
+from .loss import (
+    ArctanLoss,
+    CauchyLoss,
+    HuberLoss,
+    ScaledLoss,
+    SoftLOneLoss,
+    TolerantLoss,
+    TrivialLoss,
+    TukeyLoss,
+)
+from .manifolds import EuclideanManifold, ProductManifold, QuaternionManifold
 
 BLOCK = 256  # threads per block of the evaluation launch (eval_snavely.cu)
+# the camera manifold of the quaternion model's fused plus-Jacobian
+QUAT_CAMERA = ProductManifold(QuaternionManifold(), EuclideanManifold(6))
+# the loss kinds of csrc/eval_snavely.cu (LossCode); kind 0 is no loss
+_LOSS_KINDS = {
+    TrivialLoss: 1, HuberLoss: 2, SoftLOneLoss: 3, CauchyLoss: 4, ArctanLoss: 5,
+    TolerantLoss: 6, TukeyLoss: 7,
+}
 
 
 def loss_code(loss):
-    """(kind, a) passed to the kernel: 0 no loss, 1 trivial, 2 Huber(a);
-    None when the kernel has no code for this loss."""
+    """(kind, a, b, c, scale) passed to the kernel, or None when the kernel
+    has no code for this loss. kind: 0 no loss, 1 Trivial, 2 Huber(a),
+    3 SoftLOne(a), 4 Cauchy(a), 5 Arctan(a), 6 Tolerant(a, b), 7 Tukey(a);
+    c is Tolerant's constant b log1p(exp(-a / b)) as loss.py forms it; a
+    ScaledLoss around a coded loss (or around None: the trivial loss) folds
+    in as the scale."""
     if loss is None:
-        return 0, 0.0
-    if isinstance(loss, TrivialLoss):
-        return 1, 0.0
-    if isinstance(loss, HuberLoss):
-        return 2, float(loss.a)
-    return None
+        return 0, 0.0, 0.0, 0.0, 1.0
+    scale = 1.0
+    while isinstance(loss, ScaledLoss):
+        scale *= float(loss.a)
+        loss = loss.loss
+        if loss is None:
+            return 1, 0.0, 0.0, 0.0, scale
+    kind = _LOSS_KINDS.get(type(loss))
+    if kind is None:
+        return None
+    a = float(getattr(loss, "a", 0.0))
+    b = float(getattr(loss, "b", 0.0))
+    c = b * math.log1p(math.exp(-a / b)) if kind == 6 else 0.0
+    return kind, a, b, c, scale
+
+
+# kernel tag -> (camera ambient size, the camera manifolds it serves)
+_MODELS = {"snavely": (9, (None,)), "snavely_quat": (10, (None, QUAT_CAMERA))}
 
 
 def eligible(meta, dtype, apply_loss) -> bool:
-    """True when the group is the Snavely functor in the shape the kernel
-    serves: tag, residual count, Euclidean (9, 3) blocks, one [n, 2] data
-    leaf, a loss it has code for, float32/float64."""
+    """True when the group is a Snavely functor in the shape the kernel
+    serves: its tag, residual count, (9, 3) Euclidean blocks for
+    "snavely", (10, 3) blocks with the quaternion product manifold or none
+    on the camera for "snavely_quat", a loss it has a code for,
+    float32/float64."""
     cf = meta.cost_function
-    if getattr(cf, "kernel", None) != "snavely" or cf.num_residuals != 2:
+    model = _MODELS.get(getattr(cf, "kernel", None))
+    if model is None or cf.num_residuals != 2:
         return False
-    if tuple(pm.size for pm in meta.positions) != (9, 3):
+    amb, cam_manifolds = model
+    if tuple(pm.size for pm in meta.positions) != (amb, 3):
         return False
-    if any(pm.manifold is not None for pm in meta.positions):
+    cam, pt = meta.positions
+    if cam.manifold not in cam_manifolds or pt.manifold is not None:
         return False
     if dtype not in (torch.float32, torch.float64):
         return False
@@ -66,18 +114,24 @@ def snavely_evaluate_plain(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian):
     )
 
 
-def snavely_evaluate(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian):
-    """Evaluate the Snavely group: camera table tbl0 [cnt0, 9] with rows0
-    [n], point table tbl1 [cnt1, 3] with rows1 [n], observations obs
-    [n, 2]. Returns (cost [], res [2, n], (jac0 [18, n], jac1 [6, n]) or ())."""
-    if tbl0.device.type == "cpu":
-        return snavely_evaluate_plain(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian)
+def snavely_quat_evaluate_plain(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian, manifold):
+    from .evaluator import evaluate_batch
+    from .examples.snavely import snavely_reprojection_error_with_quaternions
+
+    params = (tbl0[rows0], tbl1[rows1])
+    return evaluate_batch(
+        snavely_reprojection_error_with_quaternions, params, (obs,),
+        (QUAT_CAMERA if manifold else None, None), loss, with_jacobian,
+    )
+
+
+def _launch(model, counter, amb, tan, tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian):
     dev, dt = tbl0.device, tbl0.dtype
     n = rows0.shape[0]
     code = loss_code(loss)
     if code is None:
-        raise ValueError(f"snavely_evaluate: no kernel code for loss {loss!r}")
-    cuda_lib.require("tbl0", tbl0, dt, (tbl0.shape[0], 9), dev)
+        raise ValueError(f"{counter}: no kernel code for loss {loss!r}")
+    cuda_lib.require("tbl0", tbl0, dt, (tbl0.shape[0], amb), dev)
     cuda_lib.require("tbl1", tbl1, dt, (tbl1.shape[0], 3), dev)
     cuda_lib.require("rows0", rows0, torch.int32, (n,), dev)
     cuda_lib.require("rows1", rows1, torch.int32, (n,), dev)
@@ -85,18 +139,55 @@ def snavely_evaluate(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian):
     res = torch.empty((2, n), dtype=dt, device=dev)
     jac0 = jac1 = None
     if with_jacobian:
-        jac0 = torch.empty((18, n), dtype=dt, device=dev)
+        jac0 = torch.empty((2 * tan, n), dtype=dt, device=dev)
         jac1 = torch.empty((6, n), dtype=dt, device=dev)
     partials = torch.empty(((n + BLOCK - 1) // BLOCK,), dtype=dt, device=dev)
     cost = torch.empty((), dtype=dt, device=dev)
     fn = cuda_lib.kernel_fn("ctt_eval_snavely", dt)
     rc = fn(
-        cuda_lib.ptr(tbl0), cuda_lib.ptr(rows0), cuda_lib.ptr(tbl1),
-        cuda_lib.ptr(rows1), cuda_lib.ptr(obs), n, code[0], code[1],
+        model, cuda_lib.ptr(tbl0), cuda_lib.ptr(rows0), cuda_lib.ptr(tbl1),
+        cuda_lib.ptr(rows1), cuda_lib.ptr(obs), n, *code,
         int(with_jacobian), cuda_lib.ptr(res), cuda_lib.ptr(jac0),
         cuda_lib.ptr(jac1), cuda_lib.ptr(partials), cuda_lib.ptr(cost),
         cuda_lib.stream(dev),
     )
-    cuda_lib.check(rc, "eval_snavely")
-    cuda_lib.count("eval_snavely")
+    cuda_lib.check(rc, counter)
+    cuda_lib.count(counter)
     return cost, res, ((jac0, jac1) if with_jacobian else ())
+
+
+def snavely_evaluate(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian):
+    """Evaluate the angle-axis Snavely group: camera table tbl0 [cnt0, 9]
+    with rows0 [n], point table tbl1 [cnt1, 3] with rows1 [n], observations
+    obs [n, 2]. Returns (cost [], res [2, n], (jac0 [18, n], jac1 [6, n])
+    or ())."""
+    if tbl0.device.type == "cpu":
+        return snavely_evaluate_plain(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian)
+    return _launch(0, "eval_snavely", 9, 9, tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian)
+
+
+def snavely_quat_evaluate(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian, manifold):
+    """Evaluate the quaternion Snavely group: camera table tbl0 [cnt0, 10]
+    ([q | t | f k1 k2]), the rest as `snavely_evaluate`. With `manifold`
+    the camera is on QUAT_CAMERA and jac0 is [18, n] in its tangent space;
+    without, jac0 is [20, n]. Counted as eval_snavely_quat and
+    eval_snavely_quat_nomanifold."""
+    if tbl0.device.type == "cpu":
+        return snavely_quat_evaluate_plain(
+            tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian, manifold
+        )
+    if manifold:
+        return _launch(1, "eval_snavely_quat", 10, 9, tbl0, rows0, tbl1, rows1, obs, loss,
+                       with_jacobian)
+    return _launch(2, "eval_snavely_quat_nomanifold", 10, 10, tbl0, rows0, tbl1, rows1, obs,
+                   loss, with_jacobian)
+
+
+def group_evaluate(meta, tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian):
+    """The entry point of an eligible group's model."""
+    if meta.cost_function.kernel == "snavely_quat":
+        return snavely_quat_evaluate(
+            tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian,
+            meta.positions[0].manifold is not None,
+        )
+    return snavely_evaluate(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian)

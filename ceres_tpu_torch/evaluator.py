@@ -1,7 +1,8 @@
 """Batched residual / Jacobian / gradient / cost evaluation.
 
-Port of `ceres_tpu.evaluator`. Per signature group, the Snavely functor on
-a card runs kernel B1 (eval_kernel.py); every other group — and every
+Port of `ceres_tpu.evaluator`. Per signature group, the Snavely functors
+(angle-axis and quaternion cameras) on a card run kernel B1
+(eval_kernel.py); every other group — and every
 group on the CPU — runs the torch.func path: gather the parameter rows,
 vmap(jacfwd) the functor, chain the manifold plus-Jacobian, apply the loss
 and the Triggs correction. Outputs are observation-minor: residuals [r, n],
@@ -117,12 +118,14 @@ def _group_eval_range(meta, garr, state_2d, with_jacobian, apply_loss):
 
 def _group_eval(meta, garr, state_2d, with_jacobian: bool, apply_loss: bool):
     """Evaluate one signature group -> (cost, res [r, n], jacs tuple of
-    [r*t, n]). Kernel B1 for an eligible Snavely group (its wrapper runs
-    the plain version on CPU tensors), the torch.func path otherwise."""
+    [r*t, n]). Kernel B1 for an eligible Snavely group, angle-axis or
+    quaternion (its wrapper runs the plain version on CPU tensors), the
+    torch.func path otherwise."""
     dtype = state_2d[0].dtype if state_2d else None
     if eval_kernel.eligible(meta, dtype, apply_loss):
         p0, p1 = meta.positions
-        return eval_kernel.snavely_evaluate(
+        return eval_kernel.group_evaluate(
+            meta,
             state_2d[p0.a_cls],
             garr["a_rows"][0],
             state_2d[p1.a_cls],

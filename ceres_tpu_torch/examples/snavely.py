@@ -4,8 +4,9 @@ Port of `ceres_tpu.examples.snavely` (reference:
 examples/snavely_reprojection_error.h). 9 camera parameters
 [angle-axis(3), t(3), f, k1, k2] and 3 point parameters; pixel =
 f * distortion * perspective_divide(R x + t) with radial distortion
-1 + k1 r^2 + k2 r^4 and the BAL convention (camera looks down -z).
-The CUDA kernel in csrc/eval_snavely.cu computes the same expression in the
+1 + k1 r^2 + k2 r^4 and the BAL convention (camera looks down -z). The
+quaternion variant takes 10 camera parameters [q(4), t(3), f, k1, k2].
+The CUDA kernel in csrc/eval_snavely.cu computes both expressions in the
 same order.
 """
 
@@ -42,6 +43,25 @@ def snavely_reprojection_error(params, data):
     # with a Python float to float64 tangents.
     xy = -p[:2] / p[2:3]
     f, k1, k2 = camera[6:7], camera[7:8], camera[8:9]
+    r2 = xy[0:1] * xy[0:1] + xy[1:2] * xy[1:2]
+    distortion = 1.0 + r2 * (k1 + k2 * r2)
+    return f * distortion * xy - observed
+
+
+def snavely_reprojection_error_with_quaternions(params, data):
+    """params = (camera [10] = [q(4) | t(3) | f k1 k2], point [3]);
+    data = (observed_xy [2],) -> [2].
+
+    reference: SnavelyReprojectionErrorWithQuaternions
+    (examples/snavely_reprojection_error.h:89-152). q is not normalized."""
+    from ..rotation import unit_quaternion_rotate_point
+
+    camera, point = params
+    (observed,) = data
+    p = unit_quaternion_rotate_point(camera[:4], point) + camera[4:7]
+    # one-element slices, as in snavely_reprojection_error
+    xy = -p[:2] / p[2:3]
+    f, k1, k2 = camera[7:8], camera[8:9], camera[9:10]
     r2 = xy[0:1] * xy[0:1] + xy[1:2] * xy[1:2]
     distortion = 1.0 + r2 * (k1 + k2 * r2)
     return f * distortion * xy - observed

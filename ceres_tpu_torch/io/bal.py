@@ -1,10 +1,13 @@
-"""BAL (Bundle Adjustment in the Large) problems: synthetic generation and
-assembly into a Problem.
+"""BAL (Bundle Adjustment in the Large) problems: the text loader,
+synthetic generation, normalization and perturbation, and assembly into a
+Problem with angle-axis or quaternion cameras.
 
 Port of `ceres_tpu.io.bal` (reference: examples/bal_problem.cc). The data
-is plain numpy, generated from a seed, so both packages build the same
-problem from the same `BalProblem` and the tests compare them array for
-array.
+is plain numpy, read from a file or generated from a seed, so both packages
+build the same problem from the same `BalProblem` and the tests compare them
+array for array. The file format (grail.cs.washington.edu/projects/bal):
+header `num_cameras num_points num_observations`, then one observation per
+line `cam_idx point_idx x y`, then 9 doubles per camera, then 3 per point.
 """
 
 from __future__ import annotations
@@ -33,6 +36,61 @@ class BalProblem:
     @property
     def num_observations(self) -> int:
         return self.observations.shape[0]
+
+    def normalize(self, median_scale: float = 100.0):
+        """Center the reconstruction and scale it to a fixed median absolute
+        deviation (bal_problem.cc Normalize)."""
+        median = np.median(self.points, axis=0)
+        dev = np.abs(self.points - median).sum(axis=1)
+        scale = median_scale / np.median(dev)
+        self.points = scale * (self.points - median)
+        # camera center c = -R' t, so t = -R c; normalize the centers alike
+        for i in range(self.num_cameras):
+            r = _angle_axis_to_matrix(self.cameras[i, :3])
+            center = -r.T @ self.cameras[i, 3:6]
+            center = scale * (center - median)
+            self.cameras[i, 3:6] = -r @ center
+
+    def perturb(self, rotation_sigma=0.0, translation_sigma=0.0, point_sigma=0.0, seed=0):
+        """Add Gaussian noise (bal_problem.cc Perturb); draws the same
+        numbers in the same order as ceres_tpu's."""
+        rng = np.random.default_rng(seed)
+        if point_sigma > 0:
+            self.points += rng.normal(0, point_sigma, self.points.shape)
+        if translation_sigma > 0:
+            self.cameras[:, 3:6] += rng.normal(0, translation_sigma, (self.num_cameras, 3))
+        if rotation_sigma > 0:
+            self.cameras[:, :3] += rng.normal(0, rotation_sigma, (self.num_cameras, 3))
+
+
+def _angle_axis_to_matrix(aa: np.ndarray) -> np.ndarray:
+    theta = np.linalg.norm(aa)
+    if theta < 1e-12:
+        k = np.array([[0, -aa[2], aa[1]], [aa[2], 0, -aa[0]], [-aa[1], aa[0], 0]])
+        return np.eye(3) + k
+    axis = aa / theta
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(theta) * k + (1 - np.cos(theta)) * (k @ k)
+
+
+def load_bal(path) -> BalProblem:
+    """Parse a BAL text file (examples/bal_problem.cc constructor) with
+    numpy: every token is read as ceres_tpu's loader reads it (indices as
+    int64, values as correctly rounded float64)."""
+    with open(path) as f:
+        tokens = f.read().split()
+    num_cameras, num_points, num_obs = (int(t) for t in tokens[:3])
+    end = 3 + 4 * num_obs
+    table = np.array(tokens[3:end]).reshape(num_obs, 4)
+    cam_idx = table[:, 0].astype(np.int64)
+    pt_idx = table[:, 1].astype(np.int64)
+    obs = table[:, 2:].astype(np.float64)
+    rest = np.array(tokens[end : end + 9 * num_cameras + 3 * num_points]).astype(np.float64)
+    if rest.size != 9 * num_cameras + 3 * num_points:
+        raise ValueError(f"{path}: truncated BAL file")
+    cameras = rest[: 9 * num_cameras].reshape(num_cameras, 9)
+    points = rest[9 * num_cameras :].reshape(num_points, 3)
+    return BalProblem(cameras, points, cam_idx, pt_idx, obs)
 
 
 def synthetic_bal(
@@ -115,18 +173,50 @@ def _rotate_np(aa: np.ndarray, p: np.ndarray) -> np.ndarray:
     return out
 
 
-def build_ba_problem(bal: BalProblem, loss=None):
+def build_ba_problem(
+    bal: BalProblem,
+    loss=None,
+    use_quaternions: bool = False,
+    use_manifolds: bool = False,
+):
     """Assemble a Problem from a BalProblem (reference:
     examples/bundle_adjuster.cc BuildProblem): all observations become one
     signature group of the Snavely functor, tagged for the CUDA evaluation
-    kernel. Returns (problem, camera handles, point handles)."""
+    kernel. With `use_quaternions` the camera block is
+    [q(4) | t(3) | f k1 k2] (q from the angle-axis, in float64 on the host)
+    and the functor the quaternion one (tag "snavely_quat");
+    `use_manifolds` puts Quaternion x Euclidean(6) on it, else the camera's
+    tangent is its 10 ambient coordinates (bundle_adjuster.cc's
+    --use_quaternions / --use_manifolds). Returns (problem, camera handles,
+    point handles)."""
+    import torch
+    from torch.func import vmap
+
     from ..autodiff import CostFunction
-    from ..examples.snavely import snavely_reprojection_error
+    from ..examples.snavely import (
+        snavely_reprojection_error,
+        snavely_reprojection_error_with_quaternions,
+    )
+    from ..manifolds import EuclideanManifold, ProductManifold, QuaternionManifold
     from ..problem import Problem
+    from ..rotation import angle_axis_to_quaternion
 
     problem = Problem()
-    cam_ids = problem.add_parameter_blocks(bal.cameras)
-    cf = CostFunction(snavely_reprojection_error, 2, name="snavely", kernel="snavely")
+    if use_quaternions:
+        aa = torch.tensor(bal.cameras[:, :3], dtype=torch.float64)
+        quats = vmap(angle_axis_to_quaternion)(aa).numpy()
+        cams10 = np.concatenate([quats, bal.cameras[:, 3:]], axis=1)
+        manifold = (
+            ProductManifold(QuaternionManifold(), EuclideanManifold(6)) if use_manifolds else None
+        )
+        cam_ids = problem.add_parameter_blocks(cams10, manifold=manifold)
+        cf = CostFunction(
+            snavely_reprojection_error_with_quaternions, 2, name="snavely_quat",
+            kernel="snavely_quat",
+        )
+    else:
+        cam_ids = problem.add_parameter_blocks(bal.cameras)
+        cf = CostFunction(snavely_reprojection_error, 2, name="snavely", kernel="snavely")
     pt_ids = problem.add_parameter_blocks(bal.points)
     param_ids = np.stack([cam_ids[bal.camera_index], pt_ids[bal.point_index]], axis=1)
     problem.add_residual_blocks(cf, loss, param_ids, (bal.observations,))

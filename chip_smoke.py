@@ -20,6 +20,11 @@ and prints no result):
      camera-ordered twins of one new Jacobian (B3's, B4's and B5's inputs);
      then schur_prepare's time per new Jacobian for JACOBI and SCHUR_JACOBI,
      with and without mixed-precision solves (which add the bfloat16 casts);
+     then the quaternion cameras: B1's quaternion instantiations (on the
+     camera's product manifold, tangent 9, and without one, tangent 10),
+     with the Jacobian and residual-only, and B3, B4 (its generic
+     instantiation) and B5 on the 10-wide Jacobian, each against its plain
+     version;
   3. a small float64 solve (48,000 observations, so the layout plans
      engage) for 5 LM iterations on the card and on the CPU, for JACOBI,
      SCHUR_JACOBI, and SCHUR_JACOBI with the power-series warm start (which
@@ -50,7 +55,13 @@ and prints no result):
      composed-path problem: BAL-1778 with a camera prior as a second
      residual group, where B4 does not apply and the mixed PCG runs the
      composed products through B2's and B3's bfloat16 instantiations (3
-     iterations, fused loop).
+     iterations, fused loop). Last the quaternion main run: the same data
+     with cameras [q | t | f k1 k2] on Quaternion x Euclidean(6)
+     (build_ba_problem(use_quaternions=True, use_manifolds=True): B1's
+     quaternion instantiation and B2-B5), SCHUR_JACOBI on the fused loop at
+     chunk 1, 5 iterations, per iteration beside the angle-axis main run,
+     its initial cost within 1e-5 relative of that run's; then 3 iterations
+     without the manifold (tangent 10).
 Then a JSON line describing the kernels, the card's name and power limit,
 and the last line {"ok": true, "device": {...}}.
 
@@ -94,6 +105,13 @@ F32_FLOPS_PER_S = 67e12
 B1_OPS_PER_OBS = 540
 # the residual-only instantiation: the residual chain, Huber, Triggs scale
 B1_RES_OPS_PER_OBS = 110
+# B1's quaternion instantiations, counted the same way: the rotation ~35
+# (no sincos), dp'/dq and dp'/dp ~105, the plus-Jacobian chain (3 x 4 by
+# 4 x 3) ~70 with the manifold, the projection block and its products
+# ~130, the Huber/Triggs scaling of 26 (28 without the manifold) outputs
+# ~150 (~160); residual-only ~90
+B1_QUAT_OPS_PER_OBS = {True: 500, False: 460}
+B1_QUAT_RES_OPS_PER_OBS = 90
 # (name, source, TPU kernel it replaces, tolerance on max|k - p| / max|p|)
 KERNELS = [
     ("eval_snavely", "ceres_tpu_torch/csrc/eval_snavely.cu",
@@ -115,6 +133,15 @@ KERNELS = [
      "ceres_tpu/linalg/pallas_schur.py:262", 1e-3),
 ]
 BF16_KERNELS = {"gather_contract_bf16", "contract_reduce_bf16", "schur_sy_bf16"}
+# B1's quaternion instantiations: on the camera's product manifold (tangent
+# 9; the quaternion main run) and without a manifold (tangent 10)
+QUAT_KERNELS = [
+    ("eval_snavely_quat", "ceres_tpu_torch/csrc/eval_snavely.cu",
+     "ceres_tpu/pallas_eval.py:435", 2e-4),
+    ("eval_snavely_quat_nomanifold", "ceres_tpu_torch/csrc/eval_snavely.cu",
+     "ceres_tpu/pallas_eval.py:435", 2e-4),
+]
+QUAT_NAMES = {name for name, *_ in QUAT_KERNELS}
 # B1's float32 tolerance covers the dual-number chain (rotation, projection,
 # distortion, Huber, Triggs correction) rounded differently from
 # torch.func's; B2 is a 9-term dot product; B3/B4/B5 sum ~2,800 observations
@@ -159,14 +186,19 @@ def nvidia_smi_line() -> str:
 def kernel_name(mangled: str) -> str:
     """`name<f32,args...>` of a template kernel from its mangled name: the
     length-prefixed identifier ending in _kernel, then its template
-    arguments (the value type, then integers and booleans)."""
+    arguments (the value type, B1's camera model with its own boolean, then
+    integers and booleans)."""
     types = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16"}
-    for m in re.finditer(r"_kernelI(f|d|13__nv_bfloat16)((?:L[ib]\d+E)*)", mangled):
+    pattern = r"_kernelI(f|d|13__nv_bfloat16)(?:NS_\d+(\w+?Camera)(?:IL[ib](\d+)EE)?E)?((?:L[ib]\d+E)*)"
+    for m in re.finditer(pattern, mangled):
         end = m.start() + len("_kernel")
         for size in range(len("_kernel"), end):
             if mangled[:end - size].endswith(str(size)):
-                args = "".join(f",{a}" for a in re.findall(r"L[ib](\d+)E", m.group(2)))
-                return f"{mangled[end - size:end]}<{types[m.group(1)]}{args}>"
+                cam = ""
+                if m.group(2):
+                    cam = f",{m.group(2)}" + (f"<{m.group(3)}>" if m.group(3) else "")
+                args = "".join(f",{a}" for a in re.findall(r"L[ib](\d+)E", m.group(4)))
+                return f"{mangled[end - size:end]}<{types[m.group(1)]}{cam}{args}>"
     return mangled
 
 
@@ -286,6 +318,26 @@ def record_kernel(results, name, err, fn, plain, nbytes, ops):
     b_ms, b_by = bound(nbytes, ops)
     results[name] = {"err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": None}
+
+
+def report_kernels(results, entries):
+    """One phase-2 line per kernel of `entries` (name, source, replaced
+    kernel, tolerance) from its record; raise if one disagrees with its
+    plain version."""
+    for name, _src, _rep, tol in entries:
+        res = results[name]
+        abs_err, rel = res["err"]
+        ok = rel <= tol
+        lib = "none" if res["library_ms"] is None else f"{res['library_ms']:.4f} ms"
+        print(
+            f"phase 2: {name}: max rel err {rel:.3e} (tol {tol:.0e}, max abs {abs_err:.3e}) "
+            f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']}; {100 * res['bound_ms'] / res['ms']:.1f}% "
+            f"of it), library {lib}{'' if ok else '  FAILED'}",
+            flush=True,
+        )
+        if not ok:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version")
 
 
 def phase_kernels(program, dev, results):
@@ -457,20 +509,7 @@ def phase_kernels(program, dev, results):
     record("schur_p0", b5, lambda: p0_apply(*p0_args), lambda: p0_apply_plain(*p0_args),
            w * (r * tf * n + r * te * n + 2 * n + te * te * cnt_e + tf * tf * cnt_f),
            n * (2 * r * te * te + 2 * r * r * te + 2 * r * r * tf + r * tf * (tf + 1)))
-    for name, _src, _rep, tol in KERNELS:
-        res = results[name]
-        abs_err, rel = res["err"]
-        ok = rel <= tol
-        lib = "none" if res["library_ms"] is None else f"{res['library_ms']:.4f} ms"
-        print(
-            f"phase 2: {name}: max rel err {rel:.3e} (tol {tol:.0e}, max abs {abs_err:.3e}) "
-            f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
-            f"{res['bound_ms']:.4f} ms ({res['bound_by']}; {100 * res['bound_ms'] / res['ms']:.1f}% "
-            f"of it), library {lib}{'' if ok else '  FAILED'}",
-            flush=True,
-        )
-        if not ok:
-            raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    report_kernels(results, KERNELS)
     print("phase 2: contract_reduce, schur_sy and schur_p0 bitwise equal across two runs, "
           "and so are contract_reduce_bf16 and schur_sy_bf16", flush=True)
     phase_prepare(program, jac)
@@ -540,6 +579,131 @@ def phase_kernels_bf16(results, sy, F, E, rows_f, layout, y, u, e_twin, prow, se
           f"{b_bound[1]}); bfloat16 leaves and twins {h * (24 + 24) * n / 1e9:.3f} GB "
           f"against {w * (24 + 24) * n / 1e9:.3f} GB in float32 (not their padding)", flush=True)
     del t2, out1, out2, F16, E16, f_twin16, e_twin16
+    torch.cuda.empty_cache()
+
+
+def phase_kernels_quat(bal, dev, results):
+    """Phase 2, the quaternion cameras at BAL-1778 shapes: B1's quaternion
+    instantiations (on the camera's product manifold, tangent 9, and
+    without one, tangent 10) with the Jacobian and residual-only against
+    their plain versions, on the tables of the no-manifold quaternion
+    Program; then B3, B4 and B5 once on the 10-wide Jacobian the
+    no-manifold launch writes, against theirs (B4 takes its generic
+    instantiation at tangent 10)."""
+    import torch
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.eval_kernel import snavely_quat_evaluate, snavely_quat_evaluate_plain
+    from ceres_tpu_torch.evaluator import Evaluator, state_tables
+    from ceres_tpu_torch.gather_reduce import contract_reduce, contract_reduce_plain
+    from ceres_tpu_torch.jacobian import BlockJacobian, make_twin
+    from ceres_tpu_torch.linalg.schur import (
+        ete_gram_tables, ete_solver_from_gram, ridge_ete_solver, schur_views,
+    )
+    from ceres_tpu_torch.linalg.schur_kernels import (
+        p0_apply, p0_apply_plain, sy_apply, sy_apply_plain, sy_meta, sy_tables,
+    )
+
+    f32, w = torch.float32, 4
+    gen = torch.Generator(device=dev).manual_seed(1)
+    t0 = time.time()
+    problem, _, _ = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0), use_quaternions=True)
+    program = problem.compile(dev)
+    ev = Evaluator(program, f32)
+    st2d = state_tables(program, program.state_vector(f32))
+    meta, garr = program.groups[0], ev.arrays["groups"][0]
+    p0, p1 = meta.positions
+    n = meta.n
+    ncam, npts = st2d[p0.a_cls].shape[0], st2d[p1.a_cls].shape[0]
+    print(f"phase 2: quaternion problem + Program (no manifold) in {time.time() - t0:.1f} s",
+          flush=True)
+    for manifold in (True, False):
+        name = "eval_snavely_quat" if manifold else "eval_snavely_quat_nomanifold"
+        tan = 9 if manifold else 10
+        args = (st2d[p0.a_cls], garr["a_rows"][0], st2d[p1.a_cls], garr["a_rows"][1],
+                garr["data"][0], ct.HuberLoss(1.0), True, manifold)
+        cost_k, res_k, (j0, j1) = snavely_quat_evaluate(*args)
+        cost_p, res_p, (j0_p, j1_p) = snavely_quat_evaluate_plain(*args)
+        if tuple(j0.shape) != (2 * tan, n):
+            raise AssertionError(f"{name}: jac0 of shape {tuple(j0.shape)}")
+        errs = [rel_err(a, b) for a, b in ((res_k, res_p), (j0, j0_p), (j1, j1_p))]
+        errs.append(rel_err(cost_k.reshape(1), cost_p.reshape(1)))
+        del j0_p, j1_p
+        in_bytes = w * (2 * n + 2 * n + 10 * ncam + 3 * npts)
+        record_kernel(results, name, (max(e[0] for e in errs), max(e[1] for e in errs)),
+                      lambda: snavely_quat_evaluate(*args),
+                      lambda: snavely_quat_evaluate_plain(*args),
+                      in_bytes + w * (2 + 2 * tan + 6) * n, B1_QUAT_OPS_PER_OBS[manifold] * n)
+        res_args = args[:-2] + (False, manifold)
+        cost_r, res_r, _ = snavely_quat_evaluate(*res_args)
+        rel = max(rel_err(res_r, res_p)[1], rel_err(cost_r.reshape(1), cost_p.reshape(1))[1])
+        r_ms = median_ms(lambda: snavely_quat_evaluate(*res_args))
+        rb_ms, rb_by = bound(in_bytes + w * 2 * n, B1_QUAT_RES_OPS_PER_OBS * n)
+        res = results[name]
+        print(f"phase 2: {name} residual-only: max rel err {rel:.3e} (tol 2e-04) kernel "
+              f"{r_ms:.4f} ms, bound {rb_ms:.4f} ms ({rb_by}; {100 * rb_ms / r_ms:.1f}% of it); "
+              f"with the Jacobian {res['ms']:.4f} ms{'' if rel <= 2e-4 else '  FAILED'}",
+              flush=True)
+        if not rel <= 2e-4:
+            raise AssertionError(f"{name} residual-only: kernel disagrees with its plain version")
+        del res_p, res_r
+        if manifold:
+            del j0, j1
+    report_kernels(results, QUAT_KERNELS)
+
+    # B3, B4 and B5 on the 10-wide camera leaf j0 [20, n] and E's j1
+    sy = sy_meta(program)
+    if sy is None or sy["tf"] != 10:
+        raise AssertionError("the no-manifold quaternion problem is not on the fused S·y path")
+    tf, te, r, cnt_f = sy["tf"], sy["te"], sy["r"], sy["cnt_f"]
+    layout = garr["csr"][sy["f_pos"]]
+    rows_f = garr["t_rows"][sy["f_pos"]]
+    ncols_f = layout.offsets.shape[0] - 1
+    f_twin = make_twin(j0, layout)
+    u = torch.randn((2, n), generator=gen, device=dev, dtype=f32)
+    y = torch.randn((tf, ncols_f), generator=gen, device=dev, dtype=f32)
+    y[:, -1] = 0
+
+    def check(name, err, fn, plain, nbytes, ops, tol=1e-4):
+        t_k, t_p = median_ms(fn), median_ms(plain)
+        b_ms, b_by = bound(nbytes, ops)
+        print(f"phase 2: {name} at tangent 10: max rel err {err[1]:.3e} (tol {tol:.0e}) "
+              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{100 * b_ms / t_k:.1f}% of it){'' if err[1] <= tol else '  FAILED'}", flush=True)
+        if not err[1] <= tol:
+            raise AssertionError(f"{name} at tangent 10: kernel disagrees with its plain version")
+
+    out = contract_reduce(f_twin, layout, u, 2)
+    check("contract_reduce", rel_err(out, contract_reduce_plain(f_twin, layout, u, 2)),
+          lambda: contract_reduce(f_twin, layout, u, 2),
+          lambda: contract_reduce_plain(f_twin, layout, u, 2),
+          w * (2 * tf * n + 2 * n + n + tf * ncols_f), 2 * 2 * tf * n)
+    del out
+    jac = BlockJacobian.build(program, ev.arrays, [(j0, j1)])
+    jac_e, _ = schur_views(program, jac)
+    e_mask = torch.as_tensor(program.schur_tangent_masks()[0], dtype=f32, device=dev)
+    minv = ete_solver_from_gram(program, ete_gram_tables(program, jac_e), e_mask).inv_tables[
+        sy["e_cls"]]
+    e_twin = jac.twin(0, sy["e_pos"], sy["f_pos"])
+    prow = program.slot_rows(0, sy["e_pos"], sy["f_pos"], dev)
+    segs = sy_tables(sy, dev)
+    cnt_e = minv.shape[1]
+    sy_args = (sy, j0, j1, rows_f, f_twin, e_twin, prow, layout, y, minv, segs)
+    b4_in = 2 * tf * n + 6 * n + n + segs[0].numel() + segs[1].numel() + tf * ncols_f + 9 * cnt_e
+    check("schur_sy", rel_err(sy_apply(*sy_args),
+                              sy_apply_plain(sy, j0, j1, rows_f, f_twin, layout, y, minv)),
+          lambda: sy_apply(*sy_args),
+          lambda: sy_apply_plain(sy, j0, j1, rows_f, f_twin, layout, y, minv),
+          w * (b4_in + tf * ncols_f), n * (4 * 2 * tf + 4 * 6) + cnt_e * 2 * 9)
+    del minv
+    minv0 = ridge_ete_solver(program, ete_gram_tables(program, jac_e),
+                             jac.squared_column_norms()).inv_records(sy["e_cls"])
+    p0_args = (sy, jac.twin(0, sy["f_pos"]), e_twin, prow, layout, minv0)
+    check("schur_p0", rel_err(p0_apply(*p0_args), p0_apply_plain(*p0_args)),
+          lambda: p0_apply(*p0_args), lambda: p0_apply_plain(*p0_args),
+          w * (r * tf * n + r * te * n + 2 * n + te * te * cnt_e + tf * tf * cnt_f),
+          n * (2 * r * te * te + 2 * r * r * te + 2 * r * r * tf + r * tf * (tf + 1)))
+    del problem, program, ev, jac, jac_e, f_twin, e_twin, j0, j1, p0_args, minv0
     torch.cuda.empty_cache()
 
 
@@ -625,7 +789,7 @@ def phase_f64_parity():
         # the BA structure's mixed PCG runs B4's bfloat16 instantiation only
         mixed = extra.get("use_mixed_precision_solves", False)
         unused = {"schur_sy"} if mixed else set(BF16_KERNELS)
-        unused |= {"gather_contract_bf16", "contract_reduce_bf16"}
+        unused |= {"gather_contract_bf16", "contract_reduce_bf16"} | QUAT_NAMES
         if precond == "JACOBI":
             unused.add("schur_p0")
         missing = [k for k, v in launches.items() if v <= 0 and k not in unused]
@@ -660,11 +824,11 @@ def build_prior_problem(bal):
     return problem
 
 
-def run_main_path(bal, precond, build=None, **overrides):
+def run_main_path(bal, precond, build=None, label=None, **overrides):
     """One full-size float32 solve on a new Problem (build_ba_problem's, or
-    `build(bal)`), so that its preprocess and first iteration pay every
-    one-time cost a user's solve pays; the launch counts are set to 0 just
-    before it and read just after."""
+    `build(bal)`, named `label` in its line), so that its preprocess and
+    first iteration pay every one-time cost a user's solve pays; the launch
+    counts are set to 0 just before it and read just after."""
     import gc
 
     import torch
@@ -693,8 +857,8 @@ def run_main_path(bal, precond, build=None, **overrides):
     loop = "fused" if summary.used_fused_execution else "host loop"
     if overrides.get("use_mixed_precision_solves"):
         loop += ", mixed"
-    if build is not None:
-        loop += ", camera prior"
+    if label is not None:
+        loop += ", " + label
     capture = summary.execution_summary
     print(
         f"phase 4: {precond} ({loop}): Problem built in {t_problem:.1f} s; solve {wall:.1f} s "
@@ -711,6 +875,49 @@ def run_main_path(bal, precond, build=None, **overrides):
     if not summary.final_cost < summary.initial_cost:
         raise AssertionError(f"{precond}: the solve did not decrease the cost")
     return summary, launches
+
+
+def build_quaternion_problem(bal, use_manifolds=True):
+    import ceres_tpu_torch as ct
+
+    return ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0), use_quaternions=True,
+                               use_manifolds=use_manifolds)[0]
+
+
+def phase_quaternion_runs(bal, main):
+    """Phase 4, the quaternion main run: the same data with cameras [q | t |
+    f k1 k2] on Quaternion x Euclidean(6) (B1's quaternion instantiation and
+    B2-B5), SCHUR_JACOBI on the fused loop at chunk 1, 5 iterations, per
+    iteration beside the angle-axis main run `main`; then 3 iterations
+    without the manifold (tangent 10: B4's generic instantiation). Each
+    starts within 1e-5 relative of the angle-axis run's cost (the same
+    data in another parameterisation) and lowers it. Returns the quaternion
+    kernels' launches, each from its run."""
+    out = {}
+    runs = (("quaternion", True, {}), ("quaternion, no manifold", False,
+                                      {"max_num_iterations": 3}))
+    for label, manifold, extra in runs:
+        summary, counts = run_main_path(
+            bal, "SCHUR_JACOBI", build=lambda b: build_quaternion_problem(b, manifold),
+            label=label, fused_execution_chunk_iters=1, **extra)
+        b1 = "eval_snavely_quat" if manifold else "eval_snavely_quat_nomanifold"
+        out[b1] = counts[b1]
+        if not summary.used_fused_execution:
+            raise AssertionError(f"the {label} run did not take the fused loop")
+        missing = [k for k in (b1, "gather_contract", "contract_reduce", "schur_sy", "schur_p0")
+                   if counts[k] <= 0]
+        if missing or counts["eval_snavely"]:
+            raise AssertionError(f"the {label} run: kernels not launched {missing}, angle-axis "
+                                 f"B1 launched {counts['eval_snavely']} times")
+        for a, b in zip(main.iterations, summary.iterations):
+            print(f"phase 4: iter {a.iteration}: angle-axis {_iteration_line(a)} | {label} "
+                  f"{_iteration_line(b)}", flush=True)
+        rel = abs(summary.initial_cost - main.initial_cost) / abs(main.initial_cost)
+        print(f"phase 4: {label} vs angle-axis initial cost rel diff {rel:.3e} (tol 1e-5)",
+              flush=True)
+        if not rel <= 1e-5:
+            raise AssertionError(f"the {label} run starts at another cost than the angle-axis run")
+    return out
 
 
 def _iteration_line(it) -> str:
@@ -770,6 +977,7 @@ def main(argv=None) -> int:
     phase_kernels(program, dev, results)
     del problem, program
     torch.cuda.empty_cache()
+    phase_kernels_quat(bal, dev, results)
     if args.phase == 2:
         print(f"phase 2 only: {time.time() - t_start:.1f} s; no result", flush=True)
         return 0
@@ -781,7 +989,8 @@ def main(argv=None) -> int:
     main, launches = run_main_path(bal, "SCHUR_JACOBI", fused_execution_chunk_iters=1)
     if not main.used_fused_execution:
         raise AssertionError("the main run did not take the fused loop")
-    missing = [k for k, v in launches.items() if v <= 0 and k not in BF16_KERNELS]
+    missing = [k for k, v in launches.items()
+               if v <= 0 and k not in BF16_KERNELS | QUAT_NAMES]
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
     host, _ = run_main_path(bal, "SCHUR_JACOBI", fused_execution=False)
@@ -799,7 +1008,7 @@ def main(argv=None) -> int:
     jacobi, jacobi_launches = run_main_path(bal, "JACOBI", fused_execution_chunk_iters=1,
                                             max_num_iterations=3)
     missing = [k for k, v in jacobi_launches.items()
-               if v <= 0 and k != "schur_p0" and k not in BF16_KERNELS]
+               if v <= 0 and k != "schur_p0" and k not in BF16_KERNELS | QUAT_NAMES]
     if missing:
         raise AssertionError(f"kernels not launched by the JACOBI path: {missing}")
     for a, b in zip(main.iterations, jacobi.iterations):
@@ -820,12 +1029,14 @@ def main(argv=None) -> int:
     if not (mixed_launches["schur_sy_bf16"] > 0 and mixed_launches["schur_sy"] == 0):
         raise AssertionError("the mixed PCG did not run B4's bfloat16 instantiation alone")
     missing = [k for k, v in mixed_launches.items()
-               if v <= 0 and k not in ("schur_sy", "gather_contract_bf16", "contract_reduce_bf16")]
+               if v <= 0 and k not in {"schur_sy", "gather_contract_bf16", "contract_reduce_bf16"}
+               | QUAT_NAMES]
     if missing:
         raise AssertionError(f"kernels not launched by the mixed path: {missing}")
     # the composed path: a second residual group; B2 and B3 in bfloat16
     composed, composed_launches = run_main_path(
-        bal, "SCHUR_JACOBI", build=build_prior_problem, fused_execution_chunk_iters=1,
+        bal, "SCHUR_JACOBI", build=build_prior_problem, label="camera prior",
+        fused_execution_chunk_iters=1,
         use_mixed_precision_solves=True, max_num_iterations=3,
     )
     for it in composed.iterations:
@@ -836,12 +1047,14 @@ def main(argv=None) -> int:
         raise AssertionError("the composed path did not run B2's and B3's bfloat16 instantiations")
     if composed_launches["schur_sy"] or composed_launches["schur_sy_bf16"]:
         raise AssertionError("the composed path launched B4")
+    quat_launches = phase_quaternion_runs(bal, main)
     # each kernel's launches on the run that is its main path
+    launches.update(quat_launches)
     launches.update({k: mixed_launches[k] for k in ("schur_sy_bf16",)})
     launches.update({k: composed_launches[k] for k in ("gather_contract_bf16", "contract_reduce_bf16")})
 
     kernels = []
-    for name, src, replaces, _tol in KERNELS:
+    for name, src, replaces, _tol in KERNELS + QUAT_KERNELS:
         res = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

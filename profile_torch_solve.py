@@ -28,6 +28,11 @@ profile (its tables in chiprun_out/profile_solve_mixed.txt) and for
 --compare alike:
 
     python3 profile_torch_solve.py --mixed --compare 3
+
+With --quaternion they are the fused loop on angle-axis cameras and on
+quaternion cameras on Quaternion x Euclidean(6)
+(build_ba_problem(use_quaternions=True, use_manifolds=True); tables in
+chiprun_out/profile_solve_quaternion.txt).
 """
 
 from __future__ import annotations
@@ -81,8 +86,8 @@ def timeline_shares(trace_path, first=2, last=5):
     return per_iter, ((hi - lo) / 1e3, busy_in(lo, hi) / 1e3)
 
 
-def profile_one(ct, torch, bal, options, label, out_dir):
-    problem, _, _ = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))
+def profile_one(ct, torch, bal, options, problem_kw, label, out_dir):
+    problem, _, _ = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0), **problem_kw)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     t0 = time.time()
     with torch.profiler.profile(activities=acts) as prof:
@@ -130,34 +135,40 @@ def profile_one(ct, torch, bal, options, label, out_dir):
     return lines
 
 
-def warm_up_profiler(ct, torch, options):
-    """One profiler window over a small solve of each loop, discarded: the
-    first window of a process pays the profiler's start-up inside its host
-    spans, which inflates its idle share (PERF.md section 5)."""
+def warm_up_profiler(ct, torch, loops):
+    """One profiler window over a small solve of each variant, discarded:
+    the first window of a process pays the profiler's start-up inside its
+    host spans, which inflates its idle share (PERF.md section 5)."""
     bal = ct.synthetic_bal(32, 4000, 40_000, seed=0)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts):
-        for opts in options:
-            ct.solve(opts, ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))[0])
+        for _, opts, problem_kw in loops:
+            ct.solve(opts, ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0), **problem_kw)[0])
         torch.cuda.synchronize()
 
 
-def variants(mixed):
-    """(label, solve options) of the two runs: fused and host loop, or with
-    `mixed` the fused loop in float32 and with mixed-precision solves."""
+def variants(mixed, quaternion):
+    """(label, solve options, build_ba_problem options) of the two runs:
+    fused and host loop; with `mixed` the fused loop in float32 and with
+    mixed-precision solves; with `quaternion` the fused loop on angle-axis
+    and on quaternion cameras."""
     fused = {"fused_execution_chunk_iters": 1}
     if mixed:
-        return (("fused", fused), ("mixed", {**fused, "use_mixed_precision_solves": True}))
-    return (("fused", fused), ("host", {"fused_execution": False}))
+        return (("fused", fused, {}),
+                ("mixed", {**fused, "use_mixed_precision_solves": True}, {}))
+    if quaternion:
+        return (("fused", fused, {}),
+                ("quaternion", fused, {"use_quaternions": True, "use_manifolds": True}))
+    return (("fused", fused, {}), ("host", {"fused_execution": False}, {}))
 
 
 def compare(ct, torch, bal, lm_options, runs, variants):
     """Iteration ms of the two variants, `runs` times each, in turns, each
     on a new Problem, no profiler."""
-    ms = {label: [] for label, _ in variants}
+    ms = {label: [] for label, _, _ in variants}
     for k in range(runs * len(variants)):
-        label, extra = variants[k % len(variants)]
-        problem, _, _ = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))
+        label, extra, problem_kw = variants[k % len(variants)]
+        problem, _, _ = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0), **problem_kw)
         torch.cuda.empty_cache()
         summary = ct.solve(lm_options("cuda", torch.float32, **extra), problem)
         torch.cuda.synchronize()
@@ -179,8 +190,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Profile the port's BAL-1778 solve.")
     parser.add_argument("--compare", type=int, default=0,
                         help="run the fused and host loops this many times each, in turns")
-    parser.add_argument("--mixed", action="store_true",
-                        help="the fused loop in float32 and with mixed-precision solves instead")
+    group = parser.add_mutually_exclusive_group()
+    group.add_argument("--mixed", action="store_true",
+                       help="the fused loop in float32 and with mixed-precision solves instead")
+    group.add_argument("--quaternion", action="store_true",
+                       help="the fused loop on angle-axis and on quaternion cameras instead")
     args = parser.parse_args(argv)
     import torch
 
@@ -201,22 +215,24 @@ def main(argv=None) -> int:
     cuda_lib.library()
     bal = ct.synthetic_bal(1778, NUM_POINTS, NUM_OBSERVATIONS, seed=0)
     if args.compare:
-        compare(ct, torch, bal, lm_options, args.compare, variants(args.mixed))
+        compare(ct, torch, bal, lm_options, args.compare,
+                variants(args.mixed, args.quaternion))
         return 0
 
     out_dir = os.path.join(root, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     report = [f"{smi} | torch {torch.__version__} cuda {torch.version.cuda}"]
-    loops = [(label, lm_options("cuda", torch.float32, **extra))
-             for label, extra in variants(args.mixed)]
-    warm_up_profiler(ct, torch, [options for _, options in loops])
+    loops = [(label, lm_options("cuda", torch.float32, **extra), problem_kw)
+             for label, extra, problem_kw in variants(args.mixed, args.quaternion)]
+    warm_up_profiler(ct, torch, loops)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        for label, options in loops:
+        for label, options, problem_kw in loops:
             torch.cuda.empty_cache()
-            lines = profile_one(ct, torch, bal, options, label, tmp)
+            lines = profile_one(ct, torch, bal, options, problem_kw, label, tmp)
             report += lines + [""]
             print("\n".join(lines[:30]), flush=True)
-    name = "profile_solve_mixed.txt" if args.mixed else "profile_solve.txt"
+    name = ("profile_solve_mixed.txt" if args.mixed else
+            "profile_solve_quaternion.txt" if args.quaternion else "profile_solve.txt")
     with open(os.path.join(out_dir, name), "w") as f:
         f.write("\n".join(report) + "\n")
     return 0

@@ -1,4 +1,6 @@
-"""Kernels B1-B5 on the card against their plain PyTorch versions.
+"""Kernels B1-B5 on the card against their plain PyTorch versions; B1 on
+both camera models (angle-axis, quaternion with and without its manifold)
+under each of its loss codes.
 
 These tests need an NVIDIA GPU (CUDA kernels have no CPU mode) and skip
 without one. The file imports no JAX, so it also runs on a machine that has
@@ -115,6 +117,88 @@ def test_eval_kernel_branches(card, dtype, loss):
             _close(a, b, tol)
         if with_jac:  # both rotation branches reach the camera Jacobian
             _close(k[2][0][:, rows0 < 20], p[2][0][:, rows0 < 20], tol)
+
+
+def _quat_args(card, dtype, loss, with_jac, seed=7, ncam=30, npts=200, n=6000):
+    """Inputs of B1's quaternion instantiation: non-unit quaternions (the
+    kernel normalizes nothing), the identity and a near-identity one, and
+    observations far off (outliers of every robust loss) and near."""
+    rng = np.random.default_rng(seed)
+    cams = rng.normal(size=(ncam, 10)) * [1, 1, 1, 1, 1, 1, 1, 1, 0.1, 0.01]
+    cams[:, :4] *= (0.8 + 0.4 * rng.random(ncam))[:, None] / np.linalg.norm(
+        cams[:, :4], axis=1, keepdims=True)
+    cams[0, :4] = [1.0, 0.0, 0.0, 0.0]
+    cams[1, :4] = [1.0, 1e-13, 0.0, 0.0]
+    cams[:, 6] -= 6.0
+    cams[:, 7] = 1.0 + 0.2 * rng.random(ncam)
+    pts = rng.normal(size=(npts, 3))
+    rows0 = rng.integers(0, ncam, n).astype(np.int32)
+    rows1 = rng.integers(0, npts, n).astype(np.int32)
+    obs = rng.normal(size=(n, 2)) * np.where(rng.random((n, 1)) < 0.3, 3.0, 0.05)
+    return (torch.tensor(cams, dtype=dtype, device=card), torch.tensor(rows0, device=card),
+            torch.tensor(pts, dtype=dtype, device=card), torch.tensor(rows1, device=card),
+            torch.tensor(obs, dtype=dtype, device=card), loss, with_jac)
+
+
+def _check_b1(k, p, tol, jac_rows):
+    for a, b in [(k[0].reshape(1), p[0].reshape(1)), (k[1], p[1])] + list(zip(k[2], p[2])):
+        assert a.shape == b.shape
+        _close(a, b, tol)
+    if k[2]:
+        assert k[2][0].shape[0] == jac_rows
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("manifold", [True, False], ids=["manifold", "no_manifold"])
+def test_eval_kernel_quat_matches_plain(card, dtype, manifold):
+    """B1's quaternion instantiation on the quaternion BA problem: with the
+    Jacobian and residual-only, each counted once under its own name."""
+    bal = ct.synthetic_bal(32, 8000, 40_000, seed=1)
+    program = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0), use_quaternions=True,
+                                  use_manifolds=manifold)[0].compile(card)
+    ev = Evaluator(program, dtype)
+    st = state_tables(program, program.state_vector(dtype))
+    g = ev.arrays["groups"][0]
+    cam, pt = (pm.a_cls for pm in program.groups[0].positions)
+    name = "eval_snavely_quat" if manifold else "eval_snavely_quat_nomanifold"
+    tol = 2e-4 if dtype == torch.float32 else 1e-11
+    for with_jac in (True, False):
+        args = (st[cam], g["a_rows"][0], st[pt], g["a_rows"][1], g["data"][0],
+                ct.HuberLoss(1.0), with_jac, manifold)
+        before = cuda_lib.launch_counts()
+        k = eval_kernel.snavely_quat_evaluate(*args)
+        after = cuda_lib.launch_counts()
+        assert {key: after[key] - before[key] for key in after if after[key] != before[key]} == {
+            name: 1}
+        _check_b1(k, eval_kernel.snavely_quat_evaluate_plain(*args), tol, 18 if manifold else 20)
+
+
+LOSS_CODES = {
+    "none": None, "trivial": ct.TrivialLoss(), "huber": ct.HuberLoss(0.5),
+    "soft_l_one": ct.SoftLOneLoss(0.7), "cauchy": ct.CauchyLoss(0.5),
+    "arctan": ct.ArctanLoss(2.0), "tolerant": ct.TolerantLoss(1.0, 0.3),
+    "tolerant_big": ct.TolerantLoss(0.01, 0.01), "tukey": ct.TukeyLoss(1.0),
+    "scaled": ct.ScaledLoss(ct.CauchyLoss(0.5), 2.5), "scaled_none": ct.ScaledLoss(None, 0.25),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("loss", list(LOSS_CODES))
+def test_eval_kernel_loss_codes(card, dtype, loss):
+    """Each loss code on both camera models (angle-axis; quaternion with and
+    without the manifold), both launches, against the plain versions."""
+    tol = 2e-4 if dtype == torch.float32 else 1e-11
+    for with_jac in (True, False):
+        args = _quat_args(card, dtype, LOSS_CODES[loss], with_jac)
+        for manifold in (True, False):
+            _check_b1(eval_kernel.snavely_quat_evaluate(*args, manifold),
+                      eval_kernel.snavely_quat_evaluate_plain(*args, manifold), tol,
+                      18 if manifold else 20)
+        aa = (args[0][:, 1:4] * 0.3).contiguous()
+        cams9 = torch.cat([aa, args[0][:, 4:]], dim=1).contiguous()
+        args9 = (cams9,) + args[1:]
+        _check_b1(eval_kernel.snavely_evaluate(*args9), eval_kernel.snavely_evaluate_plain(*args9),
+                  tol, 18)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -405,11 +489,39 @@ def test_cuda_solve_matches_cpu_and_launches_every_kernel(card, precond, num_poi
             max_num_iterations=3, max_linear_solver_iterations=25,
             function_tolerance=0.0, gradient_tolerance=0.0, parameter_tolerance=0.0,
             fused_execution=fused, device=dev, dtype=torch.float64), problem)
-    # the bfloat16 instantiations run only under mixed-precision solves
-    unused = {k + "_bf16" for k in cuda_lib.BF16_KERNELS}
+    # the bfloat16 instantiations run only under mixed-precision solves, B1's
+    # quaternion ones only on quaternion cameras
+    unused = {k + "_bf16" for k in cuda_lib.BF16_KERNELS} | set(cuda_lib.QUAT_KERNELS)
     unused |= {"schur_p0"} if precond == "JACOBI" else set()
     assert all(v > 0 for k, v in cuda_lib.launch_counts().items() if k not in unused)
     assert all(cuda_lib.launch_counts()[k] == 0 for k in unused if k.endswith("_bf16"))
+    for a, b in zip(sums["cuda"].iterations, sums["cpu"].iterations, strict=True):
+        assert a.cost == pytest.approx(b.cost, rel=1e-9)
+        assert a.linear_solver_iterations == b.linear_solver_iterations
+
+
+@pytest.mark.parametrize("manifold", [True, False], ids=["manifold", "no_manifold"])
+def test_cuda_quaternion_solve_matches_cpu(card, manifold):
+    """The quaternion BA solve (SCHUR_JACOBI, fused loop) on the card against
+    the CPU in float64: B1's quaternion instantiation and B2-B5 launched, the
+    angle-axis B1 not; at tangent 10 B4 takes its generic instantiation."""
+    bal = ct.synthetic_bal(32, 4000, 40_000, seed=2)
+    sums = {}
+    for dev in ("cpu", "cuda"):
+        problem = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0), use_quaternions=True,
+                                      use_manifolds=manifold)[0]
+        cuda_lib.reset_launch_counts()
+        sums[dev] = ct.solve(ct.SolverOptions(
+            linear_solver_type=ct.LinearSolverType.ITERATIVE_SCHUR,
+            preconditioner_type=ct.PreconditionerType.SCHUR_JACOBI,
+            max_num_iterations=3, max_linear_solver_iterations=25,
+            function_tolerance=0.0, gradient_tolerance=0.0, parameter_tolerance=0.0,
+            device=dev, dtype=torch.float64), problem)
+    counts = cuda_lib.launch_counts()
+    b1 = "eval_snavely_quat" if manifold else "eval_snavely_quat_nomanifold"
+    assert counts["eval_snavely"] == 0 and counts[b1] > 0
+    for k in ("gather_contract", "contract_reduce", "schur_sy", "schur_p0"):
+        assert counts[k] > 0, k
     for a, b in zip(sums["cuda"].iterations, sums["cpu"].iterations, strict=True):
         assert a.cost == pytest.approx(b.cost, rel=1e-9)
         assert a.linear_solver_iterations == b.linear_solver_iterations
