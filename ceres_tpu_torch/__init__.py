@@ -40,6 +40,7 @@ from .manifolds import (
     ProductManifold,
     QuaternionManifold,
 )
+from .ordering import ParameterBlockOrdering
 from .problem import Problem
 from .solvers.solver import solve
 from .types import (
@@ -52,6 +53,7 @@ from .types import (
     Summary,
     TerminationType,
     TrustRegionStrategyType,
+    VisibilityClusteringType,
 )
 
 __all__ = [
@@ -70,6 +72,7 @@ __all__ = [
     "LossFunctionWrapper",
     "Manifold",
     "MinimizerType",
+    "ParameterBlockOrdering",
     "PreconditionerType",
     "Problem",
     "ProductManifold",
@@ -83,6 +86,7 @@ __all__ = [
     "TrivialLoss",
     "TrustRegionStrategyType",
     "TukeyLoss",
+    "VisibilityClusteringType",
     "build_ba_problem",
     "load_bal",
     "solve",

@@ -36,6 +36,7 @@ exists only to serve a TPU and has no counterpart here.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .gather_reduce import contract_reduce, gather_contract, leaf_operand
@@ -472,3 +473,38 @@ class BlockJacobian:
         if self.col_scale is not None:
             a = a * self.col_scale[None, :]
         return a
+
+    def to_crs(self):
+        """Host CRS triple (values, col_indices int32, row_pointers int32)
+        over the free tangent columns, each row's entries by column
+        (reference: CompressedRowSparseMatrix; ceres_tpu/jacobian.py:929)."""
+        rows_list, cols_list, vals_list = [], [], []
+        for gi in range(len(self.jac_groups)):
+            meta = self.program.groups[gi]
+            n, r = meta.n, meta.num_residuals
+            base_rows = meta.row_offset + np.arange(n * r).reshape(n, r, 1)
+            for pos, pm, jac, tr, _csr in self._iter(gi):
+                if pm.t_cls < 0:
+                    continue
+                t = pm.tangent_size
+                jl = jac.detach().cpu().numpy().reshape(r, t, n).transpose(2, 0, 1)
+                trl = tr.detach().cpu().numpy()
+                cnt = self.program.tangent_class_counts[pm.t_cls]
+                base = int(self.program.tangent_class_bases[pm.t_cls])
+                cols = base + trl[:, None, None].astype(np.int64) * t + np.arange(t)[None, None, :]
+                keep = np.broadcast_to((trl < cnt)[:, None, None], (n, r, t)).reshape(-1)
+                rows_list.append(np.broadcast_to(base_rows, (n, r, t)).reshape(-1)[keep])
+                cols_list.append(np.broadcast_to(cols, (n, r, t)).reshape(-1)[keep])
+                vals_list.append(jl.reshape(-1)[keep])
+        if not rows_list:
+            return (
+                np.zeros(0), np.zeros(0, dtype=np.int32), np.zeros(self.num_rows + 1, dtype=np.int32)
+            )
+        rows = np.concatenate(rows_list)
+        cols = np.concatenate(cols_list)
+        vals = np.concatenate(vals_list)
+        if self.col_scale is not None:
+            vals = vals * self.col_scale.detach().cpu().numpy()[cols]
+        perm = np.lexsort((cols, rows))
+        row_ptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=self.num_rows))])
+        return vals[perm], cols[perm].astype(np.int32), row_ptr.astype(np.int32)

@@ -23,8 +23,11 @@ the back-substitution and the explicit or dense S stay in the working
 dtype, and DENSE_SCHUR factors S in float32 and refines in the working
 dtype (dense.cholesky_solve_mixed).
 
-Not ported: the visibility preconditioners (CLUSTER_JACOBI,
-CLUSTER_TRIDIAGONAL); they raise.
+The visibility preconditioners (CLUSTER_JACOBI, CLUSTER_TRIDIAGONAL,
+visibility.py) depend on D² through their blocks, so they have no
+prepare/finish split: `schur_solve` builds them per step from the
+scale-materialized Jacobian and runs them through the flat adapter of the
+tvec PCG, whose matvec stays kernel B4.
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ from .cg import conjugate_gradients
 from .dense import cholesky_solve_mixed
 from ..utils.graphs import read
 from .preconditioners import BlockDiagSolver, diag_rows
+
+
+_CLUSTER = (PreconditionerType.CLUSTER_JACOBI, PreconditionerType.CLUSTER_TRIDIAGONAL)
 
 
 def schur_views(program, jac):
@@ -100,9 +106,9 @@ def _expand_tvec(tv, f_set, widths):
 
 
 def _wrap_flat_preconditioner(program, prec, f_set):
-    """Adapt a flat-vector preconditioner (the power series) to the f-only
-    tvec protocol: the CG state is the camera tables, so the flat <-> tvec
-    conversion is a [tf, cnt] transpose."""
+    """Adapt a flat-vector preconditioner (the power series, the visibility
+    preconditioners) to the f-only tvec protocol: the CG state is the camera
+    tables, so the flat <-> tvec conversion is a [tf, cnt] transpose."""
     num_eff = program.num_effective_parameters
 
     def apply_t(tv):
@@ -590,6 +596,13 @@ def _iterative_schur(program, options, jac_s, ete, dsq_f, rhs, s_apply):
         prec = _schur_jacobi_preconditioner(program, jac_m, jac_e, jac_f, ete, dsq_f)
     elif precond == PreconditionerType.JACOBI:
         prec = BlockDiagSolver(program, jac_f.block_diag_jtj(dsq=dsq_f))
+    elif precond in _CLUSTER:
+        from .visibility import VisibilityPreconditioner
+
+        prec = VisibilityPreconditioner(
+            program, *schur_views(program, jac_m), ete, dsq_f, precond,
+            options.visibility_clustering_type,
+        )
     elif precond == PreconditionerType.SCHUR_POWER_SERIES_EXPANSION:
         prec = make_power_series_applier(
             program, jac_e, jac_f, ete, dsq_f,
@@ -604,7 +617,9 @@ def _iterative_schur(program, options, jac_s, ete, dsq_f, rhs, s_apply):
             options.spse_tolerance, options.max_num_spse_iterations,
         )(rhs) * f_mask
 
-    exotic = precond == PreconditionerType.SCHUR_POWER_SERIES_EXPANSION
+    # the flat-vector preconditioners ride the tvec PCG through the f-only
+    # adapter where the classes split (ceres_tpu/linalg/schur.py:767-779)
+    exotic = precond in _CLUSTER or precond == PreconditionerType.SCHUR_POWER_SERIES_EXPANSION
     if explicit or (exotic and _pure_class_split(program) is None):
         result = conjugate_gradients(
             matvec=s_apply,
@@ -644,14 +659,7 @@ def schur_solve(program, options, jac_s, res_groups, grad_s, dsq):
     would leave S asymmetric at ~1e-3, ceres_tpu/linalg/schur.py:666-669)
     and DENSE_SCHUR factors in float32 and refines. Returns (step [num_eff],
     linear iterations)."""
-    precond = options.preconditioner_type
     iterative = options.linear_solver_type == LinearSolverType.ITERATIVE_SCHUR
-    if iterative and precond in (
-        PreconditionerType.CLUSTER_JACOBI, PreconditionerType.CLUSTER_TRIDIAGONAL
-    ):
-        raise NotImplementedError(
-            f"{precond.value} is not ported yet (ROADMAP Queue A: visibility preconditioners)"
-        )
     e_mask, f_mask = _masks(program, grad_s)
     jac_e, jac_f = schur_views(program, jac_s)
     dsq_f = dsq * f_mask

@@ -171,6 +171,9 @@ class Program:
         # Schur-side tables, computed once per Program (the JAX package
         # computes them once per trace); see `cached`
         self.schur_cache: dict = {}
+        # the user's eliminated set (linear_solver_ordering), or None for
+        # the automatic partition
+        self.user_e_blocks = None
 
     def to(self, device):
         """Re-target the Program's tensors (arrays, state) at `device`."""
@@ -400,6 +403,8 @@ class Program:
     def _build_groups(self):
         buckets: dict = {}
         order: list = []
+        # per batch: (group index, group row) of each batch row, -1 if dead
+        self._handle_arrays: dict = {}
         for bi, batch in enumerate(self._batches):
             if batch.alive.all():
                 alive_rows, first = None, 0
@@ -426,7 +431,7 @@ class Program:
         self.groups: list[SigGroupMeta] = []
         self.group_idx: list[dict] = []
         row_offset = 0
-        for key in order:
+        for gi, key in enumerate(order):
             members = buckets[key]
             batch0 = self._batches[members[0][0]]
             k = batch0.param_ids.shape[1]
@@ -529,10 +534,38 @@ class Program:
                     "csr": csr,
                 }
             )
+            self._record_handles(gi, members, perm)
             row_offset += meta.rows
 
         self.num_residuals = row_offset
         self.num_residual_blocks = sum(g.n for g in self.groups)
+
+    def _record_handles(self, gi, members, perm):
+        """Map each member batch row to its row in group gi, through the
+        layout permutation `perm` (group row -> concatenated member row)."""
+        inv = None
+        if perm is not None:
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(len(perm))
+        grow = 0
+        for bi, rows in members:
+            nrows = self._batches[bi].param_ids.shape[0]
+            m = nrows if rows is None else len(rows)
+            dest = np.arange(grow, grow + m)
+            if inv is not None:
+                dest = inv[dest]
+            gi_arr, grow_arr = self._handle_arrays.setdefault(
+                bi, (np.full(nrows, -1, dtype=np.int64), np.full(nrows, -1, dtype=np.int64))
+            )
+            sel = slice(None) if rows is None else rows
+            gi_arr[sel] = gi
+            grow_arr[sel] = dest
+            grow += m
+
+    def handle_entry(self, bi: int, row: int):
+        """(group index, group row) of a residual block by (batch, batch row)."""
+        gi_arr, grow_arr = self._handle_arrays[bi]
+        return int(gi_arr[row]), int(grow_arr[row])
 
     def _seg_buckets(self, sorted_rows: np.ndarray):
         """Bucket decomposition of a class-row-sorted row array: tuple of
@@ -558,31 +591,55 @@ class Program:
     # Schur elimination partition
     # ------------------------------------------------------------------ #
 
+    def set_eliminated_blocks(self, handles):
+        """Pin the eliminated set to the free blocks among `handles` (the
+        first group of linear_solver_ordering), or with None go back to the
+        automatic partition; the Schur-side caches, which derive from the
+        partition, are dropped when it changes."""
+        user = None if handles is None else frozenset(int(h) for h in handles)
+        if user != self.user_e_blocks:
+            self.user_e_blocks = user
+            self.schur_cache.clear()
+
     def compute_schur_partition(self):
-        """(e_mask_blocks [nb] bool, e_positions, f_positions): each residual
-        row elects its lowest-(degree, id) free block; a block is eliminated
-        iff it wins every row it appears in; positions with mixed membership
-        are demoted (program.py:823-934 of the JAX package). Cached."""
+        """(e_mask_blocks [nb] bool, e_positions, f_positions). With no
+        pinned set each residual row elects its lowest-(degree, id) free
+        block and a block is eliminated iff it wins every row it appears in;
+        a pinned set must be independent (ValueError otherwise). Positions
+        with mixed membership are then demoted (program.py:823-934 of the
+        JAX package). Cached."""
         return self.cached("partition", Program._compute_schur_partition)
 
     def _compute_schur_partition(self):
         nb = len(self._blocks)
-        # rows per block (its degree); bincount rather than np.add.at, which
-        # is ~10x slower at millions of rows
-        degree = np.zeros(nb, dtype=np.int64)
-        for idx in self.group_idx:
-            for ids in idx["block_ids"]:
-                degree += np.bincount(ids, minlength=nb)
-        wins = np.zeros(nb, dtype=np.int64)
-        for idx in self.group_idx:
-            ids_mat = np.stack(idx["block_ids"], axis=1)
-            free = self.t_offsets[ids_mat] >= 0
-            key = degree[ids_mat] * (nb + 1) + ids_mat
-            key = np.where(free, key, np.iinfo(np.int64).max)
-            has_free = free.any(axis=1)
-            winner = ids_mat[np.arange(ids_mat.shape[0]), np.argmin(key, axis=1)]
-            wins += np.bincount(winner[has_free], minlength=nb)
-        e_mask = (wins == degree) & (degree > 0) & (self.t_offsets >= 0)
+        if self.user_e_blocks is not None:
+            e_mask = np.zeros(nb, dtype=bool)
+            e_mask[np.asarray(sorted(self.user_e_blocks), dtype=np.int64)] = True
+            e_mask &= self.t_offsets >= 0
+            for idx in self.group_idx:
+                ids_mat = np.stack(idx["block_ids"], axis=1)
+                if int(e_mask[ids_mat].sum(axis=1).max(initial=0)) > 1:
+                    raise ValueError(
+                        "linear_solver_ordering group 0 is not an independent set: a "
+                        "residual block touches two eliminated parameter blocks"
+                    )
+        else:
+            # rows per block (its degree); bincount rather than np.add.at,
+            # which is ~10x slower at millions of rows
+            degree = np.zeros(nb, dtype=np.int64)
+            for idx in self.group_idx:
+                for ids in idx["block_ids"]:
+                    degree += np.bincount(ids, minlength=nb)
+            wins = np.zeros(nb, dtype=np.int64)
+            for idx in self.group_idx:
+                ids_mat = np.stack(idx["block_ids"], axis=1)
+                free = self.t_offsets[ids_mat] >= 0
+                key = degree[ids_mat] * (nb + 1) + ids_mat
+                key = np.where(free, key, np.iinfo(np.int64).max)
+                has_free = free.any(axis=1)
+                winner = ids_mat[np.arange(ids_mat.shape[0]), np.argmin(key, axis=1)]
+                wins += np.bincount(winner[has_free], minlength=nb)
+            e_mask = (wins == degree) & (degree > 0) & (self.t_offsets >= 0)
 
         changed = True
         while changed:
@@ -674,6 +731,23 @@ class Program:
 
     def state_vector(self, dtype):
         return torch.as_tensor(self.state0, dtype=dtype, device=self.device)
+
+    def set_block_value(self, block: int, values: np.ndarray):
+        o = int(self.x_offsets[block])
+        self.state0[o : o + len(values)] = values
+
+    def evaluate_full(self, apply_loss: bool = True):
+        """(cost, residuals, gradient, Jacobian CRS triple) at the current
+        state, on the Program's device, in float64.
+        Parity: Problem::Evaluate (problem.h:430); the Jacobian's columns
+        are the tangent coordinates of the free blocks."""
+        from .evaluator import Evaluator
+
+        ev = Evaluator(self)
+        cost, res, jac, grad = ev.evaluate(self.state_vector(ev.dtype), apply_loss=apply_loss)
+        return (
+            float(cost), res.detach().cpu().numpy(), grad.detach().cpu().numpy(), jac.to_crs()
+        )
 
     def write_state_back(self, state):
         """Copy a solved state vector back into the Problem's blocks."""

@@ -10,6 +10,7 @@ from __future__ import annotations
 import time
 
 from ..evaluator import Evaluator
+from ..ordering import eliminated_handles
 from ..types import (
     LinearSolverType, MinimizerType, Summary, TerminationType, TrustRegionStrategyType,
 )
@@ -29,8 +30,6 @@ _UNPORTED = (
     (lambda o: o.use_inner_iterations, "use_inner_iterations", _MINIMIZER_BREADTH),
     (lambda o: o.trust_region_minimizer_iterations_to_dump,
      "trust_region_minimizer_iterations_to_dump", _MINIMIZER_BREADTH),
-    (lambda o: o.linear_solver_ordering is not None, "linear_solver_ordering",
-     "ROADMAP Queue A item 4, ordering.py"),
     (lambda o: o.check_gradients, "check_gradients", "ROADMAP Queue A item 7, modeling breadth"),
     (lambda o: o.mesh is not None, "mesh", "ROADMAP Queue A item 11, multi-GPU"),
 )
@@ -70,6 +69,11 @@ def solve(options, problem) -> Summary:
     summary.preconditioner_type_used = options.preconditioner_type
 
     program = problem.compile(device)
+    # the user's linear_solver_ordering pins the eliminated set (reference:
+    # reorder_program.cc; ceres_tpu/solvers/solver.py:47-58): a flat handle
+    # sequence or a ParameterBlockOrdering, whose first group is eliminated
+    ordering = options.linear_solver_ordering
+    program.set_eliminated_blocks(None if ordering is None else eliminated_handles(ordering))
     summary.num_parameter_blocks_reduced = summary.num_parameter_blocks
     summary.num_parameters_reduced = summary.num_parameters
     summary.num_effective_parameters_reduced = program.num_effective_parameters

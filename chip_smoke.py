@@ -61,7 +61,15 @@ and prints no result):
      quaternion instantiation and B2-B5), SCHUR_JACOBI on the fused loop at
      chunk 1, 5 iterations, per iteration beside the angle-axis main run,
      its initial cost within 1e-5 relative of that run's; then 3 iterations
-     without the manifold (tangent 10).
+     without the manifold (tangent 10). Then the visibility preconditioners,
+     3 iterations each on the fused loop, per iteration beside the main run:
+     CLUSTER_JACOBI on canonical views and CLUSTER_TRIDIAGONAL on single
+     linkage (B1 and B4 launched, B5 not), each with its clusters, storage,
+     host plan seconds and the device ms of its assembly, factorization and
+     apply; CLUSTER_TRIDIAGONAL on canonical views must be refused by its
+     host plan (storage too large). Last the main configuration with a
+     ParameterBlockOrdering that eliminates the points, 3 iterations,
+     bitwise equal to the main run's first three.
 Then a JSON line describing the kernels, the card's name and power limit,
 and the last line {"ok": true, "device": {...}}.
 
@@ -79,6 +87,8 @@ card, parent, change, change, parent, to compare two versions of a kernel.
 from __future__ import annotations
 
 import argparse
+import collections
+import gc
 import json
 import math
 import os
@@ -87,6 +97,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
@@ -829,8 +840,6 @@ def run_main_path(bal, precond, build=None, label=None, **overrides):
     `build(bal)`, named `label` in its line), so that its preprocess and
     first iteration pay every one-time cost a user's solve pays; the launch
     counts are set to 0 just before it and read just after."""
-    import gc
-
     import torch
 
     import ceres_tpu_torch as ct
@@ -918,6 +927,146 @@ def phase_quaternion_runs(bal, main):
         if not rel <= 1e-5:
             raise AssertionError(f"the {label} run starts at another cost than the angle-axis run")
     return out
+
+
+CLUSTER_RUNS = (("CLUSTER_JACOBI", "CANONICAL_VIEWS"), ("CLUSTER_TRIDIAGONAL", "SINGLE_LINKAGE"))
+
+
+def _cluster_sizes(plan) -> str:
+    sizes = sorted((len(m) for m in plan.members), reverse=True)
+    if len(sizes) <= 8:
+        return f"sizes {sizes}"
+    counts = collections.Counter(sizes)
+    return "sizes " + ", ".join(f"{n} x {size}" for size, n in sorted(counts.items()))
+
+
+def visibility_timings(program, kind, clustering):
+    """Phase 4: the visibility preconditioner of a finished CLUSTER run, at
+    its final state (Jacobi-scaled Jacobian, D² at radius 1e4): the plan
+    the run cached on its Program, and the device ms of the assembly (pair
+    corrections, FᵀF, the dense blocks), the factorization and one apply
+    (CUDA events, medians of 3, 3 and 5)."""
+    import torch
+
+    from ceres_tpu_torch.evaluator import Evaluator
+    from ceres_tpu_torch.linalg import schur
+    from ceres_tpu_torch.linalg.visibility import VisibilityPreconditioner
+
+    _, _, jac, grad = Evaluator(program, torch.float32).evaluate_groups(
+        program.state_vector(torch.float32))
+    colnorm = jac.squared_column_norms()
+    scale = 1.0 / (1.0 + torch.sqrt(colnorm))
+    dsq = torch.clamp(colnorm * scale * scale, 1e-6, 1e32) / 1e4
+    e_mask, f_mask = schur._masks(program, dsq)
+    jac_e, jac_f = schur.schur_views(program, jac.scale_columns(scale).materialize_scale())
+    ete = schur.make_ete_solver(program, jac_e, dsq * e_mask)
+    dsq_f = dsq * f_mask
+    prec = VisibilityPreconditioner(program, jac_e, jac_f, ete, dsq_f, kind, clustering)
+    plan = prec.plan
+    t_asm = median_ms(lambda: prec._assemble(jac_e, jac_f, ete, dsq_f), reps=3, warmup=1)
+    dense, corr = prec._assemble(jac_e, jac_f, ete, dsq_f)
+    t_fac = median_ms(lambda: prec._factor(dense, corr), reps=3, warmup=1)
+    r = grad * scale * f_mask
+    t_apply = median_ms(lambda: prec(r), reps=5, warmup=1)
+    if not bool(torch.isfinite(prec(r)).all()):
+        raise AssertionError(f"{kind.value}: the preconditioner is not finite")
+    chains = ""
+    if plan.chains is not None:
+        chains = f", {len(plan.chains)} chains, K {plan.K}, L {plan.L}"
+    print(
+        f"phase 4: {kind.value} ({clustering.value}): {plan.n_clusters} clusters, "
+        f"{_cluster_sizes(plan)}{chains}; storage {plan.storage_floats:.3e} floats "
+        f"({4e-9 * plan.storage_floats:.2f} GB in float32), {plan.num_pairs} pair blocks per "
+        f"build; host plan {plan.seconds:.1f} s; assembly {t_asm:.2f} ms, factorization "
+        f"{t_fac:.2f} ms, apply {t_apply:.3f} ms (CUDA events)",
+        flush=True,
+    )
+
+
+def phase_cluster_runs(bal, main):
+    """Phase 4, the visibility preconditioners: CLUSTER_JACOBI on canonical
+    views and CLUSTER_TRIDIAGONAL on single linkage, 3 iterations each on
+    the fused loop (the step unsplit, its PCG matvec B4), per iteration
+    beside the SCHUR_JACOBI main run `main`, with B1 and B4 launched and B5
+    not; each preconditioner's plan and build times; then the refusal of
+    CLUSTER_TRIDIAGONAL on canonical views, raised by the host plan before
+    any block is allocated."""
+    import torch
+
+    import ceres_tpu_torch as ct
+
+    for kind, clustering in CLUSTER_RUNS:
+        made = []
+
+        def build(b):
+            made.append(ct.build_ba_problem(b, loss=ct.HuberLoss(1.0))[0])
+            return made[-1]
+
+        clustering = getattr(ct.VisibilityClusteringType, clustering)
+        summary, counts = run_main_path(
+            bal, kind, build=build, label=clustering.value, fused_execution_chunk_iters=1,
+            max_num_iterations=3, visibility_clustering_type=clustering)
+        if not summary.used_fused_execution:
+            raise AssertionError(f"the {kind} run did not take the fused loop")
+        if counts["eval_snavely"] <= 0 or counts["schur_sy"] <= 0 or counts["schur_p0"]:
+            raise AssertionError(f"the {kind} run: B1 or B4 not launched, or B5 launched")
+        for a, b in zip(main.iterations, summary.iterations):
+            print(f"phase 4: iter {a.iteration}: SCHUR_JACOBI {_iteration_line(a)} | {kind} "
+                  f"{_iteration_line(b)}", flush=True)
+        visibility_timings(made[0].compile(), getattr(ct.PreconditionerType, kind), clustering)
+        del made
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    problem, _, _ = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))
+    options = lm_options("cuda", torch.float32, "CLUSTER_TRIDIAGONAL", max_num_iterations=1,
+                         visibility_clustering_type=ct.VisibilityClusteringType.CANONICAL_VIEWS)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        ct.solve(options, problem)
+    except ValueError as exc:
+        frame = traceback.extract_tb(exc.__traceback__)[-1]
+        message = str(exc)
+    else:
+        raise AssertionError("CLUSTER_TRIDIAGONAL on canonical views was not refused")
+    where = f"{os.path.basename(frame.filename)}:{frame.name}"
+    print(f"phase 4: CLUSTER_TRIDIAGONAL (CANONICAL_VIEWS) refused in {where}: {message}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    if "CLUSTER_TRIDIAGONAL storage too large" not in message or where != "visibility.py:__init__":
+        raise AssertionError("CLUSTER_TRIDIAGONAL was not refused by its host plan")
+
+
+def phase_ordering_run(bal, main):
+    """Phase 4, linear_solver_ordering: the main configuration with a
+    ParameterBlockOrdering (points in group 0, cameras in group 1), the
+    automatic partition's choice, 3 iterations; the initial cost, PCG counts
+    and costs are bitwise those of the main run."""
+    import ceres_tpu_torch as ct
+
+    n_cams, n_pts = len(bal.cameras), len(bal.points)
+    ordering = ct.ParameterBlockOrdering()
+    for h in range(n_cams, n_cams + n_pts):
+        ordering.add_element_to_group(h, 0)
+    for h in range(n_cams):
+        ordering.add_element_to_group(h, 1)
+
+    def build(b):
+        problem, cams, pts = ct.build_ba_problem(b, loss=ct.HuberLoss(1.0))
+        if not (np.array_equal(cams, np.arange(n_cams))
+                and np.array_equal(pts, n_cams + np.arange(n_pts))):
+            raise AssertionError("the ordering's handles are not the problem's")
+        return problem
+
+    summary, _ = run_main_path(bal, "SCHUR_JACOBI", build=build, label="linear_solver_ordering",
+                               fused_execution_chunk_iters=1, max_num_iterations=3,
+                               linear_solver_ordering=ordering)
+    for a, b in zip(main.iterations, summary.iterations):
+        print(f"phase 4: iter {a.iteration}: automatic {_iteration_line(a)} | ordering "
+              f"{_iteration_line(b)}", flush=True)
+        if (a.cost, a.linear_solver_iterations) != (b.cost, b.linear_solver_iterations):
+            raise AssertionError(f"iteration {a.iteration}: the ordering run is not the main run")
+    if summary.initial_cost != main.initial_cost or len(summary.iterations) != 4:
+        raise AssertionError("the ordering run does not start where the main run does")
 
 
 def _iteration_line(it) -> str:
@@ -1048,6 +1197,8 @@ def main(argv=None) -> int:
     if composed_launches["schur_sy"] or composed_launches["schur_sy_bf16"]:
         raise AssertionError("the composed path launched B4")
     quat_launches = phase_quaternion_runs(bal, main)
+    phase_cluster_runs(bal, main)
+    phase_ordering_run(bal, main)
     # each kernel's launches on the run that is its main path
     launches.update(quat_launches)
     launches.update({k: mixed_launches[k] for k in ("schur_sy_bf16",)})

@@ -109,9 +109,14 @@ def _bounded_problem(seed):
     return problem
 
 
+def _cluster(kind, clustering):
+    return {"preconditioner_type": getattr(ct.PreconditionerType, kind),
+            "visibility_clustering_type": getattr(ct.VisibilityClusteringType, clustering)}
+
+
 LOOP_CASES = {
     # (problem, options, graphs replayed besides the PCG's: per iteration,
-    # per accepted step)
+    # per accepted step); the PCG replays where the finish's head does
     "plain": (_problem, {}, ("finish_head", "finish_tail", "decide"), ("evaluate", "prepare")),
     # the step unsplit and eager, the line search eager
     "bounded": (_bounded_problem, {}, ("decide",), ("evaluate",)),
@@ -119,6 +124,11 @@ LOOP_CASES = {
         _problem, {"trust_region_use_line_search": True},
         ("finish_head", "finish_tail", "decide"), ("evaluate", "prepare"),
     ),
+    # the visibility preconditioners: the step unsplit (schur_solve), eager
+    "cluster_jacobi": (
+        _problem, _cluster("CLUSTER_JACOBI", "CANONICAL_VIEWS"), ("decide",), ("evaluate",)),
+    "cluster_tridiagonal": (
+        _problem, _cluster("CLUSTER_TRIDIAGONAL", "SINGLE_LINKAGE"), ("decide",), ("evaluate",)),
 }
 
 
@@ -129,9 +139,10 @@ def test_fused_loop_syncs_only_through_counted_reads(card, dtype, case):
     counting read helper may synchronize, and an LM iteration reads at most
     2 + its PCG iterations times (the line search adds one to start and one
     per cost evaluation). A first run of the same minimizer fills the
-    Program's one-time device tables and captures every graph (a capture
-    synchronizes); the Evaluator's uploads happen before the mode is set.
-    In float64 the run matches the CPU's to 1e-9 with equal PCG counts."""
+    Program's one-time device tables (the visibility plan's among them) and
+    captures every graph (a capture synchronizes); the Evaluator's uploads
+    happen before the mode is set. In float64 the run matches the CPU's to
+    1e-9 with equal PCG counts."""
     make_problem, extra, per_iter, per_accept = LOOP_CASES[case]
     options = _options(dtype, **extra)
     program = make_problem(3).compile(card)
@@ -154,13 +165,13 @@ def test_fused_loop_syncs_only_through_counted_reads(card, dtype, case):
     assert summary.used_fused_execution and len(summary.iterations) == 5
     assert [it.cost for it in summary.iterations] == [it.cost for it in warm.iterations]
     ls = summary.num_line_search_steps
-    assert (ls > 0) == (case != "plain")
+    assert (ls > 0) == (case in ("bounded", "line_search"))
     budget = [2 + it.linear_solver_iterations for it in summary.iterations[1:]]
     reads = [it.num_device_reads for it in summary.iterations[1:]]
-    if case == "plain":
+    if ls == 0:
         assert all(r <= b for r, b in zip(reads, budget))
-    assert sum(reads) <= sum(budget) + (len(reads) + ls if case != "plain" else 0)
-    pcg = 0 if case == "bounded" else 1
+    assert sum(reads) <= sum(budget) + (len(reads) + ls if ls else 0)
+    pcg = int("finish_head" in per_iter)
     for it in summary.iterations[1:]:
         assert it.num_graph_replays == (
             pcg * it.linear_solver_iterations + len(per_iter)
@@ -240,3 +251,29 @@ def test_fused_graphs_equal_the_eager_fused_loop(card, dtype, monkeypatch):
         assert (a.cost, a.trust_region_radius, a.gradient_max_norm, a.step_norm) == (
             b.cost, b.trust_region_radius, b.gradient_max_norm, b.step_norm)
         assert a.linear_solver_iterations == b.linear_solver_iterations
+
+
+@pytest.mark.parametrize("kind", ["CLUSTER_JACOBI", "CLUSTER_TRIDIAGONAL"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_visibility_builds_are_bitwise_equal(card, dtype, kind):
+    """Two builds of a visibility preconditioner from the same Jacobian give
+    bitwise-equal factors and applies: the pair blocks are summed per
+    destination in a fixed order (segment_reduce over host-sorted pairs,
+    then one add per block), with no atomics racing."""
+    from ceres_tpu_torch.linalg.visibility import VisibilityPreconditioner
+
+    program, options, jac_s, grad_s, _cache = _finish_case(card, dtype)
+    dsq = torch.clamp(jac_s.squared_column_norms(), 1e-6, 1e32) / 1e3
+    e_mask, f_mask = tschur._masks(program, dsq)
+    jac_e, jac_f = tschur.schur_views(program, jac_s.materialize_scale())
+    ete = tschur.make_ete_solver(program, jac_e, dsq * e_mask)
+    clustering = ct.VisibilityClusteringType.CANONICAL_VIEWS
+    if kind == "CLUSTER_TRIDIAGONAL":
+        clustering = ct.VisibilityClusteringType.SINGLE_LINKAGE
+    kind = getattr(ct.PreconditionerType, kind)
+    builds = [VisibilityPreconditioner(program, jac_e, jac_f, ete, dsq * f_mask, kind, clustering)
+              for _ in range(2)]
+    for a, b in zip(builds[0].factors, builds[1].factors, strict=True):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+    r = grad_s * f_mask
+    assert torch.equal(builds[0](r), builds[1](r))

@@ -256,6 +256,14 @@ def test_p0_matches_jax_schur_jacobi_blocks_f64(monkeypatch, impl, scaled):
     _close(got.numpy(), want, 1e-12)
 
 
+# options given by name, as each package's enum
+ENUMS = {
+    "linear_solver_type": lambda pkg: pkg.LinearSolverType,
+    "preconditioner_type": lambda pkg: pkg.PreconditionerType,
+    "visibility_clustering_type": lambda pkg: pkg.VisibilityClusteringType,
+}
+
+
 def _options(precond, **kw):
     """(JAX, port) SolverOptions for a Schur solve."""
     return tuple(
@@ -264,8 +272,7 @@ def _options(precond, **kw):
             "preconditioner_type": getattr(pkg.PreconditionerType, precond),
             "eta": 0.1,
             "max_linear_solver_iterations": 25,
-            **{k: (getattr(pkg.LinearSolverType, v) if k == "linear_solver_type" else v)
-               for k, v in kw.items()},
+            **{k: (getattr(ENUMS[k](pkg), v) if k in ENUMS else v) for k, v in kw.items()},
         })
         for pkg in (ceres_tpu, ct)
     )
@@ -354,6 +361,9 @@ SOLVE_CASES = {
     "spse_init": ("SCHUR_JACOBI", {"use_spse_initialization": True}),
     "explicit": ("JACOBI", {"use_explicit_schur_complement": True}),
     "dense_schur": ("JACOBI", {"linear_solver_type": "DENSE_SCHUR"}),
+    "cluster_jacobi": ("CLUSTER_JACOBI", {}),
+    "cluster_tridiagonal": (
+        "CLUSTER_TRIDIAGONAL", {"visibility_clustering_type": "SINGLE_LINKAGE"}),
 }
 
 
@@ -402,19 +412,13 @@ def test_schur_solve_mixed_matches_jax(monkeypatch, case):
         assert 1e-6 < gap64 <= 1e-2
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        {"preconditioner_type": "CLUSTER_JACOBI"},
-        {"preconditioner_type": "CLUSTER_TRIDIAGONAL"},
-    ],
-    ids=["cluster_jacobi", "cluster_tridiagonal"],
-)
-def test_schur_solve_refuses_unported_branches(monkeypatch, kw):
+@pytest.mark.parametrize("precond", ["CLUSTER_JACOBI", "CLUSTER_TRIDIAGONAL"])
+def test_schur_prepare_refuses_cluster_preconditioners(monkeypatch, precond):
+    """The visibility preconditioners depend on D², so they have no
+    prepare/finish split: schur_prepare refuses them (schur_solve runs
+    them), as the JAX package's strategies attach no split for them."""
     _, tprog = _programs(8, PLANS, monkeypatch)
-    kw = {k: getattr(ct.PreconditionerType, v) if k == "preconditioner_type" else v
-          for k, v in kw.items()}
-    opt = ct.SolverOptions(linear_solver_type=ct.LinearSolverType.ITERATIVE_SCHUR, **kw)
-    _c, tres, tjac, tgrad = _port_eval(tprog, torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tschur.schur_solve(tprog, opt, tjac, tres, tgrad, torch.ones_like(tgrad))
+    _, topt = _options(precond)
+    _c, _res, tjac, _grad = _port_eval(tprog, torch.float64)
+    with pytest.raises(NotImplementedError, match="schur_solve runs the others"):
+        tschur.schur_prepare(tprog, topt, tjac)

@@ -7,9 +7,10 @@ packages, each with its host loop (fused_execution=False) and each with its
 fused device loop (the default). Every iteration must agree: cost to 1e-10 relative, trust-region radius, PCG
 iteration count and the accept/reject decision. The preconditioner cases:
 JACOBI and SCHUR_JACOBI through the prepare/finish split (with the layout
-plans, where kernels B4/B5 sit, and without), and SCHUR_JACOBI with the
-power-series warm start, which only schur_solve runs. The SCHUR_JACOBI
-problems have no point seen by one camera only (see
+plans, where kernels B4/B5 sit, and without), and, which only schur_solve
+runs, SCHUR_JACOBI with the power-series warm start and the visibility
+preconditioners (CLUSTER_JACOBI, CLUSTER_TRIDIAGONAL) under both
+clusterings. The SCHUR_JACOBI problems have no point seen by one camera only (see
 test_torch_schur_jacobi.py)."""
 
 import pathlib
@@ -56,7 +57,25 @@ LM_CASES = [
     ("schur_jacobi_fallback", 10**9, True, 4, 0.05, "SCHUR_JACOBI", {}),
     ("spse_init_plans", 16, True, 3, 0.05, "SCHUR_JACOBI",
      {"use_spse_initialization": True}),
+    # the visibility preconditioners, built per step by schur_solve
+    ("cluster_jacobi_canonical", 16, True, 3, 0.05, "CLUSTER_JACOBI",
+     {"visibility_clustering_type": "CANONICAL_VIEWS"}),
+    ("cluster_jacobi_single_linkage", 16, True, 3, 0.05, "CLUSTER_JACOBI",
+     {"visibility_clustering_type": "SINGLE_LINKAGE"}),
+    ("cluster_tridiagonal_canonical", 16, True, 3, 0.05, "CLUSTER_TRIDIAGONAL",
+     {"visibility_clustering_type": "CANONICAL_VIEWS"}),
+    ("cluster_tridiagonal_single_linkage", 16, True, 3, 0.05, "CLUSTER_TRIDIAGONAL",
+     {"visibility_clustering_type": "SINGLE_LINKAGE"}),
 ]
+
+
+def _extra(pkg, extra):
+    """A case's extra options, the clustering named as `pkg`'s enum."""
+    kw = dict(extra)
+    if "visibility_clustering_type" in kw:
+        kw["visibility_clustering_type"] = getattr(
+            pkg.VisibilityClusteringType, kw["visibility_clustering_type"])
+    return kw
 
 
 # each case on both packages' host loops, then on both fused loops
@@ -74,10 +93,11 @@ def test_lm_solve_matches_jax_per_iteration(monkeypatch, case, fused):
     tp, _, _ = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0) if huber else None)
     js = ceres_tpu.solve(_options(
         ceres_tpu, fused_execution=fused,
-        preconditioner_type=getattr(ceres_tpu.PreconditionerType, precond), **extra), jp)
+        preconditioner_type=getattr(ceres_tpu.PreconditionerType, precond),
+        **_extra(ceres_tpu, extra)), jp)
     ts = ct.solve(_options(
         ct, device="cpu", fused_execution=fused,
-        preconditioner_type=getattr(ct.PreconditionerType, precond), **extra), tp)
+        preconditioner_type=getattr(ct.PreconditionerType, precond), **_extra(ct, extra)), tp)
     assert js.used_fused_execution == ts.used_fused_execution == fused
     assert len(ts.iterations) == len(js.iterations) == 6
     for a, b in zip(ts.iterations, js.iterations):
@@ -144,11 +164,9 @@ UNSUPPORTED = {
     # case: (options, the ROADMAP item its message names, or None)
     "invalid": ({"max_num_iterations": -1}, None),
     "dense_qr": ({"linear_solver_type": "DENSE_QR"}, None),
-    "cluster_jacobi": ({"preconditioner_type": "CLUSTER_JACOBI"}, None),
     "dogleg": ({"trust_region_strategy_type": "DOGLEG"}, "Queue A item 6"),
     "inner_iterations": ({"use_inner_iterations": True}, "Queue A item 6"),
     "iterations_to_dump": ({"trust_region_minimizer_iterations_to_dump": (1,)}, "Queue A item 6"),
-    "linear_solver_ordering": ({"linear_solver_ordering": [0, 1]}, "Queue A item 4"),
     "check_gradients": ({"check_gradients": True}, "Queue A item 7"),
     "mesh": ({"mesh": object()}, "Queue A item 11"),
 }
@@ -157,7 +175,7 @@ UNSUPPORTED = {
 @pytest.mark.parametrize("case", list(UNSUPPORTED))
 def test_invalid_and_unsupported_options(monkeypatch, case):
     """Invalid options fail the solve; an option the port does not run
-    raises NotImplementedError naming its ROADMAP item, the six Queue C
+    raises NotImplementedError naming its ROADMAP item, the five Queue C
     options before the Problem is compiled, instead of being accepted and
     ignored."""
     kw, item = UNSUPPORTED[case]
