@@ -7,7 +7,10 @@ with angle-axis or quaternion cameras — on one NVIDIA H100 through five
 hand-written CUDA kernels:
 
   B1 eval_kernel.py          fused Snavely evaluation, angle-axis and
-                             quaternion cameras (csrc/eval_snavely.cu)
+                             quaternion cameras (csrc/eval_snavely.cu), and
+                             B1 generic for any functor the generator
+                             (functor_codegen.py) traces
+                             (csrc/eval_generic.cuh)
   B2 gather_reduce.py        camera gather-contract F·y (csrc/gather_reduce.cu)
   B3 gather_reduce.py        deterministic camera contract-reduce Fᵀu
   B4 linalg/schur_kernels.py the fused implicit-Schur matvec (csrc/schur_sy.cu)

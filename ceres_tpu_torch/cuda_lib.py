@@ -15,6 +15,13 @@ Every kernel is instantiated for float32 and float64; B2, B3 and B4 also
 for bfloat16 leaves (the mixed-precision solves), whose vectors,
 accumulators and outputs are float32. Those instantiations count under
 their own names (`counter`): `schur_sy_bf16`, ...
+
+B1's generic instantiation is built per generated source
+(functor_codegen.py fills in csrc/eval_generic.cuh): `build_generated`
+compiles the sources it is given, one nvcc each, all started together,
+into `_build/gen_<hash>.so` keyed by a hash of the source, the template
+and the flags, and `generated_fn` loads one. Its launches count as
+`eval_generic` (with the Jacobian) and `eval_generic_residual`.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -41,10 +49,19 @@ KERNELS = ("eval_snavely", "gather_contract", "contract_reduce", "schur_sy", "sc
 QUAT_KERNELS = ("eval_snavely_quat", "eval_snavely_quat_nomanifold")
 # the kernels with a bfloat16-leaf instantiation (B2, B3, B4)
 BF16_KERNELS = ("gather_contract", "contract_reduce", "schur_sy")
+# B1's generic instantiation (eval_kernel.generic_evaluate): with the
+# Jacobian and residual-only
+GENERIC_KERNELS = ("eval_generic", "eval_generic_residual")
 _launches = {
-    name: 0 for name in KERNELS + QUAT_KERNELS + tuple(k + "_bf16" for k in BF16_KERNELS)
+    name: 0
+    for name in KERNELS + QUAT_KERNELS + tuple(k + "_bf16" for k in BF16_KERNELS)
+    + GENERIC_KERNELS
 }
 _lib = None
+# generated sources: key -> loaded library; builds and their seconds
+_generated = {}
+_generated_stats = {"builds": 0, "hits": 0, "seconds": 0.0}
+_generated_seconds = {}
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C signatures: every function returns cudaGetLastError() as an int
@@ -142,6 +159,90 @@ def library():
                 fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _generated_path(source: str):
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((SRC_DIR / "eval_generic.cuh").read_bytes())
+    h.update(source.encode())
+    return BUILD_DIR / f"gen_{h.hexdigest()[:16]}.so"
+
+
+def build_generated(sources) -> float:
+    """Compile the generated sources (an iterable of source texts) that
+    are not built yet, one nvcc each, all started together; returns the
+    seconds it took. Raises RuntimeError with the compiler's output when
+    one fails. The ptxas report of each goes to _build/gen_<hash>.log."""
+    todo = {}
+    for src in sources:
+        path = _generated_path(src)
+        if path.exists():
+            _generated_stats["hits"] += 1
+        else:
+            todo[path] = src
+    if not todo:
+        return 0.0
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for path, src in todo.items():
+        cu = path.with_name(f"{path.stem}.{os.getpid()}.cu")
+        cu.write_text(src)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-shared", "-o", str(tmp), str(cu)]
+        with open(path.with_suffix(".log"), "w") as log:
+            procs[path] = (cu, tmp, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
+    failed, pending = [], set(procs)
+    while pending:  # each source's own nvcc seconds, as they finish
+        for path in list(pending):
+            cu, tmp, proc = procs[path]
+            if proc.poll() is None:
+                continue
+            pending.discard(path)
+            _generated_seconds[path] = time.perf_counter() - t0
+            cu.unlink(missing_ok=True)
+            if proc.returncode != 0:
+                log = path.with_suffix(".log").read_text()
+                failed.append(f"{path.name} (rc {proc.returncode}):\n{log[-3000:]}")
+            else:
+                os.replace(tmp, path)
+        time.sleep(0.05)
+    seconds = time.perf_counter() - t0
+    _generated_stats["builds"] += len(todo) - len(failed)
+    _generated_stats["seconds"] += seconds
+    if failed:
+        raise RuntimeError("nvcc failed on a generated kernel: " + "\n".join(failed))
+    return seconds
+
+
+def generated_fn(source: str, dtype):
+    """The float32 or float64 entry point of a generated source, built on
+    first use."""
+    suffix = _SUFFIX.get(dtype)
+    if suffix not in ("_f32", "_f64"):
+        raise TypeError(f"eval_generic: unsupported dtype {dtype} (float32/float64)")
+    path = _generated_path(source)
+    lib = _generated.get(path)
+    if lib is None:
+        build_generated([source])
+        lib = ctypes.CDLL(str(path))
+        for sfx in ("_f32", "_f64"):
+            fn = getattr(lib, "ctt_eval_generic" + sfx)
+            fn.argtypes = [_I, _P, _P, _I, _P, _P, _P, _P]
+            fn.restype = ctypes.c_int
+        _generated[path] = lib
+    return getattr(lib, "ctt_eval_generic" + suffix)
+
+
+def generated_stats() -> dict:
+    """Generated sources built (and their nvcc seconds) and found built."""
+    return dict(_generated_stats)
+
+
+def generated_build_seconds(source: str):
+    """The nvcc seconds of a generated source built in this process, or
+    None (found built)."""
+    return _generated_seconds.get(_generated_path(source))
 
 
 def kernel_fn(prefix: str, dtype):

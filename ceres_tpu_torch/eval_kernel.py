@@ -1,4 +1,4 @@
-"""Kernel B1: fused Snavely evaluation of one signature group.
+"""Kernel B1: fused evaluation of one signature group.
 
 Replaces `ceres_tpu/pallas_eval.py` GroupKernel (the kernel launched at
 pallas_eval.py:571) for the Snavely functors, one instantiation per camera
@@ -19,20 +19,33 @@ rr*t + j, as pallas_eval.py:514-524) plus a per-block cost partial; a second
 launch sums the partials in a fixed order (no atomics). The residual-only
 launch is an instantiation of its own, without the derivative code.
 
+Every other group whose functor, loss and manifolds functor_codegen.py can
+generate (`functor_codegen.group_program`: any functor that traces to aten
+ops with rules,
+any loss whose rho is torch code, ComposedLoss and LossFunctionWrapper
+included) takes B1's generic instantiation (`generic_evaluate`): the
+generator fills the hand-written template csrc/eval_generic.cuh with the
+group's functor, plus-Jacobians and rho, and the kernel evaluates it on
+Jet<S, N> (N the group's total tangent), one thread per residual block,
+with the same outputs, loss, correction and cost reduction as above.
+Groups sharing a structural signature (the K filter groups of a
+Fields-of-Experts prior) share one build; their constants come in a
+buffer. A group the generator cannot trace takes the torch.func path, as
+the JAX package's group_kernel returns None for it.
+
 On CPU tensors the plain version runs: the torch.func path plus the gather,
 the plus-Jacobian chain, the loss and correct_batched
-(evaluator.evaluate_batch). A group the kernel has no code for (another
-functor, a ComposedLoss or LossFunctionWrapper, another manifold) is not
-`eligible` and takes the torch.func path.
+(evaluator.evaluate_batch).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, functor_codegen
 from .loss import (
     ArctanLoss,
     CauchyLoss,
@@ -191,3 +204,72 @@ def group_evaluate(meta, tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian):
             meta.positions[0].manifold is not None,
         )
     return snavely_evaluate(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian)
+
+
+# ---------------------------------------------------------------------- #
+# B1 generic: any functor the generator can trace
+# ---------------------------------------------------------------------- #
+
+GENERIC_BLOCK = 128  # threads per block of the generic launch (eval_generic.cuh)
+
+
+def prepare_generic(program, arrays, dtype):
+    """Build, all at once, the generic kernels of every group of a Program
+    that is not served by the Snavely kernels (the solve's evaluations then
+    find them built); returns the nvcc seconds."""
+    sources = []
+    for meta, garr in zip(program.groups, arrays["groups"]):
+        if eligible(meta, dtype, True):
+            continue
+        prog = functor_codegen.group_program(meta, garr, dtype, True)
+        if prog is not None:
+            sources.append(prog.source)
+    return cuda_lib.build_generated(sources) if sources else 0.0
+
+
+def generic_evaluate(prog, meta, garr, state_2d, with_jacobian):
+    """Evaluate a group through its generated program: garr the group's
+    arrays (rows [n] int32 per position, data [n, ...] per data leaf) and
+    state_2d the [cnt, size] state tables by class. Returns (cost [],
+    res [r, n], tuple of [r * t_p, n] or ()), as `snavely_evaluate`, with
+    the loss the program was traced with. On CPU tensors the plain version
+    (evaluator.group_eval_plain) runs. Counted as eval_generic /
+    eval_generic_residual."""
+    if state_2d[0].device.type == "cpu":
+        from .evaluator import group_eval_plain
+
+        return group_eval_plain(meta, garr, state_2d, with_jacobian, prog.has_loss)
+    tables = [state_2d[pm.a_cls] for pm in meta.positions]
+    rows, data = garr["a_rows"], garr["data"]
+    dev, dt = tables[0].device, prog.dtype
+    n = rows[0].shape[0]
+    checked = set()
+    for p, (t, rr) in enumerate(zip(tables, rows)):
+        if id(t) not in checked:  # the positions of one class share their table
+            cuda_lib.require(f"table {p}", t, dt, (t.shape[0], prog.sizes[p]), dev)
+            checked.add(id(t))
+        cuda_lib.require(f"rows {p}", rr, torch.int32, (n,), dev)
+    for q, d in enumerate(data):
+        cuda_lib.require(f"data {q}", d, dt, (n, *prog.data_shapes[q]), dev)
+    res = torch.empty((prog.r, n), dtype=dt, device=dev)
+    leaves = tuple(
+        torch.empty((prog.r * t, n), dtype=dt, device=dev) for t in prog.tangents
+    ) if with_jacobian else ()
+    partials = torch.empty(((n + GENERIC_BLOCK - 1) // GENERIC_BLOCK,), dtype=dt, device=dev)
+    cost = torch.empty((), dtype=dt, device=dev)
+    ptrs = [t.data_ptr() for t in tables] + [r.data_ptr() for r in rows]
+    ptrs += [d.data_ptr() for d in data] + [leaf.data_ptr() for leaf in leaves]
+    ptrs += [0] * (len(tables) - len(leaves))
+    arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    if prog.entry_point is None:
+        prog.entry_point = cuda_lib.generated_fn(prog.source, dt)
+    if dev not in prog.device_consts:  # the constant slots, uploaded once per card
+        prog.device_consts[dev] = torch.tensor(prog.consts or [0.0], dtype=dt, device=dev)
+    counter = "eval_generic" if with_jacobian else "eval_generic_residual"
+    rc = prog.entry_point(
+        int(with_jacobian), arr, cuda_lib.ptr(prog.device_consts[dev]), n, cuda_lib.ptr(res),
+        cuda_lib.ptr(partials), cuda_lib.ptr(cost), cuda_lib.stream(dev),
+    )
+    cuda_lib.check(rc, counter)
+    cuda_lib.count(counter)
+    return cost, res, leaves

@@ -1,12 +1,13 @@
 """Batched residual / Jacobian / gradient / cost evaluation.
 
 Port of `ceres_tpu.evaluator`. Per signature group, the Snavely functors
-(angle-axis and quaternion cameras) on a card run kernel B1
-(eval_kernel.py); every other group — and every
-group on the CPU — runs the torch.func path: gather the parameter rows,
-vmap(jacfwd) the functor, chain the manifold plus-Jacobian, apply the loss
-and the Triggs correction. Outputs are observation-minor: residuals [r, n],
-Jacobian blocks [r*t, n].
+(angle-axis and quaternion cameras) run kernel B1's hand-derived
+instantiations and every group the generator can trace B1's generic one
+(eval_kernel.py, functor_codegen.py); each kernel's wrapper runs its plain
+version on the CPU. The rest runs the torch.func path: gather the
+parameter rows, vmap(jacfwd) the functor, chain the manifold
+plus-Jacobian, apply the loss and the Triggs correction. Outputs are
+observation-minor: residuals [r, n], Jacobian blocks [r*t, n].
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from . import eval_kernel
+from . import eval_kernel, functor_codegen
 from .autodiff import batched_value_and_jacobians, batched_values
 from .corrector import correct_batched
 from .jacobian import BlockJacobian, gather_T
@@ -95,8 +96,9 @@ def evaluate_batch(fn, params, data, manifolds, loss, with_jacobian):
     return cost, res_T, jacs_T
 
 
-def _group_eval_range(meta, garr, state_2d, with_jacobian, apply_loss):
-    """torch.func evaluation of a whole group. The owner position's
+def group_eval_plain(meta, garr, state_2d, with_jacobian, apply_loss):
+    """torch.func evaluation of a whole group: the path of every group no
+    kernel serves, and B1 generic's plain version. The owner position's
     gather is a bucket slice+broadcast when its rows are ambient-aligned."""
     params = []
     for pos, (pm, rows) in enumerate(zip(meta.positions, garr["a_rows"])):
@@ -119,8 +121,10 @@ def _group_eval_range(meta, garr, state_2d, with_jacobian, apply_loss):
 def _group_eval(meta, garr, state_2d, with_jacobian: bool, apply_loss: bool):
     """Evaluate one signature group -> (cost, res [r, n], jacs tuple of
     [r*t, n]). Kernel B1 for an eligible Snavely group, angle-axis or
-    quaternion (its wrapper runs the plain version on CPU tensors), the
-    torch.func path otherwise."""
+    quaternion (its wrapper runs the plain version on CPU tensors); on a
+    card B1 generic for a group the generator can trace; the torch.func
+    path otherwise. On the CPU no group is traced: B1 generic's plain
+    version is the torch.func path itself."""
     dtype = state_2d[0].dtype if state_2d else None
     if eval_kernel.eligible(meta, dtype, apply_loss):
         p0, p1 = meta.positions
@@ -134,7 +138,11 @@ def _group_eval(meta, garr, state_2d, with_jacobian: bool, apply_loss: bool):
             meta.loss if apply_loss else None,
             with_jacobian,
         )
-    return _group_eval_range(meta, garr, state_2d, with_jacobian, apply_loss)
+    on_card = bool(state_2d) and state_2d[0].device.type == "cuda"
+    prog = functor_codegen.group_program(meta, garr, dtype, apply_loss) if on_card else None
+    if prog is not None:
+        return eval_kernel.generic_evaluate(prog, meta, garr, state_2d, with_jacobian)
+    return group_eval_plain(meta, garr, state_2d, with_jacobian, apply_loss)
 
 
 def evaluate(program, arrays, state, with_jacobian: bool = True, apply_loss: bool = True):
@@ -227,6 +235,9 @@ class Evaluator:
         self.dtype = dtype or default_dtype()
         self.device = program.device
         self.arrays = program.arrays(self.dtype)
+        if torch.device(self.device).type == "cuda":
+            # the generated kernels of the Program's groups, built at once
+            eval_kernel.prepare_generic(program, self.arrays, self.dtype)
 
     def cost(self, state):
         return evaluate(self.program, self.arrays, state, with_jacobian=False)[0]

@@ -1,8 +1,9 @@
 """Converters between the JAX package's host arrays and the port's tensors.
 
-Both packages build from the same numpy `BalProblem`, and the port's
-Program reproduces the JAX Program's tables exactly, so a JAX state vector
-or index table means the same thing in the port. These helpers carry such
+Both packages build from the same numpy `BalProblem` (or image and
+Fields-of-Experts prior), and the port's Program reproduces the JAX
+Program's tables exactly, so a JAX state vector or index table means the
+same thing in the port. These helpers carry such
 arrays across (the parity tests use them); they take numpy, never JAX
 arrays, so the port does not import JAX.
 """
@@ -31,6 +32,22 @@ def from_jax_program_arrays(np_arrays, device, dtype):
     numpy, as port tensors: integer tables -> int32, float leaves -> dtype,
     the dict/list/tuple structure kept."""
     return _convert(np_arrays, torch.device(device), dtype)
+
+
+def foe_model(model):
+    """A Fields-of-Experts prior of the port (examples.denoising.FoEModel)
+    from any object with its five fields (the JAX package's FoEModel, a
+    loaded file), each copied through numpy, so that both packages build
+    the same denoising problem from it."""
+    from .examples.denoising import FoEModel
+
+    return FoEModel(
+        int(model.size),
+        np.asarray(model.x_deltas).astype(int),
+        np.asarray(model.y_deltas).astype(int),
+        np.asarray(model.alphas, dtype=np.float64),
+        np.asarray(model.filters, dtype=np.float64),
+    )
 
 
 def state_from_numpy(program, x, dtype=None):

@@ -356,6 +356,15 @@ class BlockJacobian:
             out = out * self.col_scale
         return out
 
+    def jtj_multiply(self, v, dsq=None):
+        """(JᵀJ + diag(dsq)) v, the CGNR normal-equations operator
+        (reference: CgnrSolver's operator, cgnr_solver.cc:219-242;
+        ceres_tpu/jacobian.py:750)."""
+        out = self.left_multiply(self.right_multiply(v))
+        if dsq is not None:
+            out = out + dsq * v
+        return out
+
     def squared_column_norms(self):
         """Per-tangent-column sum of squares (LM diagonal / Jacobi scaling)."""
         acc = self._class_tables_T()

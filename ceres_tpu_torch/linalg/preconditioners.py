@@ -1,7 +1,8 @@
-"""Batched block-diagonal inverses and solves.
+"""Batched block-diagonal inverses and solves, and the preconditioners of
+CGNR.
 
-Port of the block-diagonal part of `ceres_tpu.linalg.preconditioners`
-(reference: block_jacobi_preconditioner.cc). Blocks live as TRANSPOSED
+Port of `ceres_tpu.linalg.preconditioners` (reference:
+block_jacobi_preconditioner.cc). Blocks live as TRANSPOSED
 per-class tables [s*s, count]; blocks of size <= 3 invert in closed form,
 larger ones through one batched Cholesky and two triangular solves
 (torch.linalg, as the JAX package leaves them to XLA). Blocks that come out non-finite or fail to factor
@@ -153,3 +154,33 @@ class BlockDiagSolver:
                 s = self.program.tangent_class_sizes[cls]
                 out.append(apply_block_T(inv, seg.T, s).T.reshape(-1))
         return torch.cat(out)
+
+
+def identity_preconditioner():
+    return lambda r: r
+
+
+class BlockJacobiPreconditioner:
+    """M = block-diag(JᵀJ + diag(dsq)) over every free parameter block of
+    every tangent class (reference: block_jacobi_preconditioner.cc)."""
+
+    def __init__(self, program, jac, dsq=None):
+        self._solver = BlockDiagSolver(program, jac.block_diag_jtj(dsq=dsq))
+
+    @property
+    def inv_tables(self):
+        return self._solver.inv_tables
+
+    def __call__(self, r):
+        return self._solver(r)
+
+
+def make_preconditioner(kind, program, jac, dsq=None):
+    """IDENTITY or JACOBI for CGNR (ceres_tpu/linalg/preconditioners.py:207)."""
+    from ..types import PreconditionerType
+
+    if kind == PreconditionerType.IDENTITY:
+        return identity_preconditioner()
+    if kind == PreconditionerType.JACOBI:
+        return BlockJacobiPreconditioner(program, jac, dsq=dsq)
+    raise NotImplementedError(f"preconditioner {kind} not implemented for this solver")

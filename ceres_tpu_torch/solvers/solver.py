@@ -12,7 +12,8 @@ import time
 from ..evaluator import Evaluator
 from ..ordering import eliminated_handles
 from ..types import (
-    LinearSolverType, MinimizerType, Summary, TerminationType, TrustRegionStrategyType,
+    LinearSolverType, MinimizerType, PreconditionerType, Summary, TerminationType,
+    TrustRegionStrategyType,
 )
 from ..utils.dtypes import default_dtype, resolve_device
 from ..utils.execution_summary import ExecutionSummary
@@ -22,7 +23,15 @@ from ..utils.graphs import graph_stats, read_count
 # options the port does not run yet, each with the ROADMAP item that ports
 # it: solve raises for them instead of running something else
 _MINIMIZER_BREADTH = "ROADMAP Queue A item 6, minimizer breadth"
+_HOST_SOLVERS = "ROADMAP Queue A item 5, linear solvers"
 _UNPORTED = (
+    (lambda o: o.linear_solver_type == LinearSolverType.SPARSE_NORMAL_CHOLESKY,
+     "linear_solver_type=SPARSE_NORMAL_CHOLESKY", _HOST_SOLVERS),
+    (lambda o: o.linear_solver_type == LinearSolverType.SPARSE_SCHUR,
+     "linear_solver_type=SPARSE_SCHUR", _HOST_SOLVERS),
+    (lambda o: o.linear_solver_type == LinearSolverType.CGNR
+     and o.preconditioner_type == PreconditionerType.SUBSET,
+     "CGNR with preconditioner_type=SUBSET", _HOST_SOLVERS),
     (lambda o: o.minimizer_type != MinimizerType.TRUST_REGION,
      "the line-search minimizer", _MINIMIZER_BREADTH),
     (lambda o: o.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG,

@@ -1,11 +1,18 @@
 """Trust-region step computation: the Levenberg-Marquardt strategy.
 
 Port of the LM branch of `ceres_tpu.solvers.strategies`
-(reference: levenberg_marquardt_strategy.cc:68-172) for the Schur solvers.
-The step function solves through `schur_solve`; for ITERATIVE_SCHUR with a
-block preconditioner it also carries the prepare/finish split: `prepare`
-builds everything that depends only on the Jacobian (cached by the host
-loop across rejected steps), `finish` everything that depends on the radius.
+(reference: levenberg_marquardt_strategy.cc:68-172) for DENSE_QR,
+DENSE_NORMAL_CHOLESKY, CGNR and the Schur solvers. The Schur step function
+solves through `schur_solve`; for ITERATIVE_SCHUR with a block
+preconditioner it also carries the prepare/finish split: `prepare` builds
+everything that depends only on the Jacobian (cached by the host loop
+across rejected steps), `finish` everything that depends on the radius.
+CGNR runs unsplit, as in the JAX package: PCG on the normal equations
+(JᵀJ + D²) x = -Jᵀr with `jtj_multiply` as its matvec, preconditioned by
+IDENTITY or JACOBI; on a card its head (D², the rhs, the Jacobi inverses,
+under mixed-precision solves the bfloat16 leaves), its PCG iteration and
+its tail are CUDA graphs. The dense solvers materialize the Jacobian and
+run eagerly.
 The step functions read nothing from the device: the step's validity, its
 model cost change and the PCG count come back as tensors (the JAX package's
 "jittable" contract), for the host loop to read and the fused loop to
@@ -52,10 +59,14 @@ def make_lm_step_fn(program, options, evaluator):
     """
     solver = options.linear_solver_type
     precond = options.preconditioner_type
+    if solver in (LinearSolverType.DENSE_QR, LinearSolverType.DENSE_NORMAL_CHOLESKY):
+        return _dense_step_fn(program, options)
+    if solver == LinearSolverType.CGNR:
+        return _cgnr_step_fn(program, options, evaluator)
     if solver not in (LinearSolverType.ITERATIVE_SCHUR, LinearSolverType.DENSE_SCHUR):
         raise NotImplementedError(
-            f"this port runs LM with ITERATIVE_SCHUR or DENSE_SCHUR only; got {solver.value} "
-            "(ROADMAP Queue A: linear solvers)"
+            f"linear solver {solver.value} is not ported yet "
+            "(ROADMAP Queue A item 5, linear solvers)"
         )
     from ..jacobian import BlockJacobian
     from ..linalg.schur import (
@@ -122,6 +133,113 @@ def make_lm_step_fn(program, options, evaluator):
     ):
         step_fn.prepare = prepare_fn
         step_fn.finish = finish_fn
+    return step_fn
+
+
+def _dense_step_fn(program, options):
+    """DENSE_QR and DENSE_NORMAL_CHOLESKY (with the float32 factor and
+    refinement under mixed-precision solves): the Jacobi-scaled Jacobian
+    materialized and solved whole (ceres_tpu/solvers/strategies.py:68-99)."""
+    from ..evaluator import flatten_residuals
+    from ..linalg.dense import (
+        solve_dense_normal_cholesky, solve_dense_normal_cholesky_mixed, solve_dense_qr,
+    )
+
+    min_diag, max_diag = options.min_lm_diagonal, options.max_lm_diagonal
+    qr = options.linear_solver_type == LinearSolverType.DENSE_QR
+    refine = max(1, options.max_num_refinement_iterations or 3)
+
+    def step_fn(jac, res_groups, grad, radius, scale):
+        jac_s = jac.scale_columns(scale)
+        dsq = torch.clamp(jac_s.squared_column_norms(), min_diag, max_diag) / radius
+        dense = jac_s.to_dense()
+        res_flat = flatten_residuals(program, res_groups)
+        if qr:
+            step = solve_dense_qr(dense, res_flat, dsq)
+        elif options.use_mixed_precision_solves:
+            step = solve_dense_normal_cholesky_mixed(dense, res_flat, dsq, refine)
+        else:
+            step = solve_dense_normal_cholesky(dense, res_flat, dsq)
+        lin_iters = torch.zeros((), dtype=torch.int32, device=grad.device)
+        return _step_result(jac_s, step, res_groups, scale, lin_iters)
+
+    return step_fn
+
+
+def _cgnr_step_fn(program, options, evaluator):
+    """CGNR (ceres_tpu/solvers/strategies.py:100-129): PCG on (JᵀJ + D²) x =
+    -Jᵀr, preconditioned by IDENTITY or JACOBI (any other preconditioner
+    by JACOBI, as there), its matvec `jtj_multiply` on the bfloat16 copy of
+    the leaves under mixed-precision solves. On a card the head, the PCG
+    iteration and the tail replay CUDA graphs that read the Jacobian and
+    the head's outputs in place."""
+    from ..jacobian import BlockJacobian
+    from ..linalg.cg import conjugate_gradients
+    from ..linalg.preconditioners import BlockDiagSolver, make_preconditioner
+
+    min_diag, max_diag = options.min_lm_diagonal, options.max_lm_diagonal
+    kind = (
+        options.preconditioner_type
+        if options.preconditioner_type in (PreconditionerType.IDENTITY, PreconditionerType.JACOBI)
+        else PreconditionerType.JACOBI
+    )
+    mixed = options.use_mixed_precision_solves
+    garrs = evaluator.arrays["groups"]
+    head_graph = graphs.fn_graph("cgnr_head", evaluator.device)
+    pcg_graph = graphs.step_graph("pcg", evaluator.device)
+    tail_graph = graphs.fn_graph("cgnr_tail", evaluator.device)
+
+    def jacobian(leaves, twins, scale):
+        return BlockJacobian(program, leaves, garrs, twins=twins).scale_columns(scale)
+
+    def head(fixed, radius, scale):
+        leaves, twins, grad = fixed
+        jac_s = jacobian(leaves, twins, scale)
+        dsq = torch.clamp(jac_s.squared_column_norms(), min_diag, max_diag) / radius
+        prec = make_preconditioner(kind, program, jac_s, dsq=dsq)
+        out = {"dsq": dsq, "b": -(grad * scale), "scale": scale.clone(),
+               "prec_inv": getattr(prec, "inv_tables", None)}
+        if mixed:
+            # the bfloat16 matvec copy (ceres_tpu/solvers/strategies.py:118-123)
+            jac_m = jac_s.astype(torch.bfloat16)
+            out["leaves"], out["twins"] = jac_m.jac_groups, jac_m.twins
+        return out
+
+    def tail(fixed, scale, x, lin_iters):
+        leaves, twins, res_groups = fixed
+        return _step_result(jacobian(leaves, twins, scale), x, res_groups, scale, lin_iters)
+
+    def step_fn(jac, res_groups, grad, radius, scale):
+        if not isinstance(radius, torch.Tensor):
+            radius = torch.full((), radius, dtype=grad.dtype, device=grad.device)
+        leaves, twins = tuple(jac.jac_groups), jac.twins
+        h = graphs.call(head_graph, head, (leaves, twins, grad), radius, scale)
+        m_leaves, m_twins = (h["leaves"], h["twins"]) if mixed else (leaves, twins)
+        jac_m = jacobian(m_leaves, m_twins, h["scale"])
+        dsq = h["dsq"]
+        prec = (None if h["prec_inv"] is None
+                else BlockDiagSolver.from_inverse_tables(program, h["prec_inv"]))
+        fixed = [t for ls in m_leaves for t in ls] + list(m_twins.values())
+        fixed += [h["scale"], dsq] + ([] if prec is None else list(prec.inv_tables.values()))
+        result = conjugate_gradients(
+            matvec=lambda v: jac_m.jtj_multiply(v, dsq),
+            b=h["b"],
+            preconditioner=prec,
+            max_iterations=min(options.max_linear_solver_iterations,
+                               program.num_effective_parameters),
+            min_iterations=options.min_linear_solver_iterations,
+            # LM maps eta to the Q-based (truncated-Newton) criterion, the
+            # residual test off (levenberg_marquardt_strategy.cc:98-103)
+            tolerance=0.0,
+            q_tolerance=options.eta,
+            graph=pcg_graph,
+            fixed=fixed,
+        )
+        return graphs.call(
+            tail_graph, tail, (leaves, twins, tuple(res_groups)), scale, result.x,
+            result.iterations,
+        )
+
     return step_fn
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's bundle-adjustment solve on one CUDA card.
+"""Drive the PyTorch port's bundle-adjustment and denoising solves on one CUDA card.
 
     python3 chip_smoke.py            # one NVIDIA H100 (sm_90a), nvcc on the path
     python3 chip_smoke.py --phase 2  # phases 1 and 2 only, no result line
@@ -7,7 +7,9 @@
 Phases, one line each (a failed phase raises, so the script exits non-zero
 and prints no result):
   1. the device, its name and power limit, and the build of the CUDA
-     kernels (ceres_tpu_torch/csrc, compiled here with nvcc);
+     kernels (ceres_tpu_torch/csrc, compiled here with nvcc), then every
+     source the generator of B1 generic makes for the groups this script
+     runs (functor_codegen.py; one nvcc each, all at once);
   2. each kernel B1-B5 against its plain PyTorch version on the card, at
      BAL-1778 shapes in float32, and B2, B3 and B4 on bfloat16 leaves and
      twins (the mixed-precision solves): max relative error vs a stated tolerance,
@@ -24,7 +26,12 @@ and prints no result):
      camera's product manifold, tangent 9, and without one, tangent 10),
      with the Jacobian and residual-only, and B3, B4 (its generic
      instantiation) and B5 on the 10-wide Jacobian, each against its plain
-     version;
+     version; then B1 generic (graph-replay ms, eager ms beside) on the
+     Fields-of-Experts 3x3 clique group at 512 x 512, the data term, the
+     5x5 clique group at 213 x 177 and the Snavely group at BAL-1778 (also
+     against the hand-written eval_snavely), with and without the
+     Jacobian, each against its plain version, bitwise across two runs,
+     with ptxas' registers and spills;
   3. a small float64 solve (48,000 observations, so the layout plans
      engage) for 5 LM iterations on the card and on the CPU, for JACOBI,
      SCHUR_JACOBI, and SCHUR_JACOBI with the power-series warm start (which
@@ -33,7 +40,9 @@ and prints no result):
      counts, and each case's kernels launched; then SCHUR_JACOBI with
      use_mixed_precision_solves on the fused loop (bfloat16 leaves, float64
      elsewhere), whose float32 matvec sums run in another order on the card:
-     cost within 1e-6;
+     cost within 1e-6; then, within 1e-9 with B1 generic launched, a small
+     Fields-of-Experts CGNR solve on the fused loop, Powell's function on
+     DENSE_QR and the curve fit on DENSE_NORMAL_CHOLESKY;
   4. the main run: synthetic_bal(1778, 993923, 5,000,000) with Huber(1.0)
      in float32 through ceres_tpu_torch.solve (LM + ITERATIVE_SCHUR +
      SCHUR_JACOBI, eta 0.1, PCG <= 25, 5 iterations, on the fused device
@@ -69,7 +78,12 @@ and prints no result):
      apply; CLUSTER_TRIDIAGONAL on canonical views must be refused by its
      host plan (storage too large). Last the main configuration with a
      ParameterBlockOrdering that eliminates the points, 3 iterations,
-     bitwise equal to the main run's first three.
+     bitwise equal to the main run's first three. Last the two
+     Fields-of-Experts denoising runs (FOE_RUNS: 3x3, K = 8, on 512 x 512 for
+     5 iterations; 5x5, K = 24, on 213 x 177 for 3), LM + CGNR + JACOBI in
+     float32 on the fused loop at chunk 1: cost, PCG steps, reads and ms per
+     iteration, every group through B1 generic at every evaluation, at most
+     2 + PCG steps reads per iteration.
 Then a JSON line describing the kernels, the card's name and power limit,
 and the last line {"ok": true, "device": {...}}.
 
@@ -153,6 +167,18 @@ QUAT_KERNELS = [
      "ceres_tpu/pallas_eval.py:435", 2e-4),
 ]
 QUAT_NAMES = {name for name, *_ in QUAT_KERNELS}
+# B1's generic instantiation (functor_codegen.py fills csrc/eval_generic.cuh);
+# its residual-only launch counts under eval_generic_residual
+GENERIC_KERNELS = [
+    ("eval_generic", "ceres_tpu_torch/csrc/eval_generic.cuh", "ceres_tpu/pallas_eval.py:435", 2e-4),
+]
+GENERIC_NAMES = {"eval_generic", "eval_generic_residual"}
+# the slice's denoising runs, Fields-of-Experts priors of the published
+# shapes (synthetic taps from the seed): (image h, w, clique size, K filters,
+# LM iterations). 512 x 512 is the size of the standard denoising test
+# images; 213 x 177 that of the reference's own ceres_noisy.pgm run
+FOE_RUNS = ((512, 512, 3, 8, 5), (213, 177, 5, 24, 3))
+FOE_SIGMA = 20.0
 # B1's float32 tolerance covers the dual-number chain (rotation, projection,
 # distortion, Huber, Triggs correction) rounded differently from
 # torch.func's; B2 is a 9-term dot product; B3/B4/B5 sum ~2,800 observations
@@ -252,6 +278,22 @@ def median_ms(fn, reps=10, warmup=2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps=10) -> float:
+    """Median ms of replaying fn()'s launches from one CUDA graph (CUDA
+    events around each replay): the device time of the work, without the
+    wrapper's host side, as the solve's graphs run it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    t = median_ms(graph.replay, reps)
+    del graph
+    return t
 
 
 def bound(nbytes, ops) -> tuple[float, str]:
@@ -800,7 +842,7 @@ def phase_f64_parity():
         # the BA structure's mixed PCG runs B4's bfloat16 instantiation only
         mixed = extra.get("use_mixed_precision_solves", False)
         unused = {"schur_sy"} if mixed else set(BF16_KERNELS)
-        unused |= {"gather_contract_bf16", "contract_reduce_bf16"} | QUAT_NAMES
+        unused |= {"gather_contract_bf16", "contract_reduce_bf16"} | QUAT_NAMES | GENERIC_NAMES
         if precond == "JACOBI":
             unused.add("schur_p0")
         missing = [k for k, v in launches.items() if v <= 0 and k not in unused]
@@ -1069,6 +1111,307 @@ def phase_ordering_run(bal, main):
         raise AssertionError("the ordering run does not start where the main run does")
 
 
+def build_foe(h, w, size, k, seed=0):
+    """The denoising problem of one FOE_RUNS entry: a synthetic
+    piecewise-smooth image plus noise of FOE_SIGMA and a synthetic prior of
+    the published shape, both from the seed; build_foe_denoising_problem."""
+    from ceres_tpu_torch.examples import denoising
+
+    img = denoising.synthetic_noisy_image(h, w, sigma=FOE_SIGMA, seed=seed)
+    foe = denoising.synthetic_foe_model(size, k, seed=seed)
+    return denoising.build_foe_denoising_problem(img, foe, sigma=FOE_SIGMA)[0]
+
+
+def generic_ops(prog, with_jacobian) -> int:
+    """B1 generic's float operations per residual block, counted from the
+    generated IR (an FMA as 2): on Jet<S, N> values a sum, difference,
+    select or product by a scalar N + 1, a product of two Jets 3N + 1, a
+    quotient 3N + 2, a function N + 10; on scalars 1, a function 10; then
+    the loss and the correction of the r x N outputs (6 per entry)."""
+    n = prog.num_tangent if with_jacobian else 0
+    funcs = {"sqrt", "rsqrt", "exp", "expm1", "log", "log1p", "sin", "cos", "tan", "asin",
+             "acos", "atan", "sinh", "cosh", "tanh", "atan2", "pow", "powc", "ipow", "recip",
+             "abs", "max", "min"}
+    fns = [prog.functor] + [pj[0] for pj in prog.plus_jacobians if pj is not None]
+    if prog.rho is not None:
+        fns.append(prog.rho[0])
+    ops = 0
+    for fn in fns:
+        for var, op, args in fn.code:
+            jet = fn.kinds[var] == "T" and n > 0
+            both = jet and all(a[0] not in ("i",) and fn.kind(a) == "T" for a in args)
+            if op in funcs:
+                ops += (n + 10) if jet else 10
+            elif op == "mul":
+                ops += (3 * n + 1 if both else n + 1) if jet else 1
+            elif op == "div":
+                ops += (3 * n + 2 if both else n + 2) if jet else 1
+            else:
+                ops += (n + 1) if jet else 1
+    return ops + 6 * prog.r * max(n, 1) + 20
+
+
+def generic_bytes(prog, tables, n, with_jacobian) -> int:
+    """What the function B1 generic computes must move for n blocks, each
+    input read once and each output written once: each position's row
+    index, each distinct state table once (the positions of a class share
+    theirs), the data, the residuals, the leaves and the cost. The kernel's
+    own traffic beyond that (a table row gathered again by every block
+    that reads it, the cost partials) is not counted."""
+    w = prog.dtype.itemsize
+    table_words = sum(t.numel() for t in {id(t): t for t in tables}.values())
+    per_block = 4 * len(prog.sizes) + w * (sum(prog.data_sizes) + prog.r)
+    if with_jacobian:
+        per_block += w * prog.r * prog.num_tangent
+    return n * per_block + w * (table_words + 1)
+
+
+def generic_ptxas(prog) -> str:
+    """Registers and spills of a generated source's float32 instantiations
+    (Jacobian, residual-only), from its nvcc log."""
+    from ceres_tpu_torch import cuda_lib
+
+    log = cuda_lib._generated_path(prog.source).with_suffix(".log")
+    out, kind = {}, None
+    for ln in log.read_text().splitlines() if log.exists() else []:
+        m = re.search(r"Compiling entry function '_ZN3ctt19eval_generic_kernelI1GfLb(\d)E", ln)
+        if m:
+            kind = "jac" if m.group(1) == "1" else "res"
+            continue
+        if kind and "spill" in ln:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            out[kind] = [None, spill.groups() if spill else ("?", "?")]
+        elif kind and "registers" in ln:
+            out.setdefault(kind, [None, ("?", "?")])[0] = re.search(r"Used (\d+) registers", ln).group(1)
+            kind = None
+    return ", ".join(f"{k} {v[0]} registers, spills {v[1][0]}/{v[1][1]} B" for k, v in out.items())
+
+
+def phase_generic_build(bal_program, dev):
+    """Phase 1, B1 generic: every generated source the script runs
+    (Fields-of-Experts cliques of both sizes and the data term, Powell's and
+    the curve fit's functors, the Snavely functor through the generator),
+    built at once (one nvcc each, all started together)."""
+    import torch
+
+    from ceres_tpu_torch import cuda_lib, functor_codegen
+    from ceres_tpu_torch.evaluator import Evaluator
+    from ceres_tpu_torch.examples import test_functions
+
+    t0 = time.time()
+    problems = [build_foe(16, 14, size, 2) for _h, _w, size, _k, _i in FOE_RUNS]
+    problems += [test_functions.build_powell_problem()[0],
+                 test_functions.build_curve_fitting_problem()[0]]
+    progs = []
+    for problem in problems:
+        program = problem.compile("cpu")
+        for dtype in (torch.float32, torch.float64):
+            ev = Evaluator(program, dtype)
+            progs += [functor_codegen.group_program(m, g, dtype, True)
+                      for m, g in zip(program.groups, ev.arrays["groups"])]
+    arrays = bal_program.arrays(torch.float32)
+    progs.append(functor_codegen.group_program(bal_program.groups[0], arrays["groups"][0],
+                                             torch.float32, True))
+    if any(p is None for p in progs):
+        raise AssertionError("a group of the slice's problems is not eligible for B1 generic")
+    t_trace = time.time() - t0
+    sources = {p.source for p in progs}
+    seconds = cuda_lib.build_generated(sources)
+    stats = cuda_lib.generated_stats()
+    print(f"phase 1: B1 generic: {len(progs)} group programs traced in {t_trace:.1f} s, "
+          f"{len(sources)} distinct sources: {stats['builds']} built in {seconds:.1f} s (nvcc, "
+          f"in parallel), {stats['hits']} found built", flush=True)
+    return progs
+
+
+def phase_kernels_generic(bal_program, dev, results):
+    """Phase 2, B1 generic against its plain version on the card: the 3x3
+    and 5x5 Fields-of-Experts clique groups and the data term at the
+    denoising runs' sizes, and the Snavely group at BAL-1778 (also against
+    the hand-written eval_snavely), each with the Jacobian and
+    residual-only, two runs bitwise equal; the first is the kernels line's
+    record. Its times are graph replays (graph_ms), as the solve's
+    `evaluate` graph runs it: at these sizes the wrapper's host side (the
+    checks, the allocations, the ctypes call) takes longer than the
+    launches, and the eager time is printed beside them."""
+    import torch
+
+    from ceres_tpu_torch import cuda_lib, eval_kernel, functor_codegen
+    from ceres_tpu_torch.evaluator import Evaluator, group_eval_plain, state_tables
+
+    f32 = torch.float32
+    cases = []
+    for h, w, size, k, _iters in FOE_RUNS:
+        program = build_foe(h, w, size, k).compile(dev)
+        cases.append((f"FoE {size}x{size} clique ({h}x{w})", program, 1))
+        if size == 3:
+            cases.append((f"FoE data term ({h}x{w})", program, 0))
+    cases.append(("Snavely at BAL-1778", bal_program, 0))
+    for label, program, gi in cases:
+        ev = Evaluator(program, f32)
+        meta, garr = program.groups[gi], ev.arrays["groups"][gi]
+        st = state_tables(program, program.state_vector(f32))
+        prog = functor_codegen.group_program(meta, garr, f32, True)
+        tables = [st[pm.a_cls] for pm in meta.positions]
+        args = (meta, garr, st)
+        n = meta.n
+        errs = {}
+        for with_jac in (True, False):
+            got = eval_kernel.generic_evaluate(prog, *args, with_jac)
+            want = group_eval_plain(*args, with_jac, True)
+            again = eval_kernel.generic_evaluate(prog, *args, with_jac)
+            bitwise = all(torch.equal(a, b) for a, b in zip(
+                [got[0], got[1], *got[2]], [again[0], again[1], *again[2]]))
+            e = [rel_err(got[1], want[1]), rel_err(got[0].reshape(1), want[0].reshape(1))]
+            e += [rel_err(a, b) for a, b in zip(got[2], want[2])]
+            errs[with_jac] = ((max(x[0] for x in e), max(x[1] for x in e)), bitwise)
+            del got, want, again
+        err, bitwise = errs[True]
+        rel_r = errs[False][0][1]
+        t_e = median_ms(lambda: eval_kernel.generic_evaluate(prog, *args, True))
+        t_k = graph_ms(lambda: eval_kernel.generic_evaluate(prog, *args, True))
+        t_r = graph_ms(lambda: eval_kernel.generic_evaluate(prog, *args, False))
+        t_p = median_ms(lambda: group_eval_plain(*args, True, True), reps=3)
+        snavely = label.startswith("Snavely")
+        # the Snavely function's operations as eval_snavely's bound counts
+        # them (the generated Jet code does more than the function needs)
+        ops, r_ops = ((B1_OPS_PER_OBS, B1_RES_OPS_PER_OBS) if snavely
+                      else (generic_ops(prog, True), generic_ops(prog, False)))
+        b_ms, b_by = bound(generic_bytes(prog, tables, n, True), ops * n)
+        rb_ms, rb_by = bound(generic_bytes(prog, tables, n, False), r_ops * n)
+        extra = ""
+        if snavely:
+            hand = eval_kernel.group_evaluate(meta, tables[0], garr["a_rows"][0], tables[1],
+                                              garr["a_rows"][1], garr["data"][0], meta.loss, True)
+            got = eval_kernel.generic_evaluate(prog, *args, True)
+            hv = max(rel_err(a, b)[1] for a, b in zip([got[1], *got[2]], [hand[1], *hand[2]]))
+            extra = f"; vs the hand-written eval_snavely {hv:.3e}"
+            del hand, got
+        ok = max(err[1], rel_r) <= 2e-4 and bitwise and errs[False][1]
+        print(f"phase 2: eval_generic {label}: n {n}, N {prog.num_tangent}, max rel err "
+              f"{err[1]:.3e} with the Jacobian, {rel_r:.3e} residual-only (tol 2e-04), bitwise "
+              f"across two runs {bitwise and errs[False][1]}; kernel {t_k:.4f} ms from a graph "
+              f"replay (residual-only {t_r:.4f}; eager, with the wrapper's host side, "
+              f"{t_e:.4f}), plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{100 * b_ms / t_k:.1f}% of it; residual-only {rb_ms:.4f} ms, "
+              f"{100 * rb_ms / t_r:.1f}%); ptxas f32 {generic_ptxas(prog)}; nvcc "
+              f"{cuda_lib.generated_build_seconds(prog.source) or 0.0:.1f} s{extra}"
+              f"{'' if ok else '  FAILED'}", flush=True)
+        if not ok:
+            raise AssertionError(f"eval_generic {label}: kernel disagrees with its plain version "
+                                 "or is not bitwise across runs")
+        if "eval_generic" not in results:
+            results["eval_generic"] = {"err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
+                                       "bound_by": b_by, "library_ms": None}
+        del ev, st, tables, args
+    del cases
+    torch.cuda.empty_cache()
+
+
+def phase_f64_generic():
+    """Phase 3, the slice's solvers in float64 on the card against the CPU:
+    a small Fields-of-Experts CGNR + JACOBI solve on the fused loop (PCG <=
+    10 steps: on this ill-conditioned prior a 25-step PCG amplifies the
+    card's and the CPU's different summation orders), Powell's function on
+    DENSE_QR and the curve fit on DENSE_NORMAL_CHOLESKY, each with B1
+    generic launched."""
+    import torch
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch import cuda_lib
+    from ceres_tpu_torch.examples import test_functions
+
+    cases = (
+        ("FoE 3x3 CGNR fused", lambda: build_foe(96, 80, 3, 3),
+         dict(linear_solver_type=ct.LinearSolverType.CGNR, max_linear_solver_iterations=10,
+              fused_execution_chunk_iters=1)),
+        ("Powell DENSE_QR", lambda: test_functions.build_powell_problem()[0],
+         dict(linear_solver_type=ct.LinearSolverType.DENSE_QR, max_num_iterations=8)),
+        ("curve fitting DENSE_NORMAL_CHOLESKY",
+         lambda: test_functions.build_curve_fitting_problem()[0],
+         dict(linear_solver_type=ct.LinearSolverType.DENSE_NORMAL_CHOLESKY, max_num_iterations=12)),
+    )
+    for name, build, extra in cases:
+        sums = {}
+        for dev in ("cuda", "cpu"):
+            cuda_lib.reset_launch_counts()
+            sums[dev] = ct.solve(lm_options(dev, torch.float64, "JACOBI", **extra), build())
+            if dev == "cuda":
+                launches = cuda_lib.launch_counts()
+        worst = 0.0
+        for a, b in zip(sums["cuda"].iterations, sums["cpu"].iterations, strict=True):
+            worst = max(worst, abs(a.cost - b.cost) / max(abs(b.cost), 1e-300))
+            if (a.linear_solver_iterations, a.step_is_successful) != (
+                b.linear_solver_iterations, b.step_is_successful
+            ):
+                raise AssertionError(f"{name}, iteration {a.iteration}: CUDA and CPU solves diverge")
+        print(f"phase 3: {name}: float64, CUDA vs CPU: {len(sums['cpu'].iterations)} iterations, "
+              f"max per-iteration cost rel diff {worst:.3e} (tol 1e-09), pcg "
+              f"{[it.linear_solver_iterations for it in sums['cuda'].iterations]}, final cost "
+              f"{sums['cuda'].final_cost:.12e}, eval_generic launches "
+              f"{launches['eval_generic']} (+{launches['eval_generic_residual']} residual-only)",
+              flush=True)
+        if not worst <= 1e-9:
+            raise AssertionError(f"{name}: float64 CUDA solve disagrees with the CPU solve")
+        if launches["eval_generic"] <= 0 or launches["eval_snavely"]:
+            raise AssertionError(f"{name}: the CUDA solve did not run B1 generic alone")
+
+
+def run_denoising(h, w, size, k, iters):
+    """Phase 4, one denoising run of FOE_RUNS: LM + CGNR + JACOBI in float32
+    on the fused loop at chunk 1 (eta 0.1, PCG <= 25), on a new Problem;
+    every group through B1 generic at every evaluation (the launch counts,
+    set to 0 just before the solve and read just after, against the
+    groups times the evaluations)."""
+    import torch
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch import cuda_lib
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    problem = build_foe(h, w, size, k)
+    t_problem = time.time() - t0
+    options = lm_options("cuda", torch.float32, "JACOBI", fused_execution_chunk_iters=1,
+                         max_num_iterations=iters,
+                         linear_solver_type=ct.LinearSolverType.CGNR)
+    builds0 = cuda_lib.generated_stats()
+    cuda_lib.reset_launch_counts()
+    t0 = time.time()
+    summary = ct.solve(options, problem)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = cuda_lib.launch_counts()
+    builds = {k_: v - builds0[k_] for k_, v in cuda_lib.generated_stats().items()}
+    groups = k + 1
+    label = f"FoE {size}x{size} K={k} {h}x{w}"
+    print(f"phase 4: {label} (CGNR + JACOBI, fused): {summary.num_residuals} residuals, "
+          f"{summary.num_effective_parameters} parameters, {groups} groups; Problem built in "
+          f"{t_problem:.1f} s; solve {wall:.1f} s (preprocess "
+          f"{summary.preprocessor_time_in_seconds:.1f} s), initial cost {summary.initial_cost!r}, "
+          f"final cost {summary.final_cost!r}, {summary.termination_type.value}, launches "
+          f"{json.dumps({k_: v for k_, v in launches.items() if v})}; device reads "
+          f"{summary.num_device_reads}, graph replays {summary.num_graph_replays}; generated "
+          f"sources built {builds['builds']}, found built {builds['hits']}", flush=True)
+    for it in summary.iterations:
+        print(f"phase 4: {label}: iter {it.iteration}: cost {it.cost!r} pcg "
+              f"{it.linear_solver_iterations} reads {it.num_device_reads} ms "
+              f"{1000.0 * it.iteration_time_in_seconds:.1f} "
+              f"{'accepted' if it.step_is_successful else 'rejected'}", flush=True)
+    if not summary.used_fused_execution:
+        raise AssertionError(f"{label}: the run did not take the fused loop")
+    if not (all(math.isfinite(it.cost) for it in summary.iterations)
+            and summary.final_cost < summary.initial_cost):
+        raise AssertionError(f"{label}: non-finite or non-decreasing cost")
+    if (launches["eval_generic"] != groups * summary.num_jacobian_evaluations
+            or launches["eval_generic_residual"] != groups * summary.num_residual_evaluations):
+        raise AssertionError(f"{label}: a group did not take B1 generic at every evaluation")
+    if any(it.num_device_reads > 2 + it.linear_solver_iterations for it in summary.iterations[1:]):
+        raise AssertionError(f"{label}: more than 2 + PCG steps reads in an iteration")
+    return summary, launches
+
+
 def _iteration_line(it) -> str:
     return (
         f"cost {it.cost!r} pcg {it.linear_solver_iterations} ms "
@@ -1122,8 +1465,10 @@ def main(argv=None) -> int:
         f"{len(program.groups[0].red_plans[program.groups[0].owner][1])} point buckets",
         flush=True,
     )
+    phase_generic_build(program, dev)
     results = {}
     phase_kernels(program, dev, results)
+    phase_kernels_generic(program, dev, results)
     del problem, program
     torch.cuda.empty_cache()
     phase_kernels_quat(bal, dev, results)
@@ -1132,6 +1477,7 @@ def main(argv=None) -> int:
         return 0
 
     phase_f64_parity()
+    phase_f64_generic()
 
     # phase 4: the main run (SCHUR_JACOBI on the fused loop, kernels B1-B5),
     # the host loop on the same problem, then JACOBI (B1-B4)
@@ -1139,7 +1485,7 @@ def main(argv=None) -> int:
     if not main.used_fused_execution:
         raise AssertionError("the main run did not take the fused loop")
     missing = [k for k, v in launches.items()
-               if v <= 0 and k not in BF16_KERNELS | QUAT_NAMES]
+               if v <= 0 and k not in BF16_KERNELS | QUAT_NAMES | GENERIC_NAMES]
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
     host, _ = run_main_path(bal, "SCHUR_JACOBI", fused_execution=False)
@@ -1157,7 +1503,7 @@ def main(argv=None) -> int:
     jacobi, jacobi_launches = run_main_path(bal, "JACOBI", fused_execution_chunk_iters=1,
                                             max_num_iterations=3)
     missing = [k for k, v in jacobi_launches.items()
-               if v <= 0 and k != "schur_p0" and k not in BF16_KERNELS | QUAT_NAMES]
+               if v <= 0 and k != "schur_p0" and k not in BF16_KERNELS | QUAT_NAMES | GENERIC_NAMES]
     if missing:
         raise AssertionError(f"kernels not launched by the JACOBI path: {missing}")
     for a, b in zip(main.iterations, jacobi.iterations):
@@ -1179,7 +1525,7 @@ def main(argv=None) -> int:
         raise AssertionError("the mixed PCG did not run B4's bfloat16 instantiation alone")
     missing = [k for k, v in mixed_launches.items()
                if v <= 0 and k not in {"schur_sy", "gather_contract_bf16", "contract_reduce_bf16"}
-               | QUAT_NAMES]
+               | QUAT_NAMES | GENERIC_NAMES]
     if missing:
         raise AssertionError(f"kernels not launched by the mixed path: {missing}")
     # the composed path: a second residual group; B2 and B3 in bfloat16
@@ -1199,13 +1545,18 @@ def main(argv=None) -> int:
     quat_launches = phase_quaternion_runs(bal, main)
     phase_cluster_runs(bal, main)
     phase_ordering_run(bal, main)
+    # the slice's main path: Fields-of-Experts denoising, B1 generic on
+    # every group
+    del bal
+    denoising = [run_denoising(*run) for run in FOE_RUNS]
+    launches.update({k: denoising[0][1][k] for k in ("eval_generic",)})
     # each kernel's launches on the run that is its main path
     launches.update(quat_launches)
     launches.update({k: mixed_launches[k] for k in ("schur_sy_bf16",)})
     launches.update({k: composed_launches[k] for k in ("gather_contract_bf16", "contract_reduce_bf16")})
 
     kernels = []
-    for name, src, replaces, _tol in KERNELS + QUAT_KERNELS:
+    for name, src, replaces, _tol in KERNELS + QUAT_KERNELS + GENERIC_KERNELS:
         res = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

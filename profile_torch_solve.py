@@ -33,6 +33,14 @@ With --quaternion they are the fused loop on angle-axis cameras and on
 quaternion cameras on Quaternion x Euclidean(6)
 (build_ba_problem(use_quaternions=True, use_manifolds=True); tables in
 chiprun_out/profile_solve_quaternion.txt).
+
+With --denoising the runs are chip_smoke.py's two Fields-of-Experts
+denoising solves (FOE_RUNS: LM + CGNR + JACOBI in float32 on the fused
+loop; every group through B1 generic), each profiled alone, the idle share
+over iterations 2 to min(5, the last); tables in
+profile_solve_denoising.txt beside the others:
+
+    python3 profile_torch_solve.py --denoising
 """
 
 from __future__ import annotations
@@ -86,8 +94,8 @@ def timeline_shares(trace_path, first=2, last=5):
     return per_iter, ((hi - lo) / 1e3, busy_in(lo, hi) / 1e3)
 
 
-def profile_one(ct, torch, bal, options, problem_kw, label, out_dir):
-    problem, _, _ = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0), **problem_kw)
+def profile_one(ct, torch, make_problem, options, label, out_dir):
+    problem = make_problem()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     t0 = time.time()
     with torch.profiler.profile(activities=acts) as prof:
@@ -107,7 +115,7 @@ def profile_one(ct, torch, bal, options, problem_kw, label, out_dir):
     total = sum(r[1] for r in rows)
     trace = os.path.join(out_dir, f"trace_{label}.json")
     prof.export_chrome_trace(trace)
-    per_iter, (window, busy) = timeline_shares(trace)
+    per_iter, (window, busy) = timeline_shares(trace, last=min(5, len(summary.iterations) - 1))
     lines = [
         f"{label}: solve wall {wall:.3f} s under the profiler; preprocess "
         f"{summary.preprocessor_time_in_seconds:.3f} s; used_fused_execution "
@@ -121,7 +129,8 @@ def profile_one(ct, torch, bal, options, problem_kw, label, out_dir):
         "iteration spans (host ms / device busy ms): " + ", ".join(
             f"{h:.3f}/{d:.3f}" for h, d in per_iter
         ),
-        f"iterations 2-5: window {window:.3f} ms, device busy {busy:.3f} ms "
+        f"iterations 2-{min(5, len(summary.iterations) - 1)}: window {window:.3f} ms, "
+        f"device busy {busy:.3f} ms "
         f"({100.0 * busy / window:.1f}%), idle {window - busy:.3f} ms "
         f"({100.0 * (window - busy) / window:.1f}%)",
         f"device time {total / 1000.0:.3f} ms in total",
@@ -139,11 +148,10 @@ def warm_up_profiler(ct, torch, loops):
     """One profiler window over a small solve of each variant, discarded:
     the first window of a process pays the profiler's start-up inside its
     host spans, which inflates its idle share (PERF.md section 5)."""
-    bal = ct.synthetic_bal(32, 4000, 40_000, seed=0)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts):
-        for _, opts, problem_kw in loops:
-            ct.solve(opts, ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0), **problem_kw)[0])
+        for _, opts, _make, make_small in loops:
+            ct.solve(opts, make_small())
         torch.cuda.synchronize()
 
 
@@ -195,6 +203,8 @@ def main(argv=None) -> int:
                        help="the fused loop in float32 and with mixed-precision solves instead")
     group.add_argument("--quaternion", action="store_true",
                        help="the fused loop on angle-axis and on quaternion cameras instead")
+    group.add_argument("--denoising", action="store_true",
+                       help="profile chip_smoke's two Fields-of-Experts denoising runs instead")
     args = parser.parse_args(argv)
     import torch
 
@@ -205,7 +215,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, root)
     import ceres_tpu_torch as ct
     from ceres_tpu_torch import cuda_lib
-    from chip_smoke import NUM_OBSERVATIONS, NUM_POINTS, lm_options
+    from chip_smoke import FOE_RUNS, NUM_OBSERVATIONS, NUM_POINTS, build_foe, lm_options
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -213,7 +223,9 @@ def main(argv=None) -> int:
     ).stdout.strip()
     print(f"{smi} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     cuda_lib.library()
-    bal = ct.synthetic_bal(1778, NUM_POINTS, NUM_OBSERVATIONS, seed=0)
+    bal = None if args.denoising else ct.synthetic_bal(1778, NUM_POINTS, NUM_OBSERVATIONS, seed=0)
+    if args.compare and args.denoising:
+        parser.error("--compare times the BAL variants; --denoising only profiles")
     if args.compare:
         compare(ct, torch, bal, lm_options, args.compare,
                 variants(args.mixed, args.quaternion))
@@ -222,17 +234,33 @@ def main(argv=None) -> int:
     out_dir = os.path.join(root, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     report = [f"{smi} | torch {torch.__version__} cuda {torch.version.cuda}"]
-    loops = [(label, lm_options("cuda", torch.float32, **extra), problem_kw)
-             for label, extra, problem_kw in variants(args.mixed, args.quaternion)]
+    if args.denoising:
+        loops = [
+            (f"foe{size}x{size}_k{k}_{h}x{w}",
+             lm_options("cuda", torch.float32, "JACOBI", fused_execution_chunk_iters=1,
+                        max_num_iterations=iters, linear_solver_type=ct.LinearSolverType.CGNR),
+             lambda h=h, w=w, size=size, k=k: build_foe(h, w, size, k),
+             lambda size=size: build_foe(40, 36, size, 2))
+            for h, w, size, k, iters in FOE_RUNS
+        ]
+    else:
+        small = ct.synthetic_bal(32, 4000, 40_000, seed=0)
+        loops = [
+            (label, lm_options("cuda", torch.float32, **extra),
+             lambda kw=problem_kw: ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0), **kw)[0],
+             lambda kw=problem_kw: ct.build_ba_problem(small, loss=ct.HuberLoss(1.0), **kw)[0])
+            for label, extra, problem_kw in variants(args.mixed, args.quaternion)
+        ]
     warm_up_profiler(ct, torch, loops)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        for label, options, problem_kw in loops:
+        for label, options, make_problem, _small in loops:
             torch.cuda.empty_cache()
-            lines = profile_one(ct, torch, bal, options, problem_kw, label, tmp)
+            lines = profile_one(ct, torch, make_problem, options, label, tmp)
             report += lines + [""]
             print("\n".join(lines[:30]), flush=True)
     name = ("profile_solve_mixed.txt" if args.mixed else
-            "profile_solve_quaternion.txt" if args.quaternion else "profile_solve.txt")
+            "profile_solve_quaternion.txt" if args.quaternion else
+            "profile_solve_denoising.txt" if args.denoising else "profile_solve.txt")
     with open(os.path.join(out_dir, name), "w") as f:
         f.write("\n".join(report) + "\n")
     return 0

@@ -1,6 +1,8 @@
 """Kernels B1-B5 on the card against their plain PyTorch versions; B1 on
 both camera models (angle-axis, quaternion with and without its manifold)
-under each of its loss codes.
+under each of its loss codes, and B1's generic instantiation (a generated
+functor, functor_codegen.py) on the Fields-of-Experts, Powell,
+curve-fitting and Snavely groups, under traced losses and a manifold.
 
 These tests need an NVIDIA GPU (CUDA kernels have no CPU mode) and skip
 without one. The file imports no JAX, so it also runs on a machine that has
@@ -25,8 +27,8 @@ import pytest
 import torch
 
 import ceres_tpu_torch as ct
-from ceres_tpu_torch import cuda_lib, eval_kernel
-from ceres_tpu_torch.evaluator import Evaluator, state_tables
+from ceres_tpu_torch import cuda_lib, eval_kernel, functor_codegen
+from ceres_tpu_torch.evaluator import Evaluator, group_eval_plain, state_tables
 from ceres_tpu_torch.gather_reduce import (
     contract_reduce,
     contract_reduce_plain,
@@ -492,6 +494,7 @@ def test_cuda_solve_matches_cpu_and_launches_every_kernel(card, precond, num_poi
     # the bfloat16 instantiations run only under mixed-precision solves, B1's
     # quaternion ones only on quaternion cameras
     unused = {k + "_bf16" for k in cuda_lib.BF16_KERNELS} | set(cuda_lib.QUAT_KERNELS)
+    unused |= set(cuda_lib.GENERIC_KERNELS)
     unused |= {"schur_p0"} if precond == "JACOBI" else set()
     assert all(v > 0 for k, v in cuda_lib.launch_counts().items() if k not in unused)
     assert all(cuda_lib.launch_counts()[k] == 0 for k in unused if k.endswith("_bf16"))
@@ -525,3 +528,97 @@ def test_cuda_quaternion_solve_matches_cpu(card, manifold):
     for a, b in zip(sums["cuda"].iterations, sums["cpu"].iterations, strict=True):
         assert a.cost == pytest.approx(b.cost, rel=1e-9)
         assert a.linear_solver_iterations == b.linear_solver_iterations
+
+
+# ---- B1 generic ----------------------------------------------------------
+
+
+def _generic_problems():
+    from ceres_tpu_torch.examples import denoising, test_functions
+
+    rng = np.random.default_rng(5)
+    img = rng.uniform(0.0, 255.0, (40, 36))
+
+    def foe(size, k):
+        d = np.arange(size)
+        return denoising.FoEModel(size, np.tile(d, size), np.repeat(d, size),
+                                  rng.uniform(0.5, 2.0, k), rng.normal(size=(k, size * size)))
+
+    bal = ct.synthetic_bal(8, 200, 1000, seed=3)
+    return {
+        "foe3": denoising.build_foe_denoising_problem(img, foe(3, 2))[0],
+        "foe5": denoising.build_foe_denoising_problem(img, foe(5, 1))[0],
+        "powell": test_functions.build_powell_problem()[0],
+        "curve": test_functions.build_curve_fitting_problem(m0=0.1, c0=0.2)[0],
+        "snavely_composed": ct.build_ba_problem(
+            bal, loss=ct.ComposedLoss(ct.CauchyLoss(2.0), ct.HuberLoss(1.0)))[0],
+        "quat_wrapper": ct.build_ba_problem(
+            bal, loss=ct.LossFunctionWrapper(ct.TolerantLoss(1.0, 2.0)), use_quaternions=True,
+            use_manifolds=True)[0],
+    }
+
+
+@pytest.mark.parametrize("case", ["foe3", "foe5", "powell", "curve", "snavely_composed",
+                                  "quat_wrapper"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_eval_generic_matches_plain(card, dtype, case):
+    """Every group of the problem through B1 generic against its plain
+    version (torch.func on the same card tensors), with the Jacobian and
+    residual-only; two runs bitwise equal; one launch counted each."""
+    program = _generic_problems()[case].compile(card)
+    ev = Evaluator(program, dtype)
+    st = state_tables(program, program.state_vector(dtype))
+    tol = 2e-4 if dtype == torch.float32 else 1e-11
+    for meta, garr in zip(program.groups, ev.arrays["groups"]):
+        prog = functor_codegen.group_program(meta, garr, dtype, True)
+        assert prog is not None, meta.cost_function.name
+        args = (meta, garr, st)
+        for with_jac in (True, False):
+            cuda_lib.reset_launch_counts()
+            cost, res, leaves = eval_kernel.generic_evaluate(prog, *args, with_jac)
+            name = "eval_generic" if with_jac else "eval_generic_residual"
+            assert cuda_lib.launch_counts()[name] == 1
+            cost_p, res_p, leaves_p = group_eval_plain(*args, with_jac, True)
+            _close(res, res_p, tol)
+            _close(cost.reshape(1), cost_p.reshape(1), tol)
+            assert len(leaves) == len(leaves_p) == (len(meta.positions) if with_jac else 0)
+            for a, b in zip(leaves, leaves_p):
+                _close(a, b, tol)
+            again = eval_kernel.generic_evaluate(prog, *args, with_jac)
+            assert torch.equal(again[1], res) and torch.equal(again[0], cost)
+            assert all(torch.equal(a, b) for a, b in zip(again[2], leaves))
+
+
+def test_eval_generic_dispatch_on_the_card(card):
+    """On the card every Fields-of-Experts group goes through B1 generic
+    (one build for the filter groups, whose sources are equal), the Snavely
+    group under a coded loss through its own kernel."""
+    program = _generic_problems()["foe3"].compile(card)
+    ev = Evaluator(program, torch.float64)
+    progs = [functor_codegen.group_program(m, g, torch.float64, True)
+             for m, g in zip(program.groups, ev.arrays["groups"])]
+    assert progs[1].source == progs[2].source != progs[0].source
+    cuda_lib.reset_launch_counts()
+    ev.evaluate_groups(program.state_vector(torch.float64))
+    ev.cost(program.state_vector(torch.float64))
+    counts = cuda_lib.launch_counts()
+    assert counts["eval_generic"] == counts["eval_generic_residual"] == len(program.groups)
+
+
+def test_eval_generic_build_failure_raises(card):
+    """A generated source nvcc refuses raises (no torch.func fallback)."""
+    import copy
+
+    program = _generic_problems()["powell"].compile(card)
+    ev = Evaluator(program, torch.float64)
+    meta, garr = program.groups[0], ev.arrays["groups"][0]
+    prog = copy.copy(functor_codegen.group_program(meta, garr, torch.float64, True))
+    prog.entry_point = None
+    prog.source = prog.source.replace("struct G {", "struct G { this is not C++;")
+    st = state_tables(program, program.state_vector(torch.float64))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        eval_kernel.generic_evaluate(prog, meta, garr, st, True)
+    with pytest.raises(TypeError):
+        eval_kernel.generic_evaluate(
+            functor_codegen.group_program(meta, garr, torch.float64, True), meta, garr,
+            [t.float() for t in st], True)

@@ -1,7 +1,8 @@
 """The fused loop's device side on the card: the PCG iteration, the
 finish's head and tail, the evaluation, its prepare and the fused loop's
 decide replayed from CUDA graphs, the launch counts under replay, and the
-read budget, unbounded, bounded and with the line search.
+read budget, unbounded, bounded, with the line search and with CGNR on a
+Fields-of-Experts problem (every group B1 generic).
 
 These tests need an NVIDIA GPU and skip without one. The file imports no
 JAX: `python -m pytest --noconftest tests/test_torch_cuda_loop.py` runs it
@@ -114,6 +115,17 @@ def _cluster(kind, clustering):
             "visibility_clustering_type": getattr(ct.VisibilityClusteringType, clustering)}
 
 
+def _foe_problem(seed):
+    """A Fields-of-Experts denoising problem (200 x 180, 3x3 cliques, K =
+    3): every group B1 generic, the layout plans engaged (35,244 cliques
+    per filter), no onehot plan on the pixel class."""
+    from ceres_tpu_torch.examples import denoising
+
+    img = denoising.synthetic_noisy_image(200, 180, seed=seed)
+    return denoising.build_foe_denoising_problem(
+        img, denoising.synthetic_foe_model(3, 3, seed=seed))[0]
+
+
 LOOP_CASES = {
     # (problem, options, graphs replayed besides the PCG's: per iteration,
     # per accepted step); the PCG replays where the finish's head does
@@ -127,9 +139,24 @@ LOOP_CASES = {
     # the visibility preconditioners: the step unsplit (schur_solve), eager
     "cluster_jacobi": (
         _problem, _cluster("CLUSTER_JACOBI", "CANONICAL_VIEWS"), ("decide",), ("evaluate",)),
+    # CGNR, unsplit: its head, PCG iteration and tail graphs (PCG <= 10
+    # steps: the prior's normal equations are ill-conditioned, and a 25-step
+    # PCG amplifies the card's and the CPU's different summation orders)
+    "cgnr": (
+        _foe_problem, {"linear_solver_type": ct.LinearSolverType.CGNR,
+                       "preconditioner_type": ct.PreconditionerType.JACOBI,
+                       "max_linear_solver_iterations": 10},
+        ("cgnr_head", "cgnr_tail", "decide"), ("evaluate",)),
     "cluster_tridiagonal": (
         _problem, _cluster("CLUSTER_TRIDIAGONAL", "SINGLE_LINKAGE"), ("decide",), ("evaluate",)),
 }
+
+
+# how far two CGNR runs of one minimizer may part, relative, per iteration:
+# a few ulps. Observed: 0 in 6 runs of each dtype on an H100 (no two
+# cliques of one position share a pixel, so each index_add_ of the matvec
+# adds once to each entry and its atomics never meet)
+CGNR_RUN_SPREAD = {torch.float32: 1e-6, torch.float64: 1e-13}
 
 
 @pytest.mark.parametrize("case", list(LOOP_CASES))
@@ -163,7 +190,16 @@ def test_fused_loop_syncs_only_through_counted_reads(card, dtype, case):
         torch.cuda.set_sync_debug_mode(0)
     g1 = graph_stats()
     assert summary.used_fused_execution and len(summary.iterations) == 5
-    assert [it.cost for it in summary.iterations] == [it.cost for it in warm.iterations]
+    costs, warm_costs = ([it.cost for it in s.iterations] for s in (summary, warm))
+    if case == "cgnr":
+        # CGNR runs are not required to be bitwise (index_add_ adds
+        # atomically on the card); held to a few float32 (float64) ulps
+        spread = max(abs(x - y) / abs(y) for x, y in zip(costs, warm_costs))
+        assert spread <= CGNR_RUN_SPREAD[dtype], spread
+        assert ([it.linear_solver_iterations for it in summary.iterations]
+                == [it.linear_solver_iterations for it in warm.iterations])
+    else:
+        assert costs == warm_costs
     ls = summary.num_line_search_steps
     assert (ls > 0) == (case in ("bounded", "line_search"))
     budget = [2 + it.linear_solver_iterations for it in summary.iterations[1:]]
@@ -171,7 +207,7 @@ def test_fused_loop_syncs_only_through_counted_reads(card, dtype, case):
     if ls == 0:
         assert all(r <= b for r, b in zip(reads, budget))
     assert sum(reads) <= sum(budget) + (len(reads) + ls if ls else 0)
-    pcg = int("finish_head" in per_iter)
+    pcg = int("finish_head" in per_iter or "cgnr_head" in per_iter)
     for it in summary.iterations[1:]:
         assert it.num_graph_replays == (
             pcg * it.linear_solver_iterations + len(per_iter)

@@ -161,9 +161,13 @@ def test_float32_solve_decreases_cost():
 
 
 UNSUPPORTED = {
-    # case: (options, the ROADMAP item its message names, or None)
+    # case: (options, the ROADMAP item its message names)
     "invalid": ({"max_num_iterations": -1}, None),
-    "dense_qr": ({"linear_solver_type": "DENSE_QR"}, None),
+    "sparse_normal_cholesky": ({"linear_solver_type": "SPARSE_NORMAL_CHOLESKY"},
+                               "Queue A item 5"),
+    "sparse_schur": ({"linear_solver_type": "SPARSE_SCHUR"}, "Queue A item 5"),
+    "cgnr_subset": ({"linear_solver_type": "CGNR", "preconditioner_type": "SUBSET"},
+                    "Queue A item 5"),
     "dogleg": ({"trust_region_strategy_type": "DOGLEG"}, "Queue A item 6"),
     "inner_iterations": ({"use_inner_iterations": True}, "Queue A item 6"),
     "iterations_to_dump": ({"trust_region_minimizer_iterations_to_dump": (1,)}, "Queue A item 6"),
@@ -175,9 +179,8 @@ UNSUPPORTED = {
 @pytest.mark.parametrize("case", list(UNSUPPORTED))
 def test_invalid_and_unsupported_options(monkeypatch, case):
     """Invalid options fail the solve; an option the port does not run
-    raises NotImplementedError naming its ROADMAP item, the five Queue C
-    options before the Problem is compiled, instead of being accepted and
-    ignored."""
+    raises NotImplementedError naming its ROADMAP item before the Problem
+    is compiled, instead of being accepted and ignored."""
     kw, item = UNSUPPORTED[case]
     enums = {"linear_solver_type": ct.LinearSolverType, "preconditioner_type": ct.PreconditionerType,
              "trust_region_strategy_type": ct.TrustRegionStrategyType}
@@ -188,11 +191,6 @@ def test_invalid_and_unsupported_options(monkeypatch, case):
         s = ct.solve(options, problem)
         assert s.termination_type == ct.TerminationType.FAILURE and "Invalid" in s.message
         return
-    if item is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ct.solve(options, problem)
-        return
-
     def compiled(*args, **kwargs):
         raise AssertionError("the Problem was compiled before the option was refused")
 
