@@ -1,10 +1,10 @@
 """ceres_tpu_torch — the PyTorch / CUDA port of ceres_tpu.
 
 A second package beside `ceres_tpu` (which stays the JAX reference). It
-mirrors ceres_tpu's module layout and names, and runs the bundle-adjustment
-solve — Levenberg-Marquardt with ITERATIVE_SCHUR on the Snavely functor,
-with angle-axis or quaternion cameras — on one NVIDIA H100 through five
-hand-written CUDA kernels:
+mirrors ceres_tpu's module layout and names, and runs its trust-region
+solves (Levenberg-Marquardt and dogleg, every linear solver; the sparse
+direct factorizations on the host, as in the JAX package) on one NVIDIA
+H100 through five hand-written CUDA kernels:
 
   B1 eval_kernel.py          fused Snavely evaluation, angle-axis and
                              quaternion cameras (csrc/eval_snavely.cu), and
@@ -47,6 +47,7 @@ from .ordering import ParameterBlockOrdering
 from .problem import Problem
 from .solvers.solver import solve
 from .types import (
+    DoglegType,
     IterationSummary,
     LinearSolverType,
     LoggingType,
@@ -65,6 +66,7 @@ __all__ = [
     "CauchyLoss",
     "ComposedLoss",
     "CostFunction",
+    "DoglegType",
     "EigenQuaternionManifold",
     "EuclideanManifold",
     "HuberLoss",

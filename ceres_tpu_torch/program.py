@@ -174,6 +174,9 @@ class Program:
         # the user's eliminated set (linear_solver_ordering), or None for
         # the automatic partition
         self.user_e_blocks = None
+        # the global residual rows of the SUBSET preconditioner's Q (each
+        # solve sets them from residual_blocks_for_subset_preconditioner)
+        self.subset_rows = None
 
     def to(self, device):
         """Re-target the Program's tensors (arrays, state) at `device`."""

@@ -33,7 +33,11 @@ termination, successes, failures, Jacobians, cost, line-search evaluations,
 then the [chunk, 10] stats rows), which the host replays into
 Summary.iterations. So an iteration takes at most 2 + (its PCG iterations)
 device->host reads (utils.graphs.read counts them; the projected line search
-adds one per cost evaluation and one to start).
+adds one per cost evaluation and one to start). Dogleg's PCG runs in its
+prepare, which therefore runs at the start of the iteration that takes its
+cache (after an accepted step, the next iteration's), not right after the
+accepted step as the JAX loop runs it: the cache is the same, and its
+reads count in the iteration whose PCG steps they are.
 
 Eligibility (the host loop in trust_region.py stays the general path): no
 callbacks, no update_state_every_iteration. Bounds run fused: Plus clamps
@@ -141,6 +145,11 @@ def make_chunk_fn(minimizer):
     # the JAX fused loop's split, which it leaves under bounds (the
     # active-set mask changes the effective scale every iteration)
     use_split = minimizer.has_split and not has_bounds
+    # a prepare that reads the device (dogleg's PCG) runs at the start of
+    # the iteration that takes its cache, so its reads count there, beside
+    # the PCG steps that iteration reports; the JAX loop prepares right
+    # after the accepted step, which gives the same cache
+    lazy = use_split and getattr(step_fn, "prepare_reads", False)
     use_ls = minimizer.use_line_search
 
     def decide(_, state, delta, cost, mcc, valid, lin_iters, radius, df, ninv, se):
@@ -249,6 +258,9 @@ def make_chunk_fn(minimizer):
         if use_split:
             # the J-dependent tables in c["pcache"] hold while steps are
             # rejected; finish does only the radius-dependent work
+            if c["pcache"] is None:
+                c["pcache"] = prepare(c["jac"], c["res"], grad, c["scale"])
+                c["prepares"] += 1
             delta, mcc, lin_iters, valid = step_fn.finish(
                 c["jac"], c["res"], grad, radius, iter_scale, c["pcache"]
             )
@@ -270,8 +282,11 @@ def make_chunk_fn(minimizer):
         res2, jac2, grad2, term = c["res"], c["jac"], c["grad"], d["term"]
         if succ:
             cost_j, res2, jac2, grad2, gmax, gnorm = evaluate(d["candidate"])
-            if use_split:
+            if lazy:
+                c["pcache"] = None
+            elif use_split:
                 c["pcache"] = prepare(jac2, res2, grad2, c["scale"])
+                c["prepares"] += 1
             term = torch.where(gmax <= gtol, _GRAD_TOL, term)
             term = torch.where(~torch.isfinite(cost_j), _EVAL_FAIL, term)
         else:
@@ -298,7 +313,7 @@ def make_chunk_fn(minimizer):
         dev, dtype = c["state"].device, c["state"].dtype
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         c.update(
-            it=0, n=zero, nsucc=zero, nfail=zero, njac=zero, nls=zero,
+            it=0, prepares=0, n=zero, nsucc=zero, nfail=zero, njac=zero, nls=zero,
             term=zero, stats=torch.zeros((chunk_iters(options), _N_STATS), dtype=dtype, device=dev),
         )
         reads, replays = [], []
@@ -323,6 +338,7 @@ def make_chunk_fn(minimizer):
         return packed, reads, replays
 
     chunk_fn.use_split = use_split
+    chunk_fn.lazy_prepare = lazy
     return chunk_fn
 
 
@@ -397,7 +413,10 @@ def run_fused(minimizer, state, summary):
         df=torch.full((), 2.0, dtype=dtype, device=dev),
         ninv=torch.zeros((), dtype=torch.int32, device=dev),
         se=[cost0, cost0, cost0, cost0, zero, zero, torch.zeros((), dtype=torch.int32, device=dev)],
-        pcache=minimizer.prepare(jac, res_groups, grad, scale) if use_split else None,
+        pcache=(
+            minimizer.prepare(jac, res_groups, grad, scale)
+            if use_split and not chunk_fn.lazy_prepare else None
+        ),
     )
     cost_host = cost
 
@@ -439,9 +458,9 @@ def run_fused(minimizer, state, summary):
         exec_sum.record("Evaluator::Jacobian [fused]", 0.0, calls=njac)
         exec_sum.record("LinearSolver::Solve [fused]", 0.0, calls=n_it)
         if use_split:
-            # the prepare runs only after accepted steps: rebuilds equal
-            # Jacobian re-evaluations
-            exec_sum.record("Preconditioner::Update [fused]", 0.0, calls=njac)
+            # the prepares the chunk ran (after accepted steps, or lazily
+            # at the start of the iteration that takes the cache)
+            exec_sum.record("Preconditioner::Update [fused]", 0.0, calls=carry["prepares"])
 
         for k, row in enumerate(stats):
             flags = int(row[_S_FLAGS])

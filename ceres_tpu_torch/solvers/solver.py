@@ -13,7 +13,6 @@ from ..evaluator import Evaluator
 from ..ordering import eliminated_handles
 from ..types import (
     LinearSolverType, MinimizerType, PreconditionerType, Summary, TerminationType,
-    TrustRegionStrategyType,
 )
 from ..utils.dtypes import default_dtype, resolve_device
 from ..utils.execution_summary import ExecutionSummary
@@ -23,19 +22,9 @@ from ..utils.graphs import graph_stats, read_count
 # options the port does not run yet, each with the ROADMAP item that ports
 # it: solve raises for them instead of running something else
 _MINIMIZER_BREADTH = "ROADMAP Queue A item 6, minimizer breadth"
-_HOST_SOLVERS = "ROADMAP Queue A item 5, linear solvers"
 _UNPORTED = (
-    (lambda o: o.linear_solver_type == LinearSolverType.SPARSE_NORMAL_CHOLESKY,
-     "linear_solver_type=SPARSE_NORMAL_CHOLESKY", _HOST_SOLVERS),
-    (lambda o: o.linear_solver_type == LinearSolverType.SPARSE_SCHUR,
-     "linear_solver_type=SPARSE_SCHUR", _HOST_SOLVERS),
-    (lambda o: o.linear_solver_type == LinearSolverType.CGNR
-     and o.preconditioner_type == PreconditionerType.SUBSET,
-     "CGNR with preconditioner_type=SUBSET", _HOST_SOLVERS),
     (lambda o: o.minimizer_type != MinimizerType.TRUST_REGION,
      "the line-search minimizer", _MINIMIZER_BREADTH),
-    (lambda o: o.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG,
-     "trust_region_strategy_type=DOGLEG", _MINIMIZER_BREADTH),
     (lambda o: o.use_inner_iterations, "use_inner_iterations", _MINIMIZER_BREADTH),
     (lambda o: o.trust_region_minimizer_iterations_to_dump,
      "trust_region_minimizer_iterations_to_dump", _MINIMIZER_BREADTH),
@@ -83,6 +72,14 @@ def solve(options, problem) -> Summary:
     # sequence or a ParameterBlockOrdering, whose first group is eliminated
     ordering = options.linear_solver_ordering
     program.set_eliminated_blocks(None if ordering is None else eliminated_handles(ordering))
+    # the SUBSET preconditioner's rows (ceres_tpu/solvers/solver.py:61-67);
+    # left empty, the step raises the JAX package's ValueError
+    subset = options.residual_blocks_for_subset_preconditioner
+    program.subset_rows = (
+        problem.residual_rows_for_handles(subset)
+        if options.preconditioner_type == PreconditionerType.SUBSET and subset
+        else None
+    )
     summary.num_parameter_blocks_reduced = summary.num_parameter_blocks
     summary.num_parameters_reduced = summary.num_parameters
     summary.num_effective_parameters_reduced = program.num_effective_parameters
@@ -97,7 +94,8 @@ def solve(options, problem) -> Summary:
         return summary
 
     if options.linear_solver_type in (
-        LinearSolverType.ITERATIVE_SCHUR, LinearSolverType.DENSE_SCHUR
+        LinearSolverType.ITERATIVE_SCHUR, LinearSolverType.DENSE_SCHUR,
+        LinearSolverType.SPARSE_SCHUR,
     ):
         # the elimination ordering is preprocessing (reference:
         # trust_region_preprocessor.cc, ReorderProgram); cached per Program

@@ -1,8 +1,11 @@
 """Trust-region step computation: the Levenberg-Marquardt strategy.
 
 Port of the LM branch of `ceres_tpu.solvers.strategies`
-(reference: levenberg_marquardt_strategy.cc:68-172) for DENSE_QR,
-DENSE_NORMAL_CHOLESKY, CGNR and the Schur solvers. The Schur step function
+(reference: levenberg_marquardt_strategy.cc:68-172) for every linear
+solver: DENSE_QR, DENSE_NORMAL_CHOLESKY, CGNR, the Schur solvers, and the
+host sparse solvers (SPARSE_NORMAL_CHOLESKY, SPARSE_SCHUR, CGNR with
+SUBSET), which factor on the host and are not `jittable`
+(`_host_step_fn`). The Schur step function
 solves through `schur_solve`; for ITERATIVE_SCHUR with a block
 preconditioner it also carries the prepare/finish split: `prepare` builds
 everything that depends only on the Jacobian (cached by the host loop
@@ -13,10 +16,10 @@ IDENTITY or JACOBI; on a card its head (D², the rhs, the Jacobi inverses,
 under mixed-precision solves the bfloat16 leaves), its PCG iteration and
 its tail are CUDA graphs. The dense solvers materialize the Jacobian and
 run eagerly.
-The step functions read nothing from the device: the step's validity, its
-model cost change and the PCG count come back as tensors (the JAX package's
-"jittable" contract), for the host loop to read and the fused loop to
-decide on where they are.
+The device step functions read nothing from the device: the step's
+validity, its model cost change and the PCG count come back as tensors
+(the JAX package's "jittable" contract), for the host loop to read and the
+fused loop to decide on where they are.
 """
 
 from __future__ import annotations
@@ -61,13 +64,14 @@ def make_lm_step_fn(program, options, evaluator):
     precond = options.preconditioner_type
     if solver in (LinearSolverType.DENSE_QR, LinearSolverType.DENSE_NORMAL_CHOLESKY):
         return _dense_step_fn(program, options)
+    if solver == LinearSolverType.CGNR and precond == PreconditionerType.SUBSET:
+        return _host_step_fn(program, options, _subset_solve)
     if solver == LinearSolverType.CGNR:
         return _cgnr_step_fn(program, options, evaluator)
-    if solver not in (LinearSolverType.ITERATIVE_SCHUR, LinearSolverType.DENSE_SCHUR):
-        raise NotImplementedError(
-            f"linear solver {solver.value} is not ported yet "
-            "(ROADMAP Queue A item 5, linear solvers)"
-        )
+    if solver == LinearSolverType.SPARSE_SCHUR:
+        return _host_step_fn(program, options, _sparse_schur_solve)
+    if solver == LinearSolverType.SPARSE_NORMAL_CHOLESKY:
+        return _host_step_fn(program, options, _sparse_cholesky_solve)
     from ..jacobian import BlockJacobian
     from ..linalg.schur import (
         schur_back_substitute, schur_finish_pcg, schur_finish_rhs, schur_prepare, schur_solve,
@@ -241,6 +245,82 @@ def _cgnr_step_fn(program, options, evaluator):
         )
 
     return step_fn
+
+
+def _host_step_fn(program, options, solve):
+    """A step function whose linear solve factors on the host
+    (ceres_tpu/solvers/strategies.py:189-296): the Jacobi-scaled Jacobian,
+    the LM diagonal and the model cost stay on the device, and
+    solve(program, options, jac_s, res_groups, grad_s, dsq, records) ->
+    (step, linear iterations) brings what it factors over in counted reads.
+    Not `jittable`, as there: the loops run it on the host loop. It
+    records its reads and factorizations into `step_fn.records[0]`, which
+    the minimizer sets to the solve's execution summary."""
+    from ..utils.execution_summary import NullExecutionSummary
+
+    min_diag, max_diag = options.min_lm_diagonal, options.max_lm_diagonal
+    records = [NullExecutionSummary()]
+
+    def step_fn(jac, res_groups, grad, radius, scale):
+        jac_s = jac.scale_columns(scale)
+        grad_s = grad * scale
+        dsq = torch.clamp(jac_s.squared_column_norms(), min_diag, max_diag) / radius
+        step, lin_iters = solve(program, options, jac_s, res_groups, grad_s, dsq, records[0])
+        return _step_result(jac_s, step, res_groups, scale, lin_iters)
+
+    step_fn.jittable = False
+    step_fn.records = records
+    return step_fn
+
+
+def _sparse_cholesky_solve(program, options, jac_s, res_groups, grad_s, dsq, records):
+    """SPARSE_NORMAL_CHOLESKY: JᵀJ + D² factored on the host, refined twice
+    (linalg/sparse.py)."""
+    from ..linalg.sparse import solve_sparse_normal_cholesky
+
+    step = solve_sparse_normal_cholesky(jac_s, res_groups, grad_s, dsq, records=records)
+    return step, torch.ones((), dtype=torch.int32, device=grad_s.device)
+
+
+def _sparse_schur_solve(program, options, jac_s, res_groups, grad_s, dsq, records):
+    """SPARSE_SCHUR: the explicit S assembled on the device and factored on
+    the host (linalg/explicit_schur.py); a problem that is not BA-shaped
+    takes schur_solve's dense S, as in the JAX package, recorded as
+    SparseSchur::Fallback."""
+    from ..linalg.explicit_schur import ExplicitSchurPlan, solve_sparse_schur
+    from ..linalg.schur import schur_solve, schur_views
+
+    try:
+        ExplicitSchurPlan.get(program, *schur_views(program, jac_s))
+    except ValueError:
+        records.record("SparseSchur::Fallback", 0.0)
+        return schur_solve(program, options, jac_s, res_groups, grad_s, dsq)
+    return solve_sparse_schur(program, options, jac_s, res_groups, grad_s, dsq, records)
+
+
+def _subset_solve(program, options, jac_s, res_groups, grad_s, dsq, records):
+    """CGNR with the SUBSET preconditioner: QᵀQ + D² of the user's residual
+    rows factored on the host, each application a host solve (one read),
+    the PCG run eagerly on the device (linalg/sparse.py)."""
+    from ..linalg.cg import conjugate_gradients
+    from ..linalg.sparse import SubsetPreconditioner
+
+    rows = program.subset_rows
+    if rows is None or len(rows) == 0:
+        raise ValueError(
+            "SUBSET preconditioner requires residual_blocks_for_subset_preconditioner"
+        )
+    result = conjugate_gradients(
+        matvec=lambda v: jac_s.jtj_multiply(v, dsq),
+        b=-grad_s,
+        preconditioner=SubsetPreconditioner(jac_s, rows, dsq, records),
+        max_iterations=min(options.max_linear_solver_iterations,
+                           program.num_effective_parameters),
+        min_iterations=options.min_linear_solver_iterations,
+        tolerance=0.0,
+        q_tolerance=options.eta,  # levenberg_marquardt_strategy.cc:98-103
+    )
+    return result.x, result.iterations
 
 
 class TrustRegionStepEvaluator:

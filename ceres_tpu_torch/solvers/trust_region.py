@@ -1,15 +1,16 @@
 """Trust-region minimizer: the outer optimization loop.
 
 Port of `ceres_tpu.solvers.trust_region` (reference:
-trust_region_minimizer.cc:66-836): LM, Jacobi scaling, non-monotonic step
-acceptance, invalid-step retry, the convergence tests, bounds (the
-active-set mask and projected gradient norms; Plus clamps to the box), the
-projected Armijo line search, and the prepare cache reused across rejected
-steps. An eligible solve runs the fused device loop (fused_loop.py), as the
-JAX package's does; this host loop runs the rest (and every solve with
-`fused_execution=False`). Tensors stay on the Program's device; the host
-loop brings scalars (cost, model cost change, radius decisions) to the host
-through utils.graphs.read, which counts them.
+trust_region_minimizer.cc:66-836): LM and dogleg, Jacobi scaling,
+non-monotonic step acceptance, invalid-step retry, the convergence tests,
+bounds (the active-set mask and projected gradient norms; Plus clamps to
+the box), the projected Armijo line search, and the prepare cache reused
+across rejected steps. An eligible solve runs the fused device loop
+(fused_loop.py), as the JAX package's does; this host loop runs the rest
+(every solve with `fused_execution=False`, and the host solvers' step
+functions, which are not `jittable`). Tensors stay on the Program's
+device; the host loop brings scalars (cost, model cost change, radius
+decisions) to the host through utils.graphs.read, which counts them.
 """
 
 from __future__ import annotations
@@ -21,19 +22,17 @@ import torch
 
 from ..evaluator import diagnose_non_finite
 from ..jacobian import BlockJacobian
-from ..types import CallbackReturnType, IterationSummary, LoggingType, TerminationType
+from ..types import (
+    CallbackReturnType, IterationSummary, LoggingType, TerminationType, TrustRegionStrategyType,
+)
 from ..utils import graphs
+from ..utils.execution_summary import NullExecutionSummary
 from ..utils.graphs import graph_stats, read, read_count
 from .strategies import TrustRegionStepEvaluator, make_lm_step_fn
 
 
-class _NullExec:
-    def record(self, name, seconds, calls=1):
-        pass
-
-
 def _exec(summary):
-    return getattr(summary, "execution_summary", None) or _NullExec()
+    return getattr(summary, "execution_summary", None) or NullExecutionSummary()
 
 
 def grad_norms(program, evaluator, state, grad):
@@ -130,7 +129,11 @@ def make_evaluate(program, evaluator):
 
 def make_prepare(program, evaluator, step_fn):
     """prepare(jac, res_groups, grad, scale) -> the step function's prepare
-    cache; on a card from a CUDA graph that reads the Jacobian in place."""
+    cache; on a card from a CUDA graph that reads the Jacobian in place. A
+    prepare that reads the device (dogleg's PCG, `prepare_reads`) runs its
+    own graphs and is returned as it is."""
+    if getattr(step_fn, "prepare_reads", False):
+        return step_fn.prepare
     graph = graphs.fn_graph("prepare", evaluator.device)
     garrs = evaluator.arrays["groups"]
 
@@ -150,7 +153,14 @@ class TrustRegionMinimizer:
         self.program = program
         self.options = options
         self.evaluator = evaluator
-        self._step_fn = make_lm_step_fn(program, options, evaluator)
+        # the strategy (ceres_tpu/solvers/trust_region.py:48-55); both update
+        # the radius as LM does, as the JAX package's loop does
+        if options.trust_region_strategy_type == TrustRegionStrategyType.DOGLEG:
+            from .dogleg import make_dogleg_step_fn
+
+            self._step_fn = make_dogleg_step_fn(program, options, evaluator)
+        else:
+            self._step_fn = make_lm_step_fn(program, options, evaluator)
         # the prepare/finish split: the J-dependent prepare cache holds while
         # steps are rejected (in the fused loop not under bounds, where the
         # active-set mask changes the effective scale every iteration)
@@ -172,6 +182,9 @@ class TrustRegionMinimizer:
             self._fused_chunk_fn = make_chunk_fn(self)
 
     def minimize(self, state, summary):
+        if hasattr(self._step_fn, "records"):
+            # the host step functions record their reads and factorizations
+            self._step_fn.records[0] = _exec(summary)
         if self._fused_chunk_fn is not None:
             from .fused_loop import run_fused
 

@@ -38,6 +38,7 @@ once per replay, so the counts stay those of the work the card did.
 from __future__ import annotations
 
 import collections
+import gc
 import time
 
 import torch
@@ -131,19 +132,28 @@ class _Graph:
         """Capture fn() on a side stream into a graph with its own memory
         pool. torch.cuda.graph's context would also synchronize and empty
         the allocator's cache, which costs milliseconds in the middle of a
-        solve and which the capture does not need."""
+        solve and which the capture does not need. The cyclic garbage
+        collector is off while the stream captures: a collection there
+        could destroy another graph, which CUDA forbids during a capture
+        and which then invalidates it."""
         before = cuda_lib.launch_counts()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         main = torch.cuda.current_stream()
         side = torch.cuda.Stream()
         side.wait_stream(main)
-        with torch.cuda.stream(side):
-            graph.capture_begin()
-            try:
-                out = fn()
-            finally:
-                graph.capture_end()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin()
+                try:
+                    out = fn()
+                finally:
+                    graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         main.wait_stream(side)
         _graph_stats["capture_seconds"] += time.perf_counter() - t0
         _graph_stats["captures"] += 1

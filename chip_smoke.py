@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's bundle-adjustment and denoising solves on one CUDA card.
+"""Drive the PyTorch port's bundle-adjustment, denoising and pose-graph solves on one CUDA card.
 
     python3 chip_smoke.py            # one NVIDIA H100 (sm_90a), nvcc on the path
     python3 chip_smoke.py --phase 2  # phases 1 and 2 only, no result line
@@ -42,7 +42,13 @@ and prints no result):
      elsewhere), whose float32 matvec sums run in another order on the card:
      cost within 1e-6; then, within 1e-9 with B1 generic launched, a small
      Fields-of-Experts CGNR solve on the fused loop, Powell's function on
-     DENSE_QR and the curve fit on DENSE_NORMAL_CHOLESKY;
+     DENSE_QR and the curve fit on DENSE_NORMAL_CHOLESKY; then, within 1e-9
+     with what each should launch launched, DOGLEG TRADITIONAL and SUBSPACE
+     on a small BAL on both loops (B1-B3, not B4 or B5), DOGLEG on
+     Rosenbrock's function (DENSE_QR), SPARSE_SCHUR and
+     SPARSE_NORMAL_CHOLESKY on the small BAL, and a small 3D pose graph
+     (a .g2o file written here) on SPARSE_NORMAL_CHOLESKY and on CGNR +
+     SUBSET;
   4. the main run: synthetic_bal(1778, 993923, 5,000,000) with Huber(1.0)
      in float32 through ceres_tpu_torch.solve (LM + ITERATIVE_SCHUR +
      SCHUR_JACOBI, eta 0.1, PCG <= 25, 5 iterations, on the fused device
@@ -83,7 +89,20 @@ and prints no result):
      5 iterations; 5x5, K = 24, on 213 x 177 for 3), LM + CGNR + JACOBI in
      float32 on the fused loop at chunk 1: cost, PCG steps, reads and ms per
      iteration, every group through B1 generic at every evaluation, at most
-     2 + PCG steps reads per iteration.
+     2 + PCG steps reads per iteration. Before the denoising runs, DOGLEG at
+     BAL-1778 (the main run's options, TRADITIONAL and SUBSPACE, 3
+     iterations each, fused at chunk 1): the step kind, PCG steps, reads and
+     ms per iteration beside the main run's, B1-B3 launched and B4, B5 not,
+     at most 2 + PCG steps reads. After them the host solvers: SPARSE_SCHUR
+     at Dubrovnik-356's shape (DUBROVNIK_356, 3 iterations, host loop; the
+     explicit branch at every step, the host plan's seconds, the read of S
+     and its bytes, the host factorization's seconds, the assembly's ms and
+     S bitwise across two assemblies), then the pose graphs in float64: a
+     3D graph of sphere2500's shape (SPHERE_RINGS, written as a .g2o file
+     and read back) on SPARSE_NORMAL_CHOLESKY and on CGNR + SUBSET (its
+     odometry edges), and a 2D graph of M3500's pose count on
+     SPARSE_NORMAL_CHOLESKY, each with B1 generic at every evaluation and
+     its final cost beside the cost at the true poses.
 Then a JSON line describing the kernels, the card's name and power limit,
 and the last line {"ok": true, "device": {...}}.
 
@@ -102,6 +121,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import gc
 import json
 import math
@@ -110,6 +130,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -210,6 +231,17 @@ PARITY_CASES = (
 )
 # a composed-path problem: the camera prior's weight
 PRIOR_WEIGHT = 0.1
+# the host solvers' runs: SPARSE_SCHUR at the shape of BAL's Dubrovnik-356
+# (problem-356-226730-pre.txt: cameras, points, observations), its S dense
+# under synthetic_bal's uniform visibility (3,204² entries, 126,736 camera
+# pairs), which SuperLU factors in seconds where BAL-1778's 16,002² would
+# take minutes; the pose graphs at the published shapes of sphere2500.g2o
+# (2,500 poses on 50 rings of 50: 2,499 odometry and 2,450 ring-to-ring
+# loop-closure edges) and of M3500 (3,500 poses; synthetic_pose_graph_2d
+# draws 4,375 edges against M3500's 5,453)
+DUBROVNIK_356 = (356, 226_730, 1_255_268)
+SPHERE_RINGS = (50, 50)
+M3500_POSES = 3500
 
 
 def nvidia_smi_line() -> str:
@@ -1189,9 +1221,10 @@ def generic_ptxas(prog) -> str:
 
 def phase_generic_build(bal_program, dev):
     """Phase 1, B1 generic: every generated source the script runs
-    (Fields-of-Experts cliques of both sizes and the data term, Powell's and
-    the curve fit's functors, the Snavely functor through the generator),
-    built at once (one nvcc each, all started together)."""
+    (Fields-of-Experts cliques of both sizes and the data term, Powell's,
+    the curve fit's and Rosenbrock's functors, both pose graphs', the
+    Snavely functor through the generator), built at once (one nvcc each,
+    all started together)."""
     import torch
 
     from ceres_tpu_torch import cuda_lib, functor_codegen
@@ -1201,7 +1234,14 @@ def phase_generic_build(bal_program, dev):
     t0 = time.time()
     problems = [build_foe(16, 14, size, 2) for _h, _w, size, _k, _i in FOE_RUNS]
     problems += [test_functions.build_powell_problem()[0],
-                 test_functions.build_curve_fitting_problem()[0]]
+                 test_functions.build_curve_fitting_problem()[0], build_rosenbrock()]
+    # the pose graphs' functors (their sources depend on no size)
+    from ceres_tpu_torch.examples import pose_graph
+
+    problems.append(pose_graph.build_pose_graph_2d_problem(
+        pose_graph.synthetic_pose_graph_2d(n=8)[0])[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        problems.append(small_sphere_problem(tmp, 2, 4)[0])
     progs = []
     for problem in problems:
         program = problem.compile("cpu")
@@ -1412,6 +1452,360 @@ def run_denoising(h, w, size, k, iters):
     return summary, launches
 
 
+def _quat_xyzw(axis_angle):
+    """[n, 3] angle-axis vectors -> [n, 4] unit quaternions [x, y, z, w]."""
+    theta = np.linalg.norm(axis_angle, axis=1, keepdims=True)
+    axis = axis_angle / np.maximum(theta, 1e-300)
+    return np.concatenate([axis * np.sin(theta / 2), np.cos(theta / 2)], axis=1)
+
+
+def _qmul(a, b):
+    x1, y1, z1, w1 = a.T
+    x2, y2, z2, w2 = b.T
+    return np.stack([w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2, w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                     w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2, w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2], 1)
+
+
+def _rotate(q, p):
+    t = 2.0 * np.cross(q[:, :3], p)
+    return p + q[:, 3:] * t + np.cross(q[:, :3], t)
+
+
+def write_sphere_g2o(path, rings, per_ring, seed=0, noise=(0.05, 0.01)):
+    """A pose graph of sphere2500's layout as a .g2o file (VERTEX_SE3:QUAT,
+    EDGE_SE3:QUAT): `rings` rings of `per_ring` poses on a sphere of radius
+    50, one odometry edge between consecutive poses and a loop closure from
+    each pose to the one below it on the previous ring; the measurements
+    from the true poses plus noise (translation, rotation sigma) with the
+    matching information, the vertices the true poses plus noise (the first
+    pose true), all from the seed. Returns the true (positions,
+    quaternions)."""
+    rng = np.random.default_rng(seed)
+    k, j = np.divmod(np.arange(rings * per_ring), per_ring)
+    lat = np.pi * (k + 1) / (rings + 1) - np.pi / 2
+    lon = 2 * np.pi * j / per_ring
+    pos = 50.0 * np.stack([np.cos(lat) * np.cos(lon), np.cos(lat) * np.sin(lon), np.sin(lat)], 1)
+    q = _quat_xyzw(np.stack([np.zeros_like(lon), -lat, lon + np.pi / 2], 1))
+    n = len(pos)
+    edges = [(i, i + 1) for i in range(n - 1)] + [(i, i - per_ring) for i in range(per_ring, n)]
+    a, b = np.asarray(edges).T
+    qa_inv = q[a] * [-1, -1, -1, 1]
+    t_ab = _rotate(qa_inv, pos[b] - pos[a]) + rng.normal(0, noise[0], (len(a), 3))
+    q_ab = _qmul(_qmul(qa_inv, q[b]), _quat_xyzw(rng.normal(0, noise[1], (len(a), 3))))
+    info = np.diag([1 / noise[0] ** 2] * 3 + [1 / noise[1] ** 2] * 3)
+    pos0 = pos + rng.normal(0, 0.5, pos.shape)
+    q0 = _qmul(q, _quat_xyzw(rng.normal(0, 0.05, (n, 3))))
+    pos0[0], q0[0] = pos[0], q[0]
+    iu = np.triu_indices(6)
+    with open(path, "w") as f:
+        for i in range(n):
+            f.write("VERTEX_SE3:QUAT %d " % i + " ".join(f"{v:.17g}" for v in (*pos0[i], *q0[i]))
+                    + "\n")
+        for e in range(len(a)):
+            vals = (*t_ab[e], *q_ab[e], *info[iu])
+            f.write(f"EDGE_SE3:QUAT {a[e]} {b[e]} " + " ".join(f"{v:.17g}" for v in vals) + "\n")
+    return pos, q
+
+
+def build_rosenbrock():
+    """Rosenbrock's function from (-1.2, 1), one residual block of 2."""
+    import torch
+
+    import ceres_tpu_torch as ct
+
+    def res(params, data):
+        (xy,) = params
+        return torch.cat([10.0 * (xy[1:2] - xy[0:1] ** 2), 1.0 - xy[0:1]])
+
+    p = ct.Problem()
+    b = p.add_parameter_block(np.array([-1.2, 1.0]))
+    p.add_residual_block(ct.CostFunction(res, 2, name="rosenbrock"), None, [b])
+    return p
+
+
+def small_sphere_problem(tmp, rings=6, per_ring=10):
+    """A small 3D pose graph written to and read back from a .g2o file:
+    (problem, number of odometry edges)."""
+    from ceres_tpu_torch.examples import pose_graph
+
+    path = os.path.join(tmp, f"sphere_{rings}x{per_ring}.g2o")
+    write_sphere_g2o(path, rings, per_ring, seed=1)
+    return pose_graph.build_pose_graph_3d_problem(pose_graph.load_g2o_3d(path))[0], rings * per_ring - 1
+
+
+@contextlib.contextmanager
+def captured_dogleg_step_fns():
+    """A with-block in which every dogleg step function a solve makes is
+    also appended to the list it yields (to read its step-kind log after
+    the solve)."""
+    from ceres_tpu_torch.solvers import dogleg
+
+    made, make = [], dogleg.make_dogleg_step_fn
+
+    def spy(*args):
+        made.append(make(*args))
+        return made[-1]
+
+    dogleg.make_dogleg_step_fn = spy
+    try:
+        yield made
+    finally:
+        dogleg.make_dogleg_step_fn = make
+
+
+def phase_f64_host_solvers(tmp):
+    """Phase 3, the slice's solvers in float64 on the card against the CPU,
+    per-iteration cost within 1e-9 with equal PCG counts and decisions, and
+    what each should launch launched: DOGLEG TRADITIONAL and SUBSPACE on a
+    small BAL (ITERATIVE_SCHUR options, radius 1 so the steps leave the
+    Gauss-Newton point; the GN is CGNR + JACOBI: B1-B3, not B4 or B5) on
+    the fused and on the host loop; DOGLEG SUBSPACE on DENSE_QR
+    (Rosenbrock, B1 generic); SPARSE_SCHUR and SPARSE_NORMAL_CHOLESKY on the
+    small BAL (host loop, B1-B3); a small 3D pose graph read from a .g2o
+    file on SPARSE_NORMAL_CHOLESKY and on CGNR + SUBSET (its odometry
+    edges), B1 generic."""
+    import torch
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch import cuda_lib
+
+    bal = ct.synthetic_bal(96, 4000, 48_000, seed=1)
+
+    def ba():
+        return ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))[0]
+
+    _, n_odo = small_sphere_problem(tmp)
+    dogleg = dict(trust_region_strategy_type=ct.TrustRegionStrategyType.DOGLEG,
+                  initial_trust_region_radius=1.0)
+    ba_kernels = ({"eval_snavely", "gather_contract", "contract_reduce"}, {"schur_sy", "schur_p0"})
+    generic = ({"eval_generic"}, {"eval_snavely"})
+    cases = [
+        (f"DOGLEG {kind} {loop}", ba,
+         dict(dogleg, dogleg_type=getattr(ct.DoglegType, kind), fused_execution=loop == "fused",
+              fused_execution_chunk_iters=1), ba_kernels)
+        for kind in ("TRADITIONAL_DOGLEG", "SUBSPACE_DOGLEG") for loop in ("fused", "host loop")
+    ]
+    cases += [
+        ("DOGLEG SUBSPACE_DOGLEG Rosenbrock DENSE_QR", build_rosenbrock,
+         dict(dogleg_type=ct.DoglegType.SUBSPACE_DOGLEG, max_num_iterations=12,
+              trust_region_strategy_type=ct.TrustRegionStrategyType.DOGLEG,
+              linear_solver_type=ct.LinearSolverType.DENSE_QR), generic),
+        ("SPARSE_SCHUR", ba, dict(linear_solver_type=ct.LinearSolverType.SPARSE_SCHUR),
+         ba_kernels),
+        ("SPARSE_NORMAL_CHOLESKY", ba,
+         dict(linear_solver_type=ct.LinearSolverType.SPARSE_NORMAL_CHOLESKY), ba_kernels),
+        ("3D pose graph SPARSE_NORMAL_CHOLESKY", lambda: small_sphere_problem(tmp)[0],
+         dict(linear_solver_type=ct.LinearSolverType.SPARSE_NORMAL_CHOLESKY), generic),
+        ("3D pose graph CGNR + SUBSET", lambda: small_sphere_problem(tmp)[0],
+         dict(linear_solver_type=ct.LinearSolverType.CGNR, initial_trust_region_radius=1.0,
+              preconditioner_type="SUBSET",
+              residual_blocks_for_subset_preconditioner=list(range(n_odo))), generic),
+    ]
+    for name, build, extra, (launched, not_launched) in cases:
+        sums = {}
+        for dev in ("cuda", "cpu"):
+            cuda_lib.reset_launch_counts()
+            sums[dev] = ct.solve(lm_options(dev, torch.float64, **extra), build())
+            if dev == "cuda":
+                launches = cuda_lib.launch_counts()
+        worst = 0.0
+        for a, b in zip(sums["cuda"].iterations, sums["cpu"].iterations, strict=True):
+            worst = max(worst, abs(a.cost - b.cost) / max(abs(b.cost), 1e-300))
+            if (a.linear_solver_iterations, a.step_is_successful) != (
+                b.linear_solver_iterations, b.step_is_successful
+            ):
+                raise AssertionError(f"{name}, iteration {a.iteration}: CUDA and CPU solves diverge")
+        print(f"phase 3: {name}: float64, CUDA vs CPU: {len(sums['cpu'].iterations)} iterations "
+              f"({'fused' if sums['cuda'].used_fused_execution else 'host loop'}), max "
+              f"per-iteration cost rel diff {worst:.3e} (tol 1e-09), pcg "
+              f"{[it.linear_solver_iterations for it in sums['cuda'].iterations]}, final cost "
+              f"{sums['cuda'].final_cost:.12e}, launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+        if not worst <= 1e-9:
+            raise AssertionError(f"{name}: float64 CUDA solve disagrees with the CPU solve")
+        if any(launches[k] <= 0 for k in launched) or any(launches[k] for k in not_launched):
+            raise AssertionError(f"{name}: the CUDA solve did not launch {sorted(launched)} "
+                                 f"alone of {sorted(launched | not_launched)}")
+        if sums["cuda"].final_cost >= sums["cuda"].initial_cost:
+            raise AssertionError(f"{name}: the solve did not decrease the cost")
+
+
+def phase_dogleg_runs(bal, main):
+    """Phase 4, DOGLEG at BAL-1778: the main run's options with
+    trust_region_strategy_type=DOGLEG, TRADITIONAL and SUBSPACE, 3
+    iterations each on a new Problem on the fused loop at chunk 1; per
+    iteration the step kind the finish took, PCG steps, reads and ms beside
+    the main run's. Its Gauss-Newton point is CGNR + JACOBI (the JAX
+    package's dogleg): B1, B2 and B3 launched, B4 and B5 not; at most 2 +
+    PCG steps reads per iteration."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.solvers import dogleg
+
+    for kind in ("TRADITIONAL_DOGLEG", "SUBSPACE_DOGLEG"):
+        with captured_dogleg_step_fns() as made:
+            summary, counts = run_main_path(
+                bal, "SCHUR_JACOBI", label=f"DOGLEG {kind}", fused_execution_chunk_iters=1,
+                max_num_iterations=3, trust_region_strategy_type=ct.TrustRegionStrategyType.DOGLEG,
+                dogleg_type=getattr(ct.DoglegType, kind))
+        n = len(summary.iterations) - 1
+        kinds = [dogleg.STEP_KINDS[k] for k in made[0].step_kinds.tolist()[:n]]
+        for a, b, step in zip(main.iterations[1:], summary.iterations[1:], kinds):
+            print(f"phase 4: iter {a.iteration}: SCHUR_JACOBI {_iteration_line(a)} | DOGLEG "
+                  f"{kind} step {step} {_iteration_line(b)}", flush=True)
+        if not summary.used_fused_execution:
+            raise AssertionError(f"the DOGLEG {kind} run did not take the fused loop")
+        if any(counts[k] <= 0 for k in ("eval_snavely", "gather_contract", "contract_reduce")) or (
+                counts["schur_sy"] or counts["schur_p0"]):
+            raise AssertionError(f"the DOGLEG {kind} run: B1-B3 not launched, or B4 or B5 launched")
+        if any(it.num_device_reads > 2 + it.linear_solver_iterations
+               for it in summary.iterations[1:]):
+            raise AssertionError(f"the DOGLEG {kind} run read more than 2 + PCG steps times")
+
+
+def phase_sparse_schur_run():
+    """Phase 4, SPARSE_SCHUR at Dubrovnik-356's shape (DUBROVNIK_356,
+    Huber(1.0), float32, LM, 3 iterations, on the host loop, as its step
+    factors on the host): every step the explicit branch (no fallback); the
+    host plan's seconds and its S (camera-pair slots, pair blocks); the
+    read of S and its bytes, the host factorization's seconds per step
+    (execution summary); then, at the final state, the device assembly's
+    ms (CUDA events, median of 3) and S bitwise equal across two
+    assemblies."""
+    import torch
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.evaluator import Evaluator
+    from ceres_tpu_torch.linalg import schur
+    from ceres_tpu_torch.linalg.explicit_schur import ExplicitSchurPlan
+
+    bal = ct.synthetic_bal(*DUBROVNIK_356, seed=0)
+    made = []
+
+    def build(b):
+        made.append(ct.build_ba_problem(b, loss=ct.HuberLoss(1.0))[0])
+        return made[-1]
+
+    summary, counts = run_main_path(
+        bal, "SCHUR_JACOBI", build=build, label="SPARSE_SCHUR, Dubrovnik-356 shape",
+        max_num_iterations=3, linear_solver_type=ct.LinearSolverType.SPARSE_SCHUR)
+    ex, n = summary.execution_summary, summary.num_linear_solves
+    for it in summary.iterations[1:]:
+        print(f"phase 4: SPARSE_SCHUR: iter {it.iteration}: {_iteration_line(it)}", flush=True)
+    if summary.used_fused_execution:
+        raise AssertionError("the SPARSE_SCHUR run took the fused loop")
+    if ex.calls("SparseSchur::Explicit") != n or ex.calls("SparseSchur::Fallback"):
+        raise AssertionError("the SPARSE_SCHUR run did not take the explicit branch at every step")
+    if any(counts[k] <= 0 for k in ("eval_snavely", "gather_contract", "contract_reduce")) or (
+            counts["schur_sy"] or counts["schur_p0"]):
+        raise AssertionError("the SPARSE_SCHUR run: B1-B3 not launched, or B4 or B5 launched")
+
+    program = made[0].compile()
+    _, _, jac, _ = Evaluator(program, torch.float32).evaluate_groups(
+        program.state_vector(torch.float32))
+    jac_s = jac.scale_columns(1.0 / (1.0 + torch.sqrt(jac.squared_column_norms())))
+    dsq = torch.clamp(jac_s.squared_column_norms(), 1e-6, 1e32) / 1e4
+    e_mask, f_mask = schur._masks(program, dsq)
+    jac_e, jac_f = (v.materialize_scale() for v in schur.schur_views(program, jac_s))
+    ete = schur.make_ete_solver(program, jac_e, dsq * e_mask)
+    plan = ExplicitSchurPlan.get(program, jac_e, jac_f)
+    ftf = jac_f.block_diag_jtj(dsq=dsq * f_mask)[plan.cam_cls]
+    s1, s2 = (plan.assemble(jac_e, jac_f, ete, ftf) for _ in range(2))
+    t_asm = median_ms(lambda: plan.assemble(jac_e, jac_f, ete, ftf), reps=3, warmup=1)
+    bitwise = bool(torch.equal(s1, s2))
+    print(f"phase 4: SPARSE_SCHUR: host plan {plan.seconds:.2f} s, S of {plan.n_cams} x "
+          f"{plan.n_cams} blocks of {plan.tf} x {plan.tf}: {plan.n_slots} camera-pair slots, "
+          f"{plan.n_pairs} pair blocks; per step: read of S "
+          f"{ex.nbytes('SparseSchur::Read') / n / 1e6:.1f} MB in "
+          f"{ex.seconds('SparseSchur::Read') / n:.3f} s, host factorization and solve "
+          f"{ex.seconds('SparseSchur::HostSolve') / n:.3f} s; device assembly {t_asm:.2f} ms "
+          f"(CUDA events), bitwise across two assemblies {bitwise}", flush=True)
+    if not bitwise or not bool(torch.isfinite(s1).all()):
+        raise AssertionError("the explicit S is not finite or not bitwise equal across assemblies")
+    del made, program, jac, jac_s, jac_e, jac_f, ete, s1, s2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_pose_graph(label, problem, truth_cost, **overrides):
+    """Phase 4, one pose-graph solve in float64 on a new Problem (LM and the
+    reference examples' defaults but `overrides`): its cost per iteration,
+    its host factorizations, the final cost beside the truth's, and B1
+    generic at every evaluation (its one group)."""
+    import torch
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch import cuda_lib
+
+    options = ct.SolverOptions(logging_type=ct.LoggingType.SILENT, dtype=torch.float64,
+                               **overrides)
+    cuda_lib.reset_launch_counts()
+    t0 = time.time()
+    summary = ct.solve(options, problem)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = cuda_lib.launch_counts()
+    ex = summary.execution_summary
+    host = "; ".join(
+        f"{name} {ex.calls(name)} calls {ex.seconds(name):.3f} s"
+        + (f" {ex.nbytes(name) / 1e6:.1f} MB" if ex.nbytes(name) else "")
+        for name in ex.names() if name.split("::")[0] in ("SparseCholesky", "SubsetPreconditioner")
+    )
+    print(f"phase 4: {label}: {summary.num_residuals} residuals, "
+          f"{summary.num_effective_parameters} parameters; solve {wall:.1f} s (preprocess "
+          f"{summary.preprocessor_time_in_seconds:.1f} s), {len(summary.iterations) - 1} "
+          f"iterations, {summary.termination_type.value}; initial cost {summary.initial_cost!r}, "
+          f"final cost {summary.final_cost!r}, truth's cost {truth_cost!r}; device reads "
+          f"{summary.num_device_reads}; {host}; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    for it in summary.iterations[1:]:
+        print(f"phase 4: {label}: iter {it.iteration}: {_iteration_line(it)}", flush=True)
+    if not (all(math.isfinite(it.cost) for it in summary.iterations)
+            and summary.final_cost < summary.initial_cost):
+        raise AssertionError(f"{label}: non-finite or non-decreasing cost")
+    if (launches["eval_generic"] != summary.num_jacobian_evaluations
+            or launches["eval_generic_residual"] != summary.num_residual_evaluations
+            or launches["eval_snavely"]):
+        raise AssertionError(f"{label}: the graph's group did not take B1 generic at every "
+                             "evaluation")
+    return summary
+
+
+def phase_pose_graph_runs(tmp):
+    """Phase 4, the pose graphs: the sphere2500-shaped 3D graph
+    (SPHERE_RINGS, written as a .g2o file and read back with load_g2o_3d)
+    on SPARSE_NORMAL_CHOLESKY, as the reference's pose_graph_3d.cc solves
+    it (up to 20 iterations), then CGNR + SUBSET with its odometry edges as
+    the subset (5 iterations); the M3500-sized 2D graph
+    (synthetic_pose_graph_2d(M3500_POSES, seed=0)) on
+    SPARSE_NORMAL_CHOLESKY (up to 20 iterations). Each in float64, its
+    final cost printed beside the cost at the true poses."""
+    import dataclasses
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.examples import pose_graph
+
+    path = os.path.join(tmp, "sphere2500_shape.g2o")
+    pos, q = write_sphere_g2o(path, *SPHERE_RINGS, seed=0)
+    g3 = pose_graph.load_g2o_3d(path)
+    truth3 = pose_graph.build_pose_graph_3d_problem(
+        dataclasses.replace(g3, positions=pos, quaternions=q))[0].evaluate()[0]
+    n_odo = SPHERE_RINGS[0] * SPHERE_RINGS[1] - 1
+    run_pose_graph("3D pose graph (sphere2500 shape), SPARSE_NORMAL_CHOLESKY",
+                   pose_graph.build_pose_graph_3d_problem(g3)[0], truth3, max_num_iterations=20,
+                   linear_solver_type=ct.LinearSolverType.SPARSE_NORMAL_CHOLESKY)
+    run_pose_graph("3D pose graph (sphere2500 shape), CGNR + SUBSET",
+                   pose_graph.build_pose_graph_3d_problem(g3)[0], truth3, max_num_iterations=5,
+                   linear_solver_type=ct.LinearSolverType.CGNR,
+                   preconditioner_type=ct.PreconditionerType.SUBSET,
+                   residual_blocks_for_subset_preconditioner=list(range(n_odo)))
+    g2, truth = pose_graph.synthetic_pose_graph_2d(n=M3500_POSES, seed=0)
+    truth2 = pose_graph.build_pose_graph_2d_problem(
+        dataclasses.replace(g2, poses=truth))[0].evaluate()[0]
+    run_pose_graph(f"2D pose graph ({M3500_POSES} poses), SPARSE_NORMAL_CHOLESKY",
+                   pose_graph.build_pose_graph_2d_problem(g2)[0], truth2, max_num_iterations=20,
+                   linear_solver_type=ct.LinearSolverType.SPARSE_NORMAL_CHOLESKY)
+
+
 def _iteration_line(it) -> str:
     return (
         f"cost {it.cost!r} pcg {it.linear_solver_iterations} ms "
@@ -1478,6 +1872,8 @@ def main(argv=None) -> int:
 
     phase_f64_parity()
     phase_f64_generic()
+    tmp = tempfile.TemporaryDirectory()
+    phase_f64_host_solvers(tmp.name)
 
     # phase 4: the main run (SCHUR_JACOBI on the fused loop, kernels B1-B5),
     # the host loop on the same problem, then JACOBI (B1-B4)
@@ -1545,10 +1941,14 @@ def main(argv=None) -> int:
     quat_launches = phase_quaternion_runs(bal, main)
     phase_cluster_runs(bal, main)
     phase_ordering_run(bal, main)
-    # the slice's main path: Fields-of-Experts denoising, B1 generic on
-    # every group
+    phase_dogleg_runs(bal, main)
+    # Fields-of-Experts denoising, B1 generic on every group
     del bal
     denoising = [run_denoising(*run) for run in FOE_RUNS]
+    # the host solvers: SPARSE_SCHUR, the pose graphs
+    phase_sparse_schur_run()
+    phase_pose_graph_runs(tmp.name)
+    tmp.cleanup()
     launches.update({k: denoising[0][1][k] for k in ("eval_generic",)})
     # each kernel's launches on the run that is its main path
     launches.update(quat_launches)

@@ -34,6 +34,16 @@ quaternion cameras on Quaternion x Euclidean(6)
 (build_ba_problem(use_quaternions=True, use_manifolds=True); tables in
 chiprun_out/profile_solve_quaternion.txt).
 
+With --dogleg they are the fused loop with trust_region_strategy_type=DOGLEG,
+TRADITIONAL and SUBSPACE (its Gauss-Newton point CGNR + JACOBI, B1-B3;
+tables in chiprun_out/profile_solve_dogleg.txt), and with --sparse-schur
+the one run is chip_smoke.py's SPARSE_SCHUR solve at Dubrovnik-356's shape
+on the host loop (3 iterations, the idle share over iterations 2-3, which
+the host factorization fills; chiprun_out/profile_solve_sparse_schur.txt):
+
+    python3 profile_torch_solve.py --dogleg
+    python3 profile_torch_solve.py --sparse-schur
+
 With --denoising the runs are chip_smoke.py's two Fields-of-Experts
 denoising solves (FOE_RUNS: LM + CGNR + JACOBI in float32 on the fused
 loop; every group through B1 generic), each profiled alone, the idle share
@@ -155,12 +165,22 @@ def warm_up_profiler(ct, torch, loops):
         torch.cuda.synchronize()
 
 
-def variants(mixed, quaternion):
+def variants(mixed, quaternion, dogleg=False):
     """(label, solve options, build_ba_problem options) of the two runs:
     fused and host loop; with `mixed` the fused loop in float32 and with
     mixed-precision solves; with `quaternion` the fused loop on angle-axis
-    and on quaternion cameras."""
+    and on quaternion cameras; with `dogleg` the fused loop with DOGLEG,
+    TRADITIONAL and SUBSPACE."""
     fused = {"fused_execution_chunk_iters": 1}
+    if dogleg:
+        import ceres_tpu_torch as ct
+
+        return tuple(
+            (f"dogleg_{kind.split('_')[0].lower()}",
+             {**fused, "trust_region_strategy_type": ct.TrustRegionStrategyType.DOGLEG,
+              "dogleg_type": getattr(ct.DoglegType, kind)}, {})
+            for kind in ("TRADITIONAL_DOGLEG", "SUBSPACE_DOGLEG")
+        )
     if mixed:
         return (("fused", fused, {}),
                 ("mixed", {**fused, "use_mixed_precision_solves": True}, {}))
@@ -203,6 +223,10 @@ def main(argv=None) -> int:
                        help="the fused loop in float32 and with mixed-precision solves instead")
     group.add_argument("--quaternion", action="store_true",
                        help="the fused loop on angle-axis and on quaternion cameras instead")
+    group.add_argument("--dogleg", action="store_true",
+                       help="the fused loop with DOGLEG, TRADITIONAL and SUBSPACE, instead")
+    group.add_argument("--sparse-schur", action="store_true",
+                       help="profile chip_smoke's SPARSE_SCHUR run at Dubrovnik-356's shape instead")
     group.add_argument("--denoising", action="store_true",
                        help="profile chip_smoke's two Fields-of-Experts denoising runs instead")
     args = parser.parse_args(argv)
@@ -215,7 +239,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, root)
     import ceres_tpu_torch as ct
     from ceres_tpu_torch import cuda_lib
-    from chip_smoke import FOE_RUNS, NUM_OBSERVATIONS, NUM_POINTS, build_foe, lm_options
+    from chip_smoke import (
+        DUBROVNIK_356, FOE_RUNS, NUM_OBSERVATIONS, NUM_POINTS, build_foe, lm_options,
+    )
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -223,12 +249,14 @@ def main(argv=None) -> int:
     ).stdout.strip()
     print(f"{smi} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     cuda_lib.library()
-    bal = None if args.denoising else ct.synthetic_bal(1778, NUM_POINTS, NUM_OBSERVATIONS, seed=0)
-    if args.compare and args.denoising:
-        parser.error("--compare times the BAL variants; --denoising only profiles")
+    if args.compare and (args.denoising or args.sparse_schur):
+        parser.error("--compare times the BAL-1778 variants; --denoising and --sparse-schur "
+                     "only profile")
+    shape = DUBROVNIK_356 if args.sparse_schur else (1778, NUM_POINTS, NUM_OBSERVATIONS)
+    bal = None if args.denoising else ct.synthetic_bal(*shape, seed=0)
     if args.compare:
         compare(ct, torch, bal, lm_options, args.compare,
-                variants(args.mixed, args.quaternion))
+                variants(args.mixed, args.quaternion, args.dogleg))
         return 0
 
     out_dir = os.path.join(root, "chiprun_out")
@@ -245,11 +273,15 @@ def main(argv=None) -> int:
         ]
     else:
         small = ct.synthetic_bal(32, 4000, 40_000, seed=0)
+        runs = variants(args.mixed, args.quaternion, args.dogleg)
+        if args.sparse_schur:
+            runs = (("sparse_schur", {"linear_solver_type": ct.LinearSolverType.SPARSE_SCHUR,
+                                      "max_num_iterations": 3}, {}),)
         loops = [
             (label, lm_options("cuda", torch.float32, **extra),
              lambda kw=problem_kw: ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0), **kw)[0],
              lambda kw=problem_kw: ct.build_ba_problem(small, loss=ct.HuberLoss(1.0), **kw)[0])
-            for label, extra, problem_kw in variants(args.mixed, args.quaternion)
+            for label, extra, problem_kw in runs
         ]
     warm_up_profiler(ct, torch, loops)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
@@ -260,6 +292,8 @@ def main(argv=None) -> int:
             print("\n".join(lines[:30]), flush=True)
     name = ("profile_solve_mixed.txt" if args.mixed else
             "profile_solve_quaternion.txt" if args.quaternion else
+            "profile_solve_dogleg.txt" if args.dogleg else
+            "profile_solve_sparse_schur.txt" if args.sparse_schur else
             "profile_solve_denoising.txt" if args.denoising else "profile_solve.txt")
     with open(os.path.join(out_dir, name), "w") as f:
         f.write("\n".join(report) + "\n")

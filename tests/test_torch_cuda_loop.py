@@ -2,13 +2,18 @@
 finish's head and tail, the evaluation, its prepare and the fused loop's
 decide replayed from CUDA graphs, the launch counts under replay, and the
 read budget, unbounded, bounded, with the line search and with CGNR on a
-Fields-of-Experts problem (every group B1 generic).
+Fields-of-Experts problem (every group B1 generic); DOGLEG's prepare and
+finish graphs and its read budget; SPARSE_SCHUR's S bitwise across
+assemblies; the host solvers' counted reads; the pose graphs on B1
+generic.
 
 These tests need an NVIDIA GPU and skip without one. The file imports no
 JAX: `python -m pytest --noconftest tests/test_torch_cuda_loop.py` runs it
 on a machine that has only PyTorch. A replay runs the kernels the eager
 iteration launched, on the same inputs, so the two agree bitwise (every
 kernel of the iteration is deterministic: B4 has no atomics)."""
+
+import dataclasses
 
 import pytest
 import torch
@@ -313,3 +318,136 @@ def test_visibility_builds_are_bitwise_equal(card, dtype, kind):
         assert torch.isfinite(a).all() and torch.equal(a, b)
     r = grad_s * f_mask
     assert torch.equal(builds[0](r), builds[1](r))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_explicit_schur_assembly_is_bitwise(card, dtype):
+    """SPARSE_SCHUR's S from the same Jacobian twice: bitwise equal (each
+    slot's pair blocks summed in a fixed order, segment_reduce over
+    host-sorted pairs, then one add per slot), and finite."""
+    from ceres_tpu_torch.linalg.explicit_schur import ExplicitSchurPlan
+
+    program, _options_, jac_s, _grad_s, _cache = _finish_case(card, dtype)
+    dsq = torch.clamp(jac_s.squared_column_norms(), 1e-6, 1e32) / 1e3
+    e_mask, f_mask = tschur._masks(program, dsq)
+    jac_e, jac_f = (v.materialize_scale() for v in tschur.schur_views(program, jac_s))
+    ete = tschur.make_ete_solver(program, jac_e, dsq * e_mask)
+    plan = ExplicitSchurPlan.get(program, jac_e, jac_f)
+    ftf = jac_f.block_diag_jtj(dsq=dsq * f_mask)[plan.cam_cls]
+    s1, s2 = (plan.assemble(jac_e, jac_f, ete, ftf) for _ in range(2))
+    assert torch.isfinite(s1).all() and torch.equal(s1, s2)
+
+
+def _dogleg(kind, dtype):
+    return _options(dtype, trust_region_strategy_type=ct.TrustRegionStrategyType.DOGLEG,
+                    dogleg_type=getattr(ct.DoglegType, kind), initial_trust_region_radius=1.0)
+
+
+@pytest.mark.parametrize("kind", ["TRADITIONAL_DOGLEG", "SUBSPACE_DOGLEG"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dogleg_fused_loop_syncs_only_through_counted_reads(card, dtype, kind):
+    """DOGLEG on the fused loop under set_sync_debug_mode("error"), after a
+    first run that captures every graph: the prepare (its head, PCG and
+    Cauchy graphs) runs in the iteration that takes its cache, so an
+    iteration reads at most 2 + its PCG steps; the finish and decide replay
+    once per iteration; the run repeats the first bitwise; B1-B3 run, B4
+    and B5 do not. In float64 it matches the CPU's to 1e-9."""
+    from ceres_tpu_torch import cuda_lib
+
+    options = _dogleg(kind, dtype)
+    program = _problem(3).compile(card)
+    minimizer = TrustRegionMinimizer(program, options, Evaluator(program, dtype))
+    warm = ct.Summary()
+    minimizer.minimize(program.state_vector(dtype), warm)
+    state = program.state_vector(dtype)
+    summary = ct.Summary()
+    g0 = graph_stats()
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        minimizer.minimize(state, summary)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    g1 = graph_stats()
+    counts = cuda_lib.launch_counts()
+    assert summary.used_fused_execution and len(summary.iterations) == 5
+    assert [it.cost for it in summary.iterations] == [it.cost for it in warm.iterations]
+    for it in summary.iterations[1:]:
+        assert it.num_device_reads <= 2 + it.linear_solver_iterations
+    by = g1["replays_by"] - g0["replays_by"]
+    assert by["dogleg_finish"] == by["decide"] == 4
+    prepares = 1 + sum(it.step_is_successful for it in summary.iterations[1:-1])
+    assert by["dogleg_head"] == by["dogleg_cauchy"] == prepares
+    assert g1["captures"] == g0["captures"]
+    assert all(counts[k] > 0 for k in ("eval_snavely", "gather_contract", "contract_reduce"))
+    assert counts["schur_sy"] == counts["schur_p0"] == 0
+    if dtype == torch.float64:
+        cpu = ct.solve(dataclasses.replace(options, device="cpu"), _problem(3))
+        for a, b in zip(summary.iterations, cpu.iterations, strict=True):
+            assert a.cost == pytest.approx(b.cost, rel=1e-9)
+            assert (a.linear_solver_iterations, a.step_is_successful) == (
+                b.linear_solver_iterations, b.step_is_successful)
+
+
+HOST_SOLVERS = {
+    "sparse_normal_cholesky": ({"linear_solver_type": ct.LinearSolverType.SPARSE_NORMAL_CHOLESKY},
+                               "SparseCholesky"),
+    "sparse_schur": ({"linear_solver_type": ct.LinearSolverType.SPARSE_SCHUR}, "SparseSchur"),
+    "cgnr_subset": ({"linear_solver_type": ct.LinearSolverType.CGNR,
+                     "preconditioner_type": ct.PreconditionerType.SUBSET,
+                     "initial_trust_region_radius": 1.0,
+                     "residual_blocks_for_subset_preconditioner": list(range(0, 40_000, 2))},
+                    "SubsetPreconditioner"),
+}
+
+
+@pytest.mark.parametrize("case", list(HOST_SOLVERS))
+def test_host_factorizations_are_counted_reads(card, case):
+    """The host solvers in float64 on the card: what each factorization
+    brings over is a counted read (the solve's reads equal the count its
+    execution summary records), each step's read and factorization are
+    recorded with their bytes, and the iterations match the CPU's to
+    1e-9."""
+    extra, name = HOST_SOLVERS[case]
+    summary = ct.solve(_options(torch.float64, **extra), _problem(3))
+    cpu = ct.solve(_options(torch.float64, device="cpu", **extra), _problem(3))
+    ex = summary.execution_summary
+    assert not summary.used_fused_execution
+    assert ex.calls("Device::Read") == summary.num_device_reads
+    assert ex.calls(f"{name}::Read") == summary.num_linear_solves
+    assert ex.nbytes(f"{name}::Read") > 0
+    if case == "sparse_schur":
+        assert ex.calls("SparseSchur::Explicit") == summary.num_linear_solves
+    for a, b in zip(summary.iterations, cpu.iterations, strict=True):
+        assert a.cost == pytest.approx(b.cost, rel=1e-9)
+        assert (a.linear_solver_iterations, a.step_is_successful) == (
+            b.linear_solver_iterations, b.step_is_successful)
+
+
+@pytest.mark.parametrize("dim", ["2d", "3d"])
+def test_pose_graphs_launch_b1_generic(card, tmp_path, dim):
+    """Both pose graphs on SPARSE_NORMAL_CHOLESKY in float64: the group
+    takes B1 generic at every evaluation, and the iterations match the
+    CPU's to 1e-9."""
+    from chip_smoke import small_sphere_problem
+
+    from ceres_tpu_torch import cuda_lib
+    from ceres_tpu_torch.examples import pose_graph
+
+    def build():
+        if dim == "2d":
+            g, _ = pose_graph.synthetic_pose_graph_2d(n=200, seed=0)
+            return pose_graph.build_pose_graph_2d_problem(g)[0]
+        return small_sphere_problem(str(tmp_path))[0]
+
+    options = dict(linear_solver_type=ct.LinearSolverType.SPARSE_NORMAL_CHOLESKY)
+    cuda_lib.reset_launch_counts()
+    summary = ct.solve(_options(torch.float64, **options), build())
+    counts = cuda_lib.launch_counts()
+    cpu = ct.solve(_options(torch.float64, device="cpu", **options), build())
+    assert counts["eval_generic"] == summary.num_jacobian_evaluations > 0
+    assert counts["eval_generic_residual"] == summary.num_residual_evaluations
+    for a, b in zip(summary.iterations, cpu.iterations, strict=True):
+        assert a.cost == pytest.approx(b.cost, rel=1e-9)
+    assert summary.final_cost < summary.initial_cost

@@ -163,12 +163,6 @@ def test_float32_solve_decreases_cost():
 UNSUPPORTED = {
     # case: (options, the ROADMAP item its message names)
     "invalid": ({"max_num_iterations": -1}, None),
-    "sparse_normal_cholesky": ({"linear_solver_type": "SPARSE_NORMAL_CHOLESKY"},
-                               "Queue A item 5"),
-    "sparse_schur": ({"linear_solver_type": "SPARSE_SCHUR"}, "Queue A item 5"),
-    "cgnr_subset": ({"linear_solver_type": "CGNR", "preconditioner_type": "SUBSET"},
-                    "Queue A item 5"),
-    "dogleg": ({"trust_region_strategy_type": "DOGLEG"}, "Queue A item 6"),
     "inner_iterations": ({"use_inner_iterations": True}, "Queue A item 6"),
     "iterations_to_dump": ({"trust_region_minimizer_iterations_to_dump": (1,)}, "Queue A item 6"),
     "check_gradients": ({"check_gradients": True}, "Queue A item 7"),
@@ -182,9 +176,6 @@ def test_invalid_and_unsupported_options(monkeypatch, case):
     raises NotImplementedError naming its ROADMAP item before the Problem
     is compiled, instead of being accepted and ignored."""
     kw, item = UNSUPPORTED[case]
-    enums = {"linear_solver_type": ct.LinearSolverType, "preconditioner_type": ct.PreconditionerType,
-             "trust_region_strategy_type": ct.TrustRegionStrategyType}
-    kw = {k: getattr(enums[k], v) if k in enums else v for k, v in kw.items()}
     problem, _, _ = ct.build_ba_problem(synthetic_bal(3, 10, 30, seed=4))
     options = _options(ct, device="cpu", **kw)
     if case == "invalid":
