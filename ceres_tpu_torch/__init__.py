@@ -16,12 +16,19 @@ H100 through five hand-written CUDA kernels:
   B4 linalg/schur_kernels.py the fused implicit-Schur matvec (csrc/schur_sy.cu)
   B5 linalg/schur_kernels.py the SCHUR_JACOBI block build (csrc/schur_p0.cu)
 
+Beside the trust-region solves: the line-search minimizer
+(solvers/line_search.py; `minimizer_type=LINE_SEARCH`), the first-order
+API (gradient_problem.py), inner iterations (solvers/inner_iterations.py),
+the host loop's problem dump and check_gradients (gradient_checker.py).
+
 On CPU tensors every kernel wrapper runs its plain PyTorch version instead.
 Importing the package builds nothing; the kernels compile on first use on a
 card (cuda_lib.py).
 """
 
 from .autodiff import CostFunction
+from .gradient_checker import GradientCheckResult, check_gradients
+from .gradient_problem import GradientProblem, numeric_diff_first_order, solve_gradient_problem
 from .io.bal import BalProblem, build_ba_problem, load_bal, synthetic_bal
 from .loss import (
     ArctanLoss,
@@ -50,8 +57,12 @@ from .types import (
     DoglegType,
     IterationSummary,
     LinearSolverType,
+    LineSearchDirectionType,
+    LineSearchInterpolationType,
+    LineSearchType,
     LoggingType,
     MinimizerType,
+    NonlinearConjugateGradientType,
     PreconditionerType,
     SolverOptions,
     Summary,
@@ -69,14 +80,20 @@ __all__ = [
     "DoglegType",
     "EigenQuaternionManifold",
     "EuclideanManifold",
+    "GradientCheckResult",
+    "GradientProblem",
     "HuberLoss",
     "IterationSummary",
+    "LineSearchDirectionType",
+    "LineSearchInterpolationType",
+    "LineSearchType",
     "LinearSolverType",
     "LoggingType",
     "LossFunction",
     "LossFunctionWrapper",
     "Manifold",
     "MinimizerType",
+    "NonlinearConjugateGradientType",
     "ParameterBlockOrdering",
     "PreconditionerType",
     "Problem",
@@ -93,7 +110,10 @@ __all__ = [
     "TukeyLoss",
     "VisibilityClusteringType",
     "build_ba_problem",
+    "check_gradients",
     "load_bal",
+    "numeric_diff_first_order",
     "solve",
+    "solve_gradient_problem",
     "synthetic_bal",
 ]

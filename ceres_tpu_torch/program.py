@@ -604,20 +604,24 @@ class Program:
             self.user_e_blocks = user
             self.schur_cache.clear()
 
-    def compute_schur_partition(self):
+    def compute_schur_partition(self, user_e_override=None):
         """(e_mask_blocks [nb] bool, e_positions, f_positions). With no
         pinned set each residual row elects its lowest-(degree, id) free
         block and a block is eliminated iff it wins every row it appears in;
         a pinned set must be independent (ValueError otherwise). Positions
         with mixed membership are then demoted (program.py:823-934 of the
-        JAX package). Cached."""
-        return self.cached("partition", Program._compute_schur_partition)
+        JAX package). Cached, except for `user_e_override`: the partition
+        of another pinned set (inner_iteration_ordering's), which neither
+        reads nor writes the cached one."""
+        if user_e_override is not None:
+            return self._compute_schur_partition(frozenset(user_e_override))
+        return self.cached("partition", lambda p: p._compute_schur_partition(p.user_e_blocks))
 
-    def _compute_schur_partition(self):
+    def _compute_schur_partition(self, user_e):
         nb = len(self._blocks)
-        if self.user_e_blocks is not None:
+        if user_e is not None:
             e_mask = np.zeros(nb, dtype=bool)
-            e_mask[np.asarray(sorted(self.user_e_blocks), dtype=np.int64)] = True
+            e_mask[np.asarray(sorted(user_e), dtype=np.int64)] = True
             e_mask &= self.t_offsets >= 0
             for idx in self.group_idx:
                 ids_mat = np.stack(idx["block_ids"], axis=1)

@@ -108,14 +108,15 @@ def chunk_iters(options) -> int:
 
 
 def eligible(options, step_fn) -> bool:
-    """ceres_tpu/solvers/fused_loop.py:90-116 without the sharded, the
-    evaluation-callback, the inner-iteration and the dump clauses (solve
-    refuses the last two options, solver.refuse_unported; the port has no
-    sharding or evaluation callbacks)."""
+    """ceres_tpu/solvers/fused_loop.py:90-116 without the sharded and the
+    evaluation-callback clauses (the port has neither): inner iterations
+    and the problem dump run on the host loop."""
     return bool(
         options.fused_execution
         and getattr(step_fn, "jittable", True)
+        and not options.use_inner_iterations
         and not options.callbacks
+        and not options.trust_region_minimizer_iterations_to_dump
         and not options.update_state_every_iteration
     )
 

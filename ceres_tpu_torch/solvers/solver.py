@@ -21,14 +21,7 @@ from ..utils.graphs import graph_stats, read_count
 
 # options the port does not run yet, each with the ROADMAP item that ports
 # it: solve raises for them instead of running something else
-_MINIMIZER_BREADTH = "ROADMAP Queue A item 6, minimizer breadth"
 _UNPORTED = (
-    (lambda o: o.minimizer_type != MinimizerType.TRUST_REGION,
-     "the line-search minimizer", _MINIMIZER_BREADTH),
-    (lambda o: o.use_inner_iterations, "use_inner_iterations", _MINIMIZER_BREADTH),
-    (lambda o: o.trust_region_minimizer_iterations_to_dump,
-     "trust_region_minimizer_iterations_to_dump", _MINIMIZER_BREADTH),
-    (lambda o: o.check_gradients, "check_gradients", "ROADMAP Queue A item 7, modeling breadth"),
     (lambda o: o.mesh is not None, "mesh", "ROADMAP Queue A item 11, multi-GPU"),
 )
 
@@ -38,6 +31,36 @@ def refuse_unported(options):
     for unported, what, item in _UNPORTED:
         if unported(options):
             raise NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+def _check_gradients(options, program):
+    """The failure message of the first group whose functor's autodiff
+    Jacobians disagree with central differences, or None
+    (ceres_tpu/solvers/solver.py:81-118; reference: check_gradients wraps
+    every residual block in a GradientCheckingCostFunction, solver.cc
+    :765-775). A group shares one functor, so one probe at its first
+    block's current values covers every block's code path."""
+    from ..gradient_checker import check_gradients
+
+    for meta, idx in zip(program.groups, program.group_idx):
+        params = [
+            program.state0[program.x_offsets[ids[0]] : program.x_offsets[ids[0]] + pm.size]
+            for pm, ids in zip(meta.positions, idx["block_ids"])
+        ]
+        res = check_gradients(
+            meta.cost_function,
+            params,
+            data=tuple(d[0] for d in idx["data"]),
+            manifolds=[pm.manifold for pm in meta.positions],
+            relative_step_size=options.gradient_check_numeric_derivative_relative_step_size,
+            relative_precision=options.gradient_check_relative_precision,
+        )
+        if not res.ok:
+            return (
+                f"Gradient check failed for cost function '{meta.cost_function.name}': "
+                f"max relative error {res.max_relative_error:.3e}.\n{res.error_log}"
+            )
+    return None
 
 
 def solve(options, problem) -> Summary:
@@ -93,6 +116,14 @@ def solve(options, problem) -> Summary:
         summary.total_time_in_seconds = time.time() - total_start
         return summary
 
+    if options.check_gradients:
+        message = _check_gradients(options, program)
+        if message is not None:
+            summary.termination_type = TerminationType.FAILURE
+            summary.message = message
+            summary.total_time_in_seconds = time.time() - total_start
+            return summary
+
     if options.linear_solver_type in (
         LinearSolverType.ITERATIVE_SCHUR, LinearSolverType.DENSE_SCHUR,
         LinearSolverType.SPARSE_SCHUR,
@@ -105,11 +136,16 @@ def solve(options, problem) -> Summary:
     summary.preprocessor_time_in_seconds = time.time() - t0
 
     # ---- minimize ----
-    from .trust_region import TrustRegionMinimizer
-
     t1 = time.time()
     reads0, graphs0 = read_count(), graph_stats()
-    minimizer = TrustRegionMinimizer(program, options, evaluator)
+    if options.minimizer_type == MinimizerType.TRUST_REGION:
+        from .trust_region import TrustRegionMinimizer
+
+        minimizer = TrustRegionMinimizer(program, options, evaluator)
+    else:
+        from .line_search import LineSearchMinimizer
+
+        minimizer = LineSearchMinimizer(program, options, evaluator)
     final_state = minimizer.minimize(state, summary)
     summary.minimizer_time_in_seconds = time.time() - t1
     graphs1 = graph_stats()

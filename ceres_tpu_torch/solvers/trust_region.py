@@ -7,20 +7,24 @@ bounds (the active-set mask and projected gradient norms; Plus clamps to
 the box), the projected Armijo line search, and the prepare cache reused
 across rejected steps. An eligible solve runs the fused device loop
 (fused_loop.py), as the JAX package's does; this host loop runs the rest
-(every solve with `fused_execution=False`, and the host solvers' step
-functions, which are not `jittable`). Tensors stay on the Program's
-device; the host loop brings scalars (cost, model cost change, radius
-decisions) to the host through utils.graphs.read, which counts them.
+(every solve with `fused_execution=False`, the host solvers' step
+functions, which are not `jittable`, and the solves that refine the
+candidate with inner iterations or dump iterations' problems). Tensors
+stay on the Program's device; the host loop brings scalars (cost, model
+cost change, radius decisions) to the host through utils.graphs.read,
+which counts them.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 
+import numpy as np
 import torch
 
-from ..evaluator import diagnose_non_finite
+from ..evaluator import diagnose_non_finite, flatten_residuals
 from ..jacobian import BlockJacobian
 from ..types import (
     CallbackReturnType, IterationSummary, LoggingType, TerminationType, TrustRegionStrategyType,
@@ -148,6 +152,28 @@ def make_prepare(program, evaluator, step_fn):
     return prepare
 
 
+def dump_problem(options, iteration, jac, res_groups, grad, scale, radius):
+    """Write the iteration's linear least-squares problem to
+    `trust_region_problem_dump_directory`/ceres_tpu_problem_{iteration:03d}.npz
+    with the JAX package's keys (ceres_tpu/solvers/trust_region.py:292-317;
+    reference: DumpLinearLeastSquaresProblem,
+    levenberg_marquardt_strategy.cc:135-147): the Jacobian as a CRS triple,
+    the residuals, the gradient, the Jacobi scale and the radius. The
+    Jacobian and the three vectors cross to the host in one read."""
+    from ..linalg.sparse import host_crs
+
+    (vals, cols, row_ptr), (residuals, gradient, scale_h), _ = host_crs(
+        jac, flatten_residuals(jac.program, res_groups), grad, scale
+    )
+    np.savez(
+        os.path.join(
+            options.trust_region_problem_dump_directory, f"ceres_tpu_problem_{iteration:03d}.npz"
+        ),
+        jacobian_values=vals, jacobian_cols=cols, jacobian_row_ptr=row_ptr,
+        residuals=residuals, gradient=gradient, scale=scale_h, trust_region_radius=radius,
+    )
+
+
 class TrustRegionMinimizer:
     def __init__(self, program, options, evaluator):
         self.program = program
@@ -177,6 +203,13 @@ class TrustRegionMinimizer:
         self._iter_reads = (0, 0)
         from .fused_loop import eligible, make_chunk_fn
 
+        self.inner = None
+        if options.use_inner_iterations:
+            from .inner_iterations import InnerIterationRefiner
+
+            refiner = InnerIterationRefiner(program, options, evaluator)
+            if refiner.available:
+                self.inner = refiner
         self._fused_chunk_fn = None
         if eligible(options, self._step_fn):
             self._fused_chunk_fn = make_chunk_fn(self)
@@ -199,6 +232,7 @@ class TrustRegionMinimizer:
         decrease_factor = 2.0
         num_consecutive_invalid = 0
         iteration_of_last_jacobian = -1
+        inner_iterations_enabled = self.inner is not None
         self._prepare_key = None
 
         exec_sum = _exec(summary)
@@ -270,6 +304,8 @@ class TrustRegionMinimizer:
                     mask = active_bound_mask(program, ev.arrays, state, grad)
                     if bool(read((mask == 0).any())):
                         iter_scale = scale * mask
+                if iteration in options.trust_region_minimizer_iterations_to_dump:
+                    dump_problem(options, iteration, jac, res_groups, grad, iter_scale, radius)
                 if not self.has_split:
                     delta, mcc, lin_iters, valid = self._step_fn(
                         jac, res_groups, grad, radius, iter_scale
@@ -348,6 +384,22 @@ class TrustRegionMinimizer:
                 summary.num_residual_evaluations += 1
                 summary.residual_evaluation_time_in_seconds += time.time() - t_res
                 exec_sum.record("Evaluator::Residual", time.time() - t_res)
+
+                if inner_iterations_enabled and math.isfinite(new_cost):
+                    # refine the candidate (DoInnerIterationsIfNeeded,
+                    # trust_region_minimizer.cc:504-583), credit its decrease
+                    # to the model (:558-560), and stop refining once its
+                    # relative progress falls below the tolerance (:564-570)
+                    t_inner = time.time()
+                    candidate, refined_cost = self.inner.refine(candidate, new_cost)
+                    summary.num_inner_iteration_steps += 1
+                    exec_sum.record("InnerIterations::Refine", time.time() - t_inner)
+                    mcc += new_cost - refined_cost
+                    rel_progress = 1.0 - refined_cost / new_cost if new_cost > 0 else 0.0
+                    inner_iterations_enabled = rel_progress > options.inner_iteration_tolerance
+                    new_cost = refined_cost
+                    if program.has_bounds:
+                        step_norm = read(torch.linalg.norm(state - candidate)).item()
 
                 cost_change = cost - new_cost
                 it_sum.step_norm = step_norm

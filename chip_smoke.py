@@ -48,7 +48,12 @@ and prints no result):
      Rosenbrock's function (DENSE_QR), SPARSE_SCHUR and
      SPARSE_NORMAL_CHOLESKY on the small BAL, and a small 3D pose graph
      (a .g2o file written here) on SPARSE_NORMAL_CHOLESKY and on CGNR +
-     SUBSET;
+     SUBSET; then, within 1e-9 with equal counts, the line-search
+     minimizer (L-BFGS + WOLFE + CUBIC; NCG Polak-Ribiere + ARMIJO: B1 and
+     B3 only), LM with use_inner_iterations on the host loop and with
+     check_gradients on the small BAL, solve_gradient_problem on
+     Rosenbrock's function (LBFGS, BFGS) and the problem dump of iteration
+     1 (every array within 1e-9 of the CPU's);
   4. the main run: synthetic_bal(1778, 993923, 5,000,000) with Huber(1.0)
      in float32 through ceres_tpu_torch.solve (LM + ITERATIVE_SCHUR +
      SCHUR_JACOBI, eta 0.1, PCG <= 25, 5 iterations, on the fused device
@@ -93,7 +98,13 @@ and prints no result):
      BAL-1778 (the main run's options, TRADITIONAL and SUBSPACE, 3
      iterations each, fused at chunk 1): the step kind, PCG steps, reads and
      ms per iteration beside the main run's, B1-B3 launched and B4, B5 not,
-     at most 2 + PCG steps reads. After them the host solvers: SPARSE_SCHUR
+     at most 2 + PCG steps reads. Then the line-search minimizer at
+     BAL-1778 (L-BFGS + WOLFE, 10 iterations, f32: cost, trials, reads,
+     replays and ms per iteration; at most 2 + trials reads, 3 + trials on a
+     restart; B1 and B3 launched, B4 and B5 not) and LM + SCHUR_JACOBI with
+     use_inner_iterations (3 iterations, host loop, beside the main run;
+     each refinement's cost before and after, never higher, and its ms by
+     CUDA events). After them the host solvers: SPARSE_SCHUR
      at Dubrovnik-356's shape (DUBROVNIK_356, 3 iterations, host loop; the
      explicit branch at every step, the host plan's seconds, the read of S
      and its bytes, the host factorization's seconds, the assembly's ms and
@@ -1553,6 +1564,25 @@ def captured_dogleg_step_fns():
         dogleg.make_dogleg_step_fn = make
 
 
+def _same_iterations(name, sums, tol=1e-9):
+    """The largest per-iteration cost difference of the CUDA and CPU
+    solves, relative; raises when their decisions or counts part."""
+    worst = 0.0
+    for a, b in zip(sums["cuda"].iterations, sums["cpu"].iterations, strict=True):
+        worst = max(worst, abs(a.cost - b.cost) / max(abs(b.cost), 1e-300))
+        if (a.linear_solver_iterations, a.step_is_successful, a.line_search_iterations) != (
+            b.linear_solver_iterations, b.step_is_successful, b.line_search_iterations
+        ):
+            raise AssertionError(f"{name}, iteration {a.iteration}: CUDA and CPU solves diverge")
+    counts = [(s.num_jacobian_evaluations, s.num_residual_evaluations, s.num_inner_iteration_steps)
+              for s in (sums["cuda"], sums["cpu"])]
+    if counts[0] != counts[1]:
+        raise AssertionError(f"{name}: evaluation counts differ, CUDA {counts[0]}, CPU {counts[1]}")
+    if not worst <= tol:
+        raise AssertionError(f"{name}: float64 CUDA solve disagrees with the CPU solve ({worst:.3e})")
+    return worst
+
+
 def phase_f64_host_solvers(tmp):
     """Phase 3, the slice's solvers in float64 on the card against the CPU,
     per-iteration cost within 1e-9 with equal PCG counts and decisions, and
@@ -1608,21 +1638,13 @@ def phase_f64_host_solvers(tmp):
             sums[dev] = ct.solve(lm_options(dev, torch.float64, **extra), build())
             if dev == "cuda":
                 launches = cuda_lib.launch_counts()
-        worst = 0.0
-        for a, b in zip(sums["cuda"].iterations, sums["cpu"].iterations, strict=True):
-            worst = max(worst, abs(a.cost - b.cost) / max(abs(b.cost), 1e-300))
-            if (a.linear_solver_iterations, a.step_is_successful) != (
-                b.linear_solver_iterations, b.step_is_successful
-            ):
-                raise AssertionError(f"{name}, iteration {a.iteration}: CUDA and CPU solves diverge")
+        worst = _same_iterations(name, sums)
         print(f"phase 3: {name}: float64, CUDA vs CPU: {len(sums['cpu'].iterations)} iterations "
               f"({'fused' if sums['cuda'].used_fused_execution else 'host loop'}), max "
               f"per-iteration cost rel diff {worst:.3e} (tol 1e-09), pcg "
               f"{[it.linear_solver_iterations for it in sums['cuda'].iterations]}, final cost "
               f"{sums['cuda'].final_cost:.12e}, launches "
               f"{json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
-        if not worst <= 1e-9:
-            raise AssertionError(f"{name}: float64 CUDA solve disagrees with the CPU solve")
         if any(launches[k] <= 0 for k in launched) or any(launches[k] for k in not_launched):
             raise AssertionError(f"{name}: the CUDA solve did not launch {sorted(launched)} "
                                  f"alone of {sorted(launched | not_launched)}")
@@ -1660,6 +1682,224 @@ def phase_dogleg_runs(bal, main):
         if any(it.num_device_reads > 2 + it.linear_solver_iterations
                for it in summary.iterations[1:]):
             raise AssertionError(f"the DOGLEG {kind} run read more than 2 + PCG steps times")
+
+
+def line_search_run():
+    """The overrides of lm_options for the line-search run at BAL-1778:
+    minimizer_type=LINE_SEARCH, L-BFGS + WOLFE, 10 iterations (the traffic
+    of the reference's bundle_adjuster --minimizer=line_search)."""
+    import ceres_tpu_torch as ct
+
+    return dict(minimizer_type=ct.MinimizerType.LINE_SEARCH,
+                line_search_direction_type=ct.LineSearchDirectionType.LBFGS,
+                line_search_type=ct.LineSearchType.WOLFE, max_num_iterations=10)
+
+
+def phase_f64_minimizers(tmp):
+    """Phase 3, the line-search minimizer, inner iterations, the dump,
+    check_gradients and solve_gradient_problem in float64 on the card
+    against the CPU, within 1e-9 per iteration with equal counts, on the
+    small BAL: the line-search minimizer (L-BFGS + WOLFE + CUBIC; NCG
+    Polak-Ribiere + ARMIJO, whose trials are residual-only: B1 and B3, not
+    B2, B4 or B5), LM + SCHUR_JACOBI with use_inner_iterations on the host
+    loop, and check_gradients passing; solve_gradient_problem on
+    Rosenbrock's function (LBFGS, BFGS: x and the final cost); the problem
+    dump of iteration 1 (every array within 1e-9, cols and row_ptr equal)."""
+    import torch
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch import cuda_lib
+
+    bal = ct.synthetic_bal(96, 4000, 48_000, seed=1)
+    ls = dict(minimizer_type=ct.MinimizerType.LINE_SEARCH, max_num_iterations=5)
+    gradient_only = ({"eval_snavely", "contract_reduce"},
+                     {"gather_contract", "schur_sy", "schur_p0"})
+    cases = [
+        ("LINE_SEARCH LBFGS WOLFE CUBIC",
+         dict(ls, line_search_direction_type=ct.LineSearchDirectionType.LBFGS,
+              line_search_type=ct.LineSearchType.WOLFE,
+              line_search_interpolation_type=ct.LineSearchInterpolationType.CUBIC),
+         gradient_only),
+        ("LINE_SEARCH NCG POLAK_RIBIERE ARMIJO",
+         dict(ls, line_search_direction_type=ct.LineSearchDirectionType.NONLINEAR_CONJUGATE_GRADIENT,
+              nonlinear_conjugate_gradient_type=ct.NonlinearConjugateGradientType.POLAK_RIBIERE,
+              line_search_type=ct.LineSearchType.ARMIJO,
+              line_search_interpolation_type=ct.LineSearchInterpolationType.QUADRATIC),
+         gradient_only),
+        ("LM SCHUR_JACOBI use_inner_iterations", dict(use_inner_iterations=True),
+         ({"eval_snavely", "gather_contract", "contract_reduce", "schur_sy", "schur_p0"}, set())),
+        ("LM SCHUR_JACOBI check_gradients",
+         dict(check_gradients=True, gradient_check_relative_precision=1e-3, max_num_iterations=2),
+         ({"eval_snavely", "schur_sy", "schur_p0"}, set())),
+    ]
+    for name, extra, (launched, not_launched) in cases:
+        sums = {}
+        for dev in ("cuda", "cpu"):
+            cuda_lib.reset_launch_counts()
+            problem = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))[0]
+            sums[dev] = ct.solve(lm_options(dev, torch.float64, **extra), problem)
+            if dev == "cuda":
+                launches = cuda_lib.launch_counts()
+        worst = _same_iterations(name, sums)
+        s = sums["cuda"]
+        print(f"phase 3: {name}: float64, CUDA vs CPU: {len(s.iterations)} iterations "
+              f"({'fused' if s.used_fused_execution else 'host loop'}), max per-iteration cost "
+              f"rel diff {worst:.3e} (tol 1e-09), trials "
+              f"{[it.line_search_iterations for it in s.iterations[1:]]}, gradient / residual "
+              f"evaluations {s.num_jacobian_evaluations} / {s.num_residual_evaluations}, inner "
+              f"iteration steps {s.num_inner_iteration_steps}, final cost {s.final_cost:.12e}, "
+              f"{s.termination_type.value}, launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+        if any(launches[k] <= 0 for k in launched) or any(launches[k] for k in not_launched):
+            raise AssertionError(f"{name}: the CUDA solve did not launch {sorted(launched)} "
+                                 f"alone of {sorted(launched | not_launched)}")
+        if s.termination_type == ct.TerminationType.FAILURE or not s.final_cost < s.initial_cost:
+            raise AssertionError(f"{name}: the solve failed or did not decrease the cost "
+                                 f"({s.message})")
+        if extra.get("use_inner_iterations") and (
+                s.used_fused_execution or s.num_inner_iteration_steps <= 0):
+            raise AssertionError(f"{name}: no inner iterations on the host loop")
+        if extra.get("line_search_type") == ct.LineSearchType.ARMIJO and not (
+                s.num_residual_evaluations > 0):
+            raise AssertionError(f"{name}: no residual-only evaluation")
+
+    def rosenbrock(x):
+        return 100.0 * (x[1] - x[0] ** 2) ** 2 + (1.0 - x[0]) ** 2
+
+    for direction in ("LBFGS", "BFGS"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            options = ct.SolverOptions(
+                minimizer_type=ct.MinimizerType.LINE_SEARCH, device=dev,
+                line_search_direction_type=getattr(ct.LineSearchDirectionType, direction),
+                max_num_iterations=300, function_tolerance=1e-14, gradient_tolerance=1e-10,
+                parameter_tolerance=1e-14)
+            out[dev] = ct.solve_gradient_problem(
+                options, ct.GradientProblem(rosenbrock, size=2), [-1.2, 1.0])
+        (xg, sg), (xc, sc) = out["cuda"], out["cpu"]
+        dx = float(np.abs(xg - xc).max())
+        dcost = abs(sg.final_cost - sc.final_cost) / sc.initial_cost
+        print(f"phase 3: solve_gradient_problem Rosenbrock {direction}: float64, CUDA vs CPU: "
+              f"{len(sg.iterations) - 1} iterations each ({len(sc.iterations) - 1}), x "
+              f"{xg.tolist()}, max |x diff| {dx:.3e}, final cost {sg.final_cost:.3e} (diff "
+              f"{dcost:.3e} of the initial cost; tol 1e-09), reads {sg.num_device_reads}",
+              flush=True)
+        if not (dx <= 1e-9 and dcost <= 1e-9 and len(sg.iterations) == len(sc.iterations)
+                and float(np.abs(xg - 1.0).max()) <= 1e-4):
+            raise AssertionError(f"Rosenbrock {direction}: the CUDA solve disagrees with the CPU")
+
+    dumps = {}
+    for dev in ("cuda", "cpu"):
+        d = os.path.join(tmp, f"dump_{dev}")
+        os.makedirs(d, exist_ok=True)
+        problem = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))[0]
+        ct.solve(lm_options(dev, torch.float64, max_num_iterations=2,
+                            trust_region_minimizer_iterations_to_dump=(1,),
+                            trust_region_problem_dump_directory=d), problem)
+        dumps[dev] = np.load(os.path.join(d, "ceres_tpu_problem_001.npz"))
+    worst = {}
+    for key in dumps["cpu"].files:
+        a, b = dumps["cuda"][key], dumps["cpu"][key]
+        if key in ("jacobian_cols", "jacobian_row_ptr"):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"the dump's {key} differ between CUDA and CPU")
+            continue
+        worst[key] = float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-300))
+    print(f"phase 3: problem dump of iteration 1: float64, CUDA vs CPU: "
+          f"{len(dumps['cpu']['jacobian_values'])} Jacobian values, max rel diff per array "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})} (tol 1e-09), cols and "
+          f"row_ptr equal", flush=True)
+    if max(worst.values()) > 1e-9:
+        raise AssertionError("the dumps of the CUDA and the CPU solve disagree")
+
+
+def phase_line_search_run(bal, main):
+    """Phase 4, the line-search minimizer at BAL-1778 (line_search_run: L-BFGS
+    + WOLFE, 10 iterations, float32, on a new Problem): per iteration cost,
+    trials, reads and ms beside the main run's first iterations; at most 2 +
+    trials reads per iteration (3 + trials on a restart); B1 with the
+    Jacobian at every trial (WOLFE takes the gradient at each, so its B1
+    launches are all the Jacobian instantiation; phase 3's ARMIJO run takes
+    the residual-only one) and B3 for each gradient; B4 and B5 not."""
+    summary, counts = run_main_path(bal, "SCHUR_JACOBI", label="LINE_SEARCH LBFGS WOLFE",
+                                    **line_search_run())
+    for it in summary.iterations:
+        print(f"phase 4: LINE_SEARCH LBFGS: iter {it.iteration}: cost {it.cost!r} trials "
+              f"{it.line_search_iterations} step size {it.step_size:.6g} reads "
+              f"{it.num_device_reads} replays {it.num_graph_replays} ms "
+              f"{1000.0 * it.iteration_time_in_seconds:.1f}", flush=True)
+    restarts = [it.iteration for it in summary.iterations[1:]
+                if it.num_device_reads == 3 + it.line_search_iterations]
+    print(f"phase 4: LINE_SEARCH LBFGS: {summary.num_jacobian_evaluations} gradient evaluations, "
+          f"{summary.num_residual_evaluations} residual-only, restarts at {restarts}, device reads "
+          f"{summary.num_device_reads}, {summary.termination_type.value}; main run's first "
+          f"iterations ms {[round(1000.0 * it.iteration_time_in_seconds, 1) for it in main.iterations]}",
+          flush=True)
+    if any(it.num_device_reads - it.line_search_iterations not in (2, 3)
+           for it in summary.iterations[1:]):
+        raise AssertionError("the line-search run read more than 2 + trials (+1 on a restart) times")
+    if not (counts["eval_snavely"] == summary.num_jacobian_evaluations
+            + summary.num_residual_evaluations > 0 and counts["contract_reduce"] > 0):
+        raise AssertionError("the line-search run did not launch B1 at every evaluation, or B3")
+    if counts["schur_sy"] or counts["schur_p0"]:
+        raise AssertionError("the line-search run launched B4 or B5")
+    return counts
+
+
+@contextlib.contextmanager
+def recorded_refinements():
+    """A with-block in which every inner-iteration refinement appends
+    (cost before, cost after, ms by CUDA events) to the list it yields."""
+    import torch
+
+    from ceres_tpu_torch.solvers.inner_iterations import InnerIterationRefiner
+
+    made, refine = [], InnerIterationRefiner.refine
+
+    def spy(self, state, cost):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = refine(self, state, cost)
+        end.record()
+        end.synchronize()
+        made.append((cost, out[1], start.elapsed_time(end)))
+        return out
+
+    InnerIterationRefiner.refine = spy
+    try:
+        yield made
+    finally:
+        InnerIterationRefiner.refine = refine
+
+
+def phase_inner_iteration_run(bal, main):
+    """Phase 4, LM + ITERATIVE_SCHUR + SCHUR_JACOBI with use_inner_iterations
+    at BAL-1778 (3 iterations, float32, the host loop, a new Problem; the
+    traffic of bundle_adjuster --inner_iterations): per iteration beside the
+    main run, each refinement's cost before and after (after <= before) and
+    its ms (two sweeps, each one graph replay with the candidate's cost,
+    and their two reads; CUDA events)."""
+    with recorded_refinements() as refinements:
+        summary, counts = run_main_path(bal, "SCHUR_JACOBI", label="inner iterations",
+                                        max_num_iterations=3, use_inner_iterations=True)
+    for a, b in zip(main.iterations, summary.iterations):
+        print(f"phase 4: iter {a.iteration}: SCHUR_JACOBI {_iteration_line(a)} | inner iterations "
+              f"{_iteration_line(b)}", flush=True)
+    for k, (before, after, ms) in enumerate(refinements):
+        print(f"phase 4: inner iterations: refinement {k + 1}: cost {before!r} -> {after!r} in "
+              f"{ms:.3f} ms ({ms / 2.0:.3f} ms per sweep)", flush=True)
+    print(f"phase 4: inner iterations: num_inner_iteration_steps "
+          f"{summary.num_inner_iteration_steps}, used_fused_execution "
+          f"{summary.used_fused_execution}", flush=True)
+    if summary.used_fused_execution or summary.num_inner_iteration_steps != len(refinements) or (
+            not refinements):
+        raise AssertionError("the inner-iteration run did not refine on the host loop")
+    if any(after > before for before, after, _ in refinements):
+        raise AssertionError("an inner-iteration refinement raised the cost")
+    if any(counts[k] <= 0 for k in ("eval_snavely", "gather_contract", "contract_reduce",
+                                    "schur_sy", "schur_p0")):
+        raise AssertionError("the inner-iteration run did not launch B1-B5")
+    return counts
 
 
 def phase_sparse_schur_run():
@@ -1874,6 +2114,7 @@ def main(argv=None) -> int:
     phase_f64_generic()
     tmp = tempfile.TemporaryDirectory()
     phase_f64_host_solvers(tmp.name)
+    phase_f64_minimizers(tmp.name)
 
     # phase 4: the main run (SCHUR_JACOBI on the fused loop, kernels B1-B5),
     # the host loop on the same problem, then JACOBI (B1-B4)
@@ -1942,6 +2183,8 @@ def main(argv=None) -> int:
     phase_cluster_runs(bal, main)
     phase_ordering_run(bal, main)
     phase_dogleg_runs(bal, main)
+    phase_line_search_run(bal, main)
+    phase_inner_iteration_run(bal, main)
     # Fields-of-Experts denoising, B1 generic on every group
     del bal
     denoising = [run_denoising(*run) for run in FOE_RUNS]

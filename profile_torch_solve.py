@@ -51,6 +51,14 @@ over iterations 2 to min(5, the last); tables in
 profile_solve_denoising.txt beside the others:
 
     python3 profile_torch_solve.py --denoising
+
+With --line-search the one run is chip_smoke.py's line-search run at
+BAL-1778: minimizer_type=LINE_SEARCH, L-BFGS + WOLFE, 10 iterations (the
+gradient from the evaluate graph, B1 and B3), with its line-search trials
+per iteration and the idle share over iterations 2-10
+(chiprun_out/profile_solve_line_search.txt):
+
+    python3 profile_torch_solve.py --line-search
 """
 
 from __future__ import annotations
@@ -65,7 +73,7 @@ import tempfile
 import time
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-SPANS = ("FusedLoop::Chunk", "TrustRegion::Iteration")
+SPANS = ("FusedLoop::Chunk", "TrustRegion::Iteration", "LineSearch::Iteration")
 
 
 def _device_us(evt) -> float:
@@ -104,7 +112,7 @@ def timeline_shares(trace_path, first=2, last=5):
     return per_iter, ((hi - lo) / 1e3, busy_in(lo, hi) / 1e3)
 
 
-def profile_one(ct, torch, make_problem, options, label, out_dir):
+def profile_one(ct, torch, make_problem, options, label, out_dir, last=5):
     problem = make_problem()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     t0 = time.time()
@@ -125,7 +133,8 @@ def profile_one(ct, torch, make_problem, options, label, out_dir):
     total = sum(r[1] for r in rows)
     trace = os.path.join(out_dir, f"trace_{label}.json")
     prof.export_chrome_trace(trace)
-    per_iter, (window, busy) = timeline_shares(trace, last=min(5, len(summary.iterations) - 1))
+    last = min(last, len(summary.iterations) - 1)
+    per_iter, (window, busy) = timeline_shares(trace, last=last)
     lines = [
         f"{label}: solve wall {wall:.3f} s under the profiler; preprocess "
         f"{summary.preprocessor_time_in_seconds:.3f} s; used_fused_execution "
@@ -134,12 +143,14 @@ def profile_one(ct, torch, make_problem, options, label, out_dir):
             f"{1000.0 * it.iteration_time_in_seconds:.1f}" for it in summary.iterations
         ),
         "pcg: " + ", ".join(str(it.linear_solver_iterations) for it in summary.iterations),
+        "line-search trials: " + ", ".join(
+            str(it.line_search_iterations) for it in summary.iterations),
         "device reads: " + ", ".join(str(it.num_device_reads) for it in summary.iterations),
         "graph replays: " + ", ".join(str(it.num_graph_replays) for it in summary.iterations),
         "iteration spans (host ms / device busy ms): " + ", ".join(
             f"{h:.3f}/{d:.3f}" for h, d in per_iter
         ),
-        f"iterations 2-{min(5, len(summary.iterations) - 1)}: window {window:.3f} ms, "
+        f"iterations 2-{last}: window {window:.3f} ms, "
         f"device busy {busy:.3f} ms "
         f"({100.0 * busy / window:.1f}%), idle {window - busy:.3f} ms "
         f"({100.0 * (window - busy) / window:.1f}%)",
@@ -229,6 +240,8 @@ def main(argv=None) -> int:
                        help="profile chip_smoke's SPARSE_SCHUR run at Dubrovnik-356's shape instead")
     group.add_argument("--denoising", action="store_true",
                        help="profile chip_smoke's two Fields-of-Experts denoising runs instead")
+    group.add_argument("--line-search", action="store_true",
+                       help="profile chip_smoke's L-BFGS line-search run at BAL-1778 instead")
     args = parser.parse_args(argv)
     import torch
 
@@ -240,7 +253,8 @@ def main(argv=None) -> int:
     import ceres_tpu_torch as ct
     from ceres_tpu_torch import cuda_lib
     from chip_smoke import (
-        DUBROVNIK_356, FOE_RUNS, NUM_OBSERVATIONS, NUM_POINTS, build_foe, lm_options,
+        DUBROVNIK_356, FOE_RUNS, NUM_OBSERVATIONS, NUM_POINTS, build_foe, line_search_run,
+        lm_options,
     )
 
     smi = subprocess.run(
@@ -249,9 +263,9 @@ def main(argv=None) -> int:
     ).stdout.strip()
     print(f"{smi} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     cuda_lib.library()
-    if args.compare and (args.denoising or args.sparse_schur):
-        parser.error("--compare times the BAL-1778 variants; --denoising and --sparse-schur "
-                     "only profile")
+    if args.compare and (args.denoising or args.sparse_schur or args.line_search):
+        parser.error("--compare times the BAL-1778 variants; --denoising, --sparse-schur and "
+                     "--line-search only profile")
     shape = DUBROVNIK_356 if args.sparse_schur else (1778, NUM_POINTS, NUM_OBSERVATIONS)
     bal = None if args.denoising else ct.synthetic_bal(*shape, seed=0)
     if args.compare:
@@ -277,6 +291,8 @@ def main(argv=None) -> int:
         if args.sparse_schur:
             runs = (("sparse_schur", {"linear_solver_type": ct.LinearSolverType.SPARSE_SCHUR,
                                       "max_num_iterations": 3}, {}),)
+        if args.line_search:
+            runs = (("line_search_lbfgs", line_search_run(), {}),)
         loops = [
             (label, lm_options("cuda", torch.float32, **extra),
              lambda kw=problem_kw: ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0), **kw)[0],
@@ -287,14 +303,16 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         for label, options, make_problem, _small in loops:
             torch.cuda.empty_cache()
-            lines = profile_one(ct, torch, make_problem, options, label, tmp)
+            lines = profile_one(ct, torch, make_problem, options, label, tmp,
+                                last=10 if args.line_search else 5)
             report += lines + [""]
             print("\n".join(lines[:30]), flush=True)
     name = ("profile_solve_mixed.txt" if args.mixed else
             "profile_solve_quaternion.txt" if args.quaternion else
             "profile_solve_dogleg.txt" if args.dogleg else
             "profile_solve_sparse_schur.txt" if args.sparse_schur else
-            "profile_solve_denoising.txt" if args.denoising else "profile_solve.txt")
+            "profile_solve_denoising.txt" if args.denoising else
+            "profile_solve_line_search.txt" if args.line_search else "profile_solve.txt")
     with open(os.path.join(out_dir, name), "w") as f:
         f.write("\n".join(report) + "\n")
     return 0

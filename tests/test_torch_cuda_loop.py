@@ -5,7 +5,8 @@ read budget, unbounded, bounded, with the line search and with CGNR on a
 Fields-of-Experts problem (every group B1 generic); DOGLEG's prepare and
 finish graphs and its read budget; SPARSE_SCHUR's S bitwise across
 assemblies; the host solvers' counted reads; the pose graphs on B1
-generic.
+generic; the no-plan reduce (index_add_) bitwise from run to run; the line-search
+minimizer's read budget; the inner-iteration sweep against the CPU.
 
 These tests need an NVIDIA GPU and skip without one. The file imports no
 JAX: `python -m pytest --noconftest tests/test_torch_cuda_loop.py` runs it
@@ -451,3 +452,125 @@ def test_pose_graphs_launch_b1_generic(card, tmp_path, dim):
     for a, b in zip(summary.iterations, cpu.iterations, strict=True):
         assert a.cost == pytest.approx(b.cost, rel=1e-9)
     assert summary.final_cost < summary.initial_cost
+
+
+def _sphere_problem(tmp_path):
+    """The sphere2500-shaped 3D pose graph (chip_smoke.SPHERE_RINGS: 2,500
+    poses, 4,949 edges), below SEG_REDUCE_THRESHOLD: its Jᵀ reductions take
+    the no-plan branch of jacobian.reduce_T."""
+    from chip_smoke import SPHERE_RINGS, write_sphere_g2o
+
+    from ceres_tpu_torch.examples import pose_graph
+
+    path = tmp_path / "sphere.g2o"
+    if not path.exists():
+        write_sphere_g2o(str(path), *SPHERE_RINGS, seed=0)
+    return pose_graph.build_pose_graph_3d_problem(pose_graph.load_g2o_3d(str(path)))[0]
+
+
+DETERMINISM_CASES = {
+    "sparse_normal_cholesky": {"linear_solver_type": ct.LinearSolverType.SPARSE_NORMAL_CHOLESKY},
+    "cgnr_jacobi": {"linear_solver_type": ct.LinearSolverType.CGNR,
+                    "preconditioner_type": ct.PreconditionerType.JACOBI},
+    "lbfgs": {"minimizer_type": ct.MinimizerType.LINE_SEARCH,
+              "line_search_direction_type": ct.LineSearchDirectionType.LBFGS},
+}
+
+
+@pytest.mark.parametrize("case", list(DETERMINISM_CASES))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_no_plan_reduce_is_bitwise_from_run_to_run(card, tmp_path, dtype, case):
+    """Two solves of the sphere2500-shaped graph on the card are bitwise
+    equal, per iteration and in the final state, though its Jᵀ reductions
+    take index_add_, whose atomics meet where edges share a pose (the
+    guard of the ROADMAP Queue C item: measured, not a fault)."""
+    runs = []
+    for _ in range(2):
+        problem = _sphere_problem(tmp_path)
+        summary = ct.solve(_options(dtype, max_num_iterations=5, **DETERMINISM_CASES[case]),
+                           problem)
+        assert summary.final_cost < summary.initial_cost
+        runs.append(([it.cost for it in summary.iterations], problem.compile().state0.copy()))
+    assert runs[0][0] == runs[1][0]
+    assert (runs[0][1] == runs[1][1]).all()
+
+
+LINE_SEARCH = dict(minimizer_type=ct.MinimizerType.LINE_SEARCH,
+                   line_search_direction_type=ct.LineSearchDirectionType.LBFGS,
+                   line_search_type=ct.LineSearchType.WOLFE, max_num_iterations=6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_line_search_syncs_only_through_counted_reads(card, dtype):
+    """L-BFGS + WOLFE under set_sync_debug_mode("error"), after a first run
+    that captures the evaluate graph: an iteration reads at most 2 + its
+    line-search trials (3 + trials on a restart); the run repeats the first
+    bitwise; B1 and B3 run, B4 and B5 do not; the gradient's graph replays
+    once per gradient evaluation. In float64 it matches the CPU's to 1e-9."""
+    from ceres_tpu_torch.solvers.line_search import LineSearchMinimizer
+
+    options = _options(dtype, **LINE_SEARCH)
+    program = _problem(3).compile(card)
+    minimizer = LineSearchMinimizer(program, options, Evaluator(program, dtype))
+    warm = ct.Summary()
+    minimizer.minimize(program.state_vector(dtype), warm)
+    state = program.state_vector(dtype)
+    summary = ct.Summary()
+    g0 = graph_stats()
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        minimizer.minimize(state, summary)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    g1 = graph_stats()
+    counts = cuda_lib.launch_counts()
+    assert len(summary.iterations) == 7
+    assert [it.cost for it in summary.iterations] == [it.cost for it in warm.iterations]
+    for it in summary.iterations[1:]:
+        assert it.line_search_iterations >= 1
+        assert it.num_device_reads - it.line_search_iterations in (2, 3)
+        assert it.num_graph_replays == it.line_search_iterations  # one gradient per trial
+    assert (g1["replays_by"] - g0["replays_by"])["evaluate"] == summary.num_jacobian_evaluations
+    assert g1["captures"] == g0["captures"]
+    assert counts["eval_snavely"] == summary.num_jacobian_evaluations + summary.num_residual_evaluations
+    assert counts["contract_reduce"] > 0
+    assert counts["schur_sy"] == counts["schur_p0"] == 0
+    if dtype == torch.float64:
+        cpu = ct.solve(dataclasses.replace(options, device="cpu"), _problem(3))
+        for a, b in zip(summary.iterations, cpu.iterations, strict=True):
+            assert a.cost == pytest.approx(b.cost, rel=1e-9)
+            assert a.step_size == pytest.approx(b.step_size, rel=1e-7)
+        assert summary.num_jacobian_evaluations == cpu.num_jacobian_evaluations
+
+
+def test_inner_iteration_sweep_matches_the_cpu(card):
+    """One sweep on the card (B1's e-leaf, B3's reduce of the camera-free
+    point blocks through the bucket plan) against the CPU's plain version in
+    float64, 1e-10; then LM with use_inner_iterations on the host loop, the
+    sweep from its graph, per iteration within 1e-9 of the CPU with equal
+    inner-iteration steps."""
+    from ceres_tpu_torch.solvers.inner_iterations import make_inner_iteration_fn
+
+    dtype = torch.float64
+    options = _options(dtype, use_inner_iterations=True)
+    sweeps = {}
+    for dev in ("cuda", "cpu"):
+        program = _problem(3).compile(dev)
+        sweep = make_inner_iteration_fn(program, options, Evaluator(program, dtype))
+        sweeps[dev] = sweep(program.state_vector(dtype),
+                            torch.tensor(1e-4, dtype=dtype, device=dev)).cpu()
+    err = ((sweeps["cuda"] - sweeps["cpu"]).abs().max() / sweeps["cpu"].abs().max()).item()
+    assert err <= 1e-10, err
+    g0 = graph_stats()
+    summary = ct.solve(options, _problem(3))
+    g1 = graph_stats()
+    cpu = ct.solve(dataclasses.replace(options, device="cpu"), _problem(3))
+    assert not summary.used_fused_execution
+    assert summary.num_inner_iteration_steps == cpu.num_inner_iteration_steps > 0
+    assert (g1["replays_by"] - g0["replays_by"])["inner_sweep"] >= summary.num_inner_iteration_steps
+    for a, b in zip(summary.iterations, cpu.iterations, strict=True):
+        assert a.cost == pytest.approx(b.cost, rel=1e-9)
+        assert (a.linear_solver_iterations, a.step_is_successful) == (
+            b.linear_solver_iterations, b.step_is_successful)

@@ -163,9 +163,6 @@ def test_float32_solve_decreases_cost():
 UNSUPPORTED = {
     # case: (options, the ROADMAP item its message names)
     "invalid": ({"max_num_iterations": -1}, None),
-    "inner_iterations": ({"use_inner_iterations": True}, "Queue A item 6"),
-    "iterations_to_dump": ({"trust_region_minimizer_iterations_to_dump": (1,)}, "Queue A item 6"),
-    "check_gradients": ({"check_gradients": True}, "Queue A item 7"),
     "mesh": ({"mesh": object()}, "Queue A item 11"),
 }
 
