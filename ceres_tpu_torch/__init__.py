@@ -19,14 +19,25 @@ H100 through five hand-written CUDA kernels:
 Beside the trust-region solves: the line-search minimizer
 (solvers/line_search.py; `minimizer_type=LINE_SEARCH`), the first-order
 API (gradient_problem.py), inner iterations (solvers/inner_iterations.py),
-the host loop's problem dump and check_gradients (gradient_checker.py).
+the host loop's problem dump and check_gradients (gradient_checker.py),
+analytic and numeric-diff cost functions (autodiff.py; an analytic group
+runs B1 generic with the user's Jacobian rule), the cost-function adapters
+(cost_functions.py), every manifold of the JAX package, interpolation
+(interpolation.py), checkpoints (checkpoint.py) and the evaluation
+callback (`Problem(evaluation_callback=...)`).
 
 On CPU tensors every kernel wrapper runs its plain PyTorch version instead.
 Importing the package builds nothing; the kernels compile on first use on a
 card (cuda_lib.py).
 """
 
-from .autodiff import CostFunction
+from .autodiff import AnalyticCostFunction, CostFunction, NumericDiffCostFunction
+from .cost_functions import (
+    conditioned_cost_function,
+    cost_function_to_functor,
+    normal_prior,
+    scaled_cost_function,
+)
 from .gradient_checker import GradientCheckResult, check_gradients
 from .gradient_problem import GradientProblem, numeric_diff_first_order, solve_gradient_problem
 from .io.bal import BalProblem, build_ba_problem, load_bal, synthetic_bal
@@ -44,16 +55,21 @@ from .loss import (
     TukeyLoss,
 )
 from .manifolds import (
+    AutoDiffManifold,
     EigenQuaternionManifold,
     EuclideanManifold,
+    LineManifold,
     Manifold,
     ProductManifold,
     QuaternionManifold,
+    SphereManifold,
+    SubsetManifold,
 )
 from .ordering import ParameterBlockOrdering
 from .problem import Problem
 from .solvers.solver import solve
 from .types import (
+    CallbackReturnType,
     DoglegType,
     IterationSummary,
     LinearSolverType,
@@ -72,8 +88,11 @@ from .types import (
 )
 
 __all__ = [
+    "AnalyticCostFunction",
     "ArctanLoss",
+    "AutoDiffManifold",
     "BalProblem",
+    "CallbackReturnType",
     "CauchyLoss",
     "ComposedLoss",
     "CostFunction",
@@ -87,6 +106,7 @@ __all__ = [
     "LineSearchDirectionType",
     "LineSearchInterpolationType",
     "LineSearchType",
+    "LineManifold",
     "LinearSolverType",
     "LoggingType",
     "LossFunction",
@@ -94,6 +114,7 @@ __all__ = [
     "Manifold",
     "MinimizerType",
     "NonlinearConjugateGradientType",
+    "NumericDiffCostFunction",
     "ParameterBlockOrdering",
     "PreconditionerType",
     "Problem",
@@ -102,6 +123,8 @@ __all__ = [
     "ScaledLoss",
     "SoftLOneLoss",
     "SolverOptions",
+    "SphereManifold",
+    "SubsetManifold",
     "Summary",
     "TerminationType",
     "TolerantLoss",
@@ -111,8 +134,12 @@ __all__ = [
     "VisibilityClusteringType",
     "build_ba_problem",
     "check_gradients",
+    "conditioned_cost_function",
+    "cost_function_to_functor",
     "load_bal",
+    "normal_prior",
     "numeric_diff_first_order",
+    "scaled_cost_function",
     "solve",
     "solve_gradient_problem",
     "synthetic_bal",

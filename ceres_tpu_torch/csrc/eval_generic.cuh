@@ -22,6 +22,13 @@
 //     plus-Jacobian, so the columns come out in tangent space
 //     (pallas_eval.py:306-314); the residual-only instantiation runs the
 //     functor on S itself;
+//   - for a functor with an analytic rule (an AnalyticCostFunction, or
+//     one nested in a larger functor) the generated code computes the
+//     rule's fn and jac on the parameters' values in S and forms its
+//     output's tangent as sum_k jac[:, k] x_k.v (rule_value / rule_add):
+//     the user's Jacobian, chained through the plus-Jacobian columns, as
+//     JAX's lane interpreter runs the inlined custom_jvp rule
+//     (pallas_eval.py:47-57, 295), never the derivative of the primal;
 //   - applies the traced rho and the Triggs correction as
 //     pallas_eval._lane_corrector (:346-365) / corrector.correct_batched;
 //   - writes res [r, n] and one [r * t_p, n] leaf per position (row
@@ -64,6 +71,21 @@ template <class S>
 __device__ __forceinline__ S val(S x) { return x; }
 template <class S, int N>
 __device__ __forceinline__ S val(const Jet<S, N>& x) { return x.a; }
+
+// an analytic rule's output (functor_codegen's "rule" node): value r, then
+// one multiply-add of the rule's Jacobian entry j by each parameter input's
+// tangent, as the plain version's jvp (J times the tangent) does: a
+// non-finite entry reaches every column alike. In the residual-only
+// instantiation (T = S) only the value remains.
+template <class T, class S>
+__device__ __forceinline__ T rule_value(S r) { return T(r); }
+template <class S, int N>
+__device__ __forceinline__ void rule_add(Jet<S, N>& o, S j, const Jet<S, N>& x) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) o.v[k] += j * x.v[k];
+}
+template <class S>
+__device__ __forceinline__ void rule_add(S&, S, S) {}
 
 // value `r` with tangent d * x.v
 template <class S, int N>

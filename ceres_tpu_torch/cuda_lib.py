@@ -21,7 +21,9 @@ B1's generic instantiation is built per generated source
 compiles the sources it is given, one nvcc each, all started together,
 into `_build/gen_<hash>.so` keyed by a hash of the source, the template
 and the flags, and `generated_fn` loads one. Its launches count as
-`eval_generic` (with the Jacobian) and `eval_generic_residual`.
+`eval_generic` (with the Jacobian), `eval_generic_analytic` (with the
+Jacobian, for a functor that carries an analytic rule) and
+`eval_generic_residual`.
 """
 
 from __future__ import annotations
@@ -50,8 +52,8 @@ QUAT_KERNELS = ("eval_snavely_quat", "eval_snavely_quat_nomanifold")
 # the kernels with a bfloat16-leaf instantiation (B2, B3, B4)
 BF16_KERNELS = ("gather_contract", "contract_reduce", "schur_sy")
 # B1's generic instantiation (eval_kernel.generic_evaluate): with the
-# Jacobian and residual-only
-GENERIC_KERNELS = ("eval_generic", "eval_generic_residual")
+# Jacobian (autodiff by Jets, or an analytic rule's) and residual-only
+GENERIC_KERNELS = ("eval_generic", "eval_generic_analytic", "eval_generic_residual")
 _launches = {
     name: 0
     for name in KERNELS + QUAT_KERNELS + tuple(k + "_bf16" for k in BF16_KERNELS)

@@ -27,7 +27,10 @@ included) takes B1's generic instantiation (`generic_evaluate`): the
 generator fills the hand-written template csrc/eval_generic.cuh with the
 group's functor, plus-Jacobians and rho, and the kernel evaluates it on
 Jet<S, N> (N the group's total tangent), one thread per residual block,
-with the same outputs, loss, correction and cost reduction as above.
+with the same outputs, loss, correction and cost reduction as above. A
+functor with an analytic rule (an AnalyticCostFunction, alone or inside
+a larger functor) gets the rule's Jacobian, never the Jet of its primal;
+a numeric-diff one is not generated.
 Groups sharing a structural signature (the K filter groups of a
 Fields-of-Experts prior) share one build; their constants come in a
 buffer. A group the generator cannot trace takes the torch.func path, as
@@ -233,8 +236,9 @@ def generic_evaluate(prog, meta, garr, state_2d, with_jacobian):
     state_2d the [cnt, size] state tables by class. Returns (cost [],
     res [r, n], tuple of [r * t_p, n] or ()), as `snavely_evaluate`, with
     the loss the program was traced with. On CPU tensors the plain version
-    (evaluator.group_eval_plain) runs. Counted as eval_generic /
-    eval_generic_residual."""
+    (evaluator.group_eval_plain) runs. Counted as eval_generic,
+    eval_generic_analytic (the Jacobian of a functor with an analytic
+    rule) or eval_generic_residual."""
     if state_2d[0].device.type == "cpu":
         from .evaluator import group_eval_plain
 
@@ -265,7 +269,8 @@ def generic_evaluate(prog, meta, garr, state_2d, with_jacobian):
         prog.entry_point = cuda_lib.generated_fn(prog.source, dt)
     if dev not in prog.device_consts:  # the constant slots, uploaded once per card
         prog.device_consts[dev] = torch.tensor(prog.consts or [0.0], dtype=dt, device=dev)
-    counter = "eval_generic" if with_jacobian else "eval_generic_residual"
+    counter = ("eval_generic_analytic" if prog.has_rule else "eval_generic") if with_jacobian \
+        else "eval_generic_residual"
     rc = prog.entry_point(
         int(with_jacobian), arr, cuda_lib.ptr(prog.device_consts[dev]), n, cuda_lib.ptr(res),
         cuda_lib.ptr(partials), cuda_lib.ptr(cost), cuda_lib.stream(dev),

@@ -228,7 +228,11 @@ def flatten_residuals(program, res_groups):
 
 class Evaluator:
     """Evaluation entry points bound to one Program, its dtype and its
-    device (the Program's)."""
+    device (the Program's). Each entry point first calls the Program's
+    evaluation callback, with (True, whether it evaluates the Jacobian),
+    as ceres_tpu/evaluator.py:412-437 does; a minimizer that replays an
+    evaluation from a CUDA graph calls `notify` itself before each
+    replay (trust_region.make_evaluate)."""
 
     def __init__(self, program, dtype=None):
         self.program = program
@@ -239,11 +243,20 @@ class Evaluator:
             # the generated kernels of the Program's groups, built at once
             eval_kernel.prepare_generic(program, self.arrays, self.dtype)
 
+    def notify(self, evaluate_jacobians: bool):
+        """Run the Program's evaluation callback, if it has one, on the
+        host: (new_point=True, evaluate_jacobians)."""
+        cb = self.program.evaluation_callback
+        if cb is not None:
+            cb(True, evaluate_jacobians)
+
     def cost(self, state):
+        self.notify(False)
         return evaluate(self.program, self.arrays, state, with_jacobian=False)[0]
 
     def residuals(self, state):
         """(cost, flat corrected residuals)."""
+        self.notify(False)
         cost, res_groups, _, _ = evaluate(
             self.program, self.arrays, state, with_jacobian=False
         )
@@ -251,6 +264,7 @@ class Evaluator:
 
     def evaluate(self, state, apply_loss: bool = True):
         """(cost, flat residuals, BlockJacobian, gradient)."""
+        self.notify(True)
         cost, res_groups, jac, grad = evaluate(
             self.program, self.arrays, state, True, apply_loss
         )
@@ -258,6 +272,7 @@ class Evaluator:
 
     def evaluate_groups(self, state, apply_loss: bool = True):
         """(cost, per-group residuals, BlockJacobian, gradient)."""
+        self.notify(True)
         return evaluate(self.program, self.arrays, state, True, apply_loss)
 
     def plus(self, state, delta):

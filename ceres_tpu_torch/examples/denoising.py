@@ -5,8 +5,8 @@ examples/denoising.cc + fields_of_experts.cc: an FoE MRF prior over image
 cliques with robust potentials). `load_foe_file` / `load_pgm` read the
 reference's trained filter files (data/{2x2,3x3,5x5}.foe) and its noisy
 image (data/ceres_noisy.pgm) where a user has them; the problems take any
-`FoEModel` and image. The sampled-function example needs
-`interpolation.py` (ROADMAP Queue A item 7).
+`FoEModel` and image. `build_sampled_function_problem` is the
+sampled-function example on `interpolation.py`.
 
 Every group of these problems has a functor the generator of
 functor_codegen.py traces: on a card each takes kernel B1's generic
@@ -21,7 +21,7 @@ import re
 import numpy as np
 import torch
 
-from ..autodiff import CostFunction
+from ..autodiff import AnalyticCostFunction, CostFunction
 from ..loss import CauchyLoss, LossFunction
 from ..problem import Problem
 
@@ -157,11 +157,15 @@ def _clique_ids(h, w, size, x_deltas, y_deltas):
     )
 
 
-def build_foe_denoising_problem(noisy: np.ndarray, foe: FoEModel, sigma: float = 20.0):
+def build_foe_denoising_problem(noisy: np.ndarray, foe: FoEModel, sigma: float = 20.0,
+                                analytic: bool = False):
     """Reference CreateProblem (denoising.cc:133-176): per-pixel quadratic
     data term sqrt(1/(2 sigma^2)) (x - y), plus, for every clique position
     and every filter k, a linear residual filter_k . patch under
-    FieldsOfExpertsLoss(alpha_k).
+    FieldsOfExpertsLoss(alpha_k). With `analytic` each clique is an
+    AnalyticCostFunction with its closed-form Jacobian, as the reference's
+    FieldsOfExpertsCost is an analytic CostFunction; else torch.func (or
+    the generator's Jets) differentiates it.
 
     Returns (problem, pixel_block_ids [h*w])."""
     h, w = noisy.shape
@@ -180,19 +184,33 @@ def build_foe_denoising_problem(noisy: np.ndarray, foe: FoEModel, sigma: float =
     )
     ids = _clique_ids(h, w, foe.size, foe.x_deltas, foe.y_deltas)
     for k in range(foe.filters.shape[0]):
-        taps = torch.tensor(foe.filters[k], dtype=torch.float64)
-
-        def foe_res(params, data, taps=taps):
-            vals = torch.stack([p[0] for p in params])
-            return torch.stack([torch.dot(taps.to(vals), vals)])
-
+        fn, jac = foe_clique_functions(foe.filters[k])
+        cost = (AnalyticCostFunction(fn, jac, 1, name=f"foe_filter_{k}") if analytic
+                else CostFunction(fn, 1, name=f"foe_filter_{k}"))
         problem.add_residual_blocks(
-            CostFunction(foe_res, 1, name=f"foe_filter_{k}"),
+            cost,
             FieldsOfExpertsLoss(float(foe.alphas[k])),
             px[ids.reshape(-1)].reshape(ids.shape),
             (),
         )
     return problem, px
+
+
+def foe_clique_functions(filt):
+    """(functor, closed-form Jacobian) of one filter's clique residual
+    filter . patch over the clique's one-pixel blocks: the Jacobian of
+    position i is [[filter_i]] (the reference's FieldsOfExpertsCost,
+    fields_of_experts.cc:49-74, with the prior weight 1)."""
+    taps = torch.tensor(np.asarray(filt, dtype=np.float64))
+
+    def foe_res(params, data, taps=taps):
+        vals = torch.stack([p[0] for p in params])
+        return torch.stack([torch.dot(taps.to(vals), vals)])
+
+    def foe_jac(params, data, taps=taps):
+        return tuple(taps[i : i + 1].to(p).reshape(1, 1) for i, p in enumerate(params))
+
+    return foe_res, foe_jac
 
 
 def build_denoising_problem(noisy: np.ndarray, filters=None, data_weight=1.0,
@@ -237,3 +255,24 @@ def build_denoising_problem(noisy: np.ndarray, filters=None, data_weight=1.0,
             px[ids.reshape(-1)].reshape(ids.shape), (),
         )
     return problem, px
+
+
+def build_sampled_function_problem(samples: np.ndarray, x0: float = 1.0):
+    """Minimize an interpolated 1-D sampled function
+    (examples/sampled_function/sampled_function.cc;
+    ceres_tpu/examples/denoising.py:231): the functor reads the function's
+    value through a differentiable cubic interpolator. The generator
+    refuses it (a data-dependent index): its group takes the torch.func
+    path on a card too. Returns (problem, the block's handle)."""
+    from ..interpolation import CubicInterpolator
+
+    interp = CubicInterpolator(samples)
+
+    def res(params, data):
+        (x,) = params
+        return torch.stack([interp(x[0])])
+
+    problem = Problem()
+    b = problem.add_parameter_block([x0])
+    problem.add_residual_block(CostFunction(res, 1, name="sampled"), None, [b])
+    return problem, b

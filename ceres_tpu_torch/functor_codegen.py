@@ -32,6 +32,15 @@ than the working one raises `Ineligible`: the group then takes the
 torch.func path, as `group_kernel` (:586-618) returns None. The decision
 comes from the trace alone, the same on the CPU and on the card.
 
+A functor that carries its own Jacobian rule (autodiff.RuleFunctor) is
+never differentiated through its primal: an analytic rule becomes one node
+of the trace (`rule_call`), lowered as the inlined custom_jvp rule of
+JAX's lane interpreter runs (pallas_eval.py:47-57, 295): the rule's fn and
+jac on the inputs' values in S, and per output a "rule" value whose
+tangent is sum_k jac[:, k] x_k.v, also where the rule sits inside a larger
+functor (a scaled or conditioned cost function); a numeric-diff rule
+raises `Ineligible`, as group_kernel returns None for it.
+
 `run_ir` evaluates the emitted IR in Python with the same dual-number rules
 as the CUDA `Jet` (tests hold it against torch.func); it is never on the
 solve's path.
@@ -48,6 +57,52 @@ import torch
 
 class Ineligible(Exception):
     """The functor (or its loss or manifold) cannot be generated."""
+
+
+# ---------------------------------------------------------------------- #
+# functors with their own Jacobian rule (autodiff.RuleFunctor)
+# ---------------------------------------------------------------------- #
+# make_fx inlines an autograd.Function's forward, so a traced rule would
+# look exactly like its primal. While `_trace` runs, a RuleFunctor called
+# by the functor asks `generating()` and, for an analytic rule, calls
+# `rule_call`: one node of the trace (the custom op below, whose fake
+# version runs the primal for its shape), which `_Lowering.op_rule_call`
+# lowers as the inlined custom_jvp rule of JAX's lane interpreter
+# (pallas_eval._CALL_PRIMS): fn and jac on the inputs' values, then one
+# "rule" value per output with tangent sum_k jac[:, k] x_k.v.
+
+_GENERATING = [0]
+_RULES: dict = {}  # id -> RuleFunctor, for the rule nodes of the traces being lowered
+_RULE_OP = []
+
+
+def generating() -> bool:
+    """True while the generator traces a functor."""
+    return _GENERATING[0] > 0
+
+
+def _rule_op():
+    """The custom op `ceres_tpu_torch::rule_call`, defined on first use."""
+    if not _RULE_OP:
+
+        @torch.library.custom_op("ceres_tpu_torch::rule_call", mutates_args=())
+        def rule_call_op(args: list[torch.Tensor], key: int, k: int) -> torch.Tensor:
+            rule = _RULES[key]
+            return rule.fn(tuple(args[:k]), tuple(args[k:])).clone()
+
+        @rule_call_op.register_fake
+        def _(args, key, k):
+            rule = _RULES[key]
+            return torch.empty_like(rule.fn(tuple(args[:k]), tuple(args[k:])))
+
+        _RULE_OP.append(rule_call_op)
+    return _RULE_OP[0]
+
+
+def rule_call(rule, params, data):
+    """The trace's node for an analytic rule applied to (params, data)."""
+    _RULES[id(rule)] = rule
+    return _rule_op()(list(params) + list(data), id(rule), len(params))
 
 
 # ---------------------------------------------------------------------- #
@@ -512,6 +567,40 @@ class _Lowering:
     def op_copy(self, args, kwargs, fake):
         return self._result(np.broadcast_to(self.refs(args[1]), tuple(fake.shape)), fake)
 
+    def op_rule_call(self, args, kwargs, fake):
+        """An analytic rule's node: its fn and jac lowered on the inputs'
+        values (in S), then each output a "rule" value whose tangent is the
+        sum over the parameter inputs of jac[i, k] x_k.v (the data get no
+        tangent, as JAX's rules drop theirs)."""
+        fn = self.fn
+        vals, key, k = args[0], args[1], args[2]
+        rule = _RULES[key]
+        refs = [self.refs(v) for v in vals]
+        vrefs = [_map(lambda r: fn.emit("val", (r,), "S") if fn.kind(r) == "T" else r, a)
+                 for a in refs]
+        dtypes = [v.dtype for v in vals]
+
+        def value_and_jacobians(*xs):
+            p, d = tuple(xs[:k]), tuple(xs[k:])
+            out = rule.fn(p, d)
+            r = int(out.shape[0]) if out.ndim else 1
+            return out, tuple(rule.jacobians(p, d, r))
+
+        out, jacs = _lower(fn, value_and_jacobians,
+                           [torch.zeros(a.shape, dtype=dt) for a, dt in zip(vrefs, dtypes)],
+                           [_Sym(a, dt) for a, dt in zip(vrefs, dtypes)], self.dtype)
+        out = self.refs(out).reshape(-1)
+        jacs = [self.refs(j).reshape(out.size, -1) for j in jacs]
+        res = _obj(out.shape)
+        for i in range(out.size):
+            pairs = []
+            for p in range(k):
+                for j, x in enumerate(refs[p].reshape(-1)):
+                    if fn.kind(x) == "T":
+                        pairs += [fn.to_float(jacs[p][i, j]), x]
+            res[i] = fn.emit("rule", (fn.to_float(out[i]), *pairs), "T") if pairs else out[i]
+        return self._result(res, fake)
+
     # -- reductions and contractions ------------------------------------ #
 
     def _sum_refs(self, refs):
@@ -683,8 +772,9 @@ def _trace(f, examples):
     from torch.fx.experimental.proxy_tensor import make_fx
     from torch.func import functionalize
 
+    _GENERATING[0] += 1
     try:
-        return make_fx(
+        gm = make_fx(
             functionalize(f, remove="mutations_and_views"),
             tracing_mode="fake",
             _allow_non_fake_inputs=True,
@@ -693,11 +783,21 @@ def _trace(f, examples):
         raise
     except Exception as exc:  # noqa: BLE001 - data-dependent control flow, ...
         raise Ineligible(f"trace failed: {type(exc).__name__}: {exc}") from exc
+    finally:
+        _GENERATING[0] -= 1
+    # forward-mode AD (torch.func.jacfwd of a plus) leaves shape checks on
+    # meta tensors whose results nothing reads
+    gm.graph.eliminate_dead_code()
+    return gm
 
 
 def _lower(fn: Fn, f, examples, inputs, dtype):
-    gm = _trace(f, examples)
-    return _Lowering(fn, dtype).run(gm, inputs)
+    held = set(_RULES)
+    try:
+        return _Lowering(fn, dtype).run(_trace(f, examples), inputs)
+    finally:
+        for key in set(_RULES) - held:  # the rules this trace registered
+            del _RULES[key]
 
 
 def _plus_jacobian_of(manifold):
@@ -755,6 +855,8 @@ class GroupProgram:
         inputs = [_Sym(x, dtype) for x in xs] + [_Sym(d, dtype) for d in ds]
         out = _lower(self.functor, functor, ex, inputs, dtype)
         self.out = self._outputs(self.functor, out, (self.r,), "functor")
+        # the functor carries an analytic rule: its tangents are the rule's
+        self.has_rule = any(op == "rule" for _, op, _ in self.functor.code)
 
         # each manifold position's plus-Jacobian [size, tangent], of x (S)
         self.plus_jacobians = []
@@ -840,7 +942,16 @@ def _cpp_body(fn: Fn, indent="    "):
         kind = fn.kinds[var]
         kinds = [fn.kind(a) if a[0] != "i" else "I" for a in args]
         float_kind = "T" if "T" in kinds else "S"
-        if op in _CPP_BIN:
+        if op == "rule":
+            # value args[0], tangent sum_k args[2k+1] * args[2k+2].v
+            lines.append(f"{indent}T v{var} = ctt::rule_value<T>({_cpp_ref(fn, args[0])});")
+            for jr, xr in zip(args[1::2], args[2::2]):
+                lines.append(f"{indent}ctt::rule_add(v{var}, {_cpp_ref(fn, jr)}, "
+                             f"{_cpp_ref(fn, xr)});")
+            continue
+        if op == "val":
+            expr = f"ctt::val({_cpp_ref(fn, args[0])})"
+        elif op in _CPP_BIN:
             a, b = (_cpp_ref(fn, x) for x in args)
             expr = f"{a} {_CPP_BIN[op]} {b}"
         elif op == "neg":
@@ -1117,6 +1228,15 @@ def _ev(fn: Fn, env, n):
             out = a if xs[0] else b
         elif op == "b2f":
             out = 1.0 if xs[0] else 0.0
+        elif op == "val":
+            out = _val(xs[0])
+        elif op == "rule":
+            out = _val(xs[0])
+            if any(isinstance(x, Dual) for x in xs[2::2]):
+                v = np.zeros(n)
+                for j, x in zip(xs[1::2], xs[2::2]):
+                    v = v + _val(j) * x.v
+                out = Dual(out, v)
         elif op in ("sign", "floor", "ceil", "round", "trunc"):
             out = float({"sign": np.sign, "floor": np.floor, "ceil": np.ceil,
                          "round": np.round, "trunc": np.trunc}[op](_val(xs[0])))

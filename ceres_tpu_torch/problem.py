@@ -193,7 +193,14 @@ class Problem:
     """Nonlinear least-squares problem under construction
     (reference: include/ceres/problem.h:127-574)."""
 
-    def __init__(self):
+    def __init__(self, evaluation_callback=None):
+        """evaluation_callback(new_point: bool, evaluate_jacobians: bool)
+        runs on the host before each evaluation the solver makes, the hook
+        user code refreshes shared quantities in (reference:
+        evaluation_callback.h, Problem::Options::evaluation_callback;
+        ceres_tpu/problem.py:257-272). A solve with one takes the host
+        loop."""
+        self.evaluation_callback = evaluation_callback
         self._blocks = _BlockStore()
         self._batches: list[_ResidualBatch] = []
         # handles are contiguous per batch: handle -> (batch, row) is a
@@ -431,7 +438,7 @@ class Problem:
         from .program import Program
 
         if self._dirty or self._program is None:
-            self._program = Program(self._blocks, self._batches)
+            self._program = Program(self._blocks, self._batches, self.evaluation_callback)
             self._dirty = False
         return self._program
 
@@ -486,5 +493,5 @@ class Problem:
             mask[keep.get(bi, [])] = True
             nb.alive = batch.alive & mask
             batches.append(nb)
-        program = Program(self._blocks, batches).to(device)
+        program = Program(self._blocks, batches, self.evaluation_callback).to(device)
         return program.evaluate_full(apply_loss_function)

@@ -159,9 +159,11 @@ class Program:
     MAX_SEG_BUCKETS = 512
     ONEHOT_MAX_COLS = 16384
 
-    def __init__(self, blocks, batches):
+    def __init__(self, blocks, batches, evaluation_callback=None):
         self._blocks = blocks
         self._batches = batches
+        # the Problem's EvaluationCallback (Evaluator.notify calls it)
+        self.evaluation_callback = evaluation_callback
         self.device = torch.device("cpu")
         self._compute_block_degrees()
         self._build_layout()

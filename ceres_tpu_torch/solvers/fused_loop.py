@@ -107,12 +107,14 @@ def chunk_iters(options) -> int:
     return n if n > 0 else CHUNK_ITERS
 
 
-def eligible(options, step_fn) -> bool:
-    """ceres_tpu/solvers/fused_loop.py:90-116 without the sharded and the
-    evaluation-callback clauses (the port has neither): inner iterations
-    and the problem dump run on the host loop."""
+def eligible(options, step_fn, program=None) -> bool:
+    """ceres_tpu/solvers/fused_loop.py:90-116 without the sharded clause
+    (the port has no mesh): inner iterations, the problem dump and a
+    Program with an evaluation callback (which runs on the host before
+    every evaluation) take the host loop."""
     return bool(
         options.fused_execution
+        and getattr(program, "evaluation_callback", None) is None
         and getattr(step_fn, "jittable", True)
         and not options.use_inner_iterations
         and not options.callbacks

@@ -104,8 +104,11 @@ class InnerIterationRefiner:
         return self._sweep is not None
 
     def _run(self, _, state, damping):
+        from ..evaluator import evaluate
+
+        ev = self.evaluator
         candidate = self._sweep(state, damping)
-        return candidate, self.evaluator.cost(candidate)
+        return candidate, evaluate(ev.program, ev.arrays, candidate, with_jacobian=False)[0]
 
     def refine(self, state, cost: float):
         """(state', cost') with cost' <= cost; one read per sweep."""
@@ -114,6 +117,7 @@ class InnerIterationRefiner:
         damping = 1e-4
         for _ in range(self.sweeps):
             d = torch.full((), damping, dtype=state.dtype, device=state.device)
+            self.evaluator.notify(False)
             candidate, new_cost = graphs.call(self._graph, self._run, (), state, d)
             new_cost = read(new_cost).item()
             if new_cost < cost:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..evaluator import diagnose_non_finite, flatten_residuals
+from ..evaluator import evaluate as evaluate_program
 from ..jacobian import BlockJacobian
 from ..types import (
     CallbackReturnType, IterationSummary, LoggingType, TerminationType, TrustRegionStrategyType,
@@ -115,16 +116,18 @@ def make_evaluate(program, evaluator):
     """evaluate(state) -> (cost, residual groups, Jacobian, gradient,
     gradient max norm, norm), all on the device. On a card it runs from a
     CUDA graph, whose outputs are the Jacobian, its twins and the gradient
-    that the finish graphs read in place."""
+    that the finish graphs read in place. The Program's evaluation
+    callback runs on the host before every call, replays included."""
     graph = graphs.fn_graph("evaluate", evaluator.device)
     garrs = evaluator.arrays["groups"]
 
     def run(_, x):
-        cost, res, jac, grad = evaluator.evaluate_groups(x)
+        cost, res, jac, grad = evaluate_program(program, evaluator.arrays, x, True, True)
         gmax, gnorm = grad_norms(program, evaluator, x, grad)
         return cost, res, tuple(jac.jac_groups), jac.twins, grad, gmax, gnorm
 
     def evaluate(state):
+        evaluator.notify(True)
         cost, res, leaves, twins, grad, gmax, gnorm = graphs.call(graph, run, (), state)
         return cost, res, BlockJacobian(program, leaves, garrs, twins=twins), grad, gmax, gnorm
 
@@ -211,7 +214,7 @@ class TrustRegionMinimizer:
             if refiner.available:
                 self.inner = refiner
         self._fused_chunk_fn = None
-        if eligible(options, self._step_fn):
+        if eligible(options, self._step_fn, program):
             self._fused_chunk_fn = make_chunk_fn(self)
 
     def minimize(self, state, summary):

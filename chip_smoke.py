@@ -31,7 +31,10 @@ and prints no result):
      5x5 clique group at 213 x 177 and the Snavely group at BAL-1778 (also
      against the hand-written eval_snavely), with and without the
      Jacobian, each against its plain version, bitwise across two runs,
-     with ptxas' registers and spills;
+     with ptxas' registers and spills; then B1 generic's custom-Jacobian
+     branch on the 3x3 clique group as an AnalyticCostFunction (closed
+     form) against its plain version and beside the autodiff clique, and
+     the wrong-rule probe (3x the closed form gives 3x the autodiff leaf);
   3. a small float64 solve (48,000 observations, so the layout plans
      engage) for 5 LM iterations on the card and on the CPU, for JACOBI,
      SCHUR_JACOBI, and SCHUR_JACOBI with the power-series warm start (which
@@ -53,7 +56,14 @@ and prints no result):
      B3 only), LM with use_inner_iterations on the host loop and with
      check_gradients on the small BAL, solve_gradient_problem on
      Rosenbrock's function (LBFGS, BFGS) and the problem dump of iteration
-     1 (every array within 1e-9 of the CPU's);
+     1 (every array within 1e-9 of the CPU's); then, within 1e-9, a FoE
+     CGNR solve with analytic cliques (eval_generic_analytic), the
+     sampled-function solve (no B1), a solve with an EvaluationCallback
+     (host loop, the same callback sequence on both) and a SubsetManifold
+     group (a scaled analytic functor); last the small BAL with Snavely as
+     a NumericDiffCostFunction (CENTRAL; B1 not launched, B2-B5 launched),
+     its starting Jacobian held to the CPU's at the rounding bound of a
+     central difference and its per-iteration cost gap at 5e-7;
   4. the main run: synthetic_bal(1778, 993923, 5,000,000) with Huber(1.0)
      in float32 through ceres_tpu_torch.solve (LM + ITERATIVE_SCHUR +
      SCHUR_JACOBI, eta 0.1, PCG <= 25, 5 iterations, on the fused device
@@ -113,7 +123,13 @@ and prints no result):
      and read back) on SPARSE_NORMAL_CHOLESKY and on CGNR + SUBSET (its
      odometry edges), and a 2D graph of M3500's pose count on
      SPARSE_NORMAL_CHOLESKY, each with B1 generic at every evaluation and
-     its final cost beside the cost at the true poses.
+     its final cost beside the cost at the true poses. Before the denoising
+     runs, BAL-1778 with Snavely as a NumericDiffCostFunction (CENTRAL) in
+     float64 (SCHUR_JACOBI, fused, 3 iterations: its initial cost within
+     1e-10 of eval_snavely's, B1 not launched, B2-B5 launched, the
+     evaluate graph's ms per call, the peak device memory); after them the
+     3x3 denoising run with the cliques as AnalyticCostFunctions beside the
+     autodiff run (cost per iteration within 1e-5, equal PCG steps).
 Then a JSON line describing the kernels, the card's name and power limit,
 and the last line {"ok": true, "device": {...}}.
 
@@ -203,8 +219,11 @@ QUAT_NAMES = {name for name, *_ in QUAT_KERNELS}
 # its residual-only launch counts under eval_generic_residual
 GENERIC_KERNELS = [
     ("eval_generic", "ceres_tpu_torch/csrc/eval_generic.cuh", "ceres_tpu/pallas_eval.py:435", 2e-4),
+    # the custom-Jacobian branch: a functor with an analytic rule
+    ("eval_generic_analytic", "ceres_tpu_torch/csrc/eval_generic.cuh",
+     "ceres_tpu/pallas_eval.py:435", 2e-4),
 ]
-GENERIC_NAMES = {"eval_generic", "eval_generic_residual"}
+GENERIC_NAMES = {"eval_generic", "eval_generic_analytic", "eval_generic_residual"}
 # the slice's denoising runs, Fields-of-Experts priors of the published
 # shapes (synthetic taps from the seed): (image h, w, clique size, K filters,
 # LM iterations). 512 x 512 is the size of the standard denoising test
@@ -1154,15 +1173,37 @@ def phase_ordering_run(bal, main):
         raise AssertionError("the ordering run does not start where the main run does")
 
 
-def build_foe(h, w, size, k, seed=0):
+def build_foe(h, w, size, k, seed=0, **kw):
     """The denoising problem of one FOE_RUNS entry: a synthetic
     piecewise-smooth image plus noise of FOE_SIGMA and a synthetic prior of
-    the published shape, both from the seed; build_foe_denoising_problem."""
+    the published shape, both from the seed; build_foe_denoising_problem
+    (`analytic=True`: the cliques as AnalyticCostFunctions with their
+    closed-form Jacobian)."""
     from ceres_tpu_torch.examples import denoising
 
     img = denoising.synthetic_noisy_image(h, w, sigma=FOE_SIGMA, seed=seed)
     foe = denoising.synthetic_foe_model(size, k, seed=seed)
-    return denoising.build_foe_denoising_problem(img, foe, sigma=FOE_SIGMA)[0]
+    return denoising.build_foe_denoising_problem(img, foe, sigma=FOE_SIGMA, **kw)[0]
+
+
+def build_foe_wrong_rule(h, w, size, k, seed=0):
+    """build_foe's analytic problem with each clique's rule 3x its closed
+    form: a deliberately wrong rule, for the probes that show whose
+    Jacobian an evaluation computes (denoising.foe_clique_functions
+    wrapped while build_foe runs)."""
+    from ceres_tpu_torch.examples import denoising
+
+    closed = denoising.foe_clique_functions
+
+    def wrong(filt):
+        fn, jac = closed(filt)
+        return fn, lambda params, data: tuple(3.0 * j for j in jac(params, data))
+
+    denoising.foe_clique_functions = wrong
+    try:
+        return build_foe(h, w, size, k, seed, analytic=True)
+    finally:
+        denoising.foe_clique_functions = closed
 
 
 def generic_ops(prog, with_jacobian) -> int:
@@ -1183,6 +1224,14 @@ def generic_ops(prog, with_jacobian) -> int:
         for var, op, args in fn.code:
             jet = fn.kinds[var] == "T" and n > 0
             both = jet and all(a[0] not in ("i",) and fn.kind(a) == "T" for a in args)
+            if op == "val":
+                continue
+            if op == "rule":
+                # an analytic rule's output: per parameter input a
+                # multiply-add per tangent column
+                if jet:
+                    ops += 2 * n * len(args[2::2])
+                continue
             if op in funcs:
                 ops += (n + 10) if jet else 10
             elif op == "mul":
@@ -1230,12 +1279,50 @@ def generic_ptxas(prog) -> str:
     return ", ".join(f"{k} {v[0]} registers, spills {v[1][0]}/{v[1][1]} B" for k, v in out.items())
 
 
+def build_subset_problem(n, seed=0, square=False):
+    """A group on a SubsetManifold position: n blocks [a, b, c, d] with b
+    held constant, four residuals on the three free coordinates (so the
+    minimum is not zero), a scaled AnalyticCostFunction (a rule nested in
+    a larger functor, cost_functions.scaled_cost_function) under a Cauchy
+    loss, data from the seed. With `square` the first three residuals
+    alone, whose minimum is zero: the solve ends at a cost of rounding
+    level, where a relative gap of two solves says nothing."""
+    import torch
+
+    import ceres_tpu_torch as ct
+
+    r = 3 if square else 4
+
+    def fn(params, data):
+        (x,) = params
+        (d,) = data
+        rows = [x[0] * x[1] - d[0], torch.sin(x[2]) + x[3] * x[0] - d[1], x[0] + x[2] - d[2]]
+        return torch.stack(rows if square else rows + [x[3] - 0.5 * x[2] - d[3]])
+
+    def jac(params, data):
+        (x,) = params
+        z, one = torch.zeros_like(x[0]), torch.ones_like(x[0])
+        return (torch.stack([torch.stack([x[1], x[0], z, z]),
+                             torch.stack([x[3], z, torch.cos(x[2]), x[0]]),
+                             torch.stack([one, z, one, z]),
+                             torch.stack([z, z, -0.5 * one, one])][:r]),)
+
+    rng = np.random.default_rng(seed)
+    p = ct.Problem()
+    blocks = p.add_parameter_blocks(rng.uniform(0.5, 1.5, (n, 4)),
+                                    manifold=ct.SubsetManifold(4, (1,)))
+    p.add_residual_blocks(ct.scaled_cost_function(ct.AnalyticCostFunction(fn, jac, r), 0.5),
+                          ct.CauchyLoss(1.0), blocks[:, None], (rng.normal(size=(n, r)),))
+    return p
+
+
 def phase_generic_build(bal_program, dev):
     """Phase 1, B1 generic: every generated source the script runs
-    (Fields-of-Experts cliques of both sizes and the data term, Powell's,
-    the curve fit's and Rosenbrock's functors, both pose graphs', the
-    Snavely functor through the generator), built at once (one nvcc each,
-    all started together)."""
+    (Fields-of-Experts cliques of both sizes and the data term, the 3x3
+    clique as an AnalyticCostFunction, a scaled analytic functor on a
+    SubsetManifold position, Powell's, the curve fit's and Rosenbrock's
+    functors, both pose graphs', the Snavely functor through the
+    generator), built at once (one nvcc each, all started together)."""
     import torch
 
     from ceres_tpu_torch import cuda_lib, functor_codegen
@@ -1244,6 +1331,9 @@ def phase_generic_build(bal_program, dev):
 
     t0 = time.time()
     problems = [build_foe(16, 14, size, 2) for _h, _w, size, _k, _i in FOE_RUNS]
+    # the custom-Jacobian branch: the analytic clique (its 3x probe shares
+    # the source) and a scaled analytic functor on a SubsetManifold position
+    problems += [build_foe(16, 14, 3, 2, analytic=True), build_subset_problem(40)]
     problems += [test_functions.build_powell_problem()[0],
                  test_functions.build_curve_fitting_problem()[0], build_rosenbrock()]
     # the pose graphs' functors (their sources depend on no size)
@@ -1359,6 +1449,272 @@ def phase_kernels_generic(bal_program, dev, results):
     torch.cuda.empty_cache()
 
 
+def phase_kernels_generic_analytic(dev, results):
+    """Phase 2, B1 generic's custom-Jacobian branch: the Fields-of-Experts
+    3x3, K = 8 clique group at 512 x 512 (FOE_RUNS[0]) as an
+    AnalyticCostFunction with its closed-form Jacobian (the reference's
+    FieldsOfExpertsCost) against its plain version (torch.func through the
+    rule's jvp), with the Jacobian and residual-only, bitwise across two
+    runs; graph-replay and eager ms, its bound (the autodiff clique's
+    bytes, the rule's operations), ptxas' registers and spills; its outputs
+    beside the autodiff clique instantiation's (the clique is linear, so
+    they agree to rounding). Then the wrong-rule probe: the same group with
+    3x the closed form gives 3x the autodiff leaf, and B1 generic's
+    analytic counter moves."""
+    import torch
+
+    from ceres_tpu_torch import cuda_lib, eval_kernel, functor_codegen
+    from ceres_tpu_torch.evaluator import Evaluator, group_eval_plain, state_tables
+
+    f32 = torch.float32
+    h, w, size, k, _iters = FOE_RUNS[0]
+    groups = {}
+    for label, build in (("analytic", lambda: build_foe(h, w, size, k, analytic=True)),
+                         ("autodiff", lambda: build_foe(h, w, size, k)),
+                         ("3x rule", lambda: build_foe_wrong_rule(h, w, size, k))):
+        program = build().compile(dev)
+        ev = Evaluator(program, f32)
+        meta, garr = program.groups[1], ev.arrays["groups"][1]
+        st = state_tables(program, program.state_vector(f32))
+        prog = functor_codegen.group_program(meta, garr, f32, True)
+        if prog is None or prog.has_rule != (label != "autodiff"):
+            raise AssertionError(f"eval_generic {label}: not generated with its rule")
+        groups[label] = (prog, (meta, garr, st), [st[pm.a_cls] for pm in meta.positions])
+    prog, args, tables = groups["analytic"]
+    n = args[0].n
+    errs = {}
+    for with_jac in (True, False):
+        got = eval_kernel.generic_evaluate(prog, *args, with_jac)
+        want = group_eval_plain(*args, with_jac, True)
+        again = eval_kernel.generic_evaluate(prog, *args, with_jac)
+        bitwise = all(torch.equal(a, b) for a, b in zip(
+            [got[0], got[1], *got[2]], [again[0], again[1], *again[2]]))
+        e = [rel_err(got[1], want[1]), rel_err(got[0].reshape(1), want[0].reshape(1))]
+        e += [rel_err(a, b) for a, b in zip(got[2], want[2])]
+        errs[with_jac] = ((max(x[0] for x in e), max(x[1] for x in e)), bitwise)
+        del got, want, again
+    err, bitwise = errs[True]
+    rel_r = errs[False][0][1]
+    t_e = median_ms(lambda: eval_kernel.generic_evaluate(prog, *args, True))
+    t_k = graph_ms(lambda: eval_kernel.generic_evaluate(prog, *args, True))
+    t_r = graph_ms(lambda: eval_kernel.generic_evaluate(prog, *args, False))
+    t_p = median_ms(lambda: group_eval_plain(*args, True, True), reps=3)
+    auto_prog, auto_args, _ = groups["autodiff"]
+    t_auto = graph_ms(lambda: eval_kernel.generic_evaluate(auto_prog, *auto_args, True))
+    b_ms, b_by = bound(generic_bytes(prog, tables, n, True), generic_ops(prog, True) * n)
+    got = eval_kernel.generic_evaluate(prog, *args, True)
+    auto = eval_kernel.generic_evaluate(auto_prog, *auto_args, True)
+    vs_auto = max(rel_err(a, b)[1] for a, b in zip([got[0].reshape(1), got[1], *got[2]],
+                                                  [auto[0].reshape(1), auto[1], *auto[2]]))
+    ok = max(err[1], rel_r) <= 2e-4 and bitwise and errs[False][1] and vs_auto <= 2e-4
+    print(f"phase 2: eval_generic_analytic FoE {size}x{size} clique ({h}x{w}): n {n}, N "
+          f"{prog.num_tangent}, max rel err {err[1]:.3e} with the Jacobian, {rel_r:.3e} "
+          f"residual-only (tol 2e-04), bitwise across two runs {bitwise and errs[False][1]}; "
+          f"kernel {t_k:.4f} ms from a graph replay (residual-only {t_r:.4f}; eager, with the "
+          f"wrapper's host side, {t_e:.4f}; the autodiff clique's {t_auto:.4f}), plain "
+          f"{t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {100 * b_ms / t_k:.1f}% of it); ptxas f32 "
+          f"{generic_ptxas(prog)}; vs the autodiff clique instantiation {vs_auto:.3e}"
+          f"{'' if ok else '  FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError("eval_generic_analytic: kernel disagrees with its plain version, "
+                             "with the autodiff clique, or is not bitwise across runs")
+    results["eval_generic_analytic"] = {"err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
+                                        "bound_by": b_by, "library_ms": None}
+    # the wrong-rule probe
+    x3_prog, x3_args, _ = groups["3x rule"]
+    cuda_lib.reset_launch_counts()
+    probe = eval_kernel.generic_evaluate(x3_prog, *x3_args, True)
+    moved = cuda_lib.launch_counts()["eval_generic_analytic"]
+    plain = group_eval_plain(*x3_args, True, True)
+    e3 = max(rel_err(a, 3.0 * b)[1] for a, b in zip(probe[2], auto[2]))
+    e_res = rel_err(probe[1], auto[1])[1]
+    e_plain = max(rel_err(a, b)[1] for a, b in zip(probe[2], plain[2]))
+    ok = e3 <= 2e-4 and e_res <= 2e-4 and e_plain <= 2e-4 and moved == 1
+    print(f"phase 2: eval_generic_analytic wrong-rule probe (3x the closed form): leaf vs 3x the "
+          f"autodiff leaf max rel err {e3:.3e}, residuals vs the autodiff's {e_res:.3e}, vs its "
+          f"plain version (the 3x rule through torch.func) {e_plain:.3e} (tol 2e-04), "
+          f"eval_generic_analytic launches {moved}{'' if ok else '  FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError("eval_generic_analytic: the kernel did not compute the user's rule")
+    del groups, prog, args, tables, got, auto, probe, plain
+    torch.cuda.empty_cache()
+
+
+def numeric_ba_problem(bal, method="CENTRAL"):
+    """build_ba_problem's Snavely group with the functor as a
+    NumericDiffCostFunction (not tagged for eval_snavely, not generated:
+    the torch.func path with the finite-difference rule), Huber(1.0)."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.examples.snavely import snavely_reprojection_error
+
+    problem = ct.Problem()
+    cams = problem.add_parameter_blocks(bal.cameras)
+    pts = problem.add_parameter_blocks(bal.points)
+    problem.add_residual_blocks(
+        ct.NumericDiffCostFunction(snavely_reprojection_error, 2, method=method),
+        ct.HuberLoss(1.0), np.stack([cams[bal.camera_index], pts[bal.point_index]], axis=1),
+        (bal.observations,))
+    return problem
+
+
+def fd_rounding_excess(leaves_a, leaves_b, params, scale, rel=1e-6, min_step=1e-12):
+    """|A - B| / (eps |f| / h) of two central-difference Jacobians (leaves
+    [r * t, n] per position; the functor's values of magnitude `scale` [n])
+    in units of the rounding bound of a central difference at step
+    h = max(rel |p|, min_step) (params [n, t] per position). Returns the
+    largest excess over the entries whose step is the floor (rel |p| <=
+    min_step: synthetic_bal's camera translations of 0 or ~1e-16), where a
+    unit is largest (~0.02-0.1 absolute) and last-bit differences of fn
+    give a unit or two, and over the rest, where they give tens (Snavely's
+    rotation carries values larger than |f|; tests/test_torch_diff_rules.py
+    measures central differences against the exact Jacobian in these
+    units). A different rule (a forward difference, another step) gives
+    far more."""
+    import torch
+
+    eps = torch.finfo(torch.float64).eps
+    worst = [0.0, 0.0]
+    for a, b, p in zip(leaves_a, leaves_b, params):
+        p = p.double().cpu()
+        t, n = p.shape[1], a.shape[1]
+        h = torch.clamp_min(rel * p.abs(), min_step).T  # [t, n]
+        d = (a.double().cpu() - b.double().cpu()).reshape(-1, t, n)
+        x = (d * h[None] / (eps * scale.double().cpu()[None, None, :])).abs()
+        at_floor = (rel * p.abs() <= min_step).T[None].expand_as(x)
+        for k, part in enumerate((x[at_floor], x[~at_floor])):
+            if part.numel():
+                worst[k] = max(worst[k], float(part.max()))
+    return tuple(worst)
+
+
+def phase_f64_rules():
+    """Phase 3, the custom-Jacobian branch and the rest of the slice in
+    float64 on the card against the CPU, per-iteration cost within 1e-9 with
+    equal PCG counts and decisions, and what each should launch launched: a
+    small Fields-of-Experts CGNR solve with analytic cliques on the fused
+    loop (B1 generic, its analytic counter); the sampled-function solve
+    (an interpolated functor: not generated, no B1); a solve with an
+    EvaluationCallback (the curve fit, host loop; the card's and the CPU's
+    (new_point, evaluate_jacobians) sequences equal); a group on a
+    SubsetManifold position (a scaled analytic functor, B1 generic). Then
+    the small BAL with Snavely as a NumericDiffCostFunction (CENTRAL) on
+    SCHUR_JACOBI: B1 not launched, B2-B5 launched; its Jacobian at the
+    start held to the CPU's at the rounding bound of a central difference
+    and its per-iteration cost gap at 5e-7 (the synthetic cameras'
+    translations of 0 take the 1e-12 floor of the step, whose columns move
+    by ~1e-3 with the last bits of fn)."""
+    import torch
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch import cuda_lib
+    from ceres_tpu_torch.evaluator import Evaluator, state_tables
+    from ceres_tpu_torch.examples import denoising, test_functions
+
+    nothing = set(GENERIC_NAMES) | {"eval_snavely"}
+    calls = {}
+
+    def with_callback(dev):
+        calls[dev] = []
+        p = test_functions.build_curve_fitting_problem()[0]
+        p.evaluation_callback = lambda new_point, jac: calls[dev].append((new_point, jac))
+        return p
+
+    samples = (np.arange(10.0) - 4.5) ** 2  # examples/sampled_function/sampled_function.cc
+    cases = [
+        ("FoE 3x3 analytic CGNR fused", lambda dev: build_foe(96, 80, 3, 3, analytic=True),
+         dict(linear_solver_type=ct.LinearSolverType.CGNR, max_linear_solver_iterations=10,
+              fused_execution_chunk_iters=1, preconditioner_type="JACOBI"),
+         ({"eval_generic_analytic", "eval_generic"}, {"eval_snavely"})),
+        ("sampled function DENSE_QR",
+         lambda dev: denoising.build_sampled_function_problem(samples, 1.0)[0],
+         dict(linear_solver_type=ct.LinearSolverType.DENSE_QR, max_num_iterations=10),
+         (set(), nothing)),
+        ("EvaluationCallback curve fitting DENSE_NORMAL_CHOLESKY", with_callback,
+         dict(linear_solver_type=ct.LinearSolverType.DENSE_NORMAL_CHOLESKY, max_num_iterations=12),
+         ({"eval_generic"}, {"eval_snavely"})),
+        ("SubsetManifold scaled analytic DENSE_QR", lambda dev: build_subset_problem(300),
+         dict(linear_solver_type=ct.LinearSolverType.DENSE_QR, max_num_iterations=8),
+         ({"eval_generic_analytic"}, {"eval_snavely", "eval_generic"})),
+    ]
+    for name, build, extra, (launched, not_launched) in cases:
+        extra = dict(extra)
+        precond = extra.pop("preconditioner_type", "SCHUR_JACOBI")
+        sums = {}
+        for dev in ("cuda", "cpu"):
+            cuda_lib.reset_launch_counts()
+            sums[dev] = ct.solve(lm_options(dev, torch.float64, precond, **extra), build(dev))
+            if dev == "cuda":
+                launches = cuda_lib.launch_counts()
+        worst = _same_iterations(name, sums)
+        s = sums["cuda"]
+        extra_line = ""
+        if calls:
+            if calls["cuda"] != calls["cpu"] or not calls["cuda"] or s.used_fused_execution:
+                raise AssertionError(f"{name}: callback sequences differ or the solve was fused")
+            extra_line = (f", callback calls {len(calls['cuda'])} ({sum(j for _, j in calls['cuda'])}"
+                          f" with the Jacobian), equal on both")
+            calls.clear()
+        print(f"phase 3: {name}: float64, CUDA vs CPU: {len(s.iterations)} iterations "
+              f"({'fused' if s.used_fused_execution else 'host loop'}), max per-iteration cost "
+              f"rel diff {worst:.3e} (tol 1e-09), final cost {s.final_cost:.12e}, launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}{extra_line}", flush=True)
+        if any(launches[k] <= 0 for k in launched) or any(launches[k] for k in not_launched):
+            raise AssertionError(f"{name}: the CUDA solve did not launch {sorted(launched)} "
+                                 f"alone of {sorted(launched | not_launched)}")
+        if not s.final_cost < s.initial_cost:
+            raise AssertionError(f"{name}: the solve did not decrease the cost")
+
+    # the numeric-diff BA
+    bal = ct.synthetic_bal(96, 4000, 48_000, seed=1)
+    sums, jacs = {}, {}
+    for dev in ("cuda", "cpu"):
+        program = numeric_ba_problem(bal).compile(dev)
+        ev = Evaluator(program, torch.float64)
+        cuda_lib.reset_launch_counts()
+        jacs[dev] = ev.evaluate_groups(program.state_vector(torch.float64))
+        sums[dev] = ct.solve(lm_options(dev, torch.float64), numeric_ba_problem(bal))
+        if dev == "cuda":
+            launches = cuda_lib.launch_counts()
+    (c_gpu, r_gpu, j_gpu, _), (c_cpu, r_cpu, j_cpu, _) = jacs["cuda"], jacs["cpu"]
+    # the parameters and observations in the group's lane order (the CPU
+    # Program's, which the card's shares)
+    garr = ev.arrays["groups"][0]
+    st = state_tables(program, program.state_vector(torch.float64))
+    params = [st[pm.a_cls][rows] for pm, rows in zip(program.groups[0].positions, garr["a_rows"])]
+    scale = garr["data"][0].abs().max(dim=1).values + r_cpu[0].abs().max(dim=0).values
+    at_floor, above = fd_rounding_excess(j_gpu.jac_groups[0], j_cpu.jac_groups[0], params, scale)
+    jac_gap = max(rel_err(a.cpu(), b)[1] for a, b in zip(j_gpu.jac_groups[0], j_cpu.jac_groups[0]))
+    cost0 = abs(float(c_gpu) - float(c_cpu)) / abs(float(c_cpu))
+    gaps = [abs(a.cost - b.cost) / abs(b.cost)
+            for a, b in zip(sums["cuda"].iterations, sums["cpu"].iterations)]
+    s = sums["cuda"]
+    # the per-iteration gap comes from the columns at the step's floor,
+    # where a last-bit difference of fn moves a central difference by
+    # ~1e-3 of the largest entry: ceres_tpu's own jitted and eager solves
+    # of such data part by ~3e-4 (tests/test_torch_diff_rules.py); the
+    # gap is held at 5e-7, 3x its reading on the H100 (1.671e-07, the
+    # same in every run)
+    print(f"phase 3: numeric-diff Snavely (CENTRAL) SCHUR_JACOBI: float64, CUDA vs CPU: initial "
+          f"cost rel diff {cost0:.3e} (tol 1e-12); Jacobian at the start max rel diff "
+          f"{jac_gap:.3e}, in units of the central difference's rounding bound {at_floor:.2f} on "
+          f"the columns at the step's 1e-12 floor (tol 8), {above:.2f} on those above it (tol "
+          f"64); per-iteration cost rel diff {[f'{g:.3e}' for g in gaps]} (tol 5e-07), pcg "
+          f"CUDA {[it.linear_solver_iterations for it in s.iterations]} CPU "
+          f"{[it.linear_solver_iterations for it in sums['cpu'].iterations]}, final cost "
+          f"{s.final_cost:.12e}, launches {json.dumps({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    if not (cost0 <= 1e-12 and at_floor <= 8.0 and above <= 64.0 and max(gaps) <= 5e-7):
+        raise AssertionError("numeric-diff BA: the card's finite differences or solve are not "
+                             "the CPU's")
+    if len(s.iterations) != len(sums["cpu"].iterations) or not (
+            all(math.isfinite(it.cost) for it in s.iterations) and s.final_cost < s.initial_cost):
+        raise AssertionError("numeric-diff BA: the card's solve failed")
+    if any(launches[k] for k in nothing) or any(
+            launches[k] <= 0 for k in ("gather_contract", "contract_reduce", "schur_sy",
+                                       "schur_p0")):
+        raise AssertionError("numeric-diff BA: B1 launched, or B2-B5 not launched")
+
+
 def phase_f64_generic():
     """Phase 3, the slice's solvers in float64 on the card against the CPU:
     a small Fields-of-Experts CGNR + JACOBI solve on the fused loop (PCG <=
@@ -1408,12 +1764,14 @@ def phase_f64_generic():
             raise AssertionError(f"{name}: the CUDA solve did not run B1 generic alone")
 
 
-def run_denoising(h, w, size, k, iters):
+def run_denoising(h, w, size, k, iters, analytic=False):
     """Phase 4, one denoising run of FOE_RUNS: LM + CGNR + JACOBI in float32
     on the fused loop at chunk 1 (eta 0.1, PCG <= 25), on a new Problem;
     every group through B1 generic at every evaluation (the launch counts,
     set to 0 just before the solve and read just after, against the
-    groups times the evaluations)."""
+    groups times the evaluations). With `analytic` the cliques are
+    AnalyticCostFunctions: the K clique groups count under
+    eval_generic_analytic, the data term under eval_generic."""
     import torch
 
     import ceres_tpu_torch as ct
@@ -1422,7 +1780,7 @@ def run_denoising(h, w, size, k, iters):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.time()
-    problem = build_foe(h, w, size, k)
+    problem = build_foe(h, w, size, k, analytic=analytic)
     t_problem = time.time() - t0
     options = lm_options("cuda", torch.float32, "JACOBI", fused_execution_chunk_iters=1,
                          max_num_iterations=iters,
@@ -1436,7 +1794,7 @@ def run_denoising(h, w, size, k, iters):
     launches = cuda_lib.launch_counts()
     builds = {k_: v - builds0[k_] for k_, v in cuda_lib.generated_stats().items()}
     groups = k + 1
-    label = f"FoE {size}x{size} K={k} {h}x{w}"
+    label = f"FoE {size}x{size} K={k} {h}x{w}" + (" analytic" if analytic else "")
     print(f"phase 4: {label} (CGNR + JACOBI, fused): {summary.num_residuals} residuals, "
           f"{summary.num_effective_parameters} parameters, {groups} groups; Problem built in "
           f"{t_problem:.1f} s; solve {wall:.1f} s (preprocess "
@@ -1455,12 +1813,130 @@ def run_denoising(h, w, size, k, iters):
     if not (all(math.isfinite(it.cost) for it in summary.iterations)
             and summary.final_cost < summary.initial_cost):
         raise AssertionError(f"{label}: non-finite or non-decreasing cost")
-    if (launches["eval_generic"] != groups * summary.num_jacobian_evaluations
+    jac_launches = launches["eval_generic"] + launches["eval_generic_analytic"]
+    if (jac_launches != groups * summary.num_jacobian_evaluations
+            or launches["eval_generic_analytic"] != (
+                k * summary.num_jacobian_evaluations if analytic else 0)
             or launches["eval_generic_residual"] != groups * summary.num_residual_evaluations):
         raise AssertionError(f"{label}: a group did not take B1 generic at every evaluation")
     if any(it.num_device_reads > 2 + it.linear_solver_iterations for it in summary.iterations[1:]):
         raise AssertionError(f"{label}: more than 2 + PCG steps reads in an iteration")
     return summary, launches
+
+
+def phase_analytic_denoising_run(auto):
+    """Phase 4, FOE_RUNS[0] with the cliques as AnalyticCostFunctions
+    (closed form), on a new Problem, beside the autodiff run `auto`
+    (summary, launches): cost per iteration within 1e-5 relative, equal PCG
+    steps; run_denoising's launch and read checks. Returns its launches."""
+    summary, launches = run_denoising(*FOE_RUNS[0], analytic=True)
+    a_sum = auto[0]
+    worst = 0.0
+    for a, b in zip(a_sum.iterations, summary.iterations, strict=True):
+        worst = max(worst, abs(a.cost - b.cost) / abs(a.cost))
+        print(f"phase 4: FoE analytic vs autodiff: iter {a.iteration}: autodiff cost {a.cost!r} "
+              f"pcg {a.linear_solver_iterations} ms {1000.0 * a.iteration_time_in_seconds:.1f} | "
+              f"analytic cost {b.cost!r} pcg {b.linear_solver_iterations} ms "
+              f"{1000.0 * b.iteration_time_in_seconds:.1f}", flush=True)
+        if a.linear_solver_iterations != b.linear_solver_iterations:
+            raise AssertionError(f"FoE analytic, iteration {a.iteration}: PCG steps differ")
+    print(f"phase 4: FoE analytic vs autodiff max per-iteration cost rel diff {worst:.3e} "
+          f"(tol 1e-05)", flush=True)
+    if not worst <= 1e-5:
+        raise AssertionError("FoE analytic: the run departs from the autodiff run")
+    return launches
+
+
+def phase_numeric_ba_run(bal):
+    """Phase 4, BAL-1778 with Snavely as a NumericDiffCostFunction (CENTRAL),
+    Huber(1.0), in float64 (central differences at the default relative
+    step of 1e-6 mean nothing in float32): LM + ITERATIVE_SCHUR +
+    SCHUR_JACOBI, eta 0.1, PCG <= 25, fused at chunk 1, 3 iterations, on a
+    new Problem. Its initial cost within 1e-10 of the same data's cost
+    through B1's float64 Snavely kernel; every value finite; the cost
+    falling; B1 not launched and B2-B5 launched; reads within 2 + PCG
+    steps. Prints the evaluation's ms per call (CUDA events around the
+    `evaluate` graph's replay; its first call runs the warm-up and the
+    capture) and the peak device memory."""
+    import torch
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch import cuda_lib
+    from ceres_tpu_torch.evaluator import Evaluator
+    from ceres_tpu_torch.solvers import trust_region
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    f64 = torch.float64
+    ref = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))[0].compile("cuda")
+    ev = Evaluator(ref, f64)
+    cuda_lib.reset_launch_counts()
+    ref_cost = float(ev.cost(ref.state_vector(f64)))
+    if cuda_lib.launch_counts()["eval_snavely"] != 1:
+        raise AssertionError("numeric BA: the reference cost did not run B1's Snavely kernel")
+    del ref, ev
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    problem = numeric_ba_problem(bal)
+    t_problem = time.time() - t0
+    events, make = [], trust_region.make_evaluate
+
+    def timed_make_evaluate(program, evaluator):
+        evaluate = make(program, evaluator)
+
+        def timed(state):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = evaluate(state)
+            b.record()
+            events.append((a, b))
+            return out
+
+        return timed
+
+    options = lm_options("cuda", f64, "SCHUR_JACOBI", fused_execution_chunk_iters=1,
+                         max_num_iterations=3)
+    trust_region.make_evaluate = timed_make_evaluate
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        t0 = time.time()
+        summary = ct.solve(options, problem)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = cuda_lib.launch_counts()
+    finally:
+        trust_region.make_evaluate = make
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    eval_ms = [a.elapsed_time(b) for a, b in events]
+    rel = abs(summary.initial_cost - ref_cost) / abs(ref_cost)
+    print(f"phase 4: BAL-1778 numeric-diff Snavely (CENTRAL, float64, SCHUR_JACOBI, fused): "
+          f"Problem built in {t_problem:.1f} s; solve {wall:.1f} s (preprocess "
+          f"{summary.preprocessor_time_in_seconds:.1f} s), initial cost {summary.initial_cost!r} "
+          f"vs {ref_cost!r} through eval_snavely (rel diff {rel:.3e}, tol 1e-10), final cost "
+          f"{summary.final_cost!r}, {summary.termination_type.value}, launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; device reads "
+          f"{summary.num_device_reads}, graph replays {summary.num_graph_replays}; evaluate ms "
+          f"per call (CUDA events; the first with warm-up and capture) "
+          f"{[round(t, 3) for t in eval_ms]}; peak device memory {peak:.2f} GiB", flush=True)
+    for it in summary.iterations:
+        print(f"phase 4: BAL-1778 numeric-diff: iter {it.iteration}: {_iteration_line(it)}",
+              flush=True)
+    if not rel <= 1e-10:
+        raise AssertionError("numeric BA: the initial cost is not eval_snavely's")
+    if not (all(math.isfinite(it.cost) for it in summary.iterations)
+            and bool(np.isfinite(problem.compile().state0).all())
+            and summary.final_cost < summary.initial_cost):
+        raise AssertionError("numeric BA: non-finite or non-decreasing cost")
+    if any(launches[k] for k in GENERIC_NAMES | {"eval_snavely"}) or any(
+            launches[k] <= 0 for k in ("gather_contract", "contract_reduce", "schur_sy",
+                                       "schur_p0")):
+        raise AssertionError("numeric BA: B1 launched, or B2-B5 not launched")
+    if any(it.num_device_reads > 2 + it.linear_solver_iterations for it in summary.iterations[1:]):
+        raise AssertionError("numeric BA: more than 2 + PCG steps reads in an iteration")
+    if not summary.used_fused_execution or not events:
+        raise AssertionError("numeric BA: the run did not take the fused loop")
 
 
 def _quat_xyzw(axis_angle):
@@ -2103,6 +2579,7 @@ def main(argv=None) -> int:
     results = {}
     phase_kernels(program, dev, results)
     phase_kernels_generic(program, dev, results)
+    phase_kernels_generic_analytic(dev, results)
     del problem, program
     torch.cuda.empty_cache()
     phase_kernels_quat(bal, dev, results)
@@ -2112,6 +2589,7 @@ def main(argv=None) -> int:
 
     phase_f64_parity()
     phase_f64_generic()
+    phase_f64_rules()
     tmp = tempfile.TemporaryDirectory()
     phase_f64_host_solvers(tmp.name)
     phase_f64_minimizers(tmp.name)
@@ -2185,14 +2663,17 @@ def main(argv=None) -> int:
     phase_dogleg_runs(bal, main)
     phase_line_search_run(bal, main)
     phase_inner_iteration_run(bal, main)
+    phase_numeric_ba_run(bal)
     # Fields-of-Experts denoising, B1 generic on every group
     del bal
     denoising = [run_denoising(*run) for run in FOE_RUNS]
+    analytic_launches = phase_analytic_denoising_run(denoising[0])
     # the host solvers: SPARSE_SCHUR, the pose graphs
     phase_sparse_schur_run()
     phase_pose_graph_runs(tmp.name)
     tmp.cleanup()
     launches.update({k: denoising[0][1][k] for k in ("eval_generic",)})
+    launches.update({k: analytic_launches[k] for k in ("eval_generic_analytic",)})
     # each kernel's launches on the run that is its main path
     launches.update(quat_launches)
     launches.update({k: mixed_launches[k] for k in ("schur_sy_bf16",)})

@@ -622,3 +622,184 @@ def test_eval_generic_build_failure_raises(card):
         eval_kernel.generic_evaluate(
             functor_codegen.group_program(meta, garr, torch.float64, True), meta, garr,
             [t.float() for t in st], True)
+
+
+# ---- B1 generic's custom-Jacobian branch --------------------------------
+
+
+def _manifold_problem(m, cost, x, rng):
+    """One group of 300 blocks on manifold m at the points x, Cauchy(1)
+    loss, one datum per block."""
+    p = ct.Problem()
+    blocks = p.add_parameter_blocks(x, manifold=m)
+    p.add_residual_blocks(cost, ct.CauchyLoss(1.0), blocks[:, None], (rng.normal(size=(300, 1)),))
+    return p
+
+
+def _rule_problems():
+    """Groups with a rule of their own or a manifold the generator serves:
+    Fields-of-Experts cliques as AnalyticCostFunctions (closed form, and a
+    deliberately wrong rule of 3x the closed form), a scaled analytic
+    functor on a SubsetManifold position (a rule nested in a larger
+    functor), and autodiff functors on SubsetManifold, SphereManifold,
+    LineManifold and AutoDiffManifold positions (the generator traces
+    their plus-Jacobians: Householder reflections and normalisations)."""
+    from chip_smoke import build_foe, build_foe_wrong_rule
+    from ceres_tpu_torch.cost_functions import scaled_cost_function
+
+    rng = np.random.default_rng(11)
+
+    def fn(params, data):
+        (x,) = params
+        return torch.stack([x[0] * x[1] - data[0][0], torch.sin(x[2]) + x[3] * x[0]])
+
+    def jac(params, data):
+        (x,) = params
+        z = torch.zeros_like(x[0])
+        return (torch.stack([torch.stack([x[1], x[0], z, z]),
+                             torch.stack([x[3], z, torch.cos(x[2]), x[0]])]),)
+
+    def ambient(params, data):
+        (q,) = params
+        return torch.sin(q) * data[0][0] + q[0] * q
+
+    def unit_rows(x):
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    lines = rng.normal(size=(300, 6))
+    lines[:, 3:] = unit_rows(lines[:, 3:])
+    return {
+        "foe3_analytic": build_foe(40, 36, 3, 2, seed=4, analytic=True),
+        "foe3_analytic_x3": build_foe_wrong_rule(40, 36, 3, 2, seed=4),
+        "scaled_analytic_subset": _manifold_problem(
+            ct.SubsetManifold(4, (1,)), scaled_cost_function(ct.AnalyticCostFunction(fn, jac, 2),
+                                                              0.5),
+            rng.uniform(0.5, 1.5, (300, 4)), rng),
+        "autodiff_subset": _manifold_problem(ct.SubsetManifold(4, (1,)), ct.CostFunction(fn, 2),
+                                             rng.uniform(0.5, 1.5, (300, 4)), rng),
+        "sphere": _manifold_problem(ct.SphereManifold(4), ct.CostFunction(ambient, 4),
+                                    unit_rows(rng.normal(size=(300, 4))), rng),
+        "line": _manifold_problem(ct.LineManifold(3), ct.CostFunction(ambient, 6), lines, rng),
+        "autodiff_manifold": _manifold_problem(
+            ct.AutoDiffManifold(lambda x, d: x + d * torch.exp(0.1 * x),
+                                lambda y, x: (y - x) * torch.exp(-0.1 * x), 4, 4),
+            ct.CostFunction(ambient, 4), rng.normal(size=(300, 4)), rng),
+    }
+
+
+@pytest.mark.parametrize("case", ["foe3_analytic", "foe3_analytic_x3", "scaled_analytic_subset",
+                                  "autodiff_subset", "sphere", "line", "autodiff_manifold"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_eval_generic_rule_matches_plain(card, dtype, case):
+    """Every group through B1 generic against its plain version, whose
+    torch.func path runs the rule's jvp: with the Jacobian and
+    residual-only, bitwise across two runs; a group with an analytic rule
+    counts under eval_generic_analytic, the others under eval_generic. The
+    3x rule's leaves are 3x the autodiff clique's."""
+    program = _rule_problems()[case].compile(card)
+    ev = Evaluator(program, dtype)
+    st = state_tables(program, program.state_vector(dtype))
+    tol = 2e-4 if dtype == torch.float32 else 1e-11
+    for meta, garr in zip(program.groups, ev.arrays["groups"]):
+        prog = functor_codegen.group_program(meta, garr, dtype, True)
+        assert prog is not None, meta.cost_function.name
+        assert prog.has_rule == (meta.cost_function.name != "foe_data" and "analytic" in case)
+        args = (meta, garr, st)
+        for with_jac in (True, False):
+            cuda_lib.reset_launch_counts()
+            cost, res, leaves = eval_kernel.generic_evaluate(prog, *args, with_jac)
+            name = ("eval_generic_analytic" if prog.has_rule else "eval_generic") if with_jac \
+                else "eval_generic_residual"
+            assert cuda_lib.launch_counts()[name] == 1
+            cost_p, res_p, leaves_p = group_eval_plain(*args, with_jac, True)
+            _close(res, res_p, tol)
+            _close(cost.reshape(1), cost_p.reshape(1), tol)
+            for a, b in zip(leaves, leaves_p):
+                _close(a, b, tol)
+            again = eval_kernel.generic_evaluate(prog, *args, with_jac)
+            assert torch.equal(again[1], res) and all(
+                torch.equal(a, b) for a, b in zip(again[2], leaves))
+    if case == "foe3_analytic_x3":
+        from chip_smoke import build_foe
+
+        auto = build_foe(40, 36, 3, 2, seed=4).compile(card)
+        aev = Evaluator(auto, dtype)
+        ast = state_tables(auto, auto.state_vector(dtype))
+        for gi in (1, 2):
+            m, g = auto.groups[gi], aev.arrays["groups"][gi]
+            want = eval_kernel.generic_evaluate(
+                functor_codegen.group_program(m, g, dtype, True), m, g, ast, True)[2]
+            m3, g3 = program.groups[gi], ev.arrays["groups"][gi]
+            got = eval_kernel.generic_evaluate(
+                functor_codegen.group_program(m3, g3, dtype, True), m3, g3, st, True)[2]
+            for a, b in zip(got, want):
+                _close(a, 3.0 * b, tol)
+
+
+def test_numeric_group_takes_torch_func_on_the_card(card):
+    """A NumericDiffCostFunction group is not generated: on the card its
+    evaluation launches no B1 generic (nor B1's Snavely kernel), and its
+    finite-difference Jacobian equals the CPU's within the rounding bound
+    of a central difference (float64), in chip_smoke's units: at most 8 on
+    the columns at the step's 1e-12 floor (synthetic_bal's camera
+    translations of 0, where a unit is ~1e-4 of the largest entry), 64 on
+    the rest (Snavely's rotation carries values larger than the unit's
+    |f|)."""
+    from chip_smoke import fd_rounding_excess
+    from ceres_tpu_torch.examples.snavely import snavely_reprojection_error
+
+    bal = ct.synthetic_bal(8, 200, 1000, seed=3)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = ct.Problem()
+        cams = p.add_parameter_blocks(bal.cameras)
+        pts = p.add_parameter_blocks(bal.points)
+        p.add_residual_blocks(ct.NumericDiffCostFunction(snavely_reprojection_error, 2), None,
+                              np.stack([cams[bal.camera_index], pts[bal.point_index]], 1),
+                              (bal.observations,))
+        program = p.compile(dev)
+        ev = Evaluator(program, torch.float64)
+        assert functor_codegen.group_program(program.groups[0], ev.arrays["groups"][0],
+                                             torch.float64, True) is None
+        cuda_lib.reset_launch_counts()
+        out[dev] = ev.evaluate_groups(program.state_vector(torch.float64))
+        counts = cuda_lib.launch_counts()
+        assert counts["eval_snavely"] == 0
+        assert all(counts[k] == 0 for k in cuda_lib.GENERIC_KERNELS)
+    (c_cpu, r_cpu, j_cpu, _), (c_gpu, r_gpu, j_gpu, _) = out["cpu"], out["cuda"]
+    assert float(c_gpu) == pytest.approx(float(c_cpu), rel=1e-12)
+    # the parameters and observations in the group's lane order
+    program = p.compile("cpu")
+    garr = program.arrays(torch.float64)["groups"][0]
+    st = state_tables(program, program.state_vector(torch.float64))
+    params = [st[pm.a_cls][rows] for pm, rows in zip(program.groups[0].positions, garr["a_rows"])]
+    scale = garr["data"][0].abs().max(dim=1).values + r_cpu[0].abs().max(dim=0).values
+    at_floor, above = fd_rounding_excess(j_gpu.jac_groups[0], j_cpu.jac_groups[0], params, scale)
+    print(f"units of the rounding bound: {at_floor:.2f} at the floor, {above:.2f} above it")
+    assert at_floor <= 8.0 and above <= 64.0
+
+
+def test_subset_solve_gap_is_rounding_at_a_vanishing_cost(card):
+    """chip_smoke's SubsetManifold solve with three residuals on the three
+    free coordinates (build_subset_problem(square=True)), whose minimum is
+    zero: float64 card against CPU, every iteration's cost gap within
+    1e-9 of the initial cost, and within 1e-9 of the iteration's own cost
+    wherever that is above 1e-6 of the initial cost. Below, the cost is
+    rounding and a relative gap says nothing; there chip_smoke's held
+    per-iteration relative check missed 1e-9, so its problem has four
+    residuals."""
+    from chip_smoke import build_subset_problem, lm_options
+
+    sums = {dev: ct.solve(lm_options(dev, torch.float64,
+                                     linear_solver_type=ct.LinearSolverType.DENSE_QR,
+                                     max_num_iterations=8),
+                          build_subset_problem(300, square=True))
+            for dev in ("cuda", "cpu")}
+    c0 = sums["cpu"].initial_cost
+    for a, b in zip(sums["cuda"].iterations, sums["cpu"].iterations, strict=True):
+        gap = abs(a.cost - b.cost)
+        print(f"iteration {a.iteration}: cost CUDA {a.cost!r} CPU {b.cost!r}, gap "
+              f"{gap / c0:.3e} of the initial cost, {gap / max(b.cost, 1e-300):.3e} of its own")
+        assert gap <= 1e-9 * c0
+        if b.cost > 1e-6 * c0:
+            assert gap <= 1e-9 * b.cost
