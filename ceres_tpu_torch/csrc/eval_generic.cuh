@@ -15,10 +15,10 @@
 // One thread per residual block l:
 //   - gathers its parameters from the [cnt, size] state table of each
 //     position (rows[p][l]) and its data rows;
-//   - in the Jacobian instantiation evaluates the functor on
-//     Jet<S, N> (N = the group's total tangent: the reference's Jet
-//     evaluation, autodiff.h:318), each Euclidean parameter seeded with its
-//     unit tangent and each manifold position with the columns of its
+//   - in the Jacobian instantiation evaluates the functor on Jet<S, N>, N
+//     the group's total tangent (the reference's Jet evaluation,
+//     autodiff.h:318), each Euclidean parameter seeded with its unit
+//     tangent and each manifold position with the columns of its
 //     plus-Jacobian, so the columns come out in tangent space
 //     (pallas_eval.py:306-314); the residual-only instantiation runs the
 //     functor on S itself;
@@ -35,17 +35,47 @@
 //     rr * t_p + j, pallas_eval.py:514-524; observation-minor, so
 //     neighbouring threads write neighbouring words) and adds rho0 into its
 //     block's cost partial.
-// A second single-block launch sums the per-block partials in a fixed
-// order: the cost is deterministic without atomics.
+//
+// One launch per evaluation. Each block sums its rho0 (warp trees, then
+// its warps in order), writes the partial and takes a ticket from a
+// per-program int32 counter on the card by one acquire-release atomic
+// (it releases the partial, and the last block acquires every earlier
+// one; its other threads read after the block's barrier); the block that
+// takes the last ticket sums the partials in a fixed order (each thread a
+// fixed stride, the warp trees, the warps in order), so the cost is the
+// same from run to run, and sets the counter back to 0 for the next
+// launch or replay. The atomics on the one counter and the final block's
+// read of every partial are the price of the one launch: blocks of 512
+// threads quarter both against 128 where n fills a block per SM (n >=
+// kWideLanes; below, 128-thread blocks spread a small group over more
+// SMs), and a grid of at most kMaxBlocks, each block striding over the
+// lanes beyond, bounds them at BAL-sized n (19,532 blocks' atomics on the
+// one counter cost more than the kernel's own work). The first lane of a
+// thread is evaluated before the stride loop: with the loop alone, nvcc
+// compiled the FoE groups' Jacobian passes 1-4% slower on the H100.
+// Measured there against the parent's two launches (a fence, then a
+// relaxed atomic, 256-thread blocks and the plain loop cost the FoE 3x3
+// clique 5%): PERF.md §6. (Counters per group of blocks, with a sum per
+// group, cost more: two rounds of atomic and sum in series.)
+//
+// The tangent is not split across threads. A split launch (thread (l, s)
+// evaluating a slice of the columns on a narrower Jet, every slice
+// recomputing the primal) was built and measured on the H100: at FoE 5x5
+// (N = 25, n = 36,157) two and three slices took 0.00921 and 0.00783 ms
+// against one slice's 0.00637 (PERF.md §6), and a bitwise equal split
+// needed builds without FMA contraction. One Jet<S, N> pass per thread
+// stays.
 //
 // Bound on an H100: the bytes it must move (the parameter rows, data,
 // residuals and leaves) for the Fields-of-Experts groups, whose functors
 // are a few multiply-adds; the Jet arithmetic (2N + 1 operations per
-// product) for wide functors such as Snavely's. The design keeps every
-// intermediate in registers (one thread per block, straight-line code);
-// at N = 25 a Jet value is 26 registers, and ptxas' report says whether the
-// live set spills. Not built with fast math: the transcendental functions
-// round as CUDA's IEEE versions do.
+// product) for wide functors such as Snavely's. At the denoising sizes the
+// bound is a few microseconds, so the fixed cost of a launch (and of a
+// second, dependent one) and a grid of a few blocks per SM are what the
+// design removes. Every intermediate stays in registers (straight-line
+// code); ptxas' report says whether the live set spills. Not built with
+// fast math: the transcendental functions round as CUDA's IEEE versions
+// do.
 
 #pragma once
 
@@ -54,7 +84,13 @@
 
 namespace ctt {
 
-constexpr int kBlock = 128;
+// threads per block: 512 where the grid still has a block per SM (n >=
+// kWideLanes, eval_kernel.generic_block), else 128
+constexpr int kNarrowBlock = 128, kWideBlock = 512;
+constexpr int kWideLanes = 132 * kWideBlock;
+// the most blocks a launch takes; a block strides over the lanes beyond
+// (eval_kernel.GENERIC_MAX_BLOCKS)
+constexpr int kMaxBlocks = 2048;
 
 template <class S, int N>
 struct Jet {
@@ -393,153 +429,225 @@ struct Args {
   S* leaf[G::kPos];
 };
 
-template <class G, class S, bool kJac>
-__global__ void __launch_bounds__(kBlock)
-    eval_generic_kernel(const Args<G, S> a, const S* __restrict__ c, int n,
-                        S* __restrict__ res, S* __restrict__ partials) {
-  __shared__ S sh[kBlock];
-  const int l = blockIdx.x * kBlock + threadIdx.x;
-  S rho0 = S(0);
-  if (l < n) {
-    const size_t N = static_cast<size_t>(n);
-    S x[G::kA];
+// the residual scaling, the Jacobian scaling and alpha / |r|^2 of the
+// Triggs correction (corrector.correct_batched), and rho0
+template <class S>
+struct Scales {
+  S res, jac, alpha_sq_norm, rho0;
+};
+
+template <class G, class S>
+__device__ __forceinline__ Scales<S> loss_scales(const S* r, const S* c) {
+  S s = S(0);
 #pragma unroll
-    for (int p = 0; p < G::kPos; ++p) {
-      const S* row = a.tbl[p] + static_cast<size_t>(a.rows[p][l]) * G::amb(p);
-#pragma unroll
-      for (int j = 0; j < G::amb(p); ++j) x[G::aoff(p) + j] = row[j];
-    }
-    S d[G::kD > 0 ? G::kD : 1];
-#pragma unroll
-    for (int q = 0; q < G::kData; ++q) {
-      const S* row = a.data[q] + static_cast<size_t>(l) * G::dsize(q);
-#pragma unroll
-      for (int j = 0; j < G::dsize(q); ++j) d[G::doff(q) + j] = row[j];
-    }
-    using J = Jet<S, (kJac ? G::kN : 1)>;
-    S r[G::kR];
-    J out[kJac ? G::kR : 1];
-    if constexpr (kJac) {
-      J xj[G::kA];
-#pragma unroll
-      for (int p = 0; p < G::kPos; ++p) {
-#pragma unroll
-        for (int j = 0; j < G::amb(p); ++j) {
-          xj[G::aoff(p) + j] = J(x[G::aoff(p) + j]);
-          if (!G::manifold(p)) xj[G::aoff(p) + j].v[G::toff(p) + j] = S(1);
-        }
-      }
-      G::template seed_manifolds<J, S>(x, c, xj);
-      G::template functor<J, S>(xj, d, c, out);
-#pragma unroll
-      for (int rr = 0; rr < G::kR; ++rr) r[rr] = out[rr].a;
-    } else {
-      G::template functor<S, S>(x, d, c, r);
-    }
-    S s = S(0);
-#pragma unroll
-    for (int rr = 0; rr < G::kR; ++rr) s += r[rr] * r[rr];
-    S res_scale = S(1), jac_scale = S(1), alpha_sq_norm = S(0);
-    if (G::kLoss) {
-      S rho[3];
-      G::template rho<S>(s, c, rho);
-      rho0 = rho[0];
-      const S rho1 = rho[1], rho2 = rho[2];
-      // Triggs correction (corrector.correct_batched)
-      const S sqrt_rho1 = f_sqrt(rho1);
-      const bool inlier = (s > S(0)) && (rho2 > S(0));
-      const S safe_sq_norm = inlier ? s : S(1);
-      const S safe_rho1 = rho1 > S(0) ? rho1 : S(1);
-      const S dd = S(1) + S(2) * s * rho2 / safe_rho1;
-      const S alpha = inlier ? S(1) - f_sqrt(dd > S(0) ? dd : S(0)) : S(0);
-      res_scale = inlier ? sqrt_rho1 / (S(1) - alpha) : sqrt_rho1;
-      jac_scale = sqrt_rho1;
-      alpha_sq_norm = inlier ? alpha / safe_sq_norm : S(0);
-    } else {
-      rho0 = s;
-    }
-#pragma unroll
-    for (int rr = 0; rr < G::kR; ++rr) res[rr * N + l] = res_scale * r[rr];
-    if constexpr (kJac) {
-#pragma unroll
-      for (int p = 0; p < G::kPos; ++p) {
-#pragma unroll
-        for (int j = 0; j < G::tan(p); ++j) {
-          const int k = G::toff(p) + j;
-          S rtj = S(0);
-#pragma unroll
-          for (int rr = 0; rr < G::kR; ++rr) rtj += r[rr] * out[rr].v[k];
-#pragma unroll
-          for (int rr = 0; rr < G::kR; ++rr) {
-            a.leaf[p][static_cast<size_t>(rr * G::tan(p) + j) * N + l] =
-                jac_scale * (out[rr].v[k] - alpha_sq_norm * r[rr] * rtj);
-          }
-        }
-      }
-    }
+  for (int rr = 0; rr < G::kR; ++rr) s += r[rr] * r[rr];
+  Scales<S> o{S(1), S(1), S(0), s};
+  if (G::kLoss) {
+    S rho[3];
+    G::template rho<S>(s, c, rho);
+    o.rho0 = rho[0];
+    const S rho1 = rho[1], rho2 = rho[2];
+    const S sqrt_rho1 = f_sqrt(rho1);
+    const bool inlier = (s > S(0)) && (rho2 > S(0));
+    const S safe_sq_norm = inlier ? s : S(1);
+    const S safe_rho1 = rho1 > S(0) ? rho1 : S(1);
+    const S dd = S(1) + S(2) * s * rho2 / safe_rho1;
+    const S alpha = inlier ? S(1) - f_sqrt(dd > S(0) ? dd : S(0)) : S(0);
+    o.res = inlier ? sqrt_rho1 / (S(1) - alpha) : sqrt_rho1;
+    o.jac = sqrt_rho1;
+    o.alpha_sq_norm = inlier ? alpha / safe_sq_norm : S(0);
   }
-  sh[threadIdx.x] = rho0;
-  __syncthreads();
-  for (int w = kBlock / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) partials[blockIdx.x] = sh[0];
+  return o;
 }
 
-// cost = 0.5 * sum(partials), one block, fixed order.
-template <class S>
-__global__ void __launch_bounds__(1024) eval_generic_sum_kernel(const S* __restrict__ partials,
-                                                                int m, S* __restrict__ cost) {
-  __shared__ S sh[1024];
-  S acc = S(0);
-  for (int i = threadIdx.x; i < m; i += 1024) acc += partials[i];
-  sh[threadIdx.x] = acc;
-  __syncthreads();
-  for (int w = 512; w > 0; w >>= 1) {
-    if (threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
-    __syncthreads();
+// the parameters and data of block l, gathered from the state tables
+// through the read-only cache (explicitly: the kernel's atomic would
+// otherwise keep the compiler from using it)
+template <class G, class S>
+__device__ __forceinline__ void gather(const Args<G, S>& a, int l, S* x, S* d) {
+#pragma unroll
+  for (int p = 0; p < G::kPos; ++p) {
+    const S* row = a.tbl[p] + static_cast<size_t>(__ldg(a.rows[p] + l)) * G::amb(p);
+#pragma unroll
+    for (int j = 0; j < G::amb(p); ++j) x[G::aoff(p) + j] = __ldg(row + j);
   }
-  if (threadIdx.x == 0) cost[0] = S(0.5) * sh[0];
+#pragma unroll
+  for (int q = 0; q < G::kData; ++q) {
+    const S* row = a.data[q] + static_cast<size_t>(l) * G::dsize(q);
+#pragma unroll
+    for (int j = 0; j < G::dsize(q); ++j) d[G::doff(q) + j] = __ldg(row + j);
+  }
+}
+
+// the next ticket of *counter, by an acquire-release atomic at device
+// scope: this thread's earlier writes are visible to the thread that takes
+// a later ticket, and the earlier tickets' writes to this one
+__device__ __forceinline__ int take_ticket(int* counter) {
+  int prev;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+               : "=r"(prev)
+               : "l"(counter)
+               : "memory");
+  return prev;
+}
+
+// Block l: the gather; with the Jacobian the functor on Jet<S, N>, each
+// Euclidean coordinate seeded with its unit tangent and each manifold
+// position with its plus-Jacobian, and the Triggs correction of every
+// column into the leaves; without it the functor on S. Writes res and
+// returns rho0.
+template <class G, class S, bool kJac>
+__device__ __forceinline__ S eval_block(const Args<G, S>& a, const S* __restrict__ c, int l,
+                                        int n, S* __restrict__ res) {
+  const size_t N = static_cast<size_t>(n);
+  S x[G::kA];
+  S d[G::kD > 0 ? G::kD : 1];
+  gather(a, l, x, d);
+  using J = Jet<S, (kJac ? G::kN : 1)>;
+  S r[G::kR];
+  J out[kJac ? G::kR : 1];
+  if constexpr (kJac) {
+    J xj[G::kA];
+#pragma unroll
+    for (int p = 0; p < G::kPos; ++p) {
+#pragma unroll
+      for (int j = 0; j < G::amb(p); ++j) {
+        xj[G::aoff(p) + j] = J(x[G::aoff(p) + j]);
+        if (!G::manifold(p)) xj[G::aoff(p) + j].v[G::toff(p) + j] = S(1);
+      }
+    }
+    G::template seed_manifolds<J, S>(x, c, xj);
+    G::template functor<J, S>(xj, d, c, out);
+#pragma unroll
+    for (int rr = 0; rr < G::kR; ++rr) r[rr] = out[rr].a;
+  } else {
+    G::template functor<S, S>(x, d, c, r);
+  }
+  const Scales<S> sc = loss_scales<G, S>(r, c);
+#pragma unroll
+  for (int rr = 0; rr < G::kR; ++rr) res[rr * N + l] = sc.res * r[rr];
+  if constexpr (kJac) {
+#pragma unroll
+    for (int p = 0; p < G::kPos; ++p) {
+#pragma unroll
+      for (int j = 0; j < G::tan(p); ++j) {
+        const int k = G::toff(p) + j;
+        S rtj = S(0);
+#pragma unroll
+        for (int rr = 0; rr < G::kR; ++rr) rtj += r[rr] * out[rr].v[k];
+#pragma unroll
+        for (int rr = 0; rr < G::kR; ++rr) {
+          a.leaf[p][static_cast<size_t>(rr * G::tan(p) + j) * N + l] =
+              sc.jac * (out[rr].v[k] - sc.alpha_sq_norm * r[rr] * rtj);
+        }
+      }
+    }
+  }
+  return sc.rho0;
+}
+
+// sum over a warp, lane 0 holding it: a fixed tree
+template <class S>
+__device__ __forceinline__ S warp_sum(S v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <class G, class S, bool kJac, int kBlock>
+__global__ void __launch_bounds__(kBlock)
+    eval_generic_kernel(const Args<G, S> a, const S* __restrict__ c, int n,
+                        S* __restrict__ res, S* __restrict__ partials, int* __restrict__ ticket,
+                        S* __restrict__ cost) {
+  __shared__ S sh[kBlock / 32];
+  __shared__ bool last;
+  S rho0 = S(0);
+  const int l0 = blockIdx.x * kBlock + threadIdx.x;
+  if (l0 < n) rho0 = eval_block<G, S, kJac>(a, c, l0, n, res);
+  for (int l = l0 + gridDim.x * kBlock; l < n; l += gridDim.x * kBlock) {
+    rho0 += eval_block<G, S, kJac>(a, c, l, n, res);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  S v = warp_sum(rho0);
+  if (lane == 0) sh[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    S b = sh[0];
+#pragma unroll
+    for (int w = 1; w < kBlock / 32; ++w) b += sh[w];
+    partials[blockIdx.x] = b;
+    last = take_ticket(ticket) == static_cast<int>(gridDim.x) - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block: cost = 0.5 * sum(partials), each thread a fixed stride,
+  // then the warp trees and the warps in order
+  S acc = S(0);
+#pragma unroll 8
+  for (int i = threadIdx.x; i < static_cast<int>(gridDim.x); i += kBlock) {
+    acc += __ldcg(partials + i);
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) sh[warp] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    S total = sh[0];
+#pragma unroll
+    for (int w = 1; w < kBlock / 32; ++w) total += sh[w];
+    cost[0] = S(0.5) * total;
+    *ticket = 0;
+  }
+}
+
+template <class G, class S, int kBlock>
+void launch_blocks(int with_jac, const Args<G, S>& a, const S* c, int n, S* res, S* partials,
+                   int* ticket, S* cost, cudaStream_t stream) {
+  const int tiles = n > 0 ? (n + kBlock - 1) / kBlock : 1;
+  const int blocks = tiles < kMaxBlocks ? tiles : kMaxBlocks;
+  if (with_jac) {
+    eval_generic_kernel<G, S, true, kBlock><<<blocks, kBlock, 0, stream>>>(a, c, n, res, partials,
+                                                                          ticket, cost);
+  } else {
+    eval_generic_kernel<G, S, false, kBlock><<<blocks, kBlock, 0, stream>>>(
+        a, c, n, res, partials, ticket, cost);
+  }
 }
 
 // ptrs: tbl[kPos], rows[kPos], data[kData], leaf[kPos] (leaves unused
-// without the Jacobian)
+// without the Jacobian); partials [min(kMaxBlocks, max(1, ceil(n /
+// kBlock)))]; ticket an int32 on the card that is 0 between launches.
 template <class G, class S>
-int launch(int with_jac, void* const* ptrs, const S* c, int n, S* res, S* partials, S* cost,
-           cudaStream_t stream) {
+int launch(int with_jac, void* const* ptrs, const S* c, int n, S* res, S* partials,
+           int* ticket, S* cost, cudaStream_t stream) {
   Args<G, S> a;
   int k = 0;
   for (int p = 0; p < G::kPos; ++p) a.tbl[p] = static_cast<const S*>(ptrs[k++]);
   for (int p = 0; p < G::kPos; ++p) a.rows[p] = static_cast<const int*>(ptrs[k++]);
   for (int q = 0; q < G::kData; ++q) a.data[q] = static_cast<const S*>(ptrs[k++]);
   for (int p = 0; p < G::kPos; ++p) a.leaf[p] = static_cast<S*>(ptrs[k++]);
-  const int blocks = (n + kBlock - 1) / kBlock;
-  if (blocks > 0) {
-    if (with_jac) {
-      eval_generic_kernel<G, S, true><<<blocks, kBlock, 0, stream>>>(a, c, n, res, partials);
-    } else {
-      eval_generic_kernel<G, S, false><<<blocks, kBlock, 0, stream>>>(a, c, n, res, partials);
-    }
+  // at least one block: it writes the cost (0 for n == 0)
+  if (n >= kWideLanes) {
+    launch_blocks<G, S, kWideBlock>(with_jac, a, c, n, res, partials, ticket, cost, stream);
+  } else {
+    launch_blocks<G, S, kNarrowBlock>(with_jac, a, c, n, res, partials, ticket, cost, stream);
   }
-  eval_generic_sum_kernel<S><<<1, 1024, 0, stream>>>(partials, blocks, cost);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace ctt
 
 // The plain C entry points of one generated source (ctypes binds them):
-// each returns cudaGetLastError() after its launches.
+// each returns cudaGetLastError() after its launch.
 #define CTT_EVAL_GENERIC_ENTRY(G)                                                          \
   extern "C" int ctt_eval_generic_f32(int with_jac, void* const* ptrs, const float* c,     \
-                                      int n, float* res, float* partials, float* cost,     \
-                                      void* stream) {                                      \
-    return ctt::launch<G, float>(with_jac, ptrs, c, n, res, partials, cost,                \
+                                      int n, float* res, float* partials, int* ticket,     \
+                                      float* cost, void* stream) {                         \
+    return ctt::launch<G, float>(with_jac, ptrs, c, n, res, partials, ticket, cost,        \
                                  static_cast<cudaStream_t>(stream));                       \
   }                                                                                        \
   extern "C" int ctt_eval_generic_f64(int with_jac, void* const* ptrs, const double* c,    \
-                                      int n, double* res, double* partials, double* cost,  \
-                                      void* stream) {                                      \
-    return ctt::launch<G, double>(with_jac, ptrs, c, n, res, partials, cost,               \
+                                      int n, double* res, double* partials, int* ticket,   \
+                                      double* cost, void* stream) {                        \
+    return ctt::launch<G, double>(with_jac, ptrs, c, n, res, partials, ticket, cost,       \
                                   static_cast<cudaStream_t>(stream));                      \
   }

@@ -20,10 +20,10 @@ B1's generic instantiation is built per generated source
 (functor_codegen.py fills in csrc/eval_generic.cuh): `build_generated`
 compiles the sources it is given, one nvcc each, all started together,
 into `_build/gen_<hash>.so` keyed by a hash of the source, the template
-and the flags, and `generated_fn` loads one. Its launches count as
-`eval_generic` (with the Jacobian), `eval_generic_analytic` (with the
-Jacobian, for a functor that carries an analytic rule) and
-`eval_generic_residual`.
+and the flags, and `generated_fn` loads one. Each evaluation is one
+launch, counted as `eval_generic` (with the Jacobian),
+`eval_generic_analytic` (with the Jacobian, for a functor that carries an
+analytic rule) and `eval_generic_residual`.
 """
 
 from __future__ import annotations
@@ -75,6 +75,8 @@ _SIGNATURES = {
     ],
     # jac, rows, table, n, r, t, ncols, out, stream
     "ctt_gather_contract": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # B2's shared-memory kernel, bfloat16 leaves only: the same arguments
+    "ctt_gather_contract_shared": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     # twin, perm, chunk_start, row_chunks, u, n, n_pad, r, t, nchunks, ncols,
     # partial, out, stream
     "ctt_contract_reduce": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
@@ -93,6 +95,7 @@ _SIGNATURES = {
 _BF16_PREFIXES = (
     "ctt_gather_contract", "ctt_contract_reduce", "ctt_schur_sy_point", "ctt_schur_sy_fold",
 )
+_BF16_ONLY = ("ctt_gather_contract_shared",)
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64", torch.bfloat16: "_bf16"}
 
 
@@ -155,7 +158,7 @@ def library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         for prefix, argtypes in _SIGNATURES.items():
-            for suffix in ("_f32", "_f64") + (("_bf16",) if prefix in _BF16_PREFIXES else ()):
+            for suffix in _suffixes(prefix):
                 fn = getattr(lib, prefix + suffix)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -230,7 +233,8 @@ def generated_fn(source: str, dtype):
         lib = ctypes.CDLL(str(path))
         for sfx in ("_f32", "_f64"):
             fn = getattr(lib, "ctt_eval_generic" + sfx)
-            fn.argtypes = [_I, _P, _P, _I, _P, _P, _P, _P]
+            # with_jac, ptrs, c, n, res, partials, ticket, cost, stream
+            fn.argtypes = [_I, _P, _P, _I, _P, _P, _P, _P, _P]
             fn.restype = ctypes.c_int
         _generated[path] = lib
     return getattr(lib, "ctt_eval_generic" + suffix)
@@ -247,12 +251,20 @@ def generated_build_seconds(source: str):
     return _generated_seconds.get(_generated_path(source))
 
 
+def _suffixes(prefix: str):
+    """The leaf dtypes a kernel is instantiated for, as entry-point suffixes."""
+    if prefix in _BF16_ONLY:
+        return ("_bf16",)
+    return ("_f32", "_f64") + (("_bf16",) if prefix in _BF16_PREFIXES else ())
+
+
 def kernel_fn(prefix: str, dtype):
     """The instantiation of a kernel for its leaves' dtype: float32,
     float64, or bfloat16 where the kernel has one."""
     suffix = _SUFFIX.get(dtype)
-    if suffix is None or (suffix == "_bf16" and prefix not in _BF16_PREFIXES):
-        kinds = "float32/float64" + ("/bfloat16" if prefix in _BF16_PREFIXES else "")
+    if suffix not in _suffixes(prefix):
+        kinds = "/".join({"_f32": "float32", "_f64": "float64", "_bf16": "bfloat16"}[k]
+                         for k in _suffixes(prefix))
         raise TypeError(f"{prefix}: unsupported dtype {dtype} ({kinds})")
     return getattr(library(), prefix + suffix)
 

@@ -27,7 +27,8 @@ included) takes B1's generic instantiation (`generic_evaluate`): the
 generator fills the hand-written template csrc/eval_generic.cuh with the
 group's functor, plus-Jacobians and rho, and the kernel evaluates it on
 Jet<S, N> (N the group's total tangent), one thread per residual block,
-with the same outputs, loss, correction and cost reduction as above. A
+with the same outputs, loss and correction as above, in one launch per
+evaluation (the last block to finish sums the cost partials). A
 functor with an analytic rule (an AnalyticCostFunction, alone or inside
 a larger functor) gets the rule's Jacobian, never the Jet of its primal;
 a numeric-diff one is not generated.
@@ -213,7 +214,26 @@ def group_evaluate(meta, tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian):
 # B1 generic: any functor the generator can trace
 # ---------------------------------------------------------------------- #
 
-GENERIC_BLOCK = 128  # threads per block of the generic launch (eval_generic.cuh)
+
+def generic_block(n):
+    """Threads per block of a generic launch over n residual blocks
+    (eval_generic.cuh kWideLanes): 512 where the grid still has a block
+    per SM of an H100 (n >= 132 * 512; a quarter of the cost partials and
+    atomics of 128), else 128 (a small group over more SMs)."""
+    return 512 if n >= 132 * 512 else 128
+
+
+# the most blocks a generic launch takes (eval_generic.cuh kMaxBlocks): each
+# strides over the lanes beyond, so the one-launch cost sum's atomics and
+# final read stay bounded at any n
+GENERIC_MAX_BLOCKS = 2048
+
+
+def generic_blocks(n):
+    """The blocks of a generic launch over n residual blocks, one cost
+    partial each: ceil(n / generic_block(n)), at least 1 (that block writes
+    the cost, 0 for n = 0) and at most GENERIC_MAX_BLOCKS."""
+    return min(GENERIC_MAX_BLOCKS, max(1, -(-n // generic_block(n))))
 
 
 def prepare_generic(program, arrays, dtype):
@@ -235,10 +255,10 @@ def generic_evaluate(prog, meta, garr, state_2d, with_jacobian):
     arrays (rows [n] int32 per position, data [n, ...] per data leaf) and
     state_2d the [cnt, size] state tables by class. Returns (cost [],
     res [r, n], tuple of [r * t_p, n] or ()), as `snavely_evaluate`, with
-    the loss the program was traced with. On CPU tensors the plain version
-    (evaluator.group_eval_plain) runs. Counted as eval_generic,
-    eval_generic_analytic (the Jacobian of a functor with an analytic
-    rule) or eval_generic_residual."""
+    the loss the program was traced with, in one launch. On CPU tensors
+    the plain version (evaluator.group_eval_plain) runs. Counted as
+    eval_generic, eval_generic_analytic (the Jacobian of a functor with an
+    analytic rule) or eval_generic_residual."""
     if state_2d[0].device.type == "cpu":
         from .evaluator import group_eval_plain
 
@@ -259,7 +279,7 @@ def generic_evaluate(prog, meta, garr, state_2d, with_jacobian):
     leaves = tuple(
         torch.empty((prog.r * t, n), dtype=dt, device=dev) for t in prog.tangents
     ) if with_jacobian else ()
-    partials = torch.empty(((n + GENERIC_BLOCK - 1) // GENERIC_BLOCK,), dtype=dt, device=dev)
+    partials = torch.empty((generic_blocks(n),), dtype=dt, device=dev)
     cost = torch.empty((), dtype=dt, device=dev)
     ptrs = [t.data_ptr() for t in tables] + [r.data_ptr() for r in rows]
     ptrs += [d.data_ptr() for d in data] + [leaf.data_ptr() for leaf in leaves]
@@ -267,13 +287,15 @@ def generic_evaluate(prog, meta, garr, state_2d, with_jacobian):
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     if prog.entry_point is None:
         prog.entry_point = cuda_lib.generated_fn(prog.source, dt)
-    if dev not in prog.device_consts:  # the constant slots, uploaded once per card
+    if dev not in prog.device_consts:  # the constant slots and the ticket, once per card
         prog.device_consts[dev] = torch.tensor(prog.consts or [0.0], dtype=dt, device=dev)
+        prog.device_tickets[dev] = torch.zeros((1,), dtype=torch.int32, device=dev)
     counter = ("eval_generic_analytic" if prog.has_rule else "eval_generic") if with_jacobian \
         else "eval_generic_residual"
     rc = prog.entry_point(
-        int(with_jacobian), arr, cuda_lib.ptr(prog.device_consts[dev]), n, cuda_lib.ptr(res),
-        cuda_lib.ptr(partials), cuda_lib.ptr(cost), cuda_lib.stream(dev),
+        int(with_jacobian), arr, cuda_lib.ptr(prog.device_consts[dev]), n,
+        cuda_lib.ptr(res), cuda_lib.ptr(partials), cuda_lib.ptr(prog.device_tickets[dev]),
+        cuda_lib.ptr(cost), cuda_lib.stream(dev),
     )
     cuda_lib.check(rc, counter)
     cuda_lib.count(counter)

@@ -882,9 +882,12 @@ class GroupProgram:
             self.rho = (f, [self._outputs(f, v, (), "rho")[0] for v in rho])
         self.source = emit_source(self)
         # the launch's state, filled by eval_kernel.generic_evaluate: the
-        # loaded entry point of this dtype and the slots on each card
+        # loaded entry point of this dtype, and on each card the constant
+        # slots and the int32 ticket counter of the one-launch cost sum
+        # (zeroed once; each launch's last block sets it back to 0)
         self.entry_point = None
         self.device_consts = {}
+        self.device_tickets = {}
 
     @staticmethod
     def _outputs(fn, v, shape, what):

@@ -11,7 +11,9 @@ position's Jacobian leaf and rows [n] its class rows:
       (Fᵀu into the [t, ncols] class table; with u=None it is the plain
       segmented sum of the twin's rows, r=1 — reduce_T's onehot plan)
 
-B2 reads the leaf in lane order. B3 reads the leaf's twin: a copy in the
+B2 reads the leaf in lane order: on bfloat16 leaves 16 bytes of a leaf
+row per thread, its table from shared memory (`gather_branch`); else one
+lane per thread, as its first version. B3 reads the leaf's twin: a copy in the
 slot order of the padded camera CSR (program.camera_layout,
 jacobian.make_twin), where each camera's observations are contiguous. One
 block per chunk of a camera's run and a fixed-order combine of the chunks
@@ -51,6 +53,32 @@ def widen(leaf):
     return leaf.to(torch.float32) if leaf.dtype == torch.bfloat16 else leaf
 
 
+# B2's shared-memory kernel: the table's bytes that one block may stage in
+# shared memory. An H100 block may use 227 KB (232,448 bytes) of it, as
+# dynamic shared memory after cudaFuncSetAttribute (csrc/gather_reduce.cu);
+# one kilobyte of that is left for the 16 bytes of alignment slack and the
+# kernel's own barrier.
+SHARED_TABLE_MAX_BYTES = 232_448 - 1024
+
+
+def table_fits(t, ncols):
+    """Whether B2's [t, ncols] float32 table (bfloat16 leaves meet a
+    float32 table) fits one block's shared memory: BAL-1778's 9 x 1,779
+    (64 KB) does, BAL-13682's 9 x 13,683 (493 KB) not."""
+    return t * ncols * 4 <= SHARED_TABLE_MAX_BYTES
+
+
+def gather_branch(t, ncols, leaf_dtype):
+    """B2's branch: "shared" (the table staged in shared memory, 16 bytes
+    of leaf row per thread) for bfloat16 leaves whose table fits, else
+    "global" (the first version's kernel, one lane per thread). The
+    shared-memory kernel exists for bfloat16 leaves only: on the H100 at
+    BAL-1778 it beat the first version there and lost to it on float32
+    and float64 leaves (PERF.md §6)."""
+    shared = leaf_dtype == torch.bfloat16 and table_fits(t, ncols)
+    return "shared" if shared else "global"
+
+
 def gather_contract_plain(jac, rows, table_t, r):
     rt, n = jac.shape
     t = rt // r
@@ -61,21 +89,29 @@ def gather_contract_plain(jac, rows, table_t, r):
     return (widen(jac).reshape(r, t, n) * leaf_operand(y, jac.dtype)[None]).sum(dim=1)
 
 
-def gather_contract(jac, rows, table_t, r):
+def gather_contract(jac, rows, table_t, r, branch=None):
     """F·y for a onehot-plan position: [r, n] from jac [r*t, n], rows [n]
     int32, table_t [t, ncols] whose last column is the dump column; table
-    and output in cuda_lib.vector_dtype(jac.dtype)."""
+    and output in cuda_lib.vector_dtype(jac.dtype). `branch` ("shared" or
+    "global", default `gather_branch`) picks the kernel on bfloat16
+    leaves; both give bitwise the same output."""
     if jac.device.type == "cpu":
         return gather_contract_plain(jac, rows, table_t, r)
     rt, n = jac.shape
     t = rt // r
     ncols = table_t.shape[1]
     vdt = cuda_lib.vector_dtype(jac.dtype)
+    branch = branch or gather_branch(t, ncols, jac.dtype)
+    if branch not in ("shared", "global") or branch == "shared" and (
+            jac.dtype != torch.bfloat16 or not table_fits(t, ncols)):
+        raise ValueError(f"gather_contract: branch {branch!r} for {jac.dtype} leaves and a "
+                         f"[{t}, {ncols}] table")
     cuda_lib.require("jac", jac)
     cuda_lib.require("rows", rows, torch.int32, (n,), jac.device)
     cuda_lib.require("table_t", table_t, vdt, (t, ncols), jac.device)
     out = torch.empty((r, n), dtype=vdt, device=jac.device)
-    fn = cuda_lib.kernel_fn("ctt_gather_contract", jac.dtype)
+    prefix = "ctt_gather_contract_shared" if branch == "shared" else "ctt_gather_contract"
+    fn = cuda_lib.kernel_fn(prefix, jac.dtype)
     rc = fn(
         cuda_lib.ptr(jac), cuda_lib.ptr(rows), cuda_lib.ptr(table_t),
         n, r, t, ncols, cuda_lib.ptr(out), cuda_lib.stream(jac.device),

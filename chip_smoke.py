@@ -31,10 +31,14 @@ and prints no result):
      5x5 clique group at 213 x 177 and the Snavely group at BAL-1778 (also
      against the hand-written eval_snavely), with and without the
      Jacobian, each against its plain version, bitwise across two runs,
-     with ptxas' registers and spills; then B1 generic's custom-Jacobian
-     branch on the 3x3 clique group as an AnalyticCostFunction (closed
-     form) against its plain version and beside the autodiff clique, and
-     the wrong-rule probe (3x the closed form gives 3x the autodiff leaf);
+     with ptxas' registers and spills at both block sizes; then B1
+     generic's custom-Jacobian branch on the 3x3 clique group as an
+     AnalyticCostFunction (closed form) against its plain version and
+     beside the autodiff clique, and the wrong-rule probe (3x the closed
+     form gives 3x the autodiff leaf); B2's two kernels on bfloat16 leaves
+     (the table in shared memory; the first version's) at BAL-1778,
+     bitwise equal to each other, each time with its share of the bound,
+     the shared memory per block and ptxas' report;
   3. a small float64 solve (48,000 observations, so the layout plans
      engage) for 5 LM iterations on the card and on the CPU, for JACOBI,
      SCHUR_JACOBI, and SCHUR_JACOBI with the power-series warm start (which
@@ -455,6 +459,48 @@ def report_kernels(results, entries):
             raise AssertionError(f"{name}: kernel disagrees with its plain version")
 
 
+def b2_branches(label, jac, rows, y, nbytes, ops, tol):
+    """Phase 2, B2's two kernels on one bfloat16 input (the shared-memory
+    one, which gather_branch picks at this table's size, and the first
+    version's): each against the plain version, bitwise equal to each
+    other, with its time, its share of the bound, the shared-memory
+    kernel's dynamic shared memory per block and ptxas' report of both;
+    raise if they differ or disagree."""
+    import torch
+
+    from ceres_tpu_torch import cuda_lib
+    from ceres_tpu_torch.gather_reduce import gather_branch, gather_contract, gather_contract_plain
+
+    t, ncols = y.shape
+    want = gather_contract_plain(jac, rows, y, 2)
+    outs = {b: gather_contract(jac, rows, y, 2, branch=b) for b in ("shared", "global")}
+    same = torch.equal(outs["shared"], outs["global"])
+    err = max(rel_err(o, want)[1] for o in outs.values())
+    del want, outs
+    times = {b: median_ms(lambda: gather_contract(jac, rows, y, 2, branch=b))
+             for b in ("shared", "global")}
+    b_ms, b_by = bound(nbytes, ops)
+    log = cuda_lib.BUILD_DIR / "build.log"
+    regs = []
+    for ln in ptxas_report(log.read_text()) if log.exists() else []:
+        name, rest = ln.split(": ", 1)
+        if name.startswith("gather_contract_kernel<bf16>"):
+            regs.append(f"global {rest}")
+        elif "gather_contract_shared_kernel" in name:
+            regs.append(f"shared {rest}")
+    ok = same and err <= tol
+    print(f"phase 2: {label} kernels at t {t}, ncols {ncols}: shared memory "
+          f"{times['shared']:.4f} ms ({100 * b_ms / times['shared']:.1f}% of the bound), global "
+          f"{times['global']:.4f} ms ({100 * b_ms / times['global']:.1f}%), bound {b_ms:.4f} ms "
+          f"({b_by}); gather_branch picks {gather_branch(t, ncols, jac.dtype)}; "
+          f"{t * ncols * y.element_size() + 16} B of dynamic shared memory per block; bitwise "
+          f"equal {same}; max rel err {err:.3e} (tol {tol:.0e}); ptxas {' | '.join(regs)}"
+          f"{'' if ok else '  FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: B2's kernels differ or disagree with the plain version")
+    return times
+
+
 def phase_kernels(program, dev, results):
     """Phase 2: every kernel against its plain version at the main path's
     shapes (the problem's own Jacobian, tables and layout), with its bound
@@ -663,6 +709,8 @@ def phase_kernels_bf16(results, sy, F, E, rows_f, layout, y, u, e_twin, prow, se
     # the same products on the same rounded table, the output rounded
     time_library("gather_contract_bf16",
                  lambda: library_b2(F16, rows_f, y.to(bf16), 2), out, results)
+    b2_branches("gather_contract_bf16", F16, rows_f, y, h * 18 * n + w * (n + 9 * ncols_f + 2 * n),
+                2 * 18 * n, 1e-5)
     out1, out2 = contract_reduce(f_twin16, layout, u, 2), contract_reduce(f_twin16, layout, u, 2)
     if not torch.equal(out1, out2):
         raise AssertionError("contract_reduce_bf16 is not bitwise reproducible")
@@ -1260,15 +1308,17 @@ def generic_bytes(prog, tables, n, with_jacobian) -> int:
 
 def generic_ptxas(prog) -> str:
     """Registers and spills of a generated source's float32 instantiations
-    (Jacobian, residual-only), from its nvcc log."""
+    (Jacobian, residual-only; each at 128 and 256 threads a block), from
+    its nvcc log."""
     from ceres_tpu_torch import cuda_lib
 
     log = cuda_lib._generated_path(prog.source).with_suffix(".log")
     out, kind = {}, None
     for ln in log.read_text().splitlines() if log.exists() else []:
-        m = re.search(r"Compiling entry function '_ZN3ctt19eval_generic_kernelI1GfLb(\d)E", ln)
+        m = re.search(r"Compiling entry function '_ZN3ctt19eval_generic_kernelI1GfLb(\d)ELi(\d+)E",
+                      ln)
         if m:
-            kind = "jac" if m.group(1) == "1" else "res"
+            kind = ("jac" if m.group(1) == "1" else "res") + f"/{m.group(2)}"
             continue
         if kind and "spill" in ln:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)

@@ -59,6 +59,22 @@ per iteration and the idle share over iterations 2-10
 (chiprun_out/profile_solve_line_search.txt):
 
     python3 profile_torch_solve.py --line-search
+
+With --kernels it times B1 generic (chip_smoke.py's Fields-of-Experts
+groups: the 3x3 clique, the data term and the 5x5 clique of FOE_RUNS, and
+the 3x3 clique as an AnalyticCostFunction; with the Jacobian and
+residual-only) and B2 (BAL-1778's shape, n = 5,000,000, t = 9, 1,779
+columns, float32, float64 and bfloat16 leaves) as each runs by default,
+each as the device ms per call of one CUDA graph that holds 20 calls back
+to back, replayed 10 times between two CUDA events (the median of 5), and
+B1 generic's cost, so that two versions' cost sums can be compared: at
+B1 generic's ~10 us a replay of a single call is mostly the graph's own
+launch. It calls only entry points that the parent commit has too, so
+--tree DIR times the package of another checkout (say a parent commit
+unpacked with `git archive`) by the same method; run two checkouts in
+turns, in one call:
+
+    python3 profile_torch_solve.py --kernels --tree .chipcheck/base
 """
 
 from __future__ import annotations
@@ -225,6 +241,98 @@ def compare(ct, torch, bal, lm_options, runs, variants):
               + f"; iterations 2-5 median sum {sum(med[2:6]):.1f} ms", flush=True)
 
 
+def batched_ms(torch, fn, calls=20, replays=10, repeats=5) -> float:
+    """Device ms per call of fn: one CUDA graph holding `calls` calls back
+    to back, replayed `replays` times between two CUDA events; the median
+    of `repeats` such readings."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(replays):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / (calls * replays))
+    del graph
+    return statistics.median(times)
+
+
+def kernel_times(torch, label):
+    """--kernels: B1 generic on chip_smoke's FoE groups and B2 at BAL-1778's
+    shape, as each runs by default, by batched_ms."""
+    import numpy as np
+
+    from ceres_tpu_torch import cuda_lib, eval_kernel, functor_codegen
+    from ceres_tpu_torch.evaluator import Evaluator, state_tables
+    from ceres_tpu_torch.gather_reduce import gather_contract
+    from chip_smoke import FOE_RUNS, build_foe
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    cases = []
+    for h, w, size, k, _iters in FOE_RUNS:
+        program = build_foe(h, w, size, k).compile(dev)
+        cases.append((f"FoE {size}x{size} clique ({h}x{w})", program, 1, f32))
+        if size == 3:
+            cases.append((f"FoE data term ({h}x{w})", program, 0, f32))
+            cases.append((f"FoE {size}x{size} analytic clique ({h}x{w})",
+                          build_foe(h, w, size, k, analytic=True).compile(dev), 1, f32))
+    # the 5x5 clique at smaller images (fewer blocks than the card holds),
+    # and the sphere2500-shaped 3D pose graph's edges in float64, as its run
+    for side in (132, 68):
+        cases.append((f"FoE 5x5 clique ({side}x{side})", build_foe(side, side, 5, 1).compile(dev),
+                      1, f32))
+    from chip_smoke import SPHERE_RINGS, write_sphere_g2o
+    from ceres_tpu_torch.examples import pose_graph
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sphere.g2o")
+        write_sphere_g2o(path, *SPHERE_RINGS)
+        graph = pose_graph.load_g2o_3d(path)
+    cases.append(("sphere2500-shaped 3D pose graph", pose_graph.build_pose_graph_3d_problem(
+        graph)[0].compile(dev), 0, torch.float64))
+    # every case's generated source first, one nvcc each, all at once
+    cuda_lib.build_generated([functor_codegen.group_program(
+        program.groups[gi], Evaluator(program, dtype).arrays["groups"][gi], dtype, True).source
+        for _name, program, gi, dtype in cases])
+    for name, program, gi, dtype in cases:
+        ev = Evaluator(program, dtype)
+        meta, garr = program.groups[gi], ev.arrays["groups"][gi]
+        st = state_tables(program, program.state_vector(dtype))
+        prog = functor_codegen.group_program(meta, garr, dtype, True)
+        jac = batched_ms(torch, lambda: eval_kernel.generic_evaluate(prog, meta, garr, st, True))
+        res = batched_ms(torch, lambda: eval_kernel.generic_evaluate(prog, meta, garr, st, False))
+        cost = float(eval_kernel.generic_evaluate(prog, meta, garr, st, True)[0])
+        print(f"kernels [{label}]: eval_generic {name}: n {meta.n}, N {prog.num_tangent}: "
+              f"{jac:.5f} ms with the Jacobian, {res:.5f} ms residual-only; cost "
+              f"{cost!r}", flush=True)
+        del ev, st, program
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    n, ncols, t, r = 5_000_000, 1779, 9, 2
+    rows = torch.tensor(rng.integers(0, ncols, n).astype(np.int32), device=dev)
+    for dt in (torch.float32, torch.float64, torch.bfloat16):
+        vdt = cuda_lib.vector_dtype(dt)
+        jac = torch.tensor(rng.standard_normal((r * t, n), dtype=np.float32), device=dev).to(dt)
+        table = torch.tensor(rng.standard_normal((t, ncols)), device=dev, dtype=vdt)
+        table[:, -1] = 0
+        ms = batched_ms(torch, lambda: gather_contract(jac, rows, table, r))
+        print(f"kernels [{label}]: gather_contract {str(dt).split('.')[-1]}: {ms:.5f} ms",
+              flush=True)
+        del jac, table
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Profile the port's BAL-1778 solve.")
     parser.add_argument("--compare", type=int, default=0,
@@ -242,14 +350,26 @@ def main(argv=None) -> int:
                        help="profile chip_smoke's two Fields-of-Experts denoising runs instead")
     group.add_argument("--line-search", action="store_true",
                        help="profile chip_smoke's L-BFGS line-search run at BAL-1778 instead")
+    group.add_argument("--kernels", action="store_true",
+                       help="time B1 generic and B2 by batched graph replays instead")
+    parser.add_argument("--tree", default=None,
+                        help="with --kernels: the checkout whose package to time")
     args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("profile_torch_solve: no CUDA device available", file=sys.stderr)
         return 2
-    root = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.abspath(args.tree) if args.tree else os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    if args.kernels:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip()
+        print(f"{smi} | torch {torch.__version__} cuda {torch.version.cuda} | {root}", flush=True)
+        kernel_times(torch, args.tree or "this checkout")
+        return 0
     import ceres_tpu_torch as ct
     from ceres_tpu_torch import cuda_lib
     from chip_smoke import (

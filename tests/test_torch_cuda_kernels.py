@@ -803,3 +803,226 @@ def test_subset_solve_gap_is_rounding_at_a_vanishing_cost(card):
         assert gap <= 1e-9 * c0
         if b.cost > 1e-6 * c0:
             assert gap <= 1e-9 * b.cost
+
+
+# ---- B1 generic's one launch ---------------------------------------------
+
+
+def manifold_problem(n, seed=0, loss=None):
+    """A group of 15 tangent columns with a manifold position between two
+    Euclidean ones: a point (3), a quaternion camera on Quaternion x
+    Euclidean(6) (tangent 9, columns 3-11) and a second point (3). n
+    blocks from the seed, one datum each."""
+    rng = np.random.default_rng(seed)
+
+    def fn(params, data):
+        a, cam, b = params
+        return torch.stack([cam[0] * a[0] + torch.sin(cam[1]) * b[1] - data[0][0],
+                            cam[4] * a[2] - b[0] * cam[8] + cam[3] * cam[2],
+                            cam[5] * cam[9] + a[1] * b[2] + cam[7] * cam[6]])
+
+    q = rng.normal(size=(7, 4))
+    cams = np.concatenate([q / np.linalg.norm(q, axis=1, keepdims=True),
+                           rng.normal(size=(7, 6))], axis=1)
+    p = ct.Problem()
+    pa = p.add_parameter_blocks(rng.normal(size=(11, 3)))
+    pc = p.add_parameter_blocks(cams, manifold=ct.ProductManifold(ct.QuaternionManifold(),
+                                                                  ct.EuclideanManifold(6)))
+    pb = p.add_parameter_blocks(rng.normal(size=(13, 3)))
+    idx = np.stack([pa[rng.integers(0, 11, n)], pc[rng.integers(0, 7, n)],
+                    pb[rng.integers(0, 13, n)]], 1)
+    p.add_residual_blocks(ct.CostFunction(fn, 3), loss, idx, (rng.normal(size=(n, 1)),))
+    return p
+
+
+def _one_launch_problems(tmp):
+    """Groups of many tangent columns, each with n not a multiple of the
+    block (128): the FoE 5x5 clique (N = 25), the manifold group (N = 15,
+    Huber loss), the FoE 5x5 clique as an AnalyticCostFunction (N = 25)
+    and the 3D pose graph's edges (N = 12, two quaternion poses)."""
+    from chip_smoke import build_foe, small_sphere_problem
+    from ceres_tpu_torch.examples import denoising
+
+    rng = np.random.default_rng(7)
+    img = rng.uniform(0.0, 255.0, (41, 37))
+    foe = denoising.synthetic_foe_model(5, 1, seed=3)
+    return {
+        "foe5": denoising.build_foe_denoising_problem(img, foe)[0],
+        "manifold": manifold_problem(1001, loss=ct.HuberLoss(1.0)),
+        "foe5_analytic": build_foe(41, 37, 5, 1, seed=4, analytic=True),
+        "pose_graph_3d": small_sphere_problem(tmp, 7, 10)[0],
+    }
+
+
+@pytest.mark.parametrize("case", ["foe5", "manifold", "foe5_analytic", "pose_graph_3d"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_eval_generic_one_launch_matches_plain(card, dtype, case, tmp_path):
+    """Each group's evaluation is one counted launch, with and without the
+    Jacobian, against the plain version; residuals, leaves and cost bitwise
+    equal across two launches."""
+    program = _one_launch_problems(str(tmp_path))[case].compile(card)
+    ev = Evaluator(program, dtype)
+    st = state_tables(program, program.state_vector(dtype))
+    tol = 2e-4 if dtype == torch.float32 else 1e-11
+    for meta, garr in zip(program.groups, ev.arrays["groups"]):
+        prog = functor_codegen.group_program(meta, garr, dtype, True)
+        assert prog is not None and meta.n % eval_kernel.generic_block(meta.n) != 0
+        args = (meta, garr, st)
+        cost_p, res_p, leaves_p = group_eval_plain(*args, True, True)
+        for with_jac in (True, False):
+            name = ("eval_generic_analytic" if prog.has_rule else "eval_generic") if with_jac \
+                else "eval_generic_residual"
+            cuda_lib.reset_launch_counts()
+            one = eval_kernel.generic_evaluate(prog, *args, with_jac)
+            assert cuda_lib.launch_counts()[name] == 1
+            _close(one[0], cost_p, tol)
+            _close(one[1], res_p, tol)
+            for a, b in zip(one[2], leaves_p):
+                _close(a, b, tol)
+            two = eval_kernel.generic_evaluate(prog, *args, with_jac)
+            assert torch.equal(two[0], one[0]) and torch.equal(two[1], one[1])
+            assert all(torch.equal(a, b) for a, b in zip(two[2], one[2]))
+
+
+def test_eval_generic_cost_is_bitwise_across_graph_replays(card):
+    """The one-launch cost sum: the last block resets the ticket counter,
+    so three replays of one captured graph (with and without the Jacobian)
+    give bitwise the same cost, equal to an eager launch's, and the counter
+    ends at 0."""
+    from ceres_tpu_torch.examples import denoising
+
+    rng = np.random.default_rng(8)
+    img = rng.uniform(0.0, 255.0, (41, 37))
+    program = denoising.build_foe_denoising_problem(
+        img, denoising.synthetic_foe_model(5, 2, seed=1))[0].compile(card)
+    dtype = torch.float32
+    ev = Evaluator(program, dtype)
+    st = state_tables(program, program.state_vector(dtype))
+    for meta, garr in zip(program.groups, ev.arrays["groups"]):
+        prog = functor_codegen.group_program(meta, garr, dtype, True)
+        args = (meta, garr, st)
+        for with_jac in (True, False):
+            eager = eval_kernel.generic_evaluate(prog, *args, with_jac)[0].clone()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                cost = eval_kernel.generic_evaluate(prog, *args, with_jac)[0]
+            seen = []
+            for _ in range(3):
+                graph.replay()
+                torch.cuda.synchronize()
+                seen.append(cost.clone())
+            assert all(torch.equal(c, eager) for c in seen)
+            assert not prog.device_tickets[st[0].device].any()
+
+
+def test_eval_generic_is_one_kernel_per_evaluation(card):
+    """torch.profiler sees one B1 generic kernel per group evaluation (the
+    cost summed inside it) and no second launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    program = _generic_problems()["foe3"].compile(card)
+    ev = Evaluator(program, torch.float32)
+    state = program.state_vector(torch.float32)
+    ev.evaluate_groups(state)
+    ev.cost(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ev.evaluate_groups(state)
+        ev.cost(state)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    generic = [nm for nm in names if "eval_generic" in nm]
+    assert len(generic) == 2 * len(program.groups), generic
+    assert not any("sum_kernel" in nm for nm in generic)
+
+
+# ---- B2's two kernels ----------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES + [BF16])
+@pytest.mark.parametrize("n", [50_000, 50_001, 49_997, 50_004, 7])
+def test_gather_contract_branches(card, dtype, n):
+    """B2 on a table that fits shared memory, a table that is a misaligned
+    view (the bulk copy's head and tail) and ragged n (odd, and not a
+    multiple of 8: the shared-memory kernel's scalar path). On bfloat16
+    leaves the shared-memory and global branches, each against the plain
+    version and bitwise equal to each other; on float32 and float64 leaves
+    the global one (the default), the shared one refused."""
+    from ceres_tpu_torch.gather_reduce import table_fits
+
+    rng = np.random.default_rng(n)
+    ncols = 1779
+    vdt = cuda_lib.vector_dtype(dtype)
+    jac = torch.tensor(rng.normal(size=(18, n)), dtype=dtype, device=card)
+    rows = torch.tensor(rng.integers(0, ncols, n).astype(np.int32), device=card)
+    big = torch.tensor(rng.normal(size=9 * ncols + 1), dtype=vdt, device=card)
+    assert table_fits(9, ncols)
+    tol = 1e-11 if dtype == torch.float64 else 1e-5
+    name = cuda_lib.counter("gather_contract", dtype)
+    for table in (big[:-1].reshape(9, ncols), big[1:].reshape(9, ncols)):
+        want = gather_contract_plain(jac, rows, table, 2)
+        counts = cuda_lib.launch_counts()
+        glob = gather_contract(jac, rows, table, 2, branch="global")
+        _close(glob, want, tol)
+        if dtype == BF16:
+            shared = gather_contract(jac, rows, table, 2, branch="shared")
+            assert cuda_lib.launch_counts()[name] == counts[name] + 2
+            _close(shared, want, tol)
+            assert torch.equal(shared, glob)
+            assert torch.equal(shared, gather_contract(jac, rows, table, 2))
+        else:
+            assert cuda_lib.launch_counts()[name] == counts[name] + 1
+            assert torch.equal(glob, gather_contract(jac, rows, table, 2))
+            with pytest.raises(ValueError):
+                gather_contract(jac, rows, table, 2, branch="shared")
+
+
+def test_gather_contract_large_table_takes_the_global_branch(card):
+    """A table past the shared-memory limit (BAL-13682's camera count)
+    runs the global branch, against the plain version, on bfloat16 leaves
+    too; asking for the shared branch there raises."""
+    from ceres_tpu_torch.gather_reduce import gather_branch
+
+    rng = np.random.default_rng(3)
+    n, ncols = 60_000, 13_683
+    jac = torch.tensor(rng.normal(size=(18, n)), dtype=torch.float32, device=card)
+    rows = torch.tensor(rng.integers(0, ncols, n).astype(np.int32), device=card)
+    table = torch.tensor(rng.normal(size=(9, ncols)), dtype=torch.float32, device=card)
+    assert gather_branch(9, ncols, torch.bfloat16) == "global"
+    j16 = jac.to(BF16)
+    _close(gather_contract(j16, rows, table, 2), gather_contract_plain(j16, rows, table, 2), 1e-5)
+    _close(gather_contract(jac, rows, table, 2), gather_contract_plain(jac, rows, table, 2), 1e-5)
+    with pytest.raises(ValueError):
+        gather_contract(j16, rows, table, 2, branch="shared")
+
+
+def test_eval_generic_strides_past_the_grid_cap(card):
+    """Groups of more lanes than the capped grid covers (GENERIC_MAX_BLOCKS
+    blocks of 512): each block strides over the rest. The FoE 5x5 clique
+    and the data term at 1040 x 1040 against their plain version, with the
+    Jacobian and residual-only, bitwise across two launches."""
+    from ceres_tpu_torch.examples import denoising
+
+    rng = np.random.default_rng(9)
+    img = rng.uniform(0.0, 255.0, (1040, 1040))
+    program = denoising.build_foe_denoising_problem(
+        img, denoising.synthetic_foe_model(5, 1, seed=2))[0].compile(card)
+    dtype = torch.float32
+    ev = Evaluator(program, dtype)
+    st = state_tables(program, program.state_vector(dtype))
+    for meta, garr in zip(program.groups, ev.arrays["groups"]):
+        assert meta.n > eval_kernel.GENERIC_MAX_BLOCKS * eval_kernel.generic_block(meta.n)
+        prog = functor_codegen.group_program(meta, garr, dtype, True)
+        args = (meta, garr, st)
+        _, res_p, leaves_p = group_eval_plain(*args, True, True)
+        one = eval_kernel.generic_evaluate(prog, *args, True)
+        _close(one[1], res_p, 2e-4)
+        for a, b in zip(one[2], leaves_p):
+            _close(a, b, 2e-4)
+        got = eval_kernel.generic_evaluate(prog, *args, True)
+        assert torch.equal(got[0], one[0]) and torch.equal(got[1], one[1])
+        assert all(torch.equal(a, b) for a, b in zip(got[2], one[2]))
+        r1 = eval_kernel.generic_evaluate(prog, *args, False)
+        r2 = eval_kernel.generic_evaluate(prog, *args, False)
+        _close(r1[1], res_p, 2e-4)
+        assert torch.equal(r1[0], r2[0]) and torch.equal(r1[1], r2[1])

@@ -27,11 +27,15 @@ from ceres_tpu.evaluator import evaluate as j_evaluate
 from ceres_tpu.io.bal import build_ba_problem as j_build
 from ceres_tpu.io.bal import synthetic_bal
 from ceres_tpu.program import Program as JProgram
+from ceres_tpu_torch import cuda_lib
 from ceres_tpu_torch.evaluator import Evaluator
 from ceres_tpu_torch.gather_reduce import (
+    SHARED_TABLE_MAX_BYTES,
     contract_reduce,
     contract_reduce_plain,
+    gather_branch,
     gather_contract,
+    table_fits,
     gather_contract_plain,
 )
 from ceres_tpu_torch.jacobian import make_twin, reduce_T, scale_twin
@@ -59,6 +63,43 @@ def test_gather_contract_matches_pallas(monkeypatch, n):
     want = np.asarray(po.gather_contract(jnp.asarray(jac), jnp.asarray(rows), jnp.asarray(table), 2))
     got = gather_contract(torch.tensor(jac), torch.tensor(rows), torch.tensor(table), 2)
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL_F32, atol=TOL_F32)
+
+
+# (t, ncols, leaf dtype, fits, branch): BAL-1778's camera table with each
+# leaf dtype, BAL-13682's, and the largest float32 table with t = 9 that
+# fits the limit and the next one; only bfloat16 leaves have the
+# shared-memory kernel
+@pytest.mark.parametrize("t,ncols,dtype,fits,branch", [
+    (9, 1779, torch.float32, True, "global"), (9, 1779, torch.float64, True, "global"),
+    (9, 1779, torch.bfloat16, True, "shared"), (9, 13_683, torch.float32, False, "global"),
+    (9, 13_683, torch.bfloat16, False, "global"), (9, 6428, torch.bfloat16, True, "shared"),
+    (9, 6429, torch.bfloat16, False, "global"), (9, 6428, torch.float32, True, "global"),
+    (9, 6428, torch.float64, True, "global"),
+])
+def test_gather_branch_rule(t, ncols, dtype, fits, branch):
+    """B2's branch is a pure function of (t, ncols, dtype): the float32
+    table of bfloat16 leaves fits shared memory up to 231,424 bytes (an
+    H100 block's 227 KB less one for the kernel's own); the shared-memory
+    kernel serves bfloat16 leaves whose table fits, the first version's
+    kernel the rest."""
+    assert SHARED_TABLE_MAX_BYTES == 231_424
+    assert table_fits(t, ncols) == fits
+    assert (t * ncols * 4 <= SHARED_TABLE_MAX_BYTES) == fits
+    assert gather_branch(t, ncols, dtype) == branch
+
+
+@pytest.mark.parametrize("dtype,ok", [
+    (torch.float32, False), (torch.float64, False), (torch.bfloat16, True),
+])
+def test_shared_gather_kernel_is_bfloat16_only(dtype, ok):
+    """The shared-memory kernel has a bfloat16 entry point and no other:
+    asking for another dtype raises before the library is loaded; the
+    first version's kernel has all three."""
+    assert cuda_lib._suffixes("ctt_gather_contract_shared") == ("_bf16",)
+    assert cuda_lib._suffixes("ctt_gather_contract") == ("_f32", "_f64", "_bf16")
+    if not ok:
+        with pytest.raises(TypeError, match="bfloat16"):
+            cuda_lib.kernel_fn("ctt_gather_contract_shared", dtype)
 
 
 @pytest.mark.parametrize("n", [300, 5000])
