@@ -24,7 +24,10 @@ analytic and numeric-diff cost functions (autodiff.py; an analytic group
 runs B1 generic with the user's Jacobian rule), the cost-function adapters
 (cost_functions.py), every manifold of the JAX package, interpolation
 (interpolation.py), checkpoints (checkpoint.py) and the evaluation
-callback (`Problem(evaluation_callback=...)`).
+callback (`Problem(evaluation_callback=...)`); covariance (covariance.py:
+DENSE_SVD and SPARSE_QR on the host, ITERATIVE_PCG as one batched PCG on
+the card through B2 and B3 over a batch of columns) and the dense
+multistart TinySolver (tiny_solver.py).
 
 On CPU tensors every kernel wrapper runs its plain PyTorch version instead.
 Importing the package builds nothing; the kernels compile on first use on a
@@ -32,6 +35,7 @@ card (cuda_lib.py).
 """
 
 from .autodiff import AnalyticCostFunction, CostFunction, NumericDiffCostFunction
+from .covariance import Covariance, CovarianceOptions
 from .cost_functions import (
     conditioned_cost_function,
     cost_function_to_functor,
@@ -68,8 +72,10 @@ from .manifolds import (
 from .ordering import ParameterBlockOrdering
 from .problem import Problem
 from .solvers.solver import solve
+from .tiny_solver import TinySolverOptions, tiny_solve, tiny_solve_batched
 from .types import (
     CallbackReturnType,
+    CovarianceAlgorithmType,
     DoglegType,
     IterationSummary,
     LinearSolverType,
@@ -96,6 +102,9 @@ __all__ = [
     "CauchyLoss",
     "ComposedLoss",
     "CostFunction",
+    "Covariance",
+    "CovarianceAlgorithmType",
+    "CovarianceOptions",
     "DoglegType",
     "EigenQuaternionManifold",
     "EuclideanManifold",
@@ -127,6 +136,7 @@ __all__ = [
     "SubsetManifold",
     "Summary",
     "TerminationType",
+    "TinySolverOptions",
     "TolerantLoss",
     "TrivialLoss",
     "TrustRegionStrategyType",
@@ -143,4 +153,6 @@ __all__ = [
     "solve",
     "solve_gradient_problem",
     "synthetic_bal",
+    "tiny_solve",
+    "tiny_solve_batched",
 ]

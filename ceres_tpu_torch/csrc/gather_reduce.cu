@@ -58,6 +58,18 @@
 // with ld.global.cs (evict-first in L2), so its stream does not push u out
 // of L2.
 //
+// Both also come batched over k columns (gather_contract_batched_kernel,
+// contract_reduce_batched_kernel): the contract jax.vmap makes of the TPU
+// kernels for the covariance's batched PCG (ceres_tpu/covariance.py:212),
+// where the table or u carries a column axis and the leaf, rows and twin
+// do not. Bound on an H100: device memory, the leaf once, rows, the k
+// tables or u's and the k outputs. Run column by column, the single-vector
+// kernels would read the leaf k times (at Dubrovnik-356's shape in float64,
+// 181 MB per read); the batched B2 reads it once (a lane's leaf values in
+// registers) and the batched B3 once per group of G columns. Each
+// column is bitwise the single-vector kernel's output: the same sums in the
+// same order.
+//
 // Each is instantiated for float and double, and for bfloat16 leaves
 // (leaf.cuh: the mixed-precision solves, half the leaf bytes): B2 rounds the
 // table to bfloat16 as the TPU kernel reads a bfloat16 table
@@ -295,6 +307,179 @@ __global__ void __launch_bounds__(kReduceBlock)
   }
 }
 
+// B2 over k columns at once (the contract jax.vmap makes of
+// _gather_contract_kernel for the covariance's batched PCG,
+// ceres_tpu/covariance.py:212): out[e, i, l] = sum_j jac[i*t + j, l] *
+// table[e, j, rows[l]], the table given as [k, ncols, t] (the wrapper's
+// transposed copy of [k, t, ncols]: one column's table is contiguous, and
+// a lane's t values of it too, so the block's lanes, which sweep the
+// columns together, find the column they are on in L1). One thread per
+// lane: with R, T > 0 its R*T leaf values are loaded once into registers
+// and serve all k columns; R = T = 0 takes any r, t and reads the leaf
+// again per column (from L1/L2). Each column's sums run as
+// gather_contract_kernel's (j ascending, the same rounding of the table),
+// so each column is bitwise that kernel's output.
+template <typename L, int R, int T>
+__global__ void __launch_bounds__(kGatherBlock)
+    gather_contract_batched_kernel(const L* __restrict__ jac, const int* __restrict__ rows,
+                                   const typename leaf::Leaf<L>::V* __restrict__ table, int n,
+                                   int r, int t, int ncols, int k,
+                                   typename leaf::Leaf<L>::V* __restrict__ out) {
+  using Lf = leaf::Leaf<L>;
+  using V = typename Lf::V;
+  const int l = blockIdx.x * kGatherBlock + threadIdx.x;
+  if (l >= n) return;
+  const size_t N = static_cast<size_t>(n);
+  const int c = rows[l];
+  if (!(c >= 0 && c < ncols - 1)) {  // the dump column gathers zero
+    for (int q = 0; q < k * r; ++q) out[static_cast<size_t>(q) * N + l] = V(0);
+    return;
+  }
+  const size_t col_stride = static_cast<size_t>(ncols) * t;
+  const V* tc = table + static_cast<size_t>(c) * t;
+  if constexpr (R > 0) {
+    V x[R * T];
+#pragma unroll
+    for (int q = 0; q < R * T; ++q) x[q] = Lf::ld(jac + static_cast<size_t>(q) * N + l);
+    for (int e = 0; e < k; ++e) {
+      const V* te = tc + e * col_stride;
+      V y[T];
+#pragma unroll
+      for (int j = 0; j < T; ++j) y[j] = Lf::round(te[j]);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        V acc = V(0);
+#pragma unroll
+        for (int j = 0; j < T; ++j) acc += x[i * T + j] * y[j];
+        out[(static_cast<size_t>(e) * R + i) * N + l] = acc;
+      }
+    }
+  } else {
+    for (int e = 0; e < k; ++e) {
+      const V* te = tc + e * col_stride;
+      for (int i = 0; i < r; ++i) {
+        V acc = V(0);
+        for (int j = 0; j < t; ++j) {
+          acc += Lf::ld(jac + static_cast<size_t>(i * t + j) * N + l) * Lf::round(te[j]);
+        }
+        out[(static_cast<size_t>(e) * r + i) * N + l] = acc;
+      }
+    }
+  }
+}
+
+// B3 over k columns at once (the vmapped _contract_reduce_kernel): one
+// block per (chunk, group of G columns), the same 256 threads and
+// slot-to-thread map as contract_reduce_kernel. A thread loads each slot's
+// twin values once for the group and forms the products with the group's
+// u values, so the twin is read ceil(k / G) times for k columns (G =
+// kBatchCols = 8: at 200 registers a thread for float64 and 124 for float
+// vectors, no spills; 4 and 16 were slower on the H100). u comes
+// lane-major, [n, r, k] (lanes_major_kernel's copy of [k, r, n]): the
+// slots of a camera gather lanes from all over n, and this way a slot's G
+// values of one row are one contiguous load (32 or 64 bytes) instead of G
+// scattered sectors. Each (column, row) sum runs in the single-vector
+// kernel's order (slots of the thread ascending, i ascending, the same
+// shuffle tree and pass over the warps), and rows are independent, so the
+// passes of kBatchRows rows (not kRows) change nothing: each column is
+// bitwise contract_reduce_kernel's output. partial is [k*t, nchunks].
+constexpr int kBatchCols = 8;
+constexpr int kBatchRows = 9;
+constexpr int kTile = 32;  // lanes_major_kernel's tiles: 32 x 32, 32 x 8 threads
+
+// u [k, r, n] -> [n, r, k]: for each row i the [k, n] matrix transposed
+// through a shared-memory tile (reads and writes coalesced; torch's strided
+// copy of the same permutation took ~3.5 ms at k = 72, n = 1,255,268 in
+// float64 on the H100)
+template <typename V>
+__global__ void __launch_bounds__(kTile * 8)
+    lanes_major_kernel(const V* __restrict__ u, int k, int r, int n, V* __restrict__ out) {
+  __shared__ V tile[kTile][kTile + 1];
+  const int l0 = blockIdx.x * kTile;
+  const int e0 = blockIdx.y * kTile;
+  const int i = blockIdx.z;
+  const size_t N = static_cast<size_t>(n);
+  for (int y = threadIdx.y; y < kTile; y += 8) {
+    const int e = e0 + y, l = l0 + threadIdx.x;
+    if (e < k && l < n) tile[y][threadIdx.x] = u[(static_cast<size_t>(e) * r + i) * N + l];
+  }
+  __syncthreads();
+  for (int y = threadIdx.y; y < kTile; y += 8) {
+    const int l = l0 + y, e = e0 + threadIdx.x;
+    if (e < k && l < n) out[(static_cast<size_t>(l) * r + i) * k + e] = tile[threadIdx.x][y];
+  }
+}
+
+template <typename L>
+__global__ void __launch_bounds__(kReduceBlock)
+    contract_reduce_batched_kernel(const L* __restrict__ twin, const int* __restrict__ perm,
+                                   const int* __restrict__ chunk_start,
+                                   const typename leaf::Leaf<L>::V* __restrict__ u, int n,
+                                   int n_pad, int r, int t, int k, int nchunks,
+                                   typename leaf::Leaf<L>::V* __restrict__ partial) {
+  using Lf = leaf::Leaf<L>;
+  using V = typename Lf::V;
+  __shared__ V sh[kReduceBlock / 32][kBatchCols][kBatchRows];
+  const int m = blockIdx.x;
+  const int e0 = blockIdx.y * kBatchCols;
+  const int ne = min(kBatchCols, k - e0);
+  const int beg = chunk_start[m];
+  const int end = chunk_start[m + 1];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t NP = static_cast<size_t>(n_pad);
+  for (int j0 = 0; j0 < t; j0 += kBatchRows) {
+    const int nj = min(kBatchRows, t - j0);
+    V acc[kBatchCols][kBatchRows];
+#pragma unroll
+    for (int c = 0; c < kBatchCols; ++c) {
+#pragma unroll
+      for (int q = 0; q < kBatchRows; ++q) acc[c][q] = V(0);
+    }
+    for (int s = beg + threadIdx.x; s < end; s += kReduceBlock) {
+      const int l = perm[s];
+      if (l < 0) continue;  // padding: the twin is zero there
+      for (int i = 0; i < r; ++i) {
+        const L* col = twin + static_cast<size_t>(i * t + j0) * NP + s;
+        V x[kBatchRows];
+#pragma unroll
+        for (int q = 0; q < kBatchRows; ++q) x[q] = q < nj ? Lf::ldcs(col + q * NP) : V(0);
+        const V* ui = u + (static_cast<size_t>(l) * r + i) * k + e0;
+#pragma unroll
+        for (int c = 0; c < kBatchCols; ++c) {
+          if (c < ne) {
+            const V w = Lf::round(ui[c]);
+#pragma unroll
+            for (int q = 0; q < kBatchRows; ++q) {
+              if (q < nj) acc[c][q] += x[q] * w;
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kBatchCols; ++c) {
+#pragma unroll
+      for (int q = 0; q < kBatchRows; ++q) {
+        V v = acc[c][q];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+        if (lane == 0) sh[warp][c][q] = v;
+      }
+    }
+    __syncthreads();
+    for (int o = threadIdx.x; o < ne * nj; o += kReduceBlock) {
+      const int c = o / nj;
+      const int q = o - c * nj;
+      V s = V(0);
+#pragma unroll
+      for (int w = 0; w < kReduceBlock / 32; ++w) s += sh[w][c][q];
+      partial[(static_cast<size_t>(e0 + c) * t + j0 + q) * nchunks + m] = s;
+    }
+    __syncthreads();
+  }
+}
+
 template <typename L, typename V = typename leaf::Leaf<L>::V>
 int launch_gather(const L* jac, const int* rows, const V* table, int n, int r, int t, int ncols,
                   V* out, cudaStream_t stream) {
@@ -352,7 +537,73 @@ int launch_reduce(const L* twin, const int* perm, const int* chunk_start, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// the batched B2: the leaf in registers for the camera shapes (r = 2 and
+// t = 9: angle-axis or quaternion-on-manifold cameras; t = 10: quaternion
+// cameras without a manifold), else the kernel that reads it per column
+template <typename L, typename V = typename leaf::Leaf<L>::V>
+int launch_gather_batched(const L* jac, const int* rows, const V* table, int n, int r, int t,
+                          int ncols, int k, V* out, cudaStream_t stream) {
+  const int blocks = (n + kGatherBlock - 1) / kGatherBlock;
+  if (blocks > 0 && k > 0) {
+    if (r == 2 && t == 9) {
+      gather_contract_batched_kernel<L, 2, 9>
+          <<<blocks, kGatherBlock, 0, stream>>>(jac, rows, table, n, r, t, ncols, k, out);
+    } else if (r == 2 && t == 10) {
+      gather_contract_batched_kernel<L, 2, 10>
+          <<<blocks, kGatherBlock, 0, stream>>>(jac, rows, table, n, r, t, ncols, k, out);
+    } else {
+      gather_contract_batched_kernel<L, 0, 0>
+          <<<blocks, kGatherBlock, 0, stream>>>(jac, rows, table, n, r, t, ncols, k, out);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename L, typename V = typename leaf::Leaf<L>::V>
+int launch_reduce_batched(const L* twin, const int* perm, const int* chunk_start,
+                          const int* row_chunks, const V* u, int n, int n_pad, int r, int t,
+                          int k, int nchunks, int ncols, V* u_lanes, V* partial, V* out,
+                          cudaStream_t stream) {
+  if (t > 0 && k > 0 && nchunks > 0) {
+    if (n > 0 && r > 0) {
+      const dim3 tgrid((n + kTile - 1) / kTile, (k + kTile - 1) / kTile, r);
+      lanes_major_kernel<V><<<tgrid, dim3(kTile, 8), 0, stream>>>(u, k, r, n, u_lanes);
+    }
+    const dim3 grid(nchunks, (k + kBatchCols - 1) / kBatchCols);
+    contract_reduce_batched_kernel<L><<<grid, kReduceBlock, 0, stream>>>(
+        twin, perm, chunk_start, u_lanes, n, n_pad, r, t, k, nchunks, partial);
+  }
+  const cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  camera_chunks::launch_chunk_sum<V>(partial, row_chunks, k * t, nchunks, ncols, ncols, nullptr,
+                                     nullptr, out, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// the batched B2 and B3 (gather_reduce.gather_contract_batched /
+// contract_reduce_batched): table [k, ncols, t], out [k, r, n]; u [k, r, n],
+// u_lanes [n, r, k] (scratch), partial [k*t, nchunks], out [k, t, ncols]
+#define CTT_BATCHED(SUFFIX, L, V)                                                                 \
+  extern "C" int ctt_gather_contract_batched##SUFFIX(const L* jac, const int* rows,               \
+                                                     const V* table, int n, int r, int t,         \
+                                                     int ncols, int k, V* out, void* stream) {    \
+    return launch_gather_batched<L>(jac, rows, table, n, r, t, ncols, k, out,                     \
+                                    static_cast<cudaStream_t>(stream));                           \
+  }                                                                                               \
+  extern "C" int ctt_contract_reduce_batched##SUFFIX(                                             \
+      const L* twin, const int* perm, const int* chunk_start, const int* row_chunks, const V* u, \
+      int n, int n_pad, int r, int t, int k, int nchunks, int ncols, V* u_lanes, V* partial,     \
+      V* out, void* stream) {                                                                     \
+    return launch_reduce_batched<L>(twin, perm, chunk_start, row_chunks, u, n, n_pad, r, t, k,   \
+                                    nchunks, ncols, u_lanes, partial, out,                        \
+                                    static_cast<cudaStream_t>(stream));                           \
+  }
+CTT_BATCHED(_f32, float, float)
+CTT_BATCHED(_f64, double, double)
+CTT_BATCHED(_bf16, __nv_bfloat16, float)
+#undef CTT_BATCHED
 
 extern "C" int ctt_gather_contract_f32(const float* jac, const int* rows, const float* table,
                                        int n, int r, int t, int ncols, float* out, void* stream) {

@@ -49,14 +49,17 @@ KERNELS = ("eval_snavely", "gather_contract", "contract_reduce", "schur_sy", "sc
 # B1's quaternion instantiations (eval_kernel.snavely_quat_evaluate): on the
 # camera's product manifold (tangent 9) and without a manifold (tangent 10)
 QUAT_KERNELS = ("eval_snavely_quat", "eval_snavely_quat_nomanifold")
+# B2 and B3 over a batch of columns (the covariance's batched PCG)
+BATCHED_KERNELS = ("gather_contract_batched", "contract_reduce_batched")
 # the kernels with a bfloat16-leaf instantiation (B2, B3, B4)
-BF16_KERNELS = ("gather_contract", "contract_reduce", "schur_sy")
+BF16_KERNELS = ("gather_contract", "contract_reduce", "schur_sy") + BATCHED_KERNELS
 # B1's generic instantiation (eval_kernel.generic_evaluate): with the
 # Jacobian (autodiff by Jets, or an analytic rule's) and residual-only
 GENERIC_KERNELS = ("eval_generic", "eval_generic_analytic", "eval_generic_residual")
 _launches = {
     name: 0
-    for name in KERNELS + QUAT_KERNELS + tuple(k + "_bf16" for k in BF16_KERNELS)
+    for name in KERNELS + QUAT_KERNELS + BATCHED_KERNELS
+    + tuple(k + "_bf16" for k in BF16_KERNELS)
     + GENERIC_KERNELS
 }
 _lib = None
@@ -80,6 +83,13 @@ _SIGNATURES = {
     # twin, perm, chunk_start, row_chunks, u, n, n_pad, r, t, nchunks, ncols,
     # partial, out, stream
     "ctt_contract_reduce": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # the batched B2: jac, rows, table [k, ncols, t], n, r, t, ncols, k, out, stream
+    "ctt_gather_contract_batched": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # the batched B3: twin, perm, chunk_start, row_chunks, u, n, n_pad, r, t,
+    # k, nchunks, ncols, u_lanes (scratch), partial, out, stream
+    "ctt_contract_reduce_batched": [
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+    ],
     # F, E, rows_f, y, ncols_f, segs, pt_start, nb, num_points, minv, cnt_e,
     # n, r, te, tf, t2, ld, stream
     "ctt_schur_sy_point": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P],
@@ -94,6 +104,7 @@ _SIGNATURES = {
 }
 _BF16_PREFIXES = (
     "ctt_gather_contract", "ctt_contract_reduce", "ctt_schur_sy_point", "ctt_schur_sy_fold",
+    "ctt_gather_contract_batched", "ctt_contract_reduce_batched",
 )
 _BF16_ONLY = ("ctt_gather_contract_shared",)
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64", torch.bfloat16: "_bf16"}

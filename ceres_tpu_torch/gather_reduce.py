@@ -172,3 +172,85 @@ def contract_reduce(twin, layout, u, r):
     cuda_lib.check(rc, "contract_reduce")
     cuda_lib.count(cuda_lib.counter("contract_reduce", twin.dtype))
     return out
+
+
+# -- over a batch of columns: the covariance's batched PCG ----------------- #
+#
+# The JAX package runs one PCG per requested covariance column under
+# jax.vmap (ceres_tpu/covariance.py:212), which gives the TPU kernels a
+# table (B2) or u (B3) with a leading column axis over one leaf. These are
+# that contract: each column's output is bitwise the single-vector kernel's
+# on that column (the same sums in the same order, csrc/gather_reduce.cu),
+# while the leaf is read once (B2) or once per group of columns (B3).
+
+
+def gather_contract_batched_plain(jac, rows, table_t, r):
+    """The batched B2's plain version: gather_contract_plain per column."""
+    return torch.stack([gather_contract_plain(jac, rows, tab, r) for tab in table_t])
+
+
+def gather_contract_batched(jac, rows, table_t, r):
+    """F·Y for k columns of a onehot-plan position: [k, r, n] from jac
+    [r*t, n], rows [n] int32 and table_t [k, t, ncols] (the last column of
+    each the dump column); table and output in
+    cuda_lib.vector_dtype(jac.dtype)."""
+    if jac.device.type == "cpu":
+        return gather_contract_batched_plain(jac, rows, table_t, r)
+    rt, n = jac.shape
+    t = rt // r
+    k, _, ncols = table_t.shape
+    vdt = cuda_lib.vector_dtype(jac.dtype)
+    cuda_lib.require("jac", jac)
+    cuda_lib.require("rows", rows, torch.int32, (n,), jac.device)
+    cuda_lib.require("table_t", table_t, vdt, (k, t, ncols), jac.device)
+    # [k, ncols, t]: one column's table contiguous, a lane's t values in it
+    # side by side
+    table = table_t.transpose(1, 2).contiguous()
+    out = torch.empty((k, r, n), dtype=vdt, device=jac.device)
+    fn = cuda_lib.kernel_fn("ctt_gather_contract_batched", jac.dtype)
+    rc = fn(
+        cuda_lib.ptr(jac), cuda_lib.ptr(rows), cuda_lib.ptr(table),
+        n, r, t, ncols, k, cuda_lib.ptr(out), cuda_lib.stream(jac.device),
+    )
+    cuda_lib.check(rc, "gather_contract_batched")
+    cuda_lib.count(cuda_lib.counter("gather_contract_batched", jac.dtype))
+    return out
+
+
+def contract_reduce_batched_plain(twin, layout, u, r):
+    """The batched B3's plain version: contract_reduce_plain per column."""
+    return torch.stack([contract_reduce_plain(twin, layout, uc, r) for uc in u])
+
+
+def contract_reduce_batched(twin, layout, u, r):
+    """Fᵀu for k columns of a onehot-plan position: [k, t, ncols] from its
+    twin [r*t, n_pad] and u [k, r, n] in lane order; u and the output in
+    cuda_lib.vector_dtype(twin.dtype). The dump column is produced."""
+    if twin.device.type == "cpu":
+        return contract_reduce_batched_plain(twin, layout, u, r)
+    rt, n_pad = twin.shape
+    t = rt // r
+    k, _, n = u.shape
+    ncols = len(layout.offsets) - 1
+    dev = twin.device
+    vdt = cuda_lib.vector_dtype(twin.dtype)
+    cuda_lib.require("twin", twin, None, (r * t, layout.perm.shape[0]), dev)
+    cuda_lib.require("perm", layout.perm, torch.int32, None, dev)
+    cuda_lib.require("chunk_start", layout.chunk_start, torch.int32, None, dev)
+    cuda_lib.require("row_chunks", layout.row_chunks, torch.int32, (ncols + 1,), dev)
+    cuda_lib.require("u", u, vdt, (k, r, n), dev)
+    nchunks = layout.num_chunks
+    # scratch for u lane-major, [n, r, k]: a slot's values of one row for a
+    # group of columns are then one contiguous load
+    u_lanes = torch.empty((n, r, k), dtype=vdt, device=dev)
+    partial = torch.empty((k * t, nchunks), dtype=vdt, device=dev)
+    out = torch.empty((k, t, ncols), dtype=vdt, device=dev)
+    fn = cuda_lib.kernel_fn("ctt_contract_reduce_batched", twin.dtype)
+    rc = fn(
+        cuda_lib.ptr(twin), cuda_lib.ptr(layout.perm), cuda_lib.ptr(layout.chunk_start),
+        cuda_lib.ptr(layout.row_chunks), cuda_lib.ptr(u), n, n_pad, r, t, k, nchunks, ncols,
+        cuda_lib.ptr(u_lanes), cuda_lib.ptr(partial), cuda_lib.ptr(out), cuda_lib.stream(dev),
+    )
+    cuda_lib.check(rc, "contract_reduce_batched")
+    cuda_lib.count(cuda_lib.counter("contract_reduce_batched", twin.dtype))
+    return out

@@ -62,6 +62,23 @@ class BalProblem:
         if rotation_sigma > 0:
             self.cameras[:, :3] += rng.normal(0, rotation_sigma, (self.num_cameras, 3))
 
+    def write_ply(self, path):
+        """Export the camera centers and points as a PLY point cloud
+        (bal_problem.cc WriteToPLYFile): cameras green, points white."""
+        with open(path, "w") as f:
+            f.write(
+                "ply\nformat ascii 1.0\n"
+                f"element vertex {self.num_cameras + self.num_points}\n"
+                "property float x\nproperty float y\nproperty float z\n"
+                "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+                "end_header\n"
+            )
+            for cam in self.cameras:
+                c = -_angle_axis_to_matrix(cam[:3]).T @ cam[3:6]
+                f.write(f"{c[0]} {c[1]} {c[2]} 0 255 0\n")
+            for p in self.points:
+                f.write(f"{p[0]} {p[1]} {p[2]} 255 255 255\n")
+
 
 def _angle_axis_to_matrix(aa: np.ndarray) -> np.ndarray:
     theta = np.linalg.norm(aa)

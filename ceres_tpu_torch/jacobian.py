@@ -39,7 +39,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .gather_reduce import contract_reduce, gather_contract, leaf_operand
+from .gather_reduce import (
+    contract_reduce,
+    contract_reduce_batched,
+    gather_contract,
+    gather_contract_batched,
+    leaf_operand,
+)
 from .linalg.preconditioners import diag_rows
 
 
@@ -361,6 +367,98 @@ class BlockJacobian:
         (reference: CgnrSolver's operator, cgnr_solver.cc:219-242;
         ceres_tpu/jacobian.py:750)."""
         out = self.left_multiply(self.right_multiply(v))
+        if dsq is not None:
+            out = out + dsq * v
+        return out
+
+    # -- over a batch of columns: the covariance's batched PCG ---------- #
+    # The JAX package runs jtj_multiply under jax.vmap over the requested
+    # columns (ceres_tpu/covariance.py:212). Here the column axis is written
+    # out as a leading dimension k: the onehot positions run the batched
+    # kernels B2/B3, the bucket and no-plan positions carry the axis
+    # through gather_T_t / reduce_T in plain torch (XLA's part in JAX).
+
+    def tvec_batched(self, v):
+        """[k, num_eff] -> per class [k, s, cnt+1] tables (dump column zero)."""
+        p, k = self.program, v.shape[0]
+        out = []
+        for cls in range(len(p.tangent_class_sizes)):
+            base, cnt, s = p.tangent_class_slice(cls)
+            t = v[:, base : base + cnt * s].reshape(k, cnt, s).transpose(1, 2)
+            out.append(torch.cat([t, v.new_zeros((k, s, 1))], dim=2))
+        return out
+
+    def tvec_flat_batched(self, tv):
+        """Per class [k, s, cnt+1] tables -> [k, num_eff] (dump columns dropped)."""
+        parts = [
+            t[:, :, :cnt].transpose(1, 2).reshape(t.shape[0], -1)
+            for t, cnt in zip(tv, self.program.tangent_class_counts)
+        ]
+        return torch.cat(parts, dim=1)
+
+    def right_multiply_batched(self, v):
+        """J V for k tangent vectors V [k, num_cols] -> per-group [k, r, n]."""
+        if self.col_scale is not None:
+            v = v * self.col_scale
+        acc_dt = self._acc_dtype()
+        tv = self.tvec_batched(v.to(acc_dt))
+        k = v.shape[0]
+        out = []
+        for gi in range(len(self.jac_groups)):
+            meta = self.program.groups[gi]
+            r = meta.num_residuals
+            acc = None
+            for pos, pm, jac, tr, _csr in self._iter(gi):
+                if pm.t_cls < 0:
+                    continue
+                t = pm.tangent_size
+                plan = self.plan(gi, pos)
+                tab = tv[pm.t_cls]
+                if plan is not None and plan[0] == "onehot":
+                    part = gather_contract_batched(jac, tr, tab.contiguous(), r)
+                else:
+                    vg = gather_T_t(plan, tab.reshape(k * t, -1), tr).reshape(k, t, -1)
+                    vg = leaf_operand(vg, jac.dtype)
+                    part = (jac.reshape(r, t, -1)[None] * vg[:, None]).sum(dim=2)
+                acc = part if acc is None else acc + part
+            if acc is None:
+                acc = torch.zeros((k, r, meta.n), dtype=acc_dt, device=self._device())
+            out.append(acc)
+        return out
+
+    def left_multiply_batched(self, u_groups):
+        """Jᵀu for k per-group residuals u [k, r, n] -> [k, num_cols]."""
+        acc_dt = self._acc_dtype()
+        k = u_groups[0].shape[0] if u_groups else 0
+        acc = [torch.zeros((k,) + tuple(t.shape), dtype=acc_dt, device=t.device)
+               for t in self._class_tables_T()]
+        for gi in range(len(self.jac_groups)):
+            r = self.program.groups[gi].num_residuals
+            u = u_groups[gi].to(acc_dt)
+            for pos, pm, jac, tr, csr in self._iter(gi):
+                if pm.t_cls < 0:
+                    continue
+                t = pm.tangent_size
+                plan = self.plan(gi, pos)
+                width = acc[pm.t_cls].shape[2]
+                if plan is not None and plan[0] == "onehot":
+                    part = contract_reduce_batched(self.twin(gi, pos), csr, u.contiguous(), r)
+                else:
+                    ul = leaf_operand(u, jac.dtype)
+                    contrib = (jac.reshape(r, t, -1)[None] * ul[:, :, None, :]).sum(dim=1)
+                    part = reduce_T(plan, contrib.reshape(k * t, -1), tr, width, csr)
+                    part = part.reshape(k, t, width)
+                acc[pm.t_cls] = acc[pm.t_cls] + part
+        out = self.tvec_flat_batched(acc)
+        if self.col_scale is not None:
+            out = out * self.col_scale
+        return out
+
+    def jtj_multiply_batched(self, v, dsq=None):
+        """(JᵀJ + diag(dsq)) V for k tangent vectors V [k, num_cols]: each
+        row is jtj_multiply of that row (the vmapped operator of the JAX
+        package's covariance)."""
+        out = self.left_multiply_batched(self.right_multiply_batched(v))
         if dsq is not None:
             out = out + dsq * v
         return out

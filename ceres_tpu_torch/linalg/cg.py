@@ -49,37 +49,51 @@ def _tmap(f, *ts):
     return f(*ts)
 
 
-def _tvdot(a, b):
-    parts = [(x * y).sum() for x, y in zip(_leaves(a), _leaves(b))]
+def _tvdot(a, b, batched=False):
+    """a·b, or with `batched` one dot per row of the leading column axis."""
+    pairs = zip(_leaves(a), _leaves(b))
+    if batched:
+        parts = [(x * y).reshape(x.shape[0], -1).sum(dim=1) for x, y in pairs]
+    else:
+        parts = [(x * y).sum() for x, y in pairs]
     return sum(parts[1:], parts[0])
 
 
-def _tnorm(a):
-    return torch.sqrt(_tvdot(a, a))
+def _tnorm(a, batched=False):
+    return torch.sqrt(_tvdot(a, a, batched))
+
+
+def _bc(s, x):
+    """A loop scalar against a vector leaf: a 0-d scalar as it is, a
+    per-column one [k] shaped to broadcast over the leaf's other axes."""
+    return s if s.dim() == 0 else s.reshape(s.shape + (1,) * (x.dim() - 1))
 
 
 def _tselect(cond, old, new):
-    return _tmap(lambda o, n: torch.where(cond, o, n), old, new)
+    return _tmap(lambda o, n: torch.where(_bc(cond, o), o, n), old, new)
 
 
-def _cg_step(matvec, prec, b, tol_r, state, min_iterations, q_tolerance):
-    """One masked PCG iteration (ceres_tpu/linalg/cg.py:96-143)."""
+def _cg_step(matvec, prec, b, tol_r, state, min_iterations, q_tolerance, batched=False):
+    """One masked PCG iteration (ceres_tpu/linalg/cg.py:96-143). With
+    `batched` the vectors carry a leading column axis and every loop scalar
+    is per column, as under jax.vmap of the JAX loop: a column that is done
+    computes the body and changes nothing."""
     x, r, z_rho, p, q_prev, it, done, bd = state
     z = prec(r)
-    rho_new = _tvdot(r, z)
+    rho_new = _tvdot(r, z, batched)
     first = it == 0
     beta = torch.where(first, 0.0, rho_new / torch.where(z_rho != 0, z_rho, 1.0))
-    p_new = _tmap(lambda zz, pp: zz + beta * pp, z, p)
+    p_new = _tmap(lambda zz, pp: zz + _bc(beta, zz) * pp, z, p)
     ap = matvec(p_new)
-    pap = _tvdot(p_new, ap)
+    pap = _tvdot(p_new, ap, batched)
     alpha = torch.where(pap > 0, rho_new / torch.where(pap != 0, pap, 1.0), 0.0)
-    x_new = _tmap(lambda xx, pp: xx + alpha * pp, x, p_new)
-    r_new = _tmap(lambda rr, aa: rr - alpha * aa, r, ap)
+    x_new = _tmap(lambda xx, pp: xx + _bc(alpha, xx) * pp, x, p_new)
+    r_new = _tmap(lambda rr, aa: rr - _bc(alpha, rr) * aa, r, ap)
 
     # Q-test (reference conjugate_gradients_solver.h:244-283): with
     # r = b - Ax, Q_i = -x·(b + r); terminate when
     # i * (Q_i - Q_{i-1}) / Q_i < q_tolerance (signed test)
-    q_new = -_tvdot(x_new, _tmap(lambda bb, rr: bb + rr, b, r_new))
+    q_new = -_tvdot(x_new, _tmap(lambda bb, rr: bb + rr, b, r_new), batched)
     it_new = it + 1
     zeta = torch.where(
         q_new != 0,
@@ -88,7 +102,7 @@ def _cg_step(matvec, prec, b, tol_r, state, min_iterations, q_tolerance):
     )
     enough = it_new >= min_iterations
     done_q = enough & (zeta < q_tolerance) if q_tolerance > 0 else torch.zeros_like(done)
-    done_r = enough & (_tnorm(r_new) <= tol_r)
+    done_r = enough & (_tnorm(r_new, batched) <= tol_r)
     done_breakdown = ((pap <= 0) | (rho_new == 0)) & ~done_r
     done_new = done_q | done_r | done_breakdown
     return (
@@ -114,6 +128,7 @@ def conjugate_gradients(
     q_tolerance: float = 0.0,
     graph=None,
     fixed=(),
+    batched: bool = False,
 ) -> CGResult:
     """Solve A x = b with PCG; A must be SPD (as an operator).
 
@@ -122,44 +137,54 @@ def conjugate_gradients(
       Q(x) = -x'(b + r) (reference :240-270).
     graph: a StepGraph (CUDA only); the iteration then runs from its
       capture, and `fixed` lists every tensor matvec and preconditioner read.
+    batched: k systems at once, b (and every vector) with a leading column
+      axis of k, matvec and preconditioner mapping [k, ...] to [k, ...]; the
+      result's x is [k, ...] and its scalars are [k]. Each column equals
+      its own solve (jax.vmap of the JAX loop, covariance.py:212). It runs
+      eagerly: a graph step is not batched.
 
-    The host reads `done` after every iteration but the last allowed one:
-    at most max(iterations, 1) reads.
+    The host reads `done` (with `batched`: whether every column is done)
+    after every iteration but the last allowed one: at most
+    max(iterations, 1) reads.
     """
+    if batched and graph is not None:
+        raise ValueError("conjugate_gradients: a batched PCG runs without a graph")
     x0 = _tmap(torch.zeros_like, b) if x0 is None else x0
     prec = preconditioner if preconditioner is not None else (lambda r: r)
     first = _leaves(b)[0]
     dtype, dev = first.dtype, first.device
+    shape = first.shape[:1] if batched else ()
 
-    tol_r = tolerance * _tnorm(b)
+    tol_r = tolerance * _tnorm(b, batched)
     r0 = _tmap(lambda bb, ax: bb - ax, b, matvec(x0))
     state = (
         x0,
         r0,
-        torch.zeros((), dtype=dtype, device=dev),
+        torch.zeros(shape, dtype=dtype, device=dev),
         _tmap(torch.zeros_like, b),
-        torch.zeros((), dtype=dtype, device=dev),
-        torch.zeros((), dtype=torch.int32, device=dev),
-        _tnorm(r0) <= tol_r,
-        torch.zeros((), dtype=torch.bool, device=dev),
+        torch.zeros(shape, dtype=dtype, device=dev),
+        torch.zeros(shape, dtype=torch.int32, device=dev),
+        _tnorm(r0, batched) <= tol_r,
+        torch.zeros(shape, dtype=torch.bool, device=dev),
     )
 
     if graph is None:
         def step(s):
-            return _cg_step(matvec, prec, b, tol_r, s, min_iterations, q_tolerance)
+            return _cg_step(matvec, prec, b, tol_r, s, min_iterations, q_tolerance, batched)
     else:
         step, state, hand_out = _graph_step(
             graph, fixed, matvec, prec, state, b, tol_r, min_iterations, q_tolerance
         )
     for k in range(max_iterations):
         state = step(state)
-        if k + 1 < max_iterations and bool(read(state[6])):
+        done = state[6].all() if batched else state[6]
+        if k + 1 < max_iterations and bool(read(done)):
             break
     if graph is not None:
         state = hand_out()
 
     x, r, _, _, _, it, _, bd = state
-    final_norm = _tnorm(r)
+    final_norm = _tnorm(r, batched)
     return CGResult(x=x, iterations=it, final_norm=final_norm,
                     converged=final_norm <= tol_r, breakdown=bd)
 

@@ -141,6 +141,21 @@ class BlockDiagSolver:
             out.append(y)
         return out
 
+    def apply_batched(self, r):
+        """M⁻¹ on k flat tangent vectors [k, num_eff], the same operator for
+        every row (the covariance's batched PCG)."""
+        k = r.shape[0]
+        out = []
+        for cls in range(len(self.program.tangent_class_sizes)):
+            base, cnt, s = self.program.tangent_class_slice(cls)
+            seg = r[:, base : base + cnt * s]
+            inv = self.inv_tables.get(cls)
+            if inv is not None:
+                vt = seg.reshape(k, cnt, s).permute(2, 0, 1)  # [s, k, cnt]
+                seg = apply_block_T(inv, vt, s).permute(1, 2, 0).reshape(k, -1)
+            out.append(seg)
+        return torch.cat(out, dim=1)
+
     def __call__(self, r):
         """M⁻¹ on a flat tangent vector."""
         from ..evaluator import tangent_tables

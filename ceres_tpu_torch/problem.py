@@ -299,6 +299,11 @@ class Problem:
     def parameter_block_value(self, block: int) -> np.ndarray:
         return self._blocks.value(block).copy()
 
+    def get_manifold(self, block: int):
+        """The block's manifold, None where it has none (reference:
+        Problem::GetManifold)."""
+        return self._blocks.manifold_of(self._blocks.check(block))
+
     def set_parameter_block_value(self, block: int, values):
         """Replace a block's values; the compiled Program's state follows
         without a recompile (the structure is unchanged)."""

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's bundle-adjustment, denoising and pose-graph solves on one CUDA card.
+"""Drive the PyTorch port's bundle-adjustment, denoising, pose-graph and covariance runs on
+one CUDA card.
 
     python3 chip_smoke.py            # one NVIDIA H100 (sm_90a), nvcc on the path
     python3 chip_smoke.py --phase 2  # phases 1 and 2 only, no result line
@@ -38,7 +39,12 @@ and prints no result):
      form gives 3x the autodiff leaf); B2's two kernels on bfloat16 leaves
      (the table in shared memory; the first version's) at BAL-1778,
      bitwise equal to each other, each time with its share of the bound,
-     the shared memory per block and ptxas' report;
+     the shared memory per block and ptxas' report; then B2 and B3 over a
+     batch of k = 72 columns (the covariance's PCG) at Dubrovnik-356's
+     shape in float64 and BAL-1778's in float32: max rel err against the
+     plain version, bitwise equality with 72 single-vector launches, ms
+     beside the 72 single launches', the bound, one torch.sparse product
+     against a dense [., 72] operand, and ptxas' registers and spills;
   3. a small float64 solve (48,000 observations, so the layout plans
      engage) for 5 LM iterations on the card and on the CPU, for JACOBI,
      SCHUR_JACOBI, and SCHUR_JACOBI with the power-series warm start (which
@@ -67,7 +73,13 @@ and prints no result):
      group (a scaled analytic functor); last the small BAL with Snavely as
      a NumericDiffCostFunction (CENTRAL; B1 not launched, B2-B5 launched),
      its starting Jacobian held to the CPU's at the rounding bound of a
-     central difference and its per-iteration cost gap at 5e-7;
+     central difference and its per-iteration cost gap at 5e-7; then
+     covariance in float64 on the card against the CPU within 1e-9:
+     SPARSE_QR and ITERATIVE_PCG (the batched B2/B3 launched, the same PCG
+     steps per column) on the 48,000-observation BAL, gauge-fixed, 8
+     camera blocks and one cross block; DENSE_SVD on ceres_tpu's own test
+     problem; then tiny_solve and tiny_solve_batched on six MGH problems
+     (the same iterations and convergence per lane, x within 1e-10);
   4. the main run: synthetic_bal(1778, 993923, 5,000,000) with Huber(1.0)
      in float32 through ceres_tpu_torch.solve (LM + ITERATIVE_SCHUR +
      SCHUR_JACOBI, eta 0.1, PCG <= 25, 5 iterations, on the fused device
@@ -133,7 +145,16 @@ and prints no result):
      1e-10 of eval_snavely's, B1 not launched, B2-B5 launched, the
      evaluate graph's ms per call, the peak device memory); after them the
      3x3 denoising run with the cliques as AnalyticCostFunctions beside the
-     autodiff run (cost per iteration within 1e-5, equal PCG steps).
+     autodiff run (cost per iteration within 1e-5, equal PCG steps). Last
+     the slice's own path: covariance at Dubrovnik-356's shape in float64
+     (a new Problem, two cameras constant, 3 LM iterations, then the points
+     seen by fewer than two cameras constant; ITERATIVE_PCG over 72
+     columns at the default tolerance: steps per column, ms per step,
+     reads, peak memory, the batched B2/B3 launched in the PCG and the
+     single-vector ones not; the blocks against S⁻¹ from a dense float64
+     Cholesky of S assembled at D = 0), and tiny_solve_batched on 2^20
+     Freudenstein-Roth starts (ms, reads, iterations, the share of lanes
+     at each minimum; 1,024 sampled lanes against the CPU).
 Then a JSON line describing the kernels, the card's name and power limit,
 and the last line {"ok": true, "device": {...}}.
 
@@ -174,6 +195,8 @@ NUM_OBSERVATIONS = 5_000_000
 # NVIDIA's H100 SXM data sheet: device memory rate and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# and float64 outside the tensor cores
+F64_FLOPS_PER_S = 34e12
 # B1's float operations per observation, counted from csrc/eval_snavely.cu
 # (the large-angle path, an FMA as 2, a sqrt, sincos or quotient as 1): the
 # residual chain ~90, R ~45, dR/d(angle-axis) ~180, the projection block and
@@ -228,6 +251,32 @@ GENERIC_KERNELS = [
      "ceres_tpu/pallas_eval.py:435", 2e-4),
 ]
 GENERIC_NAMES = {"eval_generic", "eval_generic_analytic", "eval_generic_residual"}
+# B2 and B3 over a batch of columns: the contract jax.vmap makes of the
+# pallas_calls for the covariance's batched PCG (ceres_tpu/covariance.py:212);
+# phase 4's covariance run is their main path, in float64. Tolerance on
+# max|k - p| / max|p| in float64: B2 is the same 9-term dot product as its
+# plain version, B3 sums ~3,500 observations per camera in another order
+# than index_add_ (float32 at BAL-1778: B2's and B3's own tolerances)
+BATCHED_KERNELS = [
+    ("gather_contract_batched", "ceres_tpu_torch/csrc/gather_reduce.cu",
+     "ceres_tpu/pallas_onehot.py:213", 1e-12),
+    ("contract_reduce_batched", "ceres_tpu_torch/csrc/gather_reduce.cu",
+     "ceres_tpu/pallas_onehot.py:248", 1e-12),
+]
+BATCHED_TOL = {"gather_contract_batched": {"float64": 1e-12, "float32": 1e-5},
+               "contract_reduce_batched": {"float64": 1e-12, "float32": 1e-4}}
+# with their bfloat16 instantiations, which no path of this script runs
+BATCHED_NAMES = {name + sfx for name, *_ in BATCHED_KERNELS for sfx in ("", "_bf16")}
+# the covariance runs: 8 camera blocks and one cross block, 72 columns, as
+# ceres_tpu's own test (tests/test_covariance_scale.py:27-29)
+COV_COLUMNS = 72
+COV_MAX_ITERATIONS = 20_000  # tests/test_covariance_scale.py:40
+# multistart TinySolver: Freudenstein-Roth (MGH 2) from 2^20 starts drawn
+# over [-20, 20]^2; its global minimum (cost 0 at (5, 4)) and its local
+# one (cost 24.4921 at (11.41, -0.8968))
+FR_STARTS = 1 << 20
+FR_BOX = 20.0
+FR_SAMPLED = 1024
 # the slice's denoising runs, Fields-of-Experts priors of the published
 # shapes (synthetic taps from the seed): (image h, w, clique size, K filters,
 # LM iterations). 512 x 512 is the size of the standard denoising test
@@ -362,37 +411,42 @@ def graph_ms(fn, reps=10) -> float:
     return t
 
 
-def bound(nbytes, ops) -> tuple[float, str]:
+def bound(nbytes, ops, flops_per_s=F32_FLOPS_PER_S) -> tuple[float, str]:
     """(least ms on the card, what bounds it): the bytes the function must
-    move over the memory rate, or its float32 operations over the float32
-    rate, whichever is larger."""
+    move over the memory rate, or its operations over their rate (float32's
+    by default), whichever is larger."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * ops / F32_FLOPS_PER_S
+    t_ops = 1e3 * ops / flops_per_s
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def library_b2(jac, rows, table, r):
     """F·y as one PyTorch call: an int32-indexed CSR of F [r*n, t*ncols]
-    (built here, outside the timed call) times the table; the port never
-    calls it."""
+    (built here, outside the timed call) times the table [t, ncols] (or
+    times the k tables [k, t, ncols] as one dense [t*ncols, k] operand,
+    giving [r*n, k]); the port never calls it."""
     import torch
 
     rt, n = jac.shape
-    t, ncols = rt // r, table.shape[1]
+    t, ncols = rt // r, table.shape[-1]
     dev = jac.device
     crow = torch.arange(0, r * n * t + 1, t, dtype=torch.int32, device=dev)
     col = rows.long()[None, :, None] * t + torch.arange(t, device=dev)[None, None, :]
     col = col.expand(r, n, t).reshape(-1).int()
     val = jac.reshape(r, t, n).permute(0, 2, 1).reshape(-1)
     a = torch.sparse_csr_tensor(crow, col, val, (r * n, t * ncols))
+    if table.dim() == 3:
+        x = table.permute(2, 1, 0).reshape(t * ncols, -1).contiguous()
+        return lambda: a @ x
     x = table.T.contiguous().reshape(-1)
     return lambda: (a @ x).reshape(r, n)
 
 
 def library_b3(jac, rows, u, ncols, r):
     """Fᵀu as one PyTorch call (cuSPARSE SpMV): an int32-indexed CSR of Fᵀ
-    [t*ncols, r*n] (row j*ncols + c) (built here, outside the timed call) times u; the port
-    never calls it."""
+    [t*ncols, r*n] (row j*ncols + c) (built here, outside the timed call) times u [r, n] (or
+    times the k u's [k, r, n] as one dense [r*n, k] operand, giving
+    [t*ncols, k]); the port never calls it."""
     import torch
 
     rt, n = jac.shape
@@ -408,6 +462,9 @@ def library_b3(jac, rows, u, ncols, r):
     a = torch.sparse_csr_tensor(
         csr.crow_indices().int(), csr.col_indices().int(), csr.values(), csr.shape
     )
+    if u.dim() == 3:
+        x = u.permute(1, 2, 0).reshape(r * n, -1).contiguous()
+        return lambda: a @ x
     x = u.reshape(-1)
     return lambda: (a @ x).reshape(t, ncols)
 
@@ -953,6 +1010,7 @@ def phase_f64_parity():
         mixed = extra.get("use_mixed_precision_solves", False)
         unused = {"schur_sy"} if mixed else set(BF16_KERNELS)
         unused |= {"gather_contract_bf16", "contract_reduce_bf16"} | QUAT_NAMES | GENERIC_NAMES
+        unused |= BATCHED_NAMES
         if precond == "JACOBI":
             unused.add("schur_p0")
         missing = [k for k, v in launches.items() if v <= 0 and k not in unused]
@@ -2572,6 +2630,413 @@ def phase_pose_graph_runs(tmp):
                    linear_solver_type=ct.LinearSolverType.SPARSE_NORMAL_CHOLESKY)
 
 
+def phase_kernels_batched(bal_program, dev, results):
+    """Phase 2: the batched B2 and B3 (the covariance's PCG), k = 72, at
+    Dubrovnik-356's shape in float64 (phase 4's covariance run) and at
+    BAL-1778's in float32: max rel err against the plain version, bitwise
+    equality with 72 single-vector launches column by column, the median ms
+    of each over 10 runs (CUDA events) beside the 72 single launches', the
+    bound (the leaf once, rows, the k tables or u's, the k outputs) and its
+    share, one torch.sparse CSR product against a dense [t*ncols, k] or
+    [r*n, k] operand, and ptxas' registers and spills. The Dubrovnik float64
+    numbers go into the kernels line."""
+    import torch
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch import cuda_lib
+    from ceres_tpu_torch.evaluator import Evaluator
+    from ceres_tpu_torch.gather_reduce import (
+        contract_reduce, contract_reduce_batched, contract_reduce_batched_plain,
+        gather_contract, gather_contract_batched, gather_contract_batched_plain,
+    )
+
+    log = cuda_lib.BUILD_DIR / "build.log"
+    regs = [ln for ln in ptxas_report(log.read_text()) if "batched" in ln] if log.exists() else []
+    for ln in regs:
+        print(f"phase 2: batched ptxas {ln}", flush=True)
+    k, r, t = COV_COLUMNS, 2, 9
+    for label, dtype, program in (("Dubrovnik-356", torch.float64, None),
+                                  ("BAL-1778", torch.float32, bal_program)):
+        if program is None:
+            problem, _, _ = ct.build_ba_problem(ct.synthetic_bal(*DUBROVNIK_356, seed=0))
+            program = problem.compile(dev)
+        ev = Evaluator(program, dtype)
+        _, _, jac, _ = ev.evaluate_groups(program.state_vector(dtype))
+        garr = ev.arrays["groups"][0]
+        leaf, rows, layout, twin = jac.leaf(0, 0), garr["t_rows"][0], garr["csr"][0], jac.twin(0, 0)
+        n, ncols = leaf.shape[1], layout.offsets.shape[0] - 1
+        gen = torch.Generator(device=dev).manual_seed(1)
+        table = torch.randn((k, t, ncols), generator=gen, device=dev, dtype=dtype)
+        table[:, :, -1] = 0
+        u = torch.randn((k, r, n), generator=gen, device=dev, dtype=dtype)
+        e = leaf.element_size()
+        ops = 2 * r * t * n * k
+        flops = F64_FLOPS_PER_S if dtype == torch.float64 else F32_FLOPS_PER_S
+        cases = (
+            ("gather_contract_batched",
+             lambda: gather_contract_batched(leaf, rows, table, r),
+             lambda: torch.stack([gather_contract(leaf, rows, table[c].contiguous(), r)
+                                  for c in range(k)]),
+             lambda: gather_contract_batched_plain(leaf, rows, table, r),
+             e * (r * t * n + k * t * ncols + k * r * n) + 4 * n,
+             lambda: library_b2(leaf, rows, table, r),
+             lambda out: out.permute(1, 2, 0).reshape(r * n, k)),
+            ("contract_reduce_batched",
+             lambda: contract_reduce_batched(twin, layout, u, r),
+             lambda: torch.stack([contract_reduce(twin, layout, u[c].contiguous(), r)
+                                  for c in range(k)]),
+             lambda: contract_reduce_batched_plain(twin, layout, u, r),
+             e * (r * t * n + k * r * n + k * t * ncols) + 4 * n,
+             lambda: library_b3(leaf, rows, u, ncols, r),
+             lambda out: out.permute(1, 2, 0).reshape(t * ncols, k)),
+        )
+        for name, fn, singles, plain, nbytes, lib, as_lib in cases:
+            out = fn()
+            same = bool(torch.equal(out, singles()))
+            err = rel_err(out, plain())
+            tol = BATCHED_TOL[name][str(dtype)[6:]]
+            rec = {"err": err, "ms": median_ms(fn), "plain_ms": median_ms(plain, reps=3, warmup=1),
+                   "library_ms": None}
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, flops)
+            single_ms = median_ms(singles, reps=3, warmup=1)
+            tmp = {name: rec}
+            time_library(name, lib, as_lib(out), tmp)
+            del out
+            ok = same and err[1] <= tol
+            lib_s = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
+            print(f"phase 2: {name} {label} {str(dtype)[6:]} k {k}: max rel err {err[1]:.3e} "
+                  f"(tol {tol:.0e}, max abs {err[0]:.3e}); bitwise equal to {k} single-vector "
+                  f"launches {same}; kernel {rec['ms']:.4f} ms, {k} single launches "
+                  f"{single_ms:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+                  f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it), library {lib_s}"
+                  f"{'' if ok else '  FAILED'}", flush=True)
+            if not ok:
+                raise AssertionError(f"{name}: batched kernel differs from the single launches "
+                                     "or disagrees with its plain version")
+            if dtype == torch.float64:
+                results[name] = rec
+        del jac, ev, table, u, leaf, twin
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def gauge_fixed_ba(bal, prepare=None):
+    """(problem, pairs, lone): bal's BA problem with two cameras held
+    constant (the gauge), then (after prepare(problem), if given) every
+    point that fewer than two distinct cameras observe held constant
+    (synthetic_bal guarantees two observations per point, not two cameras,
+    and such a point leaves JᵀJ singular); pairs: 8 camera blocks and one
+    cross block (72 columns); lone: how many points were held constant."""
+    import ceres_tpu_torch as ct
+
+    problem, cams, pts = ct.build_ba_problem(bal)
+    problem.set_parameter_block_constant(cams[0])
+    problem.set_parameter_block_constant(cams[1])
+    if prepare is not None:
+        prepare(problem)
+    seen = np.unique(np.stack([bal.point_index, bal.camera_index], 1), axis=0)
+    lone = np.nonzero(np.bincount(seen[:, 0], minlength=bal.num_points) < 2)[0]
+    for i in lone:
+        problem.set_parameter_block_constant(pts[i])
+    free = [int(c) for c in cams[2:]]
+    return problem, [(c, c) for c in free[:8]] + [(free[0], free[1])], len(lone)
+
+
+def block_gap(a, b, pairs) -> float:
+    """max over the pairs of max|a - b| / max|b| of each block (a, b:
+    Covariances, or functions of a pair)."""
+    get = [x.get_covariance_block if hasattr(x, "get_covariance_block") else x for x in (a, b)]
+    gap = 0.0
+    for bi, bj in pairs:
+        x, y = (np.asarray(g(bi, bj)) for g in get)
+        gap = max(gap, float(np.abs(x - y).max() / np.abs(y).max()))
+    return gap
+
+
+def covariance(problem, pairs, algo, device, **kw):
+    """(Covariance after compute, its return, seconds)."""
+    import ceres_tpu_torch as ct
+
+    cov = ct.Covariance(ct.CovarianceOptions(
+        algorithm_type=getattr(ct.CovarianceAlgorithmType, algo), device=device, **kw))
+    t0 = time.time()
+    ok = cov.compute(pairs, problem)
+    return cov, ok, time.time() - t0
+
+
+def _steps(cov) -> str:
+    its = cov.pcg_stats["iterations"]
+    return (f"PCG steps per column min {its.min()} median {int(np.median(its))} max {its.max()}, "
+            f"reads {cov.pcg_stats['reads']}")
+
+
+def phase_f64_covariance():
+    """Phase 3: covariance on the card against the CPU in float64, within
+    1e-9 of each block's scale: SPARSE_QR and ITERATIVE_PCG (the batched
+    B2/B3 launched on the card) on the phase's 48,000-observation BAL,
+    gauge-fixed, 8 camera blocks and one cross block; DENSE_SVD on
+    ceres_tpu's own test problem (tests/test_covariance_scale.py:17-23),
+    where J densifies (at 48,000 observations the dense J would be ~10 GB).
+    Then tiny_solve and tiny_solve_batched on MGH problems: the same
+    iterations and convergence per lane, x within 1e-10."""
+    import torch
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch import cuda_lib
+    from ceres_tpu_torch.examples.more_garbow_hillstrom import PROBLEMS
+
+    cases = (
+        ("SPARSE_QR", (96, 4000, 48_000), {}),
+        ("ITERATIVE_PCG", (96, 4000, 48_000), {"iterative_max_iterations": COV_MAX_ITERATIONS}),
+        ("DENSE_SVD", (10, 300, 3000), {}),
+    )
+    for algo, sizes, kw in cases:
+        noise = {"observation_noise": 0.5} if sizes[0] == 10 else {}
+        bal = ct.synthetic_bal(*sizes, seed=11 if noise else 1, **noise)
+        covs = {}
+        for dev in ("cuda", "cpu"):
+            problem, pairs, lone = gauge_fixed_ba(bal)
+            cuda_lib.reset_launch_counts()
+            covs[dev] = covariance(problem, pairs, algo, dev, **kw)
+            if dev == "cuda":
+                launches = cuda_lib.launch_counts()
+        (cc, ok_c, s_c), (cp, ok_p, s_p) = covs["cuda"], covs["cpu"]
+        gap = block_gap(cc, cp, pairs) if ok_c and ok_p else float("nan")
+        extra = ""
+        if algo == "ITERATIVE_PCG":
+            extra = (f"; card {_steps(cc)}, CPU {_steps(cp)}; batched launches "
+                     f"{launches['gather_contract_batched']} / "
+                     f"{launches['contract_reduce_batched']}")
+        print(f"phase 3: covariance {algo} synthetic_bal{sizes} float64, {lone} lone points held "
+              f"constant, CUDA vs CPU: compute {ok_c} / {ok_p}, max block rel diff {gap:.3e} "
+              f"(tol 1e-9); {s_c:.1f} s / {s_p:.1f} s{extra}", flush=True)
+        if not (ok_c and ok_p and gap <= 1e-9):
+            raise AssertionError(f"covariance {algo}: the card disagrees with the CPU")
+        if algo == "ITERATIVE_PCG" and not (
+                launches["gather_contract_batched"] > 0 and launches["contract_reduce_batched"] > 0
+                and np.array_equal(cc.pcg_stats["iterations"], cp.pcg_stats["iterations"])):
+            raise AssertionError("ITERATIVE_PCG: batched B2/B3 not launched, or other PCG steps")
+    # well-conditioned at their minima: Box 3D, Biggs EXP6, Wood and
+    # Jennrich-Sampson move x by 1e-9 to 1e-2 under a 1e-15 relative
+    # change of the start (on the CPU alone), beyond a card/CPU tolerance
+    # of 1e-10
+    rng = np.random.default_rng(5)
+    for name in ("rosenbrock", "freudenstein_roth", "powell_singular", "helical_valley", "bard",
+                 "kowalik_osborne"):
+        spec = next(p for p in PROBLEMS if p.name == name)
+
+        def fn(x, spec=spec):
+            return spec.residual_fn((x,), ())
+
+        x0 = spec.x0[None] * (1.0 + 0.5 * rng.uniform(-1, 1, (64, spec.x0.size))) + rng.normal(
+            0, 0.1, (64, spec.x0.size))
+        res = {dev: ct.tiny_solve_batched(fn, torch.tensor(x0, device=dev)) for dev in ("cuda", "cpu")}
+        one = {dev: ct.tiny_solve(fn, torch.tensor(x0[0], device=dev)) for dev in ("cuda", "cpu")}
+        same = all(torch.equal(getattr(res["cuda"], f).cpu(), getattr(res["cpu"], f))
+                   for f in ("iterations", "converged")) and all(
+            torch.equal(getattr(one["cuda"], f).cpu(), getattr(one["cpu"], f))
+            for f in ("iterations", "converged"))
+        xc, xp = res["cuda"].x.cpu().numpy(), res["cpu"].x.numpy()
+        gap = float((np.abs(xc - xp) / np.maximum(np.abs(xp).max(axis=1, keepdims=True), 1.0)).max())
+        gap = max(gap, float((one["cuda"].x.cpu() - one["cpu"].x).abs().max()
+                             / max(float(one["cpu"].x.abs().max()), 1.0)))
+        its = res["cpu"].iterations.numpy()
+        print(f"phase 3: tiny_solve_batched {name}, 64 starts, CUDA vs CPU: the same iterations "
+              f"and converged per lane {same} (iterations {its.min()}-{its.max()}, "
+              f"{int(res['cpu'].converged.sum())} converged), x max rel diff {gap:.3e} "
+              f"(tol 1e-10); tiny_solve of lane 0: {int(one['cuda'].iterations)} iterations",
+              flush=True)
+        if not (same and gap <= 1e-10):
+            raise AssertionError(f"tiny solver {name}: the card disagrees with the CPU")
+
+
+def reduced_camera_inverse(program, jac, pair_chunk=1 << 20):
+    """S⁻¹ of the reduced camera system, assembled here in plain torch from
+    the Jacobian's two leaves (camera position 0, point position 1), apart
+    from the port's Schur code: with E_o, F_o the point and camera blocks
+    of observation o, M_p = Σ_o E_oᵀE_o over the free point p's
+    observations and W_o = E_oᵀF_o, S = Σ_o F_oᵀF_o − Σ_p Σ_(a,b of p)
+    W_aᵀ M_p⁻¹ W_b over the free cameras (D = 0); dense in float64,
+    factored by a dense Cholesky and inverted. An observation of a point
+    held constant adds its F_oᵀF_o only. Returns (S⁻¹ [nc*9, nc*9], S's
+    condition number from eigvalsh, the camera class)."""
+    import torch
+
+    meta = program.groups[0]
+    cam, pt = meta.positions
+    rows = program.group_idx[0]["t_rows"]
+    nc, npt = (program.tangent_class_counts[pm.t_cls] for pm in (cam, pt))
+    tf, te = cam.tangent_size, pt.tangent_size
+    dev = jac._device()
+    f = jac.leaf(0, 0).reshape(2, tf, -1).permute(2, 0, 1)  # [n, 2, tf]
+    e = jac.leaf(0, 1).reshape(2, te, -1).permute(2, 0, 1)  # [n, 2, te]
+    c_rows = torch.as_tensor(rows[0].astype(np.int64), device=dev)
+    p_rows = rows[1].astype(np.int64)
+    live_c = c_rows < nc
+    s4 = torch.zeros((nc, nc, tf, tf), dtype=torch.float64, device=dev)
+    cl = c_rows[live_c]
+    s4.index_put_((cl, cl), (f.mT @ f)[live_c], accumulate=True)
+    live_p = np.nonzero(p_rows < npt)[0]
+    p_dev = torch.as_tensor(p_rows[live_p], device=dev)
+    m = torch.zeros((npt, te, te), dtype=torch.float64, device=dev)
+    m.index_add_(0, p_dev, (e.mT @ e)[live_p])
+    w = e.mT @ f  # [n, te, tf]
+    t = torch.zeros_like(w)
+    t[live_p] = torch.linalg.inv(m)[p_dev] @ w[live_p]
+    # the pairs (a, b) of observations of one free point, by multiplicity
+    order = live_p[np.argsort(p_rows[live_p], kind="stable")]
+    _, starts, counts = np.unique(p_rows[order], return_index=True, return_counts=True)
+    for d in np.unique(counts):
+        obs = order[starts[counts == d][:, None] + np.arange(d)[None, :]]
+        a = np.broadcast_to(obs[:, :, None], (len(obs), d, d)).reshape(-1)
+        b = np.broadcast_to(obs[:, None, :], (len(obs), d, d)).reshape(-1)
+        for k0 in range(0, a.size, pair_chunk):
+            ai = torch.as_tensor(a[k0:k0 + pair_chunk], device=dev)
+            bi = torch.as_tensor(b[k0:k0 + pair_chunk], device=dev)
+            ok = live_c[ai] & live_c[bi]
+            ai, bi = ai[ok], bi[ok]
+            s4.index_put_((c_rows[ai], c_rows[bi]), -(w[ai].mT @ t[bi]), accumulate=True)
+    s = s4.permute(0, 2, 1, 3).reshape(nc * tf, nc * tf)
+    s = 0.5 * (s + s.T)
+    ev = torch.linalg.eigvalsh(s)
+    inv = torch.cholesky_inverse(torch.linalg.cholesky(s))
+    return inv, float(ev[-1] / ev[0]), cam.t_cls
+
+
+def camera_block(program, inv, cam_cls, bi, bj):
+    """Block (bi, bj) of S⁻¹, cameras by their class rows."""
+    i, j = int(program.t_row[bi]), int(program.t_row[bj])
+    s = program.tangent_class_sizes[cam_cls]
+    return inv[i * s:(i + 1) * s, j * s:(j + 1) * s].cpu().numpy()
+
+
+def phase_covariance_run():
+    """Phase 4, the slice at a real size: covariance at Dubrovnik-356's
+    shape (DUBROVNIK_356, float64) on a new Problem, two cameras held
+    constant (the gauge), after a 3-iteration LM + ITERATIVE_SCHUR solve;
+    then every point that fewer than two distinct cameras observe held
+    constant, and ITERATIVE_PCG over 8 camera blocks and one cross block (72
+    columns) at the default tolerance and iterative_max_iterations 20,000:
+    PCG steps per column, ms per step, reads (at most steps + 3), seconds,
+    peak device memory beside the estimate, the batched B2/B3 launched in
+    the PCG and the single-vector B2/B3 not. The blocks are held against
+    S⁻¹ (reduced_camera_inverse) at 10 x the PCG tolerance x S's condition
+    number. Returns the PCG's launches."""
+    import torch
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.evaluator import Evaluator
+
+    bal = ct.synthetic_bal(*DUBROVNIK_356, seed=0)
+    t0 = time.time()
+    solved = []
+    problem, pairs, lone = gauge_fixed_ba(bal, lambda p: solved.append(
+        ct.solve(lm_options("cuda", torch.float64, max_num_iterations=3), p)))
+    solved, t_solve = solved[0], time.time() - t0
+    program = problem.compile("cuda")
+    n_eff, n = program.num_effective_parameters, bal.num_observations
+    # per column: x, r, p, z, Ap, b and two temporaries of the tangent size,
+    # J p [2, n], and the point side's [2, 3, n] products and [3, n] sums
+    estimate = 8 * COV_COLUMNS * (8 * n_eff + 2 * n + 6 * n + 3 * n)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cov, ok, secs = covariance(problem, pairs, "ITERATIVE_PCG", "cuda",
+                               iterative_max_iterations=COV_MAX_ITERATIONS)
+    peak = torch.cuda.max_memory_allocated()
+    st = cov.pcg_stats
+    launches = st["launches"]
+    steps = int(st["iterations"].max())
+    print(f"phase 4: covariance ITERATIVE_PCG at Dubrovnik-356's shape float64 after "
+          f"{len(solved.iterations) - 1} LM iterations ({t_solve:.1f} s, cost "
+          f"{solved.initial_cost:.6e} -> {solved.final_cost:.6e}); {lone} points seen by "
+          f"fewer than two cameras held constant; {COV_COLUMNS} columns, {n_eff} parameters: "
+          f"compute {ok}; {_steps(cov)}; {1e3 * st['seconds'] / max(steps, 1):.3f} ms per step; "
+          f"PCG {st['seconds']:.1f} s, compute {secs:.1f} s; peak device memory "
+          f"{peak / 1e9:.2f} GB (estimate {estimate / 1e9:.2f} GB); PCG launches "
+          f"{json.dumps(launches)}", flush=True)
+    if not ok:
+        raise AssertionError("covariance at Dubrovnik-356's shape did not converge")
+    if st["reads"] > steps + 3:
+        raise AssertionError(f"the covariance PCG read {st['reads']} times in {steps} steps")
+    if not (launches.get("gather_contract_batched", 0) > 0
+            and launches.get("contract_reduce_batched", 0) > 0):
+        raise AssertionError("the covariance PCG did not launch the batched B2/B3")
+    if launches.get("gather_contract", 0) or launches.get("contract_reduce", 0):
+        raise AssertionError("the covariance PCG launched the single-vector B2/B3")
+    t0 = time.time()
+    _, _, jac, _ = Evaluator(program, torch.float64).evaluate_groups(
+        program.state_vector(torch.float64))
+    inv, cond, cam_cls = reduced_camera_inverse(program, jac)
+    gap = block_gap(cov, lambda bi, bj: camera_block(program, inv, cam_cls, bi, bj), pairs)
+    tol = 10 * cov.options.iterative_tolerance * cond
+    print(f"phase 4: covariance blocks vs S⁻¹ (S assembled at D = 0, dense float64 Cholesky, "
+          f"{time.time() - t0:.1f} s): max block rel diff {gap:.3e} (tol {tol:.1e} = 10 x "
+          f"tolerance {cov.options.iterative_tolerance:.0e} x cond(S) {cond:.3e})", flush=True)
+    if not gap <= tol:
+        raise AssertionError("covariance blocks disagree with S⁻¹")
+    del cov, jac, inv, program, problem
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tiny_multistart():
+    """Phase 4: tiny_solve_batched on FR_STARTS starts of Freudenstein-Roth
+    in float64, drawn with numpy from a seed over [-FR_BOX, FR_BOX]^2 (a
+    multistart: the problem has a global and a local minimum): ms, reads,
+    the distribution of iterations and the share of lanes at each minimum;
+    FR_SAMPLED sampled lanes held against the CPU (tiny_solve_batched, and
+    tiny_solve on 16 of them): the same iterations, x within 1e-10."""
+    import torch
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.examples.more_garbow_hillstrom import PROBLEMS
+    from ceres_tpu_torch.utils.graphs import read_count
+
+    spec = next(p for p in PROBLEMS if p.name == "freudenstein_roth")
+
+    def freudenstein_roth(x):
+        return spec.residual_fn((x,), ())
+
+    rng = np.random.default_rng(14)
+    x0 = rng.uniform(-FR_BOX, FR_BOX, (FR_STARTS, 2))
+    x0_dev = torch.tensor(x0, device="cuda")
+    ct.tiny_solve_batched(freudenstein_roth, x0_dev[:1024])  # warm-up
+    torch.cuda.synchronize()
+    reads0, t0 = read_count(), time.perf_counter()
+    res = ct.tiny_solve_batched(freudenstein_roth, x0_dev)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    reads = read_count() - reads0
+    its = res.iterations.cpu().numpy()
+    cost = res.cost.cpu().numpy()
+    share = {"global (cost < 1e-8)": float(np.mean(cost < 1e-8)),
+             "local (cost 24.4921)": float(np.mean(np.abs(cost - 24.4921) < 1e-3))}
+    pick = np.sort(rng.choice(FR_STARTS, FR_SAMPLED, replace=False))
+    cpu = ct.tiny_solve_batched(freudenstein_roth, torch.tensor(x0[pick]))
+    same = bool(np.array_equal(its[pick], cpu.iterations.numpy())) and bool(
+        np.array_equal(res.converged.cpu().numpy()[pick], cpu.converged.numpy()))
+    xg, xc = res.x.cpu().numpy()[pick], cpu.x.numpy()
+    gap = float((np.abs(xg - xc) / np.maximum(np.abs(xc).max(axis=1, keepdims=True), 1.0)).max())
+    for e in pick[:16]:
+        one = ct.tiny_solve(freudenstein_roth, torch.tensor(x0[e]))
+        same &= int(one.iterations) == its[e]
+        gap = max(gap, float(np.abs(one.x.numpy() - res.x[e].cpu().numpy()).max()
+                             / max(float(np.abs(one.x.numpy()).max()), 1.0)))
+    hist = np.bincount(its)
+    print(f"phase 4: tiny_solve_batched Freudenstein-Roth, {FR_STARTS} starts in "
+          f"[-{FR_BOX:g}, {FR_BOX:g}]^2 float64: {ms:.1f} ms, {reads} reads, iterations min "
+          f"{its.min()} median {int(np.median(its))} max {its.max()} (lanes by iterations "
+          f"{json.dumps({int(i): int(c) for i, c in enumerate(hist) if c})}), converged "
+          f"{float(res.converged.double().mean()):.4f}, share of lanes {json.dumps(share)}; "
+          f"{FR_SAMPLED} sampled lanes vs the CPU: the same iterations and converged {same}, "
+          f"x max rel diff {gap:.3e} (tol 1e-10)", flush=True)
+    if not (same and gap <= 1e-10):
+        raise AssertionError("tiny_solve_batched on the card disagrees with the CPU")
+
+
 def _iteration_line(it) -> str:
     return (
         f"cost {it.cost!r} pcg {it.linear_solver_iterations} ms "
@@ -2628,6 +3093,7 @@ def main(argv=None) -> int:
     phase_generic_build(program, dev)
     results = {}
     phase_kernels(program, dev, results)
+    phase_kernels_batched(program, dev, results)
     phase_kernels_generic(program, dev, results)
     phase_kernels_generic_analytic(dev, results)
     del problem, program
@@ -2643,6 +3109,7 @@ def main(argv=None) -> int:
     tmp = tempfile.TemporaryDirectory()
     phase_f64_host_solvers(tmp.name)
     phase_f64_minimizers(tmp.name)
+    phase_f64_covariance()
 
     # phase 4: the main run (SCHUR_JACOBI on the fused loop, kernels B1-B5),
     # the host loop on the same problem, then JACOBI (B1-B4)
@@ -2650,7 +3117,7 @@ def main(argv=None) -> int:
     if not main.used_fused_execution:
         raise AssertionError("the main run did not take the fused loop")
     missing = [k for k, v in launches.items()
-               if v <= 0 and k not in BF16_KERNELS | QUAT_NAMES | GENERIC_NAMES]
+               if v <= 0 and k not in BF16_KERNELS | QUAT_NAMES | GENERIC_NAMES | BATCHED_NAMES]
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
     host, _ = run_main_path(bal, "SCHUR_JACOBI", fused_execution=False)
@@ -2668,7 +3135,8 @@ def main(argv=None) -> int:
     jacobi, jacobi_launches = run_main_path(bal, "JACOBI", fused_execution_chunk_iters=1,
                                             max_num_iterations=3)
     missing = [k for k, v in jacobi_launches.items()
-               if v <= 0 and k != "schur_p0" and k not in BF16_KERNELS | QUAT_NAMES | GENERIC_NAMES]
+               if v <= 0 and k != "schur_p0"
+               and k not in BF16_KERNELS | QUAT_NAMES | GENERIC_NAMES | BATCHED_NAMES]
     if missing:
         raise AssertionError(f"kernels not launched by the JACOBI path: {missing}")
     for a, b in zip(main.iterations, jacobi.iterations):
@@ -2690,7 +3158,7 @@ def main(argv=None) -> int:
         raise AssertionError("the mixed PCG did not run B4's bfloat16 instantiation alone")
     missing = [k for k, v in mixed_launches.items()
                if v <= 0 and k not in {"schur_sy", "gather_contract_bf16", "contract_reduce_bf16"}
-               | QUAT_NAMES | GENERIC_NAMES]
+               | QUAT_NAMES | GENERIC_NAMES | BATCHED_NAMES]
     if missing:
         raise AssertionError(f"kernels not launched by the mixed path: {missing}")
     # the composed path: a second residual group; B2 and B3 in bfloat16
@@ -2722,15 +3190,20 @@ def main(argv=None) -> int:
     phase_sparse_schur_run()
     phase_pose_graph_runs(tmp.name)
     tmp.cleanup()
+    # the slice's own path: covariance at Dubrovnik-356's shape, multistart
+    # TinySolver
+    cov_launches = phase_covariance_run()
+    phase_tiny_multistart()
     launches.update({k: denoising[0][1][k] for k in ("eval_generic",)})
     launches.update({k: analytic_launches[k] for k in ("eval_generic_analytic",)})
     # each kernel's launches on the run that is its main path
     launches.update(quat_launches)
     launches.update({k: mixed_launches[k] for k in ("schur_sy_bf16",)})
     launches.update({k: composed_launches[k] for k in ("gather_contract_bf16", "contract_reduce_bf16")})
+    launches.update({name: cov_launches.get(name, 0) for name, *_ in BATCHED_KERNELS})
 
     kernels = []
-    for name, src, replaces, _tol in KERNELS + QUAT_KERNELS + GENERIC_KERNELS:
+    for name, src, replaces, _tol in KERNELS + QUAT_KERNELS + GENERIC_KERNELS + BATCHED_KERNELS:
         res = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -75,6 +75,14 @@ unpacked with `git archive`) by the same method; run two checkouts in
 turns, in one call:
 
     python3 profile_torch_solve.py --kernels --tree .chipcheck/base
+
+With --covariance it profiles chip_smoke.py's covariance PCG at
+Dubrovnik-356's shape (gauge_fixed_ba: float64, 72 columns, the batched
+PCG over BlockJacobian.jtj_multiply_batched with the block-Jacobi
+preconditioner) for 5 steps after 3 discarded ones, and prints the device
+time per kernel and per step (chiprun_out/profile_covariance.txt):
+
+    python3 profile_torch_solve.py --covariance
 """
 
 from __future__ import annotations
@@ -333,6 +341,50 @@ def kernel_times(torch, label):
         torch.cuda.empty_cache()
 
 
+def profile_covariance(ct, torch, out_dir, smi, steps=5):
+    """The covariance's batched PCG at Dubrovnik-356's shape under the
+    profiler: device time per kernel over `steps` steps (after 3 discarded
+    ones), and per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceres_tpu_torch.evaluator import Evaluator
+    from ceres_tpu_torch.linalg.cg import conjugate_gradients
+    from ceres_tpu_torch.linalg.preconditioners import BlockDiagSolver
+    from chip_smoke import COV_COLUMNS, DUBROVNIK_356, gauge_fixed_ba
+
+    problem, pairs, _ = gauge_fixed_ba(ct.synthetic_bal(*DUBROVNIK_356, seed=0))
+    program = problem.compile("cuda")
+    _, _, jac, _ = Evaluator(program, torch.float64).evaluate_groups(
+        program.state_vector(torch.float64))
+    prec = BlockDiagSolver(program, jac.block_diag_jtj())
+    cols = torch.tensor(
+        [int(program.t_offsets[b]) + j for b in dict(pairs) for j in range(9)], device="cuda")
+    rhs = torch.zeros((COV_COLUMNS, program.num_effective_parameters), dtype=torch.float64,
+                      device="cuda")
+    rhs[torch.arange(COV_COLUMNS, device="cuda"), cols] = 1.0
+
+    def run(n):
+        conjugate_gradients(jac.jtj_multiply_batched, rhs, preconditioner=prec.apply_batched,
+                            max_iterations=n, tolerance=0.0, batched=True)
+        torch.cuda.synchronize()
+
+    run(3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(steps)
+    events = prof.key_averages()
+    # the kernels' own entries (the aten ops that launched them carry the
+    # same time again)
+    device = sum(_device_us(e) for e in events if str(e.device_type).endswith("CUDA")) / 1e3
+    table = events.table(sort_by="self_cuda_time_total", row_limit=25, max_name_column_width=70)
+    head = (f"{smi} | covariance PCG at Dubrovnik-356's shape, float64, {COV_COLUMNS} columns: "
+            f"{device:.1f} ms of device time over {steps} steps and the initial matvec, "
+            f"{device / (steps + 1):.1f} ms per step")
+    print(head + "\n" + table[:5000], flush=True)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_covariance.txt"), "w") as f:
+        f.write(head + "\n" + table + "\n")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Profile the port's BAL-1778 solve.")
     parser.add_argument("--compare", type=int, default=0,
@@ -352,6 +404,8 @@ def main(argv=None) -> int:
                        help="profile chip_smoke's L-BFGS line-search run at BAL-1778 instead")
     group.add_argument("--kernels", action="store_true",
                        help="time B1 generic and B2 by batched graph replays instead")
+    group.add_argument("--covariance", action="store_true",
+                       help="profile chip_smoke's covariance PCG at Dubrovnik-356's shape instead")
     parser.add_argument("--tree", default=None,
                         help="with --kernels: the checkout whose package to time")
     args = parser.parse_args(argv)
@@ -383,6 +437,9 @@ def main(argv=None) -> int:
     ).stdout.strip()
     print(f"{smi} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     cuda_lib.library()
+    if args.covariance:
+        profile_covariance(ct, torch, os.path.join(root, "chiprun_out"), smi)
+        return 0
     if args.compare and (args.denoising or args.sparse_schur or args.line_search):
         parser.error("--compare times the BAL-1778 variants; --denoising, --sparse-schur and "
                      "--line-search only profile")

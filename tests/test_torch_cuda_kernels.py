@@ -16,7 +16,10 @@ and outputs): B2 and B3 round only their given table or u, so they keep
 float32's tolerances; B4 rounds t1, t2 and diff, which the kernel and the
 plain version sum in other orders, so one of them can land on the other
 side of a bfloat16 rounding boundary (one term off by 2^-8 of itself):
-1e-3. B3, B4's slot pass and B5 read camera-ordered twins of the
+1e-3. The batched B2 and B3 (k columns, the covariance's PCG) are held to
+their plain versions at the single-vector tolerances and must be bitwise
+equal, column by column, to k single-vector launches. B3, B4's slot pass
+and B5 read camera-ordered twins of the
 leaves; their tests use ragged camera runs (1, 31, 32, 33 and thousands of
 observations, one camera with none) and check that two runs are bitwise
 equal. `synthetic_sy_case` also serves the CPU tests of B4's plain passes
@@ -31,8 +34,12 @@ from ceres_tpu_torch import cuda_lib, eval_kernel, functor_codegen
 from ceres_tpu_torch.evaluator import Evaluator, group_eval_plain, state_tables
 from ceres_tpu_torch.gather_reduce import (
     contract_reduce,
+    contract_reduce_batched,
+    contract_reduce_batched_plain,
     contract_reduce_plain,
     gather_contract,
+    gather_contract_batched,
+    gather_contract_batched_plain,
     gather_contract_plain,
 )
 from ceres_tpu_torch.linalg import schur as tschur
@@ -492,9 +499,10 @@ def test_cuda_solve_matches_cpu_and_launches_every_kernel(card, precond, num_poi
             function_tolerance=0.0, gradient_tolerance=0.0, parameter_tolerance=0.0,
             fused_execution=fused, device=dev, dtype=torch.float64), problem)
     # the bfloat16 instantiations run only under mixed-precision solves, B1's
-    # quaternion ones only on quaternion cameras
+    # quaternion ones only on quaternion cameras, the batched B2/B3 only in
+    # the covariance's PCG
     unused = {k + "_bf16" for k in cuda_lib.BF16_KERNELS} | set(cuda_lib.QUAT_KERNELS)
-    unused |= set(cuda_lib.GENERIC_KERNELS)
+    unused |= set(cuda_lib.GENERIC_KERNELS) | set(cuda_lib.BATCHED_KERNELS)
     unused |= {"schur_p0"} if precond == "JACOBI" else set()
     assert all(v > 0 for k, v in cuda_lib.launch_counts().items() if k not in unused)
     assert all(cuda_lib.launch_counts()[k] == 0 for k in unused if k.endswith("_bf16"))
@@ -1026,3 +1034,52 @@ def test_eval_generic_strides_past_the_grid_cap(card):
         r2 = eval_kernel.generic_evaluate(prog, *args, False)
         _close(r1[1], res_p, 2e-4)
         assert torch.equal(r1[0], r2[0]) and torch.equal(r1[1], r2[1])
+
+
+# (r, t, n, ncols, k): the camera shapes the batched B2 keeps in registers
+# (t = 9 and t = 10, k = 72 and a k that is no multiple of B3's group of 8
+# columns), and a shape that takes its any-(r, t) kernel
+BATCHED_SHAPES = [(2, 9, 120_000, 357, 72), (2, 10, 40_000, 40, 13), (3, 4, 30_000, 25, 9)]
+
+
+@pytest.mark.parametrize("shape", BATCHED_SHAPES, ids=lambda s: f"r{s[0]}t{s[1]}k{s[4]}")
+@pytest.mark.parametrize("dtype", DTYPES + [BF16])
+def test_batched_gather_reduce_match_plain_and_single_launches(card, dtype, shape):
+    r, t, n, ncols, k = shape
+    rng = np.random.default_rng(7)
+    vdt = cuda_lib.vector_dtype(dtype)
+    rows_np = rng.integers(0, ncols, n).astype(np.int32)  # includes the dump column
+    rows = torch.tensor(rows_np, device=card)
+    layout = camera_layout(rows_np, ncols).to(card)
+    jac = torch.tensor(rng.normal(size=(r * t, n)), device=card).to(dtype)
+    table = torch.tensor(rng.normal(size=(k, t, ncols)), device=card).to(vdt)
+    table[:, :, -1] = 0
+    u = torch.tensor(rng.normal(size=(k, r, n)), device=card).to(vdt)
+    twin = make_twin(jac, layout)
+    counts = cuda_lib.launch_counts()
+    g = gather_contract_batched(jac, rows, table, r)
+    c = contract_reduce_batched(twin, layout, u, r)
+    after = cuda_lib.launch_counts()
+    for name in ("gather_contract_batched", "contract_reduce_batched"):
+        key = cuda_lib.counter(name, dtype)
+        assert after[key] == counts[key] + 1
+    assert g.shape == (k, r, n) and c.shape == (k, t, ncols) and g.dtype == c.dtype == vdt
+    tol = 1e-11 if dtype == torch.float64 else None
+    _close(g, gather_contract_batched_plain(jac, rows, table, r), tol or 1e-5)
+    _close(c, contract_reduce_batched_plain(twin, layout, u, r), tol or 1e-4)
+    assert torch.equal(g, torch.stack([gather_contract(jac, rows, table[e].contiguous(), r)
+                                       for e in range(k)]))
+    assert torch.equal(c, torch.stack([contract_reduce(twin, layout, u[e].contiguous(), r)
+                                       for e in range(k)]))
+    assert torch.equal(c, contract_reduce_batched(twin, layout, u, r))
+    assert torch.all(g[:, :, torch.tensor(rows_np == ncols - 1, device=card)] == 0)
+
+
+def test_batched_wrappers_refuse_bad_operands(card):
+    jac = torch.zeros((18, 100), device=card)
+    rows = torch.zeros(100, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="table_t"):
+        gather_contract_batched(jac, rows, torch.zeros((3, 8, 5), device=card), 2)
+    with pytest.raises(TypeError, match="table_t"):
+        gather_contract_batched(jac, rows, torch.zeros((3, 9, 5), device=card,
+                                                       dtype=torch.float64), 2)

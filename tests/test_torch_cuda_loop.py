@@ -6,7 +6,9 @@ Fields-of-Experts problem (every group B1 generic); DOGLEG's prepare and
 finish graphs and its read budget; SPARSE_SCHUR's S bitwise across
 assemblies; the host solvers' counted reads; the pose graphs on B1
 generic; the no-plan reduce (index_add_) bitwise from run to run; the line-search
-minimizer's read budget; the inner-iteration sweep against the CPU.
+minimizer's read budget; the inner-iteration sweep against the CPU; the
+covariance's ITERATIVE_PCG against the CPU (the batched B2/B3), the batched
+PCG's read budget, and the batched TinySolver against the CPU.
 
 These tests need an NVIDIA GPU and skip without one. The file imports no
 JAX: `python -m pytest --noconftest tests/test_torch_cuda_loop.py` runs it
@@ -574,3 +576,78 @@ def test_inner_iteration_sweep_matches_the_cpu(card):
         assert a.cost == pytest.approx(b.cost, rel=1e-9)
         assert (a.linear_solver_iterations, a.step_is_successful) == (
             b.linear_solver_iterations, b.step_is_successful)
+
+
+def _gauge_fixed_covariance_problem():
+    """A BA problem large enough for the layout plans, gauge fixed, with
+    the points seen by fewer than two cameras constant; 8 camera blocks and
+    one cross block (chip_smoke.gauge_fixed_ba)."""
+    from chip_smoke import gauge_fixed_ba
+
+    problem, pairs, _ = gauge_fixed_ba(ct.synthetic_bal(32, 8000, 40_000, seed=3))
+    return problem, pairs
+
+
+def test_iterative_pcg_covariance_matches_cpu(card):
+    import numpy as np
+
+    covs = {}
+    for dev in ("cpu", card):
+        problem, pairs = _gauge_fixed_covariance_problem()
+        covs[str(dev)] = cov = ct.Covariance(ct.CovarianceOptions(
+            algorithm_type=ct.CovarianceAlgorithmType.ITERATIVE_PCG,
+            iterative_max_iterations=20_000, device=dev))
+        assert cov.compute(pairs, problem)
+    gpu, cpu = covs["cuda"], covs["cpu"]
+    assert np.array_equal(gpu.pcg_stats["iterations"], cpu.pcg_stats["iterations"])
+    launches = gpu.pcg_stats["launches"]
+    assert launches["gather_contract_batched"] > 0 and launches["contract_reduce_batched"] > 0
+    assert "gather_contract" not in launches and "contract_reduce" not in launches
+    assert gpu.pcg_stats["reads"] <= int(gpu.pcg_stats["iterations"].max()) + 1
+    for bi, bj in pairs:
+        want = cpu.get_covariance_block(bi, bj)
+        np.testing.assert_allclose(gpu.get_covariance_block(bi, bj), want, rtol=0,
+                                   atol=1e-9 * np.abs(want).max())
+
+
+def test_batched_pcg_syncs_only_through_counted_reads(card):
+    """The covariance's batched PCG reads one flag per step and synchronizes
+    nowhere else."""
+    from ceres_tpu_torch.linalg.cg import conjugate_gradients
+    from ceres_tpu_torch.linalg.preconditioners import BlockDiagSolver
+
+    problem, _ = _gauge_fixed_covariance_problem()
+    program = problem.compile(card)
+    _, _, jac, _ = Evaluator(program, torch.float64).evaluate_groups(
+        program.state_vector(torch.float64))
+    prec = BlockDiagSolver(program, jac.block_diag_jtj())
+    b = torch.zeros((12, program.num_effective_parameters), dtype=torch.float64, device=card)
+    b[torch.arange(12, device=card), torch.arange(12, device=card) * 7] = 1.0
+    torch.cuda.synchronize()
+    reads = tgraphs.read_count()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = conjugate_gradients(jac.jtj_multiply_batched, b, preconditioner=prec.apply_batched,
+                                  max_iterations=200, tolerance=1e-10, batched=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    steps = int(res.iterations.max())
+    assert steps < 200 and tgraphs.read_count() - reads == steps
+    assert bool(res.converged.all()) and not bool(res.breakdown.any())
+
+
+def test_tiny_solve_batched_matches_cpu(card):
+    import numpy as np
+
+    def freudenstein_roth(x):
+        return torch.stack([-13.0 + x[0] + ((5.0 - x[1]) * x[1] - 2.0) * x[1],
+                            -29.0 + x[0] + ((x[1] + 1.0) * x[1] - 14.0) * x[1]])
+
+    x0 = np.random.default_rng(2).uniform(-20, 20, (4096, 2))
+    gpu = ct.tiny_solve_batched(freudenstein_roth, torch.tensor(x0, device=card))
+    cpu = ct.tiny_solve_batched(freudenstein_roth, torch.tensor(x0))
+    assert torch.equal(gpu.iterations.cpu(), cpu.iterations)
+    assert torch.equal(gpu.converged.cpu(), cpu.converged)
+    torch.testing.assert_close(gpu.x.cpu(), cpu.x, rtol=1e-10, atol=1e-10)
+    one = ct.tiny_solve(freudenstein_roth, x0[0], device=card)
+    assert int(one.iterations) == int(cpu.iterations[0]) and one.x.device.type == "cuda"
