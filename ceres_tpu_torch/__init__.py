@@ -27,7 +27,9 @@ runs B1 generic with the user's Jacobian rule), the cost-function adapters
 callback (`Problem(evaluation_callback=...)`); covariance (covariance.py:
 DENSE_SVD and SPARSE_QR on the host, ITERATIVE_PCG as one batched PCG on
 the card through B2 and B3 over a batch of columns) and the dense
-multistart TinySolver (tiny_solver.py).
+multistart TinySolver (tiny_solver.py). A solve shards over several
+processes (`SolverOptions(mesh=...)`, parallel/: one rank per shard, the
+reductions all-reduced over torch.distributed; B1 masks the pad lanes).
 
 On CPU tensors every kernel wrapper runs its plain PyTorch version instead.
 Importing the package builds nothing; the kernels compile on first use on a
@@ -44,7 +46,8 @@ from .cost_functions import (
 )
 from .gradient_checker import GradientCheckResult, check_gradients
 from .gradient_problem import GradientProblem, numeric_diff_first_order, solve_gradient_problem
-from .io.bal import BalProblem, build_ba_problem, load_bal, synthetic_bal
+from .io.bal import BalProblem, build_ba_problem, load_bal, load_bal_lazy, synthetic_bal
+from .io.lazy import LazyRows
 from .loss import (
     ArctanLoss,
     CauchyLoss,
@@ -147,6 +150,8 @@ __all__ = [
     "conditioned_cost_function",
     "cost_function_to_functor",
     "load_bal",
+    "load_bal_lazy",
+    "LazyRows",
     "normal_prior",
     "numeric_diff_first_order",
     "scaled_cost_function",

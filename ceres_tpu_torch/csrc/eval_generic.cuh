@@ -427,6 +427,7 @@ struct Args {
   const int* rows[G::kPos];
   const S* data[G::kData > 0 ? G::kData : 1];
   S* leaf[G::kPos];
+  const S* mask;  // [n]: 0 on a pad lane of a sharded group; null: all real
 };
 
 // the residual scaling, the Jacobian scaling and alpha / |r|^2 of the
@@ -524,8 +525,10 @@ __device__ __forceinline__ S eval_block(const Args<G, S>& a, const S* __restrict
     G::template functor<S, S>(x, d, c, r);
   }
   const Scales<S> sc = loss_scales<G, S>(r, c);
+  // a masked lane writes 0 and returns 0 (JAX's ok_i, pallas_eval.py:483-494)
+  const bool live = a.mask == nullptr || __ldg(a.mask + l) != S(0);
 #pragma unroll
-  for (int rr = 0; rr < G::kR; ++rr) res[rr * N + l] = sc.res * r[rr];
+  for (int rr = 0; rr < G::kR; ++rr) res[rr * N + l] = live ? sc.res * r[rr] : S(0);
   if constexpr (kJac) {
 #pragma unroll
     for (int p = 0; p < G::kPos; ++p) {
@@ -538,12 +541,12 @@ __device__ __forceinline__ S eval_block(const Args<G, S>& a, const S* __restrict
 #pragma unroll
         for (int rr = 0; rr < G::kR; ++rr) {
           a.leaf[p][static_cast<size_t>(rr * G::tan(p) + j) * N + l] =
-              sc.jac * (out[rr].v[k] - sc.alpha_sq_norm * r[rr] * rtj);
+              live ? sc.jac * (out[rr].v[k] - sc.alpha_sq_norm * r[rr] * rtj) : S(0);
         }
       }
     }
   }
-  return sc.rho0;
+  return live ? sc.rho0 : S(0);
 }
 
 // sum over a warp, lane 0 holding it: a fixed tree
@@ -614,7 +617,7 @@ void launch_blocks(int with_jac, const Args<G, S>& a, const S* c, int n, S* res,
 }
 
 // ptrs: tbl[kPos], rows[kPos], data[kData], leaf[kPos] (leaves unused
-// without the Jacobian); partials [min(kMaxBlocks, max(1, ceil(n /
+// without the Jacobian), mask (null, or [n] in S); partials [min(kMaxBlocks, max(1, ceil(n /
 // kBlock)))]; ticket an int32 on the card that is 0 between launches.
 template <class G, class S>
 int launch(int with_jac, void* const* ptrs, const S* c, int n, S* res, S* partials,
@@ -625,6 +628,7 @@ int launch(int with_jac, void* const* ptrs, const S* c, int n, S* res, S* partia
   for (int p = 0; p < G::kPos; ++p) a.rows[p] = static_cast<const int*>(ptrs[k++]);
   for (int q = 0; q < G::kData; ++q) a.data[q] = static_cast<const S*>(ptrs[k++]);
   for (int p = 0; p < G::kPos; ++p) a.leaf[p] = static_cast<S*>(ptrs[k++]);
+  a.mask = static_cast<const S*>(ptrs[k++]);
   // at least one block: it writes the cost (0 for n == 0)
   if (n >= kWideLanes) {
     launch_blocks<G, S, kWideBlock>(with_jac, a, c, n, res, partials, ticket, cost, stream);

@@ -38,7 +38,10 @@
 //     pallas_eval._lane_corrector / corrector.correct_batched;
 //   - writes res [2, n], jac0 [2 * tangent, n], jac1 [6, n] (row rr*t + j,
 //     observation-minor so neighbouring threads write neighbouring words)
-//     and adds rho0 into its block's cost partial.
+//     and adds rho0 into its block's cost partial; a lane whose mask entry
+//     is 0 (a pad lane of a sharded group: the optional mask [n] in the
+//     state's dtype, JAX's mask_T) writes 0 to its residuals and Jacobian
+//     columns and adds 0, and a null mask leaves every lane as it was.
 // A second single-block launch sums the per-block partials in a fixed
 // order: the cost is deterministic without atomics.
 //
@@ -386,8 +389,9 @@ template <typename T, class Cam, bool kJac>
 __global__ void __launch_bounds__(kBlock)
     eval_snavely_kernel(const T* __restrict__ tbl0, const int* __restrict__ rows0,
                         const T* __restrict__ tbl1, const int* __restrict__ rows1,
-                        const T* __restrict__ obs, int n, LossCode loss, T* __restrict__ res,
-                        T* __restrict__ jac0, T* __restrict__ jac1, T* __restrict__ partials) {
+                        const T* __restrict__ obs, const T* __restrict__ mask, int n,
+                        LossCode loss, T* __restrict__ res, T* __restrict__ jac0,
+                        T* __restrict__ jac1, T* __restrict__ partials) {
   constexpr int kT = Cam::kTan;
   __shared__ T sh[kBlock];
   const int l = blockIdx.x * kBlock + threadIdx.x;
@@ -422,14 +426,18 @@ __global__ void __launch_bounds__(kBlock)
       jac_scale = sqrt_rho1;
       alpha_sq_norm = inlier ? alpha / safe_sq_norm : T(0);
     }
-    res[l] = res_scale * r[0];
-    res[N + l] = res_scale * r[1];
+    // a pad lane of a sharded group (mask 0) writes 0 and adds nothing to
+    // the cost; a null mask: every lane is real
+    const bool live = mask == nullptr || mask[l] != T(0);
+    if (!live) rho0 = T(0);
+    res[l] = live ? res_scale * r[0] : T(0);
+    res[N + l] = live ? res_scale * r[1] : T(0);
     if (kJac) {
 #pragma unroll
       for (int k = 0; k < kT + 3; ++k) {
         const T rtj = r[0] * J[0][k] + r[1] * J[1][k];
-        const T j0 = jac_scale * (J[0][k] - alpha_sq_norm * r[0] * rtj);
-        const T j1 = jac_scale * (J[1][k] - alpha_sq_norm * r[1] * rtj);
+        const T j0 = live ? jac_scale * (J[0][k] - alpha_sq_norm * r[0] * rtj) : T(0);
+        const T j1 = live ? jac_scale * (J[1][k] - alpha_sq_norm * r[1] * rtj) : T(0);
         if (k < kT) {
           jac0[static_cast<size_t>(k) * N + l] = j0;
           jac0[static_cast<size_t>(kT + k) * N + l] = j1;
@@ -467,14 +475,14 @@ __global__ void __launch_bounds__(1024) sum_partials_kernel(const T* __restrict_
 
 template <typename T, class Cam>
 void launch_model(int blocks, cudaStream_t stream, int with_jac, const T* tbl0, const int* rows0,
-                  const T* tbl1, const int* rows1, const T* obs, int n, const LossCode& loss,
-                  T* res, T* jac0, T* jac1, T* partials) {
+                  const T* tbl1, const int* rows1, const T* obs, const T* mask, int n,
+                  const LossCode& loss, T* res, T* jac0, T* jac1, T* partials) {
   if (with_jac) {
     eval_snavely_kernel<T, Cam, true><<<blocks, kBlock, 0, stream>>>(
-        tbl0, rows0, tbl1, rows1, obs, n, loss, res, jac0, jac1, partials);
+        tbl0, rows0, tbl1, rows1, obs, mask, n, loss, res, jac0, jac1, partials);
   } else {
     eval_snavely_kernel<T, Cam, false><<<blocks, kBlock, 0, stream>>>(
-        tbl0, rows0, tbl1, rows1, obs, n, loss, res, jac0, jac1, partials);
+        tbl0, rows0, tbl1, rows1, obs, mask, n, loss, res, jac0, jac1, partials);
   }
 }
 
@@ -482,7 +490,7 @@ void launch_model(int blocks, cudaStream_t stream, int with_jac, const T* tbl0, 
 // 2 quaternion without a manifold (tangent 10)
 template <typename T>
 int launch(int model, const T* tbl0, const int* rows0, const T* tbl1, const int* rows1,
-           const T* obs, int n, int loss_kind, double loss_a, double loss_b, double loss_c,
+           const T* obs, const T* mask, int n, int loss_kind, double loss_a, double loss_b, double loss_c,
            double loss_scale, int with_jac, T* res, T* jac0, T* jac1, T* partials, T* cost,
            cudaStream_t stream) {
   const int blocks = (n + kBlock - 1) / kBlock;
@@ -494,13 +502,14 @@ int launch(int model, const T* tbl0, const int* rows0, const T* tbl1, const int*
   if (blocks > 0) {
     if (model == 0) {
       launch_model<T, AngleAxisCamera>(blocks, stream, with_jac, tbl0, rows0, tbl1, rows1, obs,
-                                       n, loss, res, jac0, jac1, partials);
+                                       mask, n, loss, res, jac0, jac1, partials);
     } else if (model == 1) {
       launch_model<T, QuaternionCamera<true>>(blocks, stream, with_jac, tbl0, rows0, tbl1, rows1,
-                                              obs, n, loss, res, jac0, jac1, partials);
+                                              obs, mask, n, loss, res, jac0, jac1, partials);
     } else {
       launch_model<T, QuaternionCamera<false>>(blocks, stream, with_jac, tbl0, rows0, tbl1,
-                                               rows1, obs, n, loss, res, jac0, jac1, partials);
+                                               rows1, obs, mask, n, loss, res, jac0, jac1,
+                                               partials);
     }
   }
   sum_partials_kernel<T><<<1, 1024, 0, stream>>>(partials, blocks, cost);
@@ -510,21 +519,23 @@ int launch(int model, const T* tbl0, const int* rows0, const T* tbl1, const int*
 }  // namespace
 
 extern "C" int ctt_eval_snavely_f32(int model, const float* tbl0, const int* rows0,
-                                    const float* tbl1, const int* rows1, const float* obs, int n,
-                                    int loss_kind, double loss_a, double loss_b, double loss_c,
-                                    double loss_scale, int with_jac, float* res, float* jac0,
-                                    float* jac1, float* partials, float* cost, void* stream) {
-  return launch<float>(model, tbl0, rows0, tbl1, rows1, obs, n, loss_kind, loss_a, loss_b, loss_c,
-                       loss_scale, with_jac, res, jac0, jac1, partials, cost,
+                                    const float* tbl1, const int* rows1, const float* obs,
+                                    const float* mask, int n, int loss_kind, double loss_a,
+                                    double loss_b, double loss_c, double loss_scale, int with_jac,
+                                    float* res, float* jac0, float* jac1, float* partials,
+                                    float* cost, void* stream) {
+  return launch<float>(model, tbl0, rows0, tbl1, rows1, obs, mask, n, loss_kind, loss_a, loss_b,
+                       loss_c, loss_scale, with_jac, res, jac0, jac1, partials, cost,
                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ctt_eval_snavely_f64(int model, const double* tbl0, const int* rows0,
-                                    const double* tbl1, const int* rows1, const double* obs, int n,
-                                    int loss_kind, double loss_a, double loss_b, double loss_c,
-                                    double loss_scale, int with_jac, double* res, double* jac0,
-                                    double* jac1, double* partials, double* cost, void* stream) {
-  return launch<double>(model, tbl0, rows0, tbl1, rows1, obs, n, loss_kind, loss_a, loss_b,
+                                    const double* tbl1, const int* rows1, const double* obs,
+                                    const double* mask, int n, int loss_kind, double loss_a,
+                                    double loss_b, double loss_c, double loss_scale, int with_jac,
+                                    double* res, double* jac0, double* jac1, double* partials,
+                                    double* cost, void* stream) {
+  return launch<double>(model, tbl0, rows0, tbl1, rows1, obs, mask, n, loss_kind, loss_a, loss_b,
                         loss_c, loss_scale, with_jac, res, jac0, jac1, partials, cost,
                         static_cast<cudaStream_t>(stream));
 }

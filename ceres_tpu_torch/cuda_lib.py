@@ -28,7 +28,9 @@ analytic rule) and `eval_generic_residual`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -56,11 +58,16 @@ BF16_KERNELS = ("gather_contract", "contract_reduce", "schur_sy") + BATCHED_KERN
 # B1's generic instantiation (eval_kernel.generic_evaluate): with the
 # Jacobian (autodiff by Jets, or an analytic rule's) and residual-only
 GENERIC_KERNELS = ("eval_generic", "eval_generic_analytic", "eval_generic_residual")
+# B1's launches with a lane mask (a sharded group's pad lanes: the mask_T
+# operand of the JAX kernel) count under their own names: "<name>_masked"
+MASKED_KERNELS = tuple(
+    k + "_masked" for k in ("eval_snavely",) + QUAT_KERNELS + GENERIC_KERNELS
+)
 _launches = {
     name: 0
     for name in KERNELS + QUAT_KERNELS + BATCHED_KERNELS
     + tuple(k + "_bf16" for k in BF16_KERNELS)
-    + GENERIC_KERNELS
+    + GENERIC_KERNELS + MASKED_KERNELS
 }
 _lib = None
 # generated sources: key -> loaded library; builds and their seconds
@@ -71,10 +78,10 @@ _generated_seconds = {}
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C signatures: every function returns cudaGetLastError() as an int
 _SIGNATURES = {
-    # model, tbl0, rows0, tbl1, rows1, obs, n, loss kind, a, b, c, scale,
-    # with_jac, res, jac0, jac1, partials, cost, stream
+    # model, tbl0, rows0, tbl1, rows1, obs, mask (or null), n, loss kind, a,
+    # b, c, scale, with_jac, res, jac0, jac1, partials, cost, stream
     "ctt_eval_snavely": [
-        _I, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _D, _I, _P, _P, _P, _P, _P, _P,
+        _I, _P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _D, _I, _P, _P, _P, _P, _P, _P,
     ],
     # jac, rows, table, n, r, t, ncols, out, stream
     "ctt_gather_contract": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -120,11 +127,30 @@ def nvcc() -> str:
     return found
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on _build/ (fcntl): processes that build at once,
+    the ranks of a sharded solve, take turns, and each one after the first
+    finds the libraries built."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> Path:
     """Compile csrc/*.cu (with the headers they include) into the cached
     shared library; returns its path. One nvcc per source, all started
-    together, then one link. The compilers' output (ptxas register / spill
-    report) is kept in _build/build.log."""
+    together, then one link, under the build lock. The compilers' output
+    (ptxas register / spill report) is kept in _build/build.log."""
+    with _build_lock():
+        return _build()
+
+
+def _build() -> Path:
     srcs = sorted(SRC_DIR.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sorted(SRC_DIR.glob("*.cu*")):
@@ -188,7 +214,13 @@ def build_generated(sources) -> float:
     """Compile the generated sources (an iterable of source texts) that
     are not built yet, one nvcc each, all started together; returns the
     seconds it took. Raises RuntimeError with the compiler's output when
-    one fails. The ptxas report of each goes to _build/gen_<hash>.log."""
+    one fails. The ptxas report of each goes to _build/gen_<hash>.log.
+    Runs under the build lock."""
+    with _build_lock():
+        return _build_generated(sources)
+
+
+def _build_generated(sources) -> float:
     todo = {}
     for src in sources:
         path = _generated_path(src)

@@ -121,28 +121,37 @@ def eligible(meta, dtype, apply_loss) -> bool:
     return loss_code(meta.loss if apply_loss else None) is not None
 
 
-def snavely_evaluate_plain(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian):
+def snavely_evaluate_plain(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian, mask=None):
     from .evaluator import evaluate_batch
     from .examples.snavely import snavely_reprojection_error
 
     params = (tbl0[rows0], tbl1[rows1])
     return evaluate_batch(
-        snavely_reprojection_error, params, (obs,), (None, None), loss, with_jacobian
+        snavely_reprojection_error, params, (obs,), (None, None), loss, with_jacobian, mask
     )
 
 
-def snavely_quat_evaluate_plain(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian, manifold):
+def snavely_quat_evaluate_plain(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian, manifold,
+                                mask=None):
     from .evaluator import evaluate_batch
     from .examples.snavely import snavely_reprojection_error_with_quaternions
 
     params = (tbl0[rows0], tbl1[rows1])
     return evaluate_batch(
         snavely_reprojection_error_with_quaternions, params, (obs,),
-        (QUAT_CAMERA if manifold else None, None), loss, with_jacobian,
+        (QUAT_CAMERA if manifold else None, None), loss, with_jacobian, mask,
     )
 
 
-def _launch(model, counter, amb, tan, tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian):
+def require_mask(mask, n, dtype, device):
+    """Raise unless `mask` is None or a contiguous [n] tensor of the state's
+    dtype on the launch's device (B1's mask_T operand)."""
+    if mask is not None:
+        cuda_lib.require("mask", mask, dtype, (n,), device)
+
+
+def _launch(model, counter, amb, tan, tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian,
+            mask=None):
     dev, dt = tbl0.device, tbl0.dtype
     n = rows0.shape[0]
     code = loss_code(loss)
@@ -153,6 +162,7 @@ def _launch(model, counter, amb, tan, tbl0, rows0, tbl1, rows1, obs, loss, with_
     cuda_lib.require("rows0", rows0, torch.int32, (n,), dev)
     cuda_lib.require("rows1", rows1, torch.int32, (n,), dev)
     cuda_lib.require("obs", obs, dt, (n, 2), dev)
+    require_mask(mask, n, dt, dev)
     res = torch.empty((2, n), dtype=dt, device=dev)
     jac0 = jac1 = None
     if with_jacobian:
@@ -163,51 +173,57 @@ def _launch(model, counter, amb, tan, tbl0, rows0, tbl1, rows1, obs, loss, with_
     fn = cuda_lib.kernel_fn("ctt_eval_snavely", dt)
     rc = fn(
         model, cuda_lib.ptr(tbl0), cuda_lib.ptr(rows0), cuda_lib.ptr(tbl1),
-        cuda_lib.ptr(rows1), cuda_lib.ptr(obs), n, *code,
+        cuda_lib.ptr(rows1), cuda_lib.ptr(obs), cuda_lib.ptr(mask), n, *code,
         int(with_jacobian), cuda_lib.ptr(res), cuda_lib.ptr(jac0),
         cuda_lib.ptr(jac1), cuda_lib.ptr(partials), cuda_lib.ptr(cost),
         cuda_lib.stream(dev),
     )
     cuda_lib.check(rc, counter)
-    cuda_lib.count(counter)
+    cuda_lib.count(counter if mask is None else counter + "_masked")
     return cost, res, ((jac0, jac1) if with_jacobian else ())
 
 
-def snavely_evaluate(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian):
+def snavely_evaluate(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian, mask=None):
     """Evaluate the angle-axis Snavely group: camera table tbl0 [cnt0, 9]
     with rows0 [n], point table tbl1 [cnt1, 3] with rows1 [n], observations
-    obs [n, 2]. Returns (cost [], res [2, n], (jac0 [18, n], jac1 [6, n])
-    or ())."""
+    obs [n, 2], and optionally the lane mask [n] of a sharded group (the
+    JAX kernel's mask_T, pallas_eval.py:435-437: a lane whose mask is 0
+    writes 0 to its residuals and Jacobian columns and adds nothing to the
+    cost; None: every lane is real). Returns (cost [], res [2, n],
+    (jac0 [18, n], jac1 [6, n]) or ())."""
     if tbl0.device.type == "cpu":
-        return snavely_evaluate_plain(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian)
-    return _launch(0, "eval_snavely", 9, 9, tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian)
+        return snavely_evaluate_plain(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian, mask)
+    return _launch(0, "eval_snavely", 9, 9, tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian,
+                   mask)
 
 
-def snavely_quat_evaluate(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian, manifold):
+def snavely_quat_evaluate(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian, manifold,
+                          mask=None):
     """Evaluate the quaternion Snavely group: camera table tbl0 [cnt0, 10]
     ([q | t | f k1 k2]), the rest as `snavely_evaluate`. With `manifold`
     the camera is on QUAT_CAMERA and jac0 is [18, n] in its tangent space;
     without, jac0 is [20, n]. Counted as eval_snavely_quat and
-    eval_snavely_quat_nomanifold."""
+    eval_snavely_quat_nomanifold (a masked launch with "_masked" appended,
+    as eval_snavely_masked)."""
     if tbl0.device.type == "cpu":
         return snavely_quat_evaluate_plain(
-            tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian, manifold
+            tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian, manifold, mask
         )
     if manifold:
         return _launch(1, "eval_snavely_quat", 10, 9, tbl0, rows0, tbl1, rows1, obs, loss,
-                       with_jacobian)
+                       with_jacobian, mask)
     return _launch(2, "eval_snavely_quat_nomanifold", 10, 10, tbl0, rows0, tbl1, rows1, obs,
-                   loss, with_jacobian)
+                   loss, with_jacobian, mask)
 
 
-def group_evaluate(meta, tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian):
+def group_evaluate(meta, tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian, mask=None):
     """The entry point of an eligible group's model."""
     if meta.cost_function.kernel == "snavely_quat":
         return snavely_quat_evaluate(
             tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian,
-            meta.positions[0].manifold is not None,
+            meta.positions[0].manifold is not None, mask=mask,
         )
-    return snavely_evaluate(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian)
+    return snavely_evaluate(tbl0, rows0, tbl1, rows1, obs, loss, with_jacobian, mask=mask)
 
 
 # ---------------------------------------------------------------------- #
@@ -255,10 +271,12 @@ def generic_evaluate(prog, meta, garr, state_2d, with_jacobian):
     arrays (rows [n] int32 per position, data [n, ...] per data leaf) and
     state_2d the [cnt, size] state tables by class. Returns (cost [],
     res [r, n], tuple of [r * t_p, n] or ()), as `snavely_evaluate`, with
-    the loss the program was traced with, in one launch. On CPU tensors
+    the loss the program was traced with, in one launch; a sharded group's
+    pad lanes are masked by garr["mask"] as there. On CPU tensors
     the plain version (evaluator.group_eval_plain) runs. Counted as
     eval_generic, eval_generic_analytic (the Jacobian of a functor with an
-    analytic rule) or eval_generic_residual."""
+    analytic rule) or eval_generic_residual, with "_masked" appended for a
+    masked launch."""
     if state_2d[0].device.type == "cpu":
         from .evaluator import group_eval_plain
 
@@ -275,6 +293,8 @@ def generic_evaluate(prog, meta, garr, state_2d, with_jacobian):
         cuda_lib.require(f"rows {p}", rr, torch.int32, (n,), dev)
     for q, d in enumerate(data):
         cuda_lib.require(f"data {q}", d, dt, (n, *prog.data_shapes[q]), dev)
+    mask = garr.get("mask")
+    require_mask(mask, n, dt, dev)
     res = torch.empty((prog.r, n), dtype=dt, device=dev)
     leaves = tuple(
         torch.empty((prog.r * t, n), dtype=dt, device=dev) for t in prog.tangents
@@ -284,6 +304,7 @@ def generic_evaluate(prog, meta, garr, state_2d, with_jacobian):
     ptrs = [t.data_ptr() for t in tables] + [r.data_ptr() for r in rows]
     ptrs += [d.data_ptr() for d in data] + [leaf.data_ptr() for leaf in leaves]
     ptrs += [0] * (len(tables) - len(leaves))
+    ptrs.append(0 if mask is None else mask.data_ptr())
     arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     if prog.entry_point is None:
         prog.entry_point = cuda_lib.generated_fn(prog.source, dt)
@@ -298,5 +319,5 @@ def generic_evaluate(prog, meta, garr, state_2d, with_jacobian):
         cuda_lib.ptr(cost), cuda_lib.stream(dev),
     )
     cuda_lib.check(rc, counter)
-    cuda_lib.count(counter)
+    cuda_lib.count(counter if mask is None else counter + "_masked")
     return cost, res, leaves

@@ -19,7 +19,8 @@ from torch.func import vmap
 from . import eval_kernel, functor_codegen
 from .autodiff import batched_value_and_jacobians, batched_values
 from .corrector import correct_batched
-from .jacobian import BlockJacobian, gather_T
+from .jacobian import BlockJacobian, gather_T, group_plans
+from .utils import graphs
 from .utils.dtypes import default_dtype
 
 
@@ -69,10 +70,13 @@ def plus(program, arrays, state, delta):
     return new
 
 
-def evaluate_batch(fn, params, data, manifolds, loss, with_jacobian):
+def evaluate_batch(fn, params, data, manifolds, loss, with_jacobian, mask=None):
     """The torch.func evaluation of one batch of residual blocks.
 
-    params: tuple of gathered [n, size_i]; data: tuple of [n, ...].
+    params: tuple of gathered [n, size_i]; data: tuple of [n, ...]; mask:
+    None or [n], 0 on a pad lane of a sharded group, whose residuals and
+    Jacobian columns are then 0 and whose rho0 leaves the cost (the XLA
+    path's mask, ceres_tpu/evaluator.py:269-293).
     Returns (cost [], res_T [r, n], jacs_T tuple of [r*t_i, n])."""
     if with_jacobian:
         res, jacs = batched_value_and_jacobians(fn, params, data)
@@ -84,8 +88,15 @@ def evaluate_batch(fn, params, data, manifolds, loss, with_jacobian):
     else:
         res = batched_values(fn, params, data)
         jacs = []
+    live = None
+    if mask is not None:
+        live = mask > 0
+        res = torch.where(live[:, None], res, 0.0)
+        jacs = [torch.where(live[:, None, None], j, 0.0) for j in jacs]
     if loss is not None:
         rho0, rho1, rho2 = loss.rho((res * res).sum(dim=-1))
+        if live is not None:
+            rho0 = torch.where(live, rho0, 0.0)
         cost = 0.5 * rho0.sum()
         res, jacs = correct_batched(res, jacs, rho0, rho1, rho2)
     else:
@@ -99,10 +110,12 @@ def evaluate_batch(fn, params, data, manifolds, loss, with_jacobian):
 def group_eval_plain(meta, garr, state_2d, with_jacobian, apply_loss):
     """torch.func evaluation of a whole group: the path of every group no
     kernel serves, and B1 generic's plain version. The owner position's
-    gather is a bucket slice+broadcast when its rows are ambient-aligned."""
+    gather is a bucket slice+broadcast when its rows are ambient-aligned;
+    a sharded group's pad lanes are masked (garr["mask"])."""
     params = []
+    plans = group_plans(meta, garr)
     for pos, (pm, rows) in enumerate(zip(meta.positions, garr["a_rows"])):
-        plan = (meta.red_plans or {}).get(pos)
+        plan = plans.get(pos)
         tbl = state_2d[pm.a_cls]
         if pos == meta.owner and meta.owner_ambient_aligned and plan is not None:
             params.append(gather_T(plan, tbl, rows).T)
@@ -115,6 +128,7 @@ def group_eval_plain(meta, garr, state_2d, with_jacobian, apply_loss):
         tuple(pm.manifold for pm in meta.positions),
         meta.loss if apply_loss else None,
         with_jacobian,
+        garr.get("mask"),
     )
 
 
@@ -137,6 +151,7 @@ def _group_eval(meta, garr, state_2d, with_jacobian: bool, apply_loss: bool):
             garr["data"][0],
             meta.loss if apply_loss else None,
             with_jacobian,
+            garr.get("mask"),
         )
     on_card = bool(state_2d) and state_2d[0].device.type == "cuda"
     prog = functor_codegen.group_program(meta, garr, dtype, apply_loss) if on_card else None
@@ -147,7 +162,9 @@ def _group_eval(meta, garr, state_2d, with_jacobian: bool, apply_loss: bool):
 
 def evaluate(program, arrays, state, with_jacobian: bool = True, apply_loss: bool = True):
     """Full evaluation -> (cost, residual groups [r, n], BlockJacobian|None,
-    gradient|None). Parity: Evaluator::Evaluate."""
+    gradient|None). Parity: Evaluator::Evaluate. On a rank's shard
+    (parallel.sharding) the cost is all-reduced here and the gradient in
+    the Jacobian's left_multiply."""
     total_cost = torch.zeros((), dtype=state.dtype, device=state.device)
     state_2d = state_tables(program, state)
     res_groups, jac_groups = [], []
@@ -156,6 +173,9 @@ def evaluate(program, arrays, state, with_jacobian: bool = True, apply_loss: boo
         total_cost = total_cost + cost_g
         res_groups.append(res)
         jac_groups.append(jacs)
+    mesh = arrays["groups"][0].get("mesh") if arrays["groups"] else None
+    if mesh is not None:
+        total_cost = mesh.psum(total_cost)
     jac = grad = None
     if with_jacobian:
         jac = BlockJacobian.build(program, arrays, jac_groups)
@@ -238,10 +258,29 @@ class Evaluator:
         self.program = program
         self.dtype = dtype or default_dtype()
         self.device = program.device
-        self.arrays = program.arrays(self.dtype)
+        self.arrays = self._build_arrays()
         if torch.device(self.device).type == "cuda":
             # the generated kernels of the Program's groups, built at once
             eval_kernel.prepare_generic(program, self.arrays, self.dtype)
+
+    def _build_arrays(self):
+        return self.program.arrays(self.dtype)
+
+    @property
+    def capturable(self) -> bool:
+        """Whether an evaluation can run inside a CUDA graph (a sharded one
+        only where its mesh's all-reduces can)."""
+        return True
+
+    def fn_graph(self, name):
+        """A utils.graphs.FnGraph for the solver's functions over this
+        evaluator's tensors: on a card whose work can be captured; None
+        (run eagerly) elsewhere."""
+        return graphs.fn_graph(name, self.device) if self.capturable else None
+
+    def step_graph(self, name):
+        """A utils.graphs.StepGraph, where fn_graph gives an FnGraph."""
+        return graphs.step_graph(name, self.device) if self.capturable else None
 
     def notify(self, evaluate_jacobians: bool):
         """Run the Program's evaluation callback, if it has one, on the

@@ -110,6 +110,92 @@ def load_bal(path) -> BalProblem:
     return BalProblem(cameras, points, cam_idx, pt_idx, obs)
 
 
+class BalFileObservations:
+    """The [num_obs, 2] observation payload of a BAL text file, read on
+    demand (an io.lazy source): `gather` streams the observation section in
+    bounded chunks and keeps only the requested rows, so a rank holds just
+    its own shard's rows. One sequential scan per gather, which happens once,
+    when the rank builds its shard."""
+
+    def __init__(self, path):
+        self.path = str(path)
+        with open(self.path, "rb") as f:
+            header = f.readline().split()
+            self.num_cameras, self.num_points, self.num_obs = (int(t) for t in header[:3])
+            self._obs_start = f.tell()
+        self._params_start = None
+        self.shape = (self.num_obs, 2)
+        self.dtype = np.dtype(np.float64)
+
+    def _stream_chunks(self, f, chunk_lines=1 << 19):
+        """(row0, [m, 4] float64) chunks of the observation section."""
+        row = 0
+        while row < self.num_obs:
+            m = min(chunk_lines, self.num_obs - row)
+            lines = [f.readline() for _ in range(m)]
+            yield row, np.array(b" ".join(lines).split()).astype(np.float64).reshape(m, 4)
+            row += m
+
+    def read_indices(self):
+        """(camera_index, point_index) int64 arrays of the whole file: the
+        metadata every rank needs to build the same Program."""
+        cam = np.empty(self.num_obs, dtype=np.int64)
+        pt = np.empty(self.num_obs, dtype=np.int64)
+        with open(self.path, "rb") as f:
+            f.seek(self._obs_start)
+            for row0, chunk in self._stream_chunks(f):
+                cam[row0 : row0 + chunk.shape[0]] = chunk[:, 0].astype(np.int64)
+                pt[row0 : row0 + chunk.shape[0]] = chunk[:, 1].astype(np.int64)
+            self._params_start = f.tell()
+        return cam, pt
+
+    def read_params(self):
+        """(cameras [nc, 9], points [np, 3]) from the file's tail: the solver
+        state every rank holds whole."""
+        with open(self.path, "rb") as f:
+            if self._params_start is None:
+                f.seek(self._obs_start)
+                for _ in range(self.num_obs):
+                    f.readline()
+            else:
+                f.seek(self._params_start)
+            rest = np.array(f.read().split()).astype(np.float64)
+        nc, npnt = self.num_cameras, self.num_points
+        if rest.size < 9 * nc + 3 * npnt:
+            raise ValueError(f"{self.path}: truncated BAL file")
+        return rest[: 9 * nc].reshape(nc, 9), rest[9 * nc : 9 * nc + 3 * npnt].reshape(npnt, 3)
+
+    def gather(self, rows) -> np.ndarray:
+        rows = np.asarray(rows)
+        out = np.empty((rows.shape[0], 2), dtype=np.float64)
+        if rows.size == 0:
+            return out
+        hi = int(rows.max())
+        with open(self.path, "rb") as f:
+            f.seek(self._obs_start)
+            for row0, chunk in self._stream_chunks(f):
+                r1 = row0 + chunk.shape[0]
+                sel = (rows >= row0) & (rows < r1)
+                if sel.any():
+                    out[sel] = chunk[rows[sel] - row0, 2:4]
+                if r1 > hi:
+                    break
+        return out
+
+
+def load_bal_lazy(path) -> BalProblem:
+    """A BAL file whose observation payload stays on disk
+    (ceres_tpu/io/bal.py:185): indices and parameters are read now (every
+    rank needs them to build the same Program), `observations` is a
+    LazyRows that a sharded solve reads one rank's rows of."""
+    from .lazy import LazyRows
+
+    src = BalFileObservations(path)
+    cam_idx, pt_idx = src.read_indices()
+    cameras, points = src.read_params()
+    return BalProblem(cameras, points, cam_idx, pt_idx, LazyRows(src))
+
+
 def synthetic_bal(
     num_cameras: int,
     num_points: int,

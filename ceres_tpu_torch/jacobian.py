@@ -54,29 +54,48 @@ def _clip_rows(rows, nrows):
     return rows.clamp(max=nrows - 1)
 
 
+def group_plans(meta, garr):
+    """The plans of a group's positions: a rank's own on a shard
+    (parallel.sharding.shard_plans, garr["plans"]), else the Program's."""
+    plans = garr.get("plans")
+    return plans if plans is not None else (meta.red_plans or {})
+
+
+def _windows_T(plan, table_t):
+    """The [s, n] slice+broadcast of a bucket plan over a transposed class
+    table [s, cnt(+1)]. A "bucket" is (lane_start, n_seg, d, out_row); a
+    "bucket_sharded" one (local_start, per_e, d, out_row, live), the shard's
+    window of per_e entities of which the first `live` are real: the rest
+    read 0 (pad lanes, whose Jacobian columns are 0)."""
+    s = table_t.shape[0]
+    parts = []
+    for b in plan[1]:
+        width, d, out_row = b[1], b[2], b[3]
+        live = b[4] if plan[0] == "bucket_sharded" else width
+        seg = table_t[:, out_row : out_row + live]
+        if live < width:
+            seg = torch.cat([seg, seg.new_zeros((s, width - live))], dim=1)
+        parts.append(seg[:, None, :].expand(s, d, width).reshape(s, d * width))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def _is_bucket(plan):
+    return plan is not None and plan[0] in ("bucket", "bucket_sharded")
+
+
 def gather_T(plan, table, rows):
     """Gather class-table rows into transposed form [s, n].
 
     table: [cnt(+dump), s] row-major class table; rows: [n] class rows."""
-    if plan is not None and plan[0] == "bucket":
-        s = table.shape[1]
-        parts = [
-            table[out_row : out_row + n_seg].T[:, None, :].expand(s, d, n_seg).reshape(s, d * n_seg)
-            for (_ls, n_seg, d, out_row) in plan[1]
-        ]
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    if _is_bucket(plan):
+        return _windows_T(plan, table.T)
     return table[_clip_rows(rows, table.shape[0])].T
 
 
 def gather_T_t(plan, table_t, rows):
     """gather_T for a TRANSPOSED class table [s, cnt+1] -> [s, n]."""
-    if plan is not None and plan[0] == "bucket":
-        s = table_t.shape[0]
-        parts = [
-            table_t[:, out_row : out_row + n_seg][:, None, :].expand(s, d, n_seg).reshape(s, d * n_seg)
-            for (_ls, n_seg, d, out_row) in plan[1]
-        ]
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    if _is_bucket(plan):
+        return _windows_T(plan, table_t)
     return table_t[:, _clip_rows(rows, table_t.shape[1])]
 
 
@@ -98,17 +117,20 @@ def scale_twin(twin, layout, table, r):
 
 def reduce_T(plan, contrib, rows, num_out, csr=None):
     """Segment-reduce lane-order contributions [k, n] -> [k, num_out];
-    num_out includes the dump column. The bucket plan reduces by
-    reshape+sum; the onehot plan reduces the contributions' twin in the
-    slot order of its layout `csr` (kernel B3 on a card)."""
+    num_out includes the dump column. The bucket plans reduce by
+    reshape+sum (a shard's window writes its live entities' columns only:
+    the rest are pad lanes); the onehot plan reduces the contributions'
+    twin in the slot order of its layout `csr` (kernel B3 on a card)."""
     k = contrib.shape[0]
-    if plan is not None and plan[0] == "bucket":
+    if _is_bucket(plan):
         out = contrib.new_zeros((k, num_out))
-        for (lane_start, n_seg, d, out_row) in plan[1]:
-            seg = contrib[:, lane_start : lane_start + n_seg * d]
+        for b in plan[1]:
+            lane_start, width, d, out_row = b[:4]
+            live = b[4] if plan[0] == "bucket_sharded" else width
+            seg = contrib[:, lane_start : lane_start + width * d]
             if d > 1:
-                seg = seg.reshape(k, d, n_seg).sum(dim=1)
-            out[:, out_row : out_row + n_seg] = seg
+                seg = seg.reshape(k, d, width).sum(dim=1)
+            out[:, out_row : out_row + live] = seg[:, :live]
         return out
     if plan is not None and plan[0] == "onehot":
         return contract_reduce(make_twin(contrib, csr), csr, None, 1)
@@ -116,12 +138,19 @@ def reduce_T(plan, contrib, rows, num_out, csr=None):
 
 
 class BlockJacobian:
-    """Per-(group, position) Jacobian blocks stored as [r*t, n] tensors."""
+    """Per-(group, position) Jacobian blocks stored as [r*t, n] tensors.
+
+    On a rank's shard (parallel.sharding: the group arrays carry the
+    `mesh`) the leaves hold the rank's lanes and every reduction over
+    lanes (Jᵀu, the column norms, the Gram blocks) is all-reduced over the
+    mesh, as the JAX package psums them under shard_map; products into
+    residual space stay the rank's own."""
 
     def __init__(self, program, jac_groups, garrs, positions=None, col_scale=None, twins=None):
         self.program = program
         self.jac_groups = jac_groups  # tuple over groups of tuple over view positions
-        self.garrs = garrs  # per-group arrays (t_rows, csr)
+        self.garrs = garrs  # per-group arrays (t_rows, csr; on a shard mask, plans, mesh)
+        self.mesh = garrs[0].get("mesh") if garrs else None
         if positions is None:
             positions = tuple(tuple(range(len(jacs))) for jacs in jac_groups)
         self.positions = positions
@@ -241,7 +270,20 @@ class BlockJacobian:
             yield pos, meta.positions[pos], jac, garr["t_rows"][pos], garr["csr"].get(pos)
 
     def plan(self, gi, pos):
-        return (self.program.groups[gi].red_plans or {}).get(pos)
+        return group_plans(self.program.groups[gi], self.garrs[gi]).get(pos)
+
+    def lanes(self, gi) -> int:
+        """Lanes of group gi (the rank's, padded, on a shard)."""
+        return self.garrs[gi]["a_rows"][0].shape[0]
+
+    def psum(self, x):
+        """x summed over the mesh's ranks (x itself without a mesh)."""
+        return x if self.mesh is None else self.mesh.psum(x)
+
+    def psum_tables(self, tables):
+        """A list of per-class tables summed over the mesh in one
+        all-reduce (the list itself without a mesh)."""
+        return tables if self.mesh is None else self.mesh.psum_tables(tables)
 
     def _v_tables(self, v):
         from .evaluator import tangent_tables
@@ -316,7 +358,7 @@ class BlockJacobian:
                     part = (jac.reshape(r, t, -1) * vg[None]).sum(dim=1)
                 acc = part if acc is None else acc + part
             if acc is None:
-                acc = torch.zeros((r, meta.n), dtype=acc_dt, device=self._device())
+                acc = torch.zeros((r, self.lanes(gi)), dtype=acc_dt, device=self._device())
             out.append(acc)
         return out
 
@@ -339,7 +381,7 @@ class BlockJacobian:
                     contrib = (jac.reshape(r, t, -1) * ul[:, None, :]).sum(dim=0)
                     part = reduce_T(plan, contrib, tr, width, csr)
                 acc[pm.t_cls] = acc[pm.t_cls] + part
-        return acc
+        return self.psum_tables(acc)
 
     def left_multiply_t(self, u_groups):
         """Jᵀu -> tvec (dump column zeroed)."""
@@ -480,7 +522,7 @@ class BlockJacobian:
                 acc[pm.t_cls] = acc[pm.t_cls] + self._reduce_leaf(
                     gi, pos, sq, acc[pm.t_cls].shape[1]
                 )
-        out = self._flatten_classes_T(acc)
+        out = self._flatten_classes_T(self.psum_tables(acc))
         if self.col_scale is not None:
             out = out * self.col_scale * self.col_scale
         return out
@@ -539,6 +581,7 @@ class BlockJacobian:
                 per_class[pm.t_cls] = per_class[pm.t_cls] + self._reduce_leaf(
                     gi, pos, outer, per_class[pm.t_cls].shape[1]
                 )
+        per_class = self.psum_tables(per_class)
         dt = tangent_tables(p, dsq) if dsq is not None else None
         sc = tangent_tables(p, self.col_scale) if self.col_scale is not None else None
         out = []
@@ -554,8 +597,13 @@ class BlockJacobian:
             out.append(acc)
         return out
 
+    def _whole(self, what):
+        if self.mesh is not None:
+            raise ValueError(f"{what} needs the whole Jacobian; a rank holds only its lanes")
+
     def to_dense(self):
         """Dense [num_rows, num_cols] Jacobian (small problems / tests)."""
+        self._whole("to_dense")
         dev, dtype = self._device(), self._dtype()
         a = torch.zeros(
             (self.num_rows, self.num_cols + max(self.program.tangent_class_sizes or [1])),
@@ -585,6 +633,7 @@ class BlockJacobian:
         """Host CRS triple (values, col_indices int32, row_pointers int32)
         over the free tangent columns, each row's entries by column
         (reference: CompressedRowSparseMatrix; ceres_tpu/jacobian.py:929)."""
+        self._whole("to_crs")
         rows_list, cols_list, vals_list = [], [], []
         for gi in range(len(self.jac_groups)):
             meta = self.program.groups[gi]

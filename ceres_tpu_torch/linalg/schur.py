@@ -188,7 +188,7 @@ def schur_jacobi_blocks(program, jac_e, jac_f, ete_solver, dsq_f):
             continue
         meta = program.groups[gi]
         garr = jac_f.garrs[gi]
-        n, r = meta.n, meta.num_residuals
+        n, r = jac_f.lanes(gi), meta.num_residuals
         e_pos = jac_e.positions[gi][0]
         e_pm = meta.positions[e_pos]
         te = e_pm.tangent_size
@@ -214,10 +214,18 @@ def schur_jacobi_blocks(program, jac_e, jac_f, ete_solver, dsq_f):
                 stf = scale_tables[pm.t_cls][:cnt].T  # [tf, cnt]
                 tbl = tbl * (stf[:, None, :] * stf[None, :, :]).reshape(tf * tf, cnt)
             corrections[pm.t_cls] = corrections[pm.t_cls] + tbl
-    return [f - c for f, c in zip(ftf, corrections)]
+    # on a shard the corrections are partial sums (ftf is all-reduced)
+    return [f - c for f, c in zip(ftf, jac_f.psum_tables(corrections))]
 
 
-def _sy_meta(program):
+def _sy_meta(program, jac=None):
+    """The fused S·y / SCHUR_JACOBI structure of kernels B4 and B5, or None.
+    None on a rank's shard (`jac` on a mesh): B4 and B5 run unsharded only,
+    as in the JAX package (ceres_tpu/linalg/schur.py:305-306, :700-712);
+    there the S·y is the composed product and SCHUR_JACOBI the plain
+    blocks, their reductions all-reduced."""
+    if jac is not None and jac.mesh is not None:
+        return None
     return program.cached("sy_meta", schur_kernels.sy_meta)
 
 
@@ -276,7 +284,7 @@ def schur_prepare(program, options, jac_s):
     colnorm2 = jac_s.squared_column_norms()
     e_gram0 = ete_gram_tables(program, jac_e)
     jac_m = jac_s.materialize_scale()
-    meta = _sy_meta(program)
+    meta = _sy_meta(program, jac_s)
     if meta is not None:
         # E's twin in F's camera order, read by B4 (every preconditioner)
         # and B5
@@ -336,7 +344,7 @@ def _s_apply_t(program, jac_m, ete, dsq_f_tv, f_set):
     """S·y on (f-only) tvecs from the scale-materialized Jacobian jac_m
     (float32, float64 or a bfloat16 copy): kernel B4 on the fusable BA
     structure, else the composed products."""
-    meta_sy = _sy_meta(program)
+    meta_sy = _sy_meta(program, jac_m)
     if meta_sy is None:
         jac_e_mv, jac_f_mv = schur_views(program, jac_m)
 
@@ -401,11 +409,11 @@ def _sy_matvec(program, jac_m, ops):
     return s_apply_t
 
 
-def _graph_fits(program, prec, f_set):
+def _graph_fits(program, jac_m, prec, f_set):
     """Whether the PCG iteration can run from a capture: kernel B4 is the
     matvec and the preconditioner is block-diagonal or none."""
     return (
-        _sy_meta(program) is not None
+        _sy_meta(program, jac_m) is not None
         and f_set is not None
         and (prec is None or isinstance(prec, BlockDiagSolver))
     )
@@ -425,7 +433,7 @@ def _tvec_pcg(program, options, jac_s, jac_m, ete, dsq_f_tv, rhs, prec, x0=None,
     split = _pure_class_split(program)
     f_set = split[0] if split is not None else None
     fixed = []
-    if graph is not None and _graph_fits(program, prec, f_set):
+    if graph is not None and _graph_fits(program, jac_m, prec, f_set):
         ops = _sy_operands(program, jac_m, ete, dsq_f_tv)
         matvec = _sy_matvec(program, jac_m, ops)
         fixed = ops + ([] if prec is None else list(prec.inv_tables.values()))
@@ -560,7 +568,7 @@ def _schur_jacobi_preconditioner(program, jac_m, jac_e, jac_f, ete, dsq_f):
     """SCHUR_JACOBI from the current (EᵀE + D_e²)⁻¹: kernel B5 on the fusable
     BA structure (read from the scale-materialized jac_m), else
     schur_jacobi_blocks; then + D_f²."""
-    meta = _sy_meta(program)
+    meta = _sy_meta(program, jac_m)
     if meta is None:
         return BlockDiagSolver(program, schur_jacobi_blocks(program, jac_e, jac_f, ete, dsq_f))
     p0 = _p0_tables(program, jac_m, meta, ete)

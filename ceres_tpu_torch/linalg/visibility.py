@@ -558,6 +558,28 @@ def _sum_products(a, b, k):
     return out
 
 
+def _whole_leaves(program, jac):
+    """The Jacobian's leaves in the Program's lane order: its own without a
+    mesh; on a rank's shard every rank's lanes, gathered over the mesh and
+    put back in the Program's order, pad lanes dropped (the GSPMD gather of
+    ceres_tpu/linalg/visibility.py:520-545: the pair plan pairs lanes of
+    one point, which a layout without bucket plans may split between
+    ranks). Every rank then assembles the same blocks."""
+    mesh = jac.mesh
+    if mesh is None:
+        return jac.jac_groups
+    layouts = program.build_shard_layout(mesh.size)
+    out = []
+    for gi, leaves in enumerate(jac.jac_groups):
+        perm = layouts[gi]["perm"]
+        real = np.nonzero(perm >= 0)[0]
+        inv = np.empty(program.groups[gi].n, dtype=np.int64)
+        inv[perm[real]] = real
+        idx = torch.as_tensor(inv, device=jac._device())
+        out.append(tuple(mesh.all_gather_lanes(leaf).index_select(1, idx) for leaf in leaves))
+    return out
+
+
 class VisibilityPreconditioner:
     """CLUSTER_JACOBI / CLUSTER_TRIDIAGONAL over a BA-shaped problem.
 
@@ -584,8 +606,11 @@ class VisibilityPreconditioner:
 
     def _corrections(self, jac_e, jac_f, ete_solver):
         """Per-bucket (and edge) pair corrections Σ w_aᵀ M⁻¹ w_b, one row
-        of tf*tf per destination block."""
+        of tf*tf per destination block, over the Program's lanes (on a
+        rank's shard every rank's, gathered: _whole_leaves)."""
         plan = self.plan
+        e_leaves = _whole_leaves(self.program, jac_e)
+        f_leaves = _whole_leaves(self.program, jac_f)
         tf, te = plan.tf, plan.te
         opts = dict(dtype=self._dtype, device=self._device)
         acc = {
@@ -597,8 +622,8 @@ class VisibilityPreconditioner:
         inv_e = ete_solver.inv_tables[plan.e_cls]  # [te*te, cnt]
         for st, st_t in zip(plan.streams, self.tables["streams"]):
             r = self.program.groups[st["gi"]].num_residuals
-            ej = jac_e.jac_groups[st["gi"]][0].reshape(r, te, -1)
-            fj = jac_f.jac_groups[st["gi"]][st["fv"]].reshape(r, tf, -1)
+            ej = e_leaves[st["gi"]][0].reshape(r, te, -1)
+            fj = f_leaves[st["gi"]][st["fv"]].reshape(r, tf, -1)
             # w = EᵀF per observation [n, te, tf], then M⁻¹w
             w = _sum_products(ej.permute(2, 1, 0), fj.permute(2, 0, 1), r).contiguous()
             minv = inv_e.T.index_select(0, st_t["pts"]).reshape(-1, te, te)

@@ -19,6 +19,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from .autodiff import CostFunction
+from .io.lazy import is_lazy
 from .loss import LossFunction
 from .manifolds import EuclideanManifold, Manifold
 
@@ -354,7 +355,9 @@ class Problem:
         if pid.ndim != 2:
             raise ValueError("param_ids must be [n, k]")
         n = pid.shape[0]
-        data = tuple(np.asarray(d) for d in data)
+        # a row-lazy leaf (io.lazy.LazyRows) stays lazy: a sharded solve
+        # reads only each rank's rows of it
+        data = tuple(d if is_lazy(d) else np.asarray(d) for d in data)
         for d in data:
             if d.shape[0] != n:
                 raise ValueError("data arrays must have leading dim n")

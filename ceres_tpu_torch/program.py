@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .autodiff import CostFunction
+from .io.lazy import is_lazy
 from .loss import LossFunction
 from .manifolds import EuclideanManifold, Manifold
 
@@ -443,9 +444,13 @@ class Program:
             pid = np.concatenate(
                 [_take(self._batches[bi].param_ids, rows) for bi, rows in members]
             )
+            # a row-lazy leaf of a single batch stays lazy (io.lazy: its rows
+            # permute without being read)
             data = tuple(
-                np.concatenate(
-                    [_take(self._batches[bi].data[di], rows) for bi, rows in members]
+                _take(batch0.data[di], members[0][1])
+                if len(members) == 1 and is_lazy(batch0.data[di])
+                else np.concatenate(
+                    [_take(np.asarray(self._batches[bi].data[di]), rows) for bi, rows in members]
                 )
                 for di in range(len(batch0.data))
             )
@@ -566,6 +571,51 @@ class Program:
             gi_arr[sel] = gi
             grow_arr[sel] = dest
             grow += m
+
+    def build_shard_layout(self, ndev: int):
+        """The shard-major lane layout of every group over `ndev` shards
+        (ceres_tpu/program.py:694-770, the same arrays): a group whose owner
+        position has a bucket plan splits each bucket's n_seg entities into
+        ndev runs of per_e = ceil(n_seg / ndev), shard s owning class rows
+        [out_row + s*per_e, ...) at its local lanes local_start + j*per_e + e,
+        so that each shard's lanes keep the interleaved bucket order; other
+        groups keep their order and pad at the end. Returns {gi: dict(perm,
+        lanes_per_shard, shard_buckets)}: perm maps a new lane to its
+        group row (-1 on a pad lane), and shard_buckets is a tuple of
+        (local_start, per_e, d, out_row) or None. Cached per ndev."""
+        cache = self.schur_cache.setdefault("shard_layouts", {})
+        if ndev in cache:
+            return cache[ndev]
+        layouts = {}
+        for gi, meta in enumerate(self.groups):
+            n = meta.n
+            plan = (meta.red_plans or {}).get(meta.owner)
+            if plan is None or plan[0] != "bucket":
+                per = -(-n // ndev)
+                perm = np.full(per * ndev, -1, dtype=np.int64)
+                perm[:n] = np.arange(n)
+                layouts[gi] = dict(perm=perm, lanes_per_shard=per, shard_buckets=None)
+                continue
+            shard_buckets, local_start = [], 0
+            for (_ls, n_seg, d, out_row) in plan[1]:
+                per_e = -(-n_seg // ndev)
+                shard_buckets.append((local_start, per_e, d, out_row))
+                local_start += per_e * d
+            L = local_start
+            perm = np.full(L * ndev, -1, dtype=np.int64)
+            for (lane_start, n_seg, d, _o), (ls, per_e, _d, _o2) in zip(plan[1], shard_buckets):
+                for s in range(ndev):
+                    e0, e1 = s * per_e, min((s + 1) * per_e, n_seg)
+                    if e1 <= e0:
+                        continue
+                    j = np.arange(d)[:, None]
+                    e = np.arange(e0, e1)[None, :]
+                    perm[(s * L + ls + j * per_e + (e - e0)).reshape(-1)] = (
+                        lane_start + j * n_seg + e
+                    ).reshape(-1)
+            layouts[gi] = dict(perm=perm, lanes_per_shard=L, shard_buckets=tuple(shard_buckets))
+        cache[ndev] = layouts
+        return layouts
 
     def handle_entry(self, bi: int, row: int):
         """(group index, group row) of a residual block by (batch, batch row)."""
@@ -696,17 +746,19 @@ class Program:
     # runtime tensors
     # ------------------------------------------------------------------ #
 
-    def arrays(self, dtype):
+    def arrays(self, dtype, group_idx=None):
         """Index tables and group data as tensors on the Program's device:
         int32 row tables, data leaves in `dtype` (float leaves only), and
-        the bounds in `dtype` when there are any."""
+        the bounds in `dtype` when there are any. `group_idx` replaces the
+        Program's own numpy group tables (a rank's shard of them,
+        parallel.sharding)."""
         dev = self.device
 
         def ints(a):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32, device=dev)
 
         groups = []
-        for idx in self.group_idx:
+        for idx in self.group_idx if group_idx is None else group_idx:
             groups.append(
                 {
                     "a_rows": tuple(ints(a) for a in idx["a_rows"]),

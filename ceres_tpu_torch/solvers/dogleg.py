@@ -139,7 +139,8 @@ def _select(dogleg_type, jac_s, grad_s, radius, cache):
     jv2 = jac_s.right_multiply(v2)
 
     def dot_r(a_groups, b_groups):
-        return sum((a * b).sum() for a, b in zip(a_groups, b_groups))
+        # residual space: a rank's lanes on a shard, summed over the mesh
+        return jac_s.psum(sum((a * b).sum() for a, b in zip(a_groups, b_groups)))
 
     h01 = dot_r(jv1, jv2)
     h = torch.stack([
@@ -176,14 +177,13 @@ def make_dogleg_step_fn(program, options, evaluator):
     # one entry per finish (a finish per iteration): the STEP_KINDS codes
     kinds = torch.full((max(options.max_num_iterations, 1),), -1, dtype=torch.int32, device=dev)
     count = torch.zeros((), dtype=torch.long, device=dev)
-    head_graph = graphs.fn_graph("dogleg_head", dev)
-    pcg_graph = graphs.step_graph("pcg", dev)
-    cauchy_graph = graphs.fn_graph("dogleg_cauchy", dev)
-    finish_graph = graphs.fn_graph("dogleg_finish", dev)
+    head_graph = evaluator.fn_graph("dogleg_head")
+    pcg_graph = evaluator.step_graph("pcg")
+    cauchy_graph = evaluator.fn_graph("dogleg_cauchy")
+    finish_graph = evaluator.fn_graph("dogleg_finish")
 
     def jacobian(leaves, twins, scale):
         return BlockJacobian(program, leaves, garrs, twins=twins).scale_columns(scale)
-
     def head(fixed, scale):
         leaves, twins, grad = fixed
         jac_s = jacobian(leaves, twins, scale)
@@ -201,9 +201,11 @@ def make_dogleg_step_fn(program, options, evaluator):
         """The Cauchy data: alpha = |g|² / |J g|²."""
         leaves, twins, grad, dsq = fixed
         grad_s = grad * scale
-        jg = jacobian(leaves, twins, scale).right_multiply(grad_s)
+        jac_s = jacobian(leaves, twins, scale)
+        jg = jac_s.right_multiply(grad_s)
         g_norm2 = torch.dot(grad_s, grad_s)
-        jg_norm2 = sum((m * m).sum() for m in jg)
+        # residual space: a rank's lanes on a shard, summed over the mesh
+        jg_norm2 = jac_s.psum(sum((m * m).sum() for m in jg))
         alpha = g_norm2 / torch.where(jg_norm2 > 0, jg_norm2, 1.0)
         return {"gn": gn.clone(), "lin_iters": lin_iters.clone(), "alpha": alpha,
                 "g_norm2": g_norm2, "dsq": dsq}

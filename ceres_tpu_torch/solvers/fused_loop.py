@@ -108,12 +108,15 @@ def chunk_iters(options) -> int:
 
 
 def eligible(options, step_fn, program=None) -> bool:
-    """ceres_tpu/solvers/fused_loop.py:90-116 without the sharded clause
-    (the port has no mesh): inner iterations, the problem dump and a
-    Program with an evaluation callback (which runs on the host before
-    every evaluation) take the host loop."""
+    """ceres_tpu/solvers/fused_loop.py:90-116: inner iterations, the
+    problem dump and a Program with an evaluation callback (which runs on
+    the host before every evaluation) take the host loop. So does a mesh
+    whose all-reduces cannot be captured in a CUDA graph (gloo: the CPU, or
+    ranks that share a card), beside the JAX package's sharded_cluster
+    clause; an NCCL mesh runs fused, its all-reduces in the graphs."""
     return bool(
         options.fused_execution
+        and (options.mesh is None or options.mesh.capturable)
         and getattr(program, "evaluation_callback", None) is None
         and getattr(step_fn, "jittable", True)
         and not options.use_inner_iterations
@@ -247,7 +250,7 @@ def make_chunk_fn(minimizer):
 
     # on a card decide runs from a CUDA graph (one per solve, captured at its
     # first call), as the step's finish and the evaluation do
-    decide_graph = graphs.fn_graph("decide", ev.device)
+    decide_graph = ev.fn_graph("decide")
 
     def body(c):
         """One LM iteration on the carry. Returns (successful, the

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..evaluator import _group_eval, plus, state_tables
-from ..jacobian import reduce_T
+from ..jacobian import group_plans, reduce_T
 from ..linalg.preconditioners import _inverse_T, apply_block_T, diag_rows
 from ..ordering import eliminated_handles
 from ..utils import graphs
@@ -56,6 +56,7 @@ def make_inner_iteration_fn(program, options, evaluator):
     if not e_classes:
         return None
     arrays = evaluator.arrays
+    mesh = arrays["groups"][0].get("mesh") if arrays["groups"] else None
 
     def sweep(state, damping):
         state_2d = state_tables(program, state)
@@ -67,11 +68,15 @@ def make_inner_iteration_fn(program, options, evaluator):
             _, res, jacs = _group_eval(meta, garr, state_2d, True, True)
             r, t = meta.num_residuals, sizes[cls]
             j3 = jacs[e_pos].reshape(r, t, -1)
-            plan = (meta.red_plans or {}).get(e_pos)
+            plan = group_plans(meta, garr).get(e_pos)
             layout = (garr["t_rows"][e_pos], counts[cls] + 1, garr["csr"].get(e_pos))
             outer = (j3[:, :, None, :] * j3[:, None, :, :]).sum(dim=0).reshape(t * t, -1)
             jtj[cls] = jtj[cls] + reduce_T(plan, outer, *layout)
             jtr[cls] = jtr[cls] + reduce_T(plan, (j3 * res[:, None, :]).sum(dim=0), *layout)
+        if mesh is not None:  # a rank's partial sums (ceres_tpu inner_iterations.py:156-158)
+            tabs = mesh.psum_tables([jtj[c] for c in e_classes] + [jtr[c] for c in e_classes])
+            jtj = dict(zip(e_classes, tabs[: len(e_classes)]))
+            jtr = dict(zip(e_classes, tabs[len(e_classes):]))
         # the tangent delta class by class: the e-classes solve, the rest 0
         parts = []
         for c, (s, cnt) in enumerate(zip(sizes, counts)):
@@ -97,7 +102,7 @@ class InnerIterationRefiner:
         self.evaluator = evaluator
         self.sweeps = sweeps
         self._sweep = make_inner_iteration_fn(program, options, evaluator)
-        self._graph = graphs.fn_graph("inner_sweep", evaluator.device)
+        self._graph = evaluator.fn_graph("inner_sweep")
 
     @property
     def available(self) -> bool:

@@ -1,13 +1,19 @@
 """Solve facade: validate -> compile -> minimize -> summarize.
 
 Port of `ceres_tpu.solvers.solver` (reference: Solver::Solve, solver.cc
-:720-846). The device is resolved once here (utils.dtypes.resolve_device)
-and carried by the Program and the Evaluator.
+:720-846). The device is resolved once here (utils.dtypes.resolve_device;
+under a mesh the rank's own, which options.device may name but not
+change) and carried by the Program and the Evaluator; a mesh takes the
+ShardedEvaluator (parallel/sharding.py).
 """
 
 from __future__ import annotations
 
+import copy
+import logging
 import time
+
+import torch
 
 from ..evaluator import Evaluator
 from ..ordering import eliminated_handles
@@ -17,20 +23,6 @@ from ..types import (
 from ..utils.dtypes import default_dtype, resolve_device
 from ..utils.execution_summary import ExecutionSummary
 from ..utils.graphs import graph_stats, read_count
-
-
-# options the port does not run yet, each with the ROADMAP item that ports
-# it: solve raises for them instead of running something else
-_UNPORTED = (
-    (lambda o: o.mesh is not None, "mesh", "ROADMAP Queue A item 11, multi-GPU"),
-)
-
-
-def refuse_unported(options):
-    """Raise NotImplementedError for the first option the port does not run."""
-    for unported, what, item in _UNPORTED:
-        if unported(options):
-            raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 def _check_gradients(options, program):
@@ -63,6 +55,27 @@ def _check_gradients(options, program):
     return None
 
 
+def _rank_device(options, mesh):
+    """The device of a sharded solve: the mesh's, which parallel.distributed
+    chose by resolve_device's rule (never the CPU unless named). Raises
+    when options.device names another."""
+    resolve_device(mesh.device)  # its TF32 settings
+    if options.device is not None:
+        device = _normalized(resolve_device(options.device))
+        if device != _normalized(mesh.device):
+            raise ValueError(
+                f"options.device {options.device} is not the mesh's device {mesh.device}"
+            )
+    return mesh.device
+
+
+def _normalized(device):
+    """cuda -> cuda:<current>, so that two names of one card compare equal."""
+    if device.type == "cuda" and device.index is None and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def solve(options, problem) -> Summary:
     summary = Summary()
     summary.execution_summary = ExecutionSummary()
@@ -73,11 +86,20 @@ def solve(options, problem) -> Summary:
         summary.termination_type = TerminationType.FAILURE
         summary.message = f"Invalid options: {msg}"
         return summary
-    refuse_unported(options)
 
     # ---- preprocess (reference: trust_region_preprocessor.cc:373-405) ----
     t0 = time.time()
-    device = resolve_device(options.device)
+    mesh = options.mesh
+    if mesh is not None and options.preconditioner_type == PreconditionerType.SUBSET:
+        # SUBSET's apply is a host sparse solve over the whole Q (ceres_tpu/
+        # solvers/solver.py:121-135): a sharded solve downgrades, loudly
+        logging.getLogger(__name__).warning(
+            "SUBSET preconditioner is host-bound and unavailable for sharded solves; "
+            "downgrading to JACOBI"
+        )
+        options = copy.copy(options)
+        options.preconditioner_type = PreconditionerType.JACOBI
+    device = resolve_device(options.device) if mesh is None else _rank_device(options, mesh)
     dtype = options.dtype or default_dtype()
     summary.num_parameter_blocks = problem.num_parameter_blocks()
     summary.num_parameters = problem.num_parameters()
@@ -131,7 +153,12 @@ def solve(options, problem) -> Summary:
         # the elimination ordering is preprocessing (reference:
         # trust_region_preprocessor.cc, ReorderProgram); cached per Program
         program.schur_tangent_masks()
-    evaluator = Evaluator(program, dtype=dtype)
+    if mesh is not None:
+        from ..parallel.sharding import ShardedEvaluator
+
+        evaluator = ShardedEvaluator(program, mesh, dtype=dtype)
+    else:
+        evaluator = Evaluator(program, dtype=dtype)
     state = program.state_vector(dtype)
     summary.preprocessor_time_in_seconds = time.time() - t0
 

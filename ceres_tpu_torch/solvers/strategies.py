@@ -36,7 +36,8 @@ def _model_cost_change(jac_scaled, step, res_groups):
     mcc = torch.zeros((), dtype=step.dtype, device=step.device)
     for m, r in zip(jac_scaled.right_multiply(step), res_groups):
         mcc = mcc - (m * (r + 0.5 * m)).sum()
-    return mcc
+    # residual space: a rank's lanes on a shard, summed over the mesh
+    return jac_scaled.psum(mcc)
 
 
 def _step_result(jac_s, step, res_groups, scale, lin_iters):
@@ -97,9 +98,9 @@ def make_lm_step_fn(program, options, evaluator):
     # the PCG iteration and tail run from CUDA graphs (one each per solve,
     # captured at their first call), which read the Jacobian, its twins,
     # the prepare cache and head's outputs in place
-    head_graph = graphs.fn_graph("finish_head", evaluator.device)
-    pcg_graph = graphs.step_graph("pcg", evaluator.device)
-    tail_graph = graphs.fn_graph("finish_tail", evaluator.device)
+    head_graph = evaluator.fn_graph("finish_head")
+    pcg_graph = evaluator.step_graph("pcg")
+    tail_graph = evaluator.fn_graph("finish_tail")
 
     def head(fixed, radius, scale):
         leaves, twins, grad, cache = fixed
@@ -189,9 +190,9 @@ def _cgnr_step_fn(program, options, evaluator):
     )
     mixed = options.use_mixed_precision_solves
     garrs = evaluator.arrays["groups"]
-    head_graph = graphs.fn_graph("cgnr_head", evaluator.device)
-    pcg_graph = graphs.step_graph("pcg", evaluator.device)
-    tail_graph = graphs.fn_graph("cgnr_tail", evaluator.device)
+    head_graph = evaluator.fn_graph("cgnr_head")
+    pcg_graph = evaluator.step_graph("pcg")
+    tail_graph = evaluator.fn_graph("cgnr_tail")
 
     def jacobian(leaves, twins, scale):
         return BlockJacobian(program, leaves, garrs, twins=twins).scale_columns(scale)

@@ -118,7 +118,7 @@ def make_evaluate(program, evaluator):
     CUDA graph, whose outputs are the Jacobian, its twins and the gradient
     that the finish graphs read in place. The Program's evaluation
     callback runs on the host before every call, replays included."""
-    graph = graphs.fn_graph("evaluate", evaluator.device)
+    graph = evaluator.fn_graph("evaluate")
     garrs = evaluator.arrays["groups"]
 
     def run(_, x):
@@ -141,7 +141,7 @@ def make_prepare(program, evaluator, step_fn):
     own graphs and is returned as it is."""
     if getattr(step_fn, "prepare_reads", False):
         return step_fn.prepare
-    graph = graphs.fn_graph("prepare", evaluator.device)
+    graph = evaluator.fn_graph("prepare")
     garrs = evaluator.arrays["groups"]
 
     def run(fixed, scale):

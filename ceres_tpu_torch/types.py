@@ -214,7 +214,10 @@ class SolverOptions:
     # solve raises when no card is visible (pass "cpu" for the CPU).
     device: Any = None
 
-    # --- multi-device (not ported: solve raises for a mesh) ---
+    # --- multi-device: a parallel.distributed.Mesh (one rank per shard);
+    # residual blocks are sharded over mesh_axis (a 1-D mesh's axis; a
+    # hybrid mesh shards over both of its axes) and every reduction over
+    # them is all-reduced ---
     mesh: Any = None
     mesh_axis: str = "dp"
 
@@ -244,7 +247,25 @@ class SolverOptions:
             return False, "min_relative_decrease must be in (0, 1)"
         if self.max_linear_solver_iterations < 1:
             return False, "max_linear_solver_iterations must be >= 1"
+        if self.mesh is not None:
+            if len(self.mesh.axis_names) == 1 and self.mesh_axis not in self.mesh.axis_names:
+                return False, f"mesh_axis {self.mesh_axis!r} is not an axis of the mesh"
+            if (self.minimizer_type == MinimizerType.TRUST_REGION
+                    and self.linear_solver_type in _WHOLE_JACOBIAN_SOLVERS):
+                # each rank holds only its lanes of J (ceres_tpu's dense and
+                # host solvers do not run under shard_map either)
+                return False, (
+                    f"{self.linear_solver_type.value} factors the whole Jacobian on one "
+                    "process; a sharded solve takes CGNR, ITERATIVE_SCHUR or DENSE_SCHUR"
+                )
         return True, ""
+
+
+# the linear solvers that read the whole Jacobian on one process
+_WHOLE_JACOBIAN_SOLVERS = (
+    LinearSolverType.DENSE_QR, LinearSolverType.DENSE_NORMAL_CHOLESKY,
+    LinearSolverType.SPARSE_NORMAL_CHOLESKY, LinearSolverType.SPARSE_SCHUR,
+)
 
 
 @dataclasses.dataclass

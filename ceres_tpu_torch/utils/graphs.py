@@ -31,8 +31,9 @@ also fills the Program's lazy device tables, whose uploads a capture would
 refuse), then captures; an FnGraph copies the warm-up's results into its
 outputs. Later calls replay. The kernels' ctypes wrappers launch on
 `torch.cuda.current_stream()`, which is the capture stream during capture.
-Their launch counts (cuda_lib) are taken back after the capture and added
-once per replay, so the counts stay those of the work the card did.
+Their launch counts (cuda_lib), and the all-reduces of a sharded solve, are
+taken back after the capture and added once per replay, so the counts stay
+those of the work the card did.
 """
 
 from __future__ import annotations
@@ -47,6 +48,10 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from .. import cuda_lib
 
 _reads = 0
+# a sharded solve's all-reduces and the bytes they move (parallel.
+# distributed.Mesh.psum), kept here so that a graph takes them back after
+# its capture and adds them per replay as it does the kernels' launches
+_collectives = {"all_reduce": 0, "all_reduce_bytes": 0}
 _graph_stats = {
     "captures": 0, "replays": 0, "capture_seconds": 0.0,
     "replays_by": collections.Counter(),
@@ -71,6 +76,35 @@ def read_count() -> int:
     return _reads
 
 
+def count_all_reduce(nbytes: int):
+    """Count one all-reduce of nbytes."""
+    _collectives["all_reduce"] += 1
+    _collectives["all_reduce_bytes"] += nbytes
+
+
+def collective_counts() -> dict:
+    """All-reduces and their bytes so far."""
+    return dict(_collectives)
+
+
+def reset_collective_counts():
+    for name in _collectives:
+        _collectives[name] = 0
+
+
+def _counts():
+    """The launch and all-reduce counts, which a capture takes back."""
+    return cuda_lib.launch_counts(), collective_counts()
+
+
+def _add(counts, sign):
+    launches, collectives = counts
+    for name, n in launches.items():
+        cuda_lib.count(name, sign * n)
+    for name, n in collectives.items():
+        _collectives[name] += sign * n
+
+
 def graph_stats() -> dict:
     """Captures, replays (in all and by graph name) and capture seconds of
     every graph so far."""
@@ -93,7 +127,7 @@ class _Graph:
         self._fixed = None
         self._key = None
         self._graph = None
-        self._launches = {}
+        self._counted = ({}, {})
 
     def bind(self, fixed, copied, key=None):
         """Hold the tensors of `fixed` (read in place) and copy those of
@@ -136,7 +170,7 @@ class _Graph:
         collector is off while the stream captures: a collection there
         could destroy another graph, which CUDA forbids during a capture
         and which then invalidates it."""
-        before = cuda_lib.launch_counts()
+        before = _counts()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         main = torch.cuda.current_stream()
@@ -157,11 +191,12 @@ class _Graph:
         main.wait_stream(side)
         _graph_stats["capture_seconds"] += time.perf_counter() - t0
         _graph_stats["captures"] += 1
-        after = cuda_lib.launch_counts()
+        after = _counts()
         # the wrappers counted while capturing, but nothing ran
-        self._launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-        for name, n in self._launches.items():
-            cuda_lib.count(name, -n)
+        self._counted = tuple(
+            {k: a[k] - b[k] for k in a if a[k] != b[k]} for a, b in zip(after, before)
+        )
+        _add(self._counted, -1)
         self._graph = graph
         return out
 
@@ -169,12 +204,11 @@ class _Graph:
         self._graph.replay()
         _graph_stats["replays"] += 1
         _graph_stats["replays_by"][self.name] += 1
-        for name, n in self._launches.items():
-            cuda_lib.count(name, n)
+        _add(self._counted, 1)
 
     @property
     def launches_per_replay(self) -> dict:
-        return dict(self._launches)
+        return dict(self._counted[0])
 
 
 class StepGraph(_Graph):

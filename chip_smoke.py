@@ -45,6 +45,12 @@ and prints no result):
      plain version, bitwise equality with 72 single-vector launches, ms
      beside the 72 single launches', the bound, one torch.sparse product
      against a dense [., 72] operand, and ptxas' registers and spills;
+     then B1 with a seeded lane mask that zeroes ~1/8 of the lanes (a
+     sharded group's pad lanes): the angle-axis and quaternion Snavely
+     instantiations at BAL-1778 and B1 generic on the FoE 3x3 clique at
+     512 x 512, each against its plain version under the same mask, the
+     masked lanes exactly 0, the others bitwise the unmasked launch, the
+     masked and unmasked launches timed in turns;
   3. a small float64 solve (48,000 observations, so the layout plans
      engage) for 5 LM iterations on the card and on the CPU, for JACOBI,
      SCHUR_JACOBI, and SCHUR_JACOBI with the power-series warm start (which
@@ -140,7 +146,18 @@ and prints no result):
      odometry edges), and a 2D graph of M3500's pose count on
      SPARSE_NORMAL_CHOLESKY, each with B1 generic at every evaluation and
      its final cost beside the cost at the true poses. Before the denoising
-     runs, BAL-1778 with Snavely as a NumericDiffCostFunction (CENTRAL) in
+     runs, the sharded solves of the main configuration (3 iterations):
+     an unsharded run with its observations permuted sets each
+     iteration's tolerance (the larger of 1e-5 and 10x its gap to the main
+     run); (a) one NCCL rank on the card, on the fused loop with its
+     all-reduces captured; (b) two gloo ranks that share the card,
+     spawned, each reading its own observation rows (LazyRows), on the
+     host loop, with pad lanes > 0. Each is held to the main run's first 3
+     iterations (PCG counts, accepts, the initial cost within 1e-6, each
+     cost within its tolerance) and prints per iteration its cost, PCG
+     steps, ms and reads, and its all-reduces and their bytes, its peak
+     memory per rank and the loop that ran; B4 and B5 do not run on a
+     shard. Before them, BAL-1778 with Snavely as a NumericDiffCostFunction (CENTRAL) in
      float64 (SCHUR_JACOBI, fused, 3 iterations: its initial cost within
      1e-10 of eval_snavely's, B1 not launched, B2-B5 launched, the
      evaluate graph's ms per call, the peak device memory); after them the
@@ -251,6 +268,10 @@ GENERIC_KERNELS = [
      "ceres_tpu/pallas_eval.py:435", 2e-4),
 ]
 GENERIC_NAMES = {"eval_generic", "eval_generic_analytic", "eval_generic_residual"}
+# B1's masked launches (a sharded solve's pad lanes) count apart; the
+# sharded run (b) of phase 4 is their main path
+MASKED_NAMES = {name + "_masked" for name in ("eval_snavely", "eval_snavely_quat",
+                                               "eval_snavely_quat_nomanifold") + tuple(GENERIC_NAMES)}
 # B2 and B3 over a batch of columns: the contract jax.vmap makes of the
 # pallas_calls for the covariance's batched PCG (ceres_tpu/covariance.py:212);
 # phase 4's covariance run is their main path, in float64. Tolerance on
@@ -267,6 +288,19 @@ BATCHED_TOL = {"gather_contract_batched": {"float64": 1e-12, "float32": 1e-5},
                "contract_reduce_batched": {"float64": 1e-12, "float32": 1e-4}}
 # with their bfloat16 instantiations, which no path of this script runs
 BATCHED_NAMES = {name + sfx for name, *_ in BATCHED_KERNELS for sfx in ("", "_bf16")}
+# B1 with its lane mask (JAX's mask_T, pallas_eval.py:435-437), whose main
+# path is phase 4's sharded run (b): the angle-axis Snavely group's pad
+# lanes on two ranks
+MASKED_KERNELS = [
+    ("eval_snavely_masked", "ceres_tpu_torch/csrc/eval_snavely.cu",
+     "ceres_tpu/pallas_eval.py:435", 2e-4),
+]
+# the share of lanes phase 2's masks zero
+MASK_ZERO_SHARE = 0.125
+# phase 4's sharded runs: LM iterations, and the gloo ranks of run (b)
+SHARDED_ITERATIONS = 3
+SHARDED_RANKS = 2
+SHARDED_TIMEOUT = 120  # seconds a rank of run (b) may take (18-24 s spawn to done on one H100)
 # the covariance runs: 8 camera blocks and one cross block, 72 columns, as
 # ceres_tpu's own test (tests/test_covariance_scale.py:27-29)
 COV_COLUMNS = 72
@@ -802,6 +836,103 @@ def phase_kernels_bf16(results, sy, F, E, rows_f, layout, y, u, e_twin, prow, se
     torch.cuda.empty_cache()
 
 
+def lane_mask(n, dev, dtype, seed):
+    """A seeded lane mask [n] in `dtype` that zeroes ~MASK_ZERO_SHARE of the
+    lanes (a sharded group's pad lanes stand-in)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.rand(n, generator=gen, device=dev) >= MASK_ZERO_SHARE).to(dtype)
+
+
+def masked_b1(label, launch, plain, mask, nbytes, ops, tol=2e-4):
+    """Phase 2, one B1 instantiation with a lane mask: launch(mask) against
+    plain(mask) within tol, the masked lanes exactly 0, the others bitwise
+    launch(None)'s; the masked and the unmasked launch timed in turns
+    (unmasked, masked, masked, unmasked, each the median of 10 runs).
+    Returns its record (kernel ms: the masked launch's)."""
+    import torch
+
+    got, want, free = launch(mask), plain(mask), launch(None)
+    torch.cuda.synchronize()
+    dead = mask == 0
+    pairs = [(got[1], want[1], free[1])] + list(zip(got[2], want[2], free[2]))
+    errs = [rel_err(a, b) for a, b, _ in pairs] + [rel_err(got[0].reshape(1), want[0].reshape(1))]
+    err = (max(e[0] for e in errs), max(e[1] for e in errs))
+    zero = all(bool((a[:, dead] == 0).all()) for a, _, _ in pairs)
+    same = all(torch.equal(a[:, ~dead], f[:, ~dead]) for a, _, f in pairs)
+    del got, want, free, pairs
+    t_u1 = median_ms(lambda: launch(None))
+    t_m1 = median_ms(lambda: launch(mask))
+    t_m2 = median_ms(lambda: launch(mask))
+    t_u2 = median_ms(lambda: launch(None))
+    t_p = median_ms(lambda: plain(mask), reps=3)
+    b_ms, b_by = bound(nbytes, ops)
+    t_m = 0.5 * (t_m1 + t_m2)
+    ok = err[1] <= tol and zero and same
+    print(f"phase 2: {label} masked ({int(dead.sum())} of {mask.numel()} lanes): max rel err "
+          f"{err[1]:.3e} (tol {tol:.0e}, max abs {err[0]:.3e}); masked lanes 0 {zero}; "
+          f"unmasked lanes bitwise the unmasked launch {same}; kernel {t_m1:.4f}/{t_m2:.4f} ms "
+          f"masked vs {t_u1:.4f}/{t_u2:.4f} ms unmasked (in turns), plain {t_p:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; {100 * b_ms / t_m:.1f}% of it){'' if ok else '  FAILED'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{label} masked: kernel disagrees with its plain version")
+    return {"err": err, "ms": t_m, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def phase_kernels_masked(program, dev, results):
+    """Phase 2, B1 with a lane mask at the phase-2 widths: the angle-axis
+    Snavely group at BAL-1778 (the kernels line's eval_snavely_masked) and
+    B1 generic on the Fields-of-Experts 3x3 clique group at 512 x 512. The
+    bound counts the mask, the live lanes' inputs and operations and every
+    output (a masked lane writes its zeros)."""
+    import torch
+
+    from ceres_tpu_torch import HuberLoss, eval_kernel, functor_codegen
+    from ceres_tpu_torch.evaluator import Evaluator, group_eval_plain, state_tables
+
+    f32, w = torch.float32, 4
+    ev = Evaluator(program, f32)
+    st2d = state_tables(program, program.state_vector(f32))
+    p0, p1 = program.groups[0].positions
+    garr = ev.arrays["groups"][0]
+    args = (st2d[p0.a_cls], garr["a_rows"][0], st2d[p1.a_cls], garr["a_rows"][1],
+            garr["data"][0], HuberLoss(1.0), True)
+    n = program.groups[0].n
+    mask = lane_mask(n, dev, f32, 15)
+    live = int(mask.sum())
+    ncam, npts = st2d[p0.a_cls].shape[0], st2d[p1.a_cls].shape[0]
+    results["eval_snavely_masked"] = masked_b1(
+        "eval_snavely", lambda m: eval_kernel.snavely_evaluate(*args, m),
+        lambda m: eval_kernel.snavely_evaluate_plain(*args, m), mask,
+        w * (n + 4 * live + 9 * ncam + 3 * npts + (2 + 18 + 6) * n), B1_OPS_PER_OBS * live,
+    )
+    del ev, st2d, args, garr
+    h, wd, size, k, _iters = FOE_RUNS[0]
+    foe = build_foe(h, wd, size, k).compile(dev)
+    ev = Evaluator(foe, f32)
+    st = state_tables(foe, foe.state_vector(f32))
+    meta, garr = foe.groups[1], ev.arrays["groups"][1]
+    prog = functor_codegen.group_program(meta, garr, f32, True)
+    mask = lane_mask(meta.n, dev, f32, 16)
+    live = int(mask.sum())
+    tables = [st[pm.a_cls] for pm in meta.positions]
+
+    def with_mask(m):
+        return garr if m is None else dict(garr, mask=m)
+
+    masked_b1(
+        f"eval_generic FoE {size}x{size} clique ({h}x{wd})",
+        lambda m: eval_kernel.generic_evaluate(prog, meta, with_mask(m), st, True),
+        lambda m: group_eval_plain(meta, with_mask(m), st, True, True), mask,
+        generic_bytes(prog, tables, meta.n, True) + w * meta.n, generic_ops(prog, True) * live,
+    )
+    del ev, st, foe, tables
+    torch.cuda.empty_cache()
+
+
 def phase_kernels_quat(bal, dev, results):
     """Phase 2, the quaternion cameras at BAL-1778 shapes: B1's quaternion
     instantiations (on the camera's product manifold, tangent 9, and
@@ -854,6 +985,13 @@ def phase_kernels_quat(bal, dev, results):
                       lambda: snavely_quat_evaluate(*args),
                       lambda: snavely_quat_evaluate_plain(*args),
                       in_bytes + w * (2 + 2 * tan + 6) * n, B1_QUAT_OPS_PER_OBS[manifold] * n)
+        if manifold:  # B1 quaternion with a lane mask
+            mask = lane_mask(n, dev, f32, 17)
+            live = int(mask.sum())
+            masked_b1(name, lambda m: snavely_quat_evaluate(*args, m),
+                      lambda m: snavely_quat_evaluate_plain(*args, m), mask,
+                      w * (n + 4 * live + 10 * ncam + 3 * npts + (2 + 2 * tan + 6) * n),
+                      B1_QUAT_OPS_PER_OBS[manifold] * live)
         res_args = args[:-2] + (False, manifold)
         cost_r, res_r, _ = snavely_quat_evaluate(*res_args)
         rel = max(rel_err(res_r, res_p)[1], rel_err(cost_r.reshape(1), cost_p.reshape(1))[1])
@@ -1010,6 +1148,7 @@ def phase_f64_parity():
         mixed = extra.get("use_mixed_precision_solves", False)
         unused = {"schur_sy"} if mixed else set(BF16_KERNELS)
         unused |= {"gather_contract_bf16", "contract_reduce_bf16"} | QUAT_NAMES | GENERIC_NAMES
+        unused |= MASKED_NAMES
         unused |= BATCHED_NAMES
         if precond == "JACOBI":
             unused.add("schur_p0")
@@ -1094,6 +1233,223 @@ def run_main_path(bal, precond, build=None, label=None, **overrides):
     if not summary.final_cost < summary.initial_cost:
         raise AssertionError(f"{precond}: the solve did not decrease the cost")
     return summary, launches
+
+
+def sharded_solve(bal, mesh):
+    """One sharded float32 solve of `bal` (Huber(1.0), LM + ITERATIVE_SCHUR +
+    SCHUR_JACOBI, SHARDED_ITERATIONS iterations, chunk 1) on this rank's
+    shard of `mesh`, on a new Problem; the launch and all-reduce counts set
+    to 0 just before it and read just after. Returns what the rank prints
+    and the parent checks."""
+    import torch
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch import cuda_lib
+    from ceres_tpu_torch.utils import graphs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    problem, _, _ = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))
+    t_problem = time.time() - t0
+    options = lm_options("cuda", torch.float32, "SCHUR_JACOBI", mesh=mesh,
+                         fused_execution_chunk_iters=1, max_num_iterations=SHARDED_ITERATIONS)
+    cuda_lib.reset_launch_counts()
+    graphs.reset_collective_counts()
+    t0 = time.time()
+    summary = ct.solve(options, problem)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    program = problem.compile(mesh.device)
+    rank, ndev = mesh.rank, mesh.size
+    pads = lanes = 0
+    for lay in program.build_shard_layout(ndev).values():
+        L = lay["lanes_per_shard"]
+        pads += int((lay["perm"][rank * L : (rank + 1) * L] < 0).sum())
+        lanes += L
+    return {
+        "iterations": [(it.iteration, it.cost, it.linear_solver_iterations,
+                        it.step_is_successful, 1000.0 * it.iteration_time_in_seconds,
+                        it.num_device_reads) for it in summary.iterations],
+        "initial_cost": summary.initial_cost, "final_cost": summary.final_cost,
+        "fused": summary.used_fused_execution, "launches": cuda_lib.launch_counts(),
+        "collectives": graphs.collective_counts(),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "pad_lanes": pads, "lanes": lanes,
+        "problem_s": t_problem, "preprocess_s": summary.preprocessor_time_in_seconds,
+        "solve_s": wall, "finite": bool(np.isfinite(program.state0).all()),
+    }
+
+
+def _sharded_rank(rank, world, port, data_dir, queue):
+    """A rank of phase 4's run (b), spawned: gloo on cuda:0 (the ranks share
+    the card), the BAL arrays the parent saved, the observations read
+    through a LazyRows (the rank reads only its own rows)."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.io.lazy import ArraySource, LazyRows
+    from ceres_tpu_torch.parallel import distributed
+
+    try:
+        distributed.initialize("gloo", f"tcp://localhost:{port}", world, rank, "cuda:0",
+                               timeout_seconds=SHARDED_TIMEOUT)
+
+        def load(name):
+            return np.load(os.path.join(data_dir, name + ".npy"), mmap_mode="r")
+
+        bal = ct.BalProblem(np.array(load("cameras")), np.array(load("points")),
+                            np.array(load("camera_index")), np.array(load("point_index")),
+                            LazyRows(ArraySource(load("observations"))))
+        queue.put((rank, sharded_solve(bal, distributed.global_mesh())))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _collect_ranks(procs, queue):
+    """{rank: its result} from the spawned ranks; raises when one exits
+    without a result or SHARDED_TIMEOUT passes."""
+    import queue as queue_mod
+
+    outs, t0 = {}, time.time()
+    while len(outs) < len(procs):
+        try:
+            rank, out = queue.get(timeout=5)
+            outs[rank] = out
+            continue
+        except queue_mod.Empty:
+            pass
+        dead = [r for r, p in enumerate(procs) if r not in outs and p.exitcode not in (None, 0)]
+        if dead or time.time() - t0 > SHARDED_TIMEOUT:
+            raise AssertionError(f"run (b): ranks {dead or 'all'} ended without a result "
+                                 f"(exit codes {[p.exitcode for p in procs]})")
+    return outs
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _check_sharded(label, out, main, tols):
+    """Run `out` held to the unsharded main run's first SHARDED_ITERATIONS
+    iterations: the same PCG counts and accept sequence, the initial cost
+    within 1e-6, each iteration's cost within tols[i]; prints its lines."""
+    coll = out["collectives"]
+    k = len(out["iterations"]) - 1
+    print(f"phase 4: {label}: {'fused' if out['fused'] else 'host loop'}; Problem built in "
+          f"{out['problem_s']:.1f} s, preprocess {out['preprocess_s']:.1f} s, solve "
+          f"{out['solve_s']:.1f} s; pad lanes {out['pad_lanes']} of {out['lanes']}; all-reduces "
+          f"{coll['all_reduce']} ({coll['all_reduce'] / max(k, 1):.1f} per iteration), "
+          f"{coll['all_reduce_bytes'] / 1e6:.1f} MB ({coll['all_reduce_bytes'] / 1e6 / max(k, 1):.1f} "
+          f"MB per iteration); peak {out['peak_gb']:.2f} GB; launches "
+          f"{json.dumps({n: v for n, v in out['launches'].items() if v})}", flush=True)
+    ok = out["finite"] and k == SHARDED_ITERATIONS
+    for (i, cost, pcg, acc, ms, reads), ref, tol in zip(out["iterations"], main.iterations, tols):
+        gap = abs(cost - ref.cost) / abs(ref.cost)
+        same = i == 0 or (pcg, acc) == (ref.linear_solver_iterations, ref.step_is_successful)
+        good = same and gap <= (1e-6 if i == 0 else tol)
+        ok = ok and good
+        print(f"phase 4: {label}: iter {i}: cost {cost!r} pcg {pcg} "
+              f"{'accepted' if acc else 'rejected'} ms {ms:.1f} reads {reads} | unsharded cost "
+              f"{ref.cost!r} pcg {ref.linear_solver_iterations}: rel gap {gap:.3e} (tol "
+              f"{1e-6 if i == 0 else tol:.3e}){'' if good else '  FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: the sharded solve parts from the unsharded one")
+
+
+def phase_sharded_runs(bal, main):
+    """Phase 4, the sharded solves at BAL-1778 (float32, SCHUR_JACOBI,
+    SHARDED_ITERATIONS iterations), each held to the unsharded main run
+    (_check_sharded). The tolerance of iteration i is the larger of 1e-5
+    and 10x the gap to the main run of an unsharded run whose observations
+    are permuted (another summation order, measured here). (a) one NCCL
+    rank on the card: the fused loop, its all-reduces captured in the
+    graphs; (b) SHARDED_RANKS gloo ranks that share the card, spawned, on
+    the host loop; their pad lanes must be > 0 (B1's mask at work).
+    Returns run (b)'s launches, summed over its ranks."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.parallel import distributed
+
+    perm = np.random.default_rng(3).permutation(bal.num_observations)
+    permuted, _ = run_main_path(
+        ct.BalProblem(bal.cameras, bal.points, bal.camera_index[perm], bal.point_index[perm],
+                      bal.observations[perm]),
+        "SCHUR_JACOBI", label="observations permuted", fused_execution_chunk_iters=1,
+        max_num_iterations=SHARDED_ITERATIONS,
+    )
+    gaps = [abs(a.cost - b.cost) / abs(b.cost) for a, b in zip(permuted.iterations, main.iterations)]
+    tols = [max(1e-5, 10.0 * g) for g in gaps]
+    print(f"phase 4: unsharded run with permuted observations vs the main run: per-iteration "
+          f"cost gaps {', '.join(f'{g:.3e}' for g in gaps)}; tolerances "
+          f"{', '.join(f'{t:.3e}' for t in tols)}", flush=True)
+    del permuted
+
+    distributed.initialize("nccl", f"tcp://localhost:{_free_port()}", 1, 0, "cuda:0")
+    try:
+        run_a = sharded_solve(bal, distributed.global_mesh())
+    finally:
+        torch.distributed.destroy_process_group()
+    if not run_a["fused"]:
+        raise AssertionError("run (a): the NCCL mesh did not take the fused loop")
+    _check_sharded("sharded (a) 1 NCCL rank", run_a, main, tols)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as data_dir:
+        for name in ("cameras", "points", "camera_index", "point_index", "observations"):
+            np.save(os.path.join(data_dir, name + ".npy"), getattr(bal, name))
+        ctx = multiprocessing.get_context("spawn")
+        queue = ctx.Queue()
+        port = _free_port()
+        procs = [ctx.Process(target=_sharded_rank, args=(r, SHARDED_RANKS, port, data_dir, queue))
+                 for r in range(SHARDED_RANKS)]
+        for p in procs:
+            p.start()
+        try:
+            outs = _collect_ranks(procs, queue)
+        finally:
+            for p in procs:
+                p.join(60)
+                if p.is_alive():
+                    p.terminate()
+    failed = {r: o["error"] for r, o in outs.items() if "error" in o}
+    if failed:
+        raise AssertionError(f"run (b): ranks failed: {failed}")
+    print(f"phase 4: sharded (b) {SHARDED_RANKS} gloo ranks on one card: spawned and done in "
+          f"{time.time() - t0:.1f} s; pad lanes per rank "
+          f"{[outs[r]['pad_lanes'] for r in range(SHARDED_RANKS)]}", flush=True)
+    for r in range(SHARDED_RANKS):
+        _check_sharded(f"sharded (b) rank {r} of {SHARDED_RANKS} gloo", outs[r], main, tols)
+    costs = [[it[1:4] for it in outs[r]["iterations"]] for r in range(SHARDED_RANKS)]
+    if any(c != costs[0] for c in costs):
+        raise AssertionError("run (b): the ranks left lockstep")
+    if sum(outs[r]["pad_lanes"] for r in range(SHARDED_RANKS)) <= 0:
+        raise AssertionError("run (b): no pad lanes: the mask did no work")
+    if any(outs[r]["fused"] for r in range(SHARDED_RANKS)):
+        raise AssertionError("run (b): a gloo mesh took the fused loop")
+    launches = collections.Counter()
+    for r in range(SHARDED_RANKS):
+        launches.update(outs[r]["launches"])
+    if not launches["eval_snavely_masked"] or launches["eval_snavely"]:
+        raise AssertionError("run (b): B1 did not run masked on every evaluation")
+    if launches["schur_sy"] or launches["schur_p0"]:
+        raise AssertionError("run (b): B4 or B5 ran on a shard")
+    return dict(launches)
 
 
 def build_quaternion_problem(bal, use_manifolds=True):
@@ -3093,6 +3449,7 @@ def main(argv=None) -> int:
     phase_generic_build(program, dev)
     results = {}
     phase_kernels(program, dev, results)
+    phase_kernels_masked(program, dev, results)
     phase_kernels_batched(program, dev, results)
     phase_kernels_generic(program, dev, results)
     phase_kernels_generic_analytic(dev, results)
@@ -3117,7 +3474,7 @@ def main(argv=None) -> int:
     if not main.used_fused_execution:
         raise AssertionError("the main run did not take the fused loop")
     missing = [k for k, v in launches.items()
-               if v <= 0 and k not in BF16_KERNELS | QUAT_NAMES | GENERIC_NAMES | BATCHED_NAMES]
+               if v <= 0 and k not in BF16_KERNELS | QUAT_NAMES | GENERIC_NAMES | MASKED_NAMES | BATCHED_NAMES]
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
     host, _ = run_main_path(bal, "SCHUR_JACOBI", fused_execution=False)
@@ -3136,7 +3493,7 @@ def main(argv=None) -> int:
                                             max_num_iterations=3)
     missing = [k for k, v in jacobi_launches.items()
                if v <= 0 and k != "schur_p0"
-               and k not in BF16_KERNELS | QUAT_NAMES | GENERIC_NAMES | BATCHED_NAMES]
+               and k not in BF16_KERNELS | QUAT_NAMES | GENERIC_NAMES | MASKED_NAMES | BATCHED_NAMES]
     if missing:
         raise AssertionError(f"kernels not launched by the JACOBI path: {missing}")
     for a, b in zip(main.iterations, jacobi.iterations):
@@ -3158,7 +3515,7 @@ def main(argv=None) -> int:
         raise AssertionError("the mixed PCG did not run B4's bfloat16 instantiation alone")
     missing = [k for k, v in mixed_launches.items()
                if v <= 0 and k not in {"schur_sy", "gather_contract_bf16", "contract_reduce_bf16"}
-               | QUAT_NAMES | GENERIC_NAMES | BATCHED_NAMES]
+               | QUAT_NAMES | GENERIC_NAMES | MASKED_NAMES | BATCHED_NAMES]
     if missing:
         raise AssertionError(f"kernels not launched by the mixed path: {missing}")
     # the composed path: a second residual group; B2 and B3 in bfloat16
@@ -3182,6 +3539,7 @@ def main(argv=None) -> int:
     phase_line_search_run(bal, main)
     phase_inner_iteration_run(bal, main)
     phase_numeric_ba_run(bal)
+    sharded_launches = phase_sharded_runs(bal, main)
     # Fields-of-Experts denoising, B1 generic on every group
     del bal
     denoising = [run_denoising(*run) for run in FOE_RUNS]
@@ -3201,9 +3559,11 @@ def main(argv=None) -> int:
     launches.update({k: mixed_launches[k] for k in ("schur_sy_bf16",)})
     launches.update({k: composed_launches[k] for k in ("gather_contract_bf16", "contract_reduce_bf16")})
     launches.update({name: cov_launches.get(name, 0) for name, *_ in BATCHED_KERNELS})
+    launches["eval_snavely_masked"] = sharded_launches["eval_snavely_masked"]
 
     kernels = []
-    for name, src, replaces, _tol in KERNELS + QUAT_KERNELS + GENERIC_KERNELS + BATCHED_KERNELS:
+    for name, src, replaces, _tol in (KERNELS + QUAT_KERNELS + GENERIC_KERNELS + BATCHED_KERNELS
+                                      + MASKED_KERNELS):
         res = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

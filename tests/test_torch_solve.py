@@ -160,31 +160,38 @@ def test_float32_solve_decreases_cost():
     assert s.final_cost < 0.5 * s.initial_cost
 
 
+class _StandInMesh:
+    """What SolverOptions.is_valid reads of a parallel.distributed.Mesh."""
+
+    axis_names = ("dp",)
+
+
 UNSUPPORTED = {
-    # case: (options, the ROADMAP item its message names)
-    "invalid": ({"max_num_iterations": -1}, None),
-    "mesh": ({"mesh": object()}, "Queue A item 11"),
+    # case: (options, what the failure message says)
+    "invalid": ({"max_num_iterations": -1}, "max_num_iterations must be >= 0"),
+    # solve takes a mesh (parallel/), but not with a solver that factors the
+    # whole Jacobian on one process
+    "mesh": ({"mesh": _StandInMesh(), "linear_solver_type": ct.LinearSolverType.DENSE_QR},
+             "factors the whole Jacobian"),
 }
 
 
 @pytest.mark.parametrize("case", list(UNSUPPORTED))
 def test_invalid_and_unsupported_options(monkeypatch, case):
-    """Invalid options fail the solve; an option the port does not run
-    raises NotImplementedError naming its ROADMAP item before the Problem
-    is compiled, instead of being accepted and ignored."""
-    kw, item = UNSUPPORTED[case]
+    """Invalid options, a mesh with a solver that needs the whole Jacobian
+    among them, fail the solve before the Problem is compiled, instead of
+    being accepted and ignored."""
+    kw, message = UNSUPPORTED[case]
     problem, _, _ = ct.build_ba_problem(synthetic_bal(3, 10, 30, seed=4))
     options = _options(ct, device="cpu", **kw)
-    if case == "invalid":
-        s = ct.solve(options, problem)
-        assert s.termination_type == ct.TerminationType.FAILURE and "Invalid" in s.message
-        return
+
     def compiled(*args, **kwargs):
         raise AssertionError("the Problem was compiled before the option was refused")
 
     monkeypatch.setattr(problem, "compile", compiled)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ct.solve(options, problem)
+    s = ct.solve(options, problem)
+    assert s.termination_type == ct.TerminationType.FAILURE
+    assert "Invalid options" in s.message and message in s.message
 
 
 def test_empty_problem_converges():
