@@ -30,6 +30,9 @@ the card through B2 and B3 over a batch of columns) and the dense
 multistart TinySolver (tiny_solver.py). A solve shards over several
 processes (`SolverOptions(mesh=...)`, parallel/: one rank per shard, the
 reductions all-reduced over torch.distributed; B1 masks the pad lanes).
+The submodules `capi` (the C API's Python side, its embedding shim under
+native/) and `io.native` (the C++ BAL parser that `load_bal` takes) are
+built with the host's C++ compiler at first use.
 
 On CPU tensors every kernel wrapper runs its plain PyTorch version instead.
 Importing the package builds nothing; the kernels compile on first use on a

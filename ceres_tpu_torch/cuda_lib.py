@@ -24,6 +24,10 @@ and the flags, and `generated_fn` loads one. Each evaluation is one
 launch, counted as `eval_generic` (with the Jacobian),
 `eval_generic_analytic` (with the Jacobian, for a functor that carries an
 analytic rule) and `eval_generic_residual`.
+
+`build_host` compiles the port's host C++ sources (native/: the BAL
+loader and the C API's embedding shim) with g++, the same way: keyed by a
+hash, under the build lock, installed with os.replace.
 """
 
 from __future__ import annotations
@@ -186,6 +190,50 @@ def _build() -> Path:
     if failed:
         raise RuntimeError(f"nvcc failed {failed}:\n{''.join(logs)[-4000:]}")
     os.replace(tmp, out)
+    return out
+
+
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+
+
+def host_compiler():
+    """The C++ compiler of the host builds ($CXX, else g++) if it is on
+    PATH, else None."""
+    return shutil.which(os.environ.get("CXX") or "g++")
+
+
+def build_host(source, name: str, extra_flags=()) -> Path:
+    """Compile a host C++ source (a path) with g++ into
+    `_build/host_<hash>/<name>.so`, keyed by a hash of the source and the
+    flags, and return that path (the native BAL loader, io/native.py, and
+    the C API's embedding shim, capi.py). Runs under the build lock and
+    installs with os.replace, so processes that build at once end with one
+    library; a compile or link error raises with the compiler's output.
+    Needs a C++ compiler (host_compiler), never nvcc."""
+    source = Path(source)
+    flags = (*HOST_FLAGS, *extra_flags)
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(source.read_bytes())
+    out = BUILD_DIR / f"host_{h.hexdigest()[:16]}" / f"{name}.so"
+    with _build_lock():
+        if out.exists():
+            return out
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cxx = host_compiler()
+        if cxx is None:
+            raise RuntimeError("no C++ compiler on PATH ($CXX or g++)")
+        # the source first, the libraries it links after it
+        proc = subprocess.run(
+            [cxx, *HOST_FLAGS, f"-Wl,-soname,{out.name}", "-o", str(tmp), str(source),
+             *extra_flags],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{cxx} failed on {source.name} (rc {proc.returncode}):\n"
+                               f"{proc.stdout[-4000:]}")
+        os.replace(tmp, out)
     return out
 
 

@@ -268,9 +268,15 @@ class Evaluator:
 
     @property
     def capturable(self) -> bool:
-        """Whether an evaluation can run inside a CUDA graph (a sharded one
-        only where its mesh's all-reduces can)."""
-        return True
+        """Whether an evaluation can run inside a CUDA graph: not where a
+        group's functor or loss calls a host function (`runs_on_host`: the
+        C API's callbacks, capi.py), and a sharded one only where its mesh's
+        all-reduces can."""
+        return not any(
+            getattr(m.cost_function.fn, "runs_on_host", False)
+            or getattr(m.loss, "runs_on_host", False)
+            for m in self.program.groups
+        )
 
     def fn_graph(self, name):
         """A utils.graphs.FnGraph for the solver's functions over this

@@ -5,11 +5,15 @@ examples/bundle_adjuster.cc; flag surface at bundle_adjuster.cu.cc:74-145).
         --input problem-16-22106-pre.txt --linear_solver iterative_schur \\
         --preconditioner schur_jacobi --num_iterations 20
     python -m ceres_tpu_torch.examples.scripts.bundle_adjuster --synthetic 16,2210,8000
+    torchrun --nproc-per-node=2 -m ceres_tpu_torch.examples.scripts.bundle_adjuster \
+        --synthetic 16,2210,8000 --num_devices 2
 
 Prints the solver's full report, like Solver::Summary::FullReport().
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -74,7 +78,8 @@ def _args(argv):
     ap.add_argument("--point_sigma", type=float, default=0.0)
     ap.add_argument("--random_seed", type=int, default=38401)
     ap.add_argument("--num_devices", type=int, default=1,
-                    help="mesh size; more than one card waits for ROADMAP Queue A item 11")
+                    help="mesh size: more than 1 shards the solve over that many ranks, "
+                         "one process each, started by torchrun")
     ap.add_argument("--initial_ply", help="write initial reconstruction PLY")
     ap.add_argument("--final_ply", help="write final reconstruction PLY")
     args = ap.parse_args(argv)
@@ -83,12 +88,26 @@ def _args(argv):
     return args
 
 
+def _mesh(args):
+    """The mesh of a sharded run (examples/bundle_adjuster.py:190-194): this
+    process joins torchrun's group (parallel.distributed.initialize) and
+    spans every rank. None for --num_devices 1."""
+    if args.num_devices <= 1:
+        return None
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != args.num_devices:
+        raise ValueError(
+            f"--num_devices {args.num_devices} needs as many ranks, one process each "
+            f"(torchrun --nproc-per-node={args.num_devices}); this run has {world}")
+    from ceres_tpu_torch.parallel import distributed
+
+    distributed.initialize(device=args.device)
+    return distributed.global_mesh()
+
+
 def main(argv=None):
     args = _args(argv)
-    if args.num_devices > 1:
-        raise NotImplementedError(
-            "--num_devices > 1 (a mesh of cards) is not ported yet: ROADMAP Queue A item 11, "
-            "multi-GPU")
+    mesh = _mesh(args)
     if args.input:
         bal = ct.load_bal(args.input)
     else:
@@ -139,6 +158,7 @@ def main(argv=None):
         minimizer_progress_to_stdout=True,
         dtype=torch.float32 if args.mixed_precision else torch.float64,
         device=args.device,
+        mesh=mesh,
     )
     summary = ct.solve(options, problem)
     print()
@@ -147,6 +167,8 @@ def main(argv=None):
         bal.cameras = np.stack([problem.parameter_block_value(c) for c in cams])
         bal.points = np.stack([problem.parameter_block_value(p) for p in pts])
         bal.write_ply(args.final_ply)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -91,9 +91,23 @@ def _angle_axis_to_matrix(aa: np.ndarray) -> np.ndarray:
 
 
 def load_bal(path) -> BalProblem:
-    """Parse a BAL text file (examples/bal_problem.cc constructor) with
-    numpy: every token is read as ceres_tpu's loader reads it (indices as
-    int64, values as correctly rounded float64)."""
+    """Parse a BAL text file (examples/bal_problem.cc constructor) with the
+    native mmap + from_chars parser (io/native.py) where a C++ compiler is
+    on PATH, as ceres_tpu's load_bal takes its native library; with numpy
+    (`load_bal_numpy`, the plain version) otherwise. The two give bitwise
+    equal arrays."""
+    from . import native
+
+    parsed = native.load_bal_native(str(path))
+    if parsed is None:
+        return load_bal_numpy(path)
+    return BalProblem(*parsed)
+
+
+def load_bal_numpy(path) -> BalProblem:
+    """Parse a BAL text file with numpy: every token is read as ceres_tpu's
+    loader reads it (indices as int64, values as correctly rounded
+    float64)."""
     with open(path) as f:
         tokens = f.read().split()
     num_cameras, num_points, num_obs = (int(t) for t in tokens[:3])

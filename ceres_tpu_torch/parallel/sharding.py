@@ -127,4 +127,4 @@ class ShardedEvaluator(Evaluator):
     def capturable(self) -> bool:
         """A gloo mesh's all-reduces cannot run inside a CUDA graph: its
         solves run eagerly on the host loop (fused_loop.eligible)."""
-        return self.mesh.capturable
+        return self.mesh.capturable and super().capturable

@@ -194,6 +194,12 @@ class TrustRegionMinimizer:
         # steps are rejected (in the fused loop not under bounds, where the
         # active-set mask changes the effective scale every iteration)
         self.has_split = hasattr(self._step_fn, "prepare")
+        # the host loop of a sharded solve (a gloo mesh) stands in for
+        # ceres_tpu's sharded solve, which runs its fused loop: it takes that
+        # loop's split, none under bounds (fused_loop.make_chunk_fn). The
+        # split and the whole step sum in different orders: a bounded BA
+        # parts by 2.5e-5 in five iterations between them, in both packages
+        self.host_split = self.has_split and not (options.mesh is not None and program.has_bounds)
         # the projected line search: with bounds (upstream runs DoLineSearch
         # when is_constrained, :101-106), and on unconstrained problems with
         # trust_region_use_line_search
@@ -309,7 +315,7 @@ class TrustRegionMinimizer:
                         iter_scale = scale * mask
                 if iteration in options.trust_region_minimizer_iterations_to_dump:
                     dump_problem(options, iteration, jac, res_groups, grad, iter_scale, radius)
-                if not self.has_split:
+                if not self.host_split:
                     delta, mcc, lin_iters, valid = self._step_fn(
                         jac, res_groups, grad, radius, iter_scale
                     )

@@ -171,7 +171,25 @@ and prints no result):
      single-vector ones not; the blocks against S⁻¹ from a dense float64
      Cholesky of S assembled at D = 0), and tiny_solve_batched on 2^20
      Freudenstein-Roth starts (ms, reads, iterations, the share of lanes
-     at each minimum; 1,024 sampled lanes against the CPU).
+     at each minimum; 1,024 sampled lanes against the CPU). Then the
+     loaded-file run: synthetic_bal at Dubrovnik-356's shape written as a
+     BAL text file (%.17g) and read back by the native parser
+     (io/native.py, built here with g++) and by the numpy one, the arrays
+     bitwise equal, each parser's seconds; the solve of the loaded problem
+     (LM + ITERATIVE_SCHUR + SCHUR_JACOBI, Huber(1.0), float32, fused at
+     chunk 1, 3 iterations: B1-B5 launched) bitwise the same solve of the
+     in-memory problem, cost and PCG steps per iteration. Last the C API
+     (capi.py and its embedding shim, built here with g++: its seconds):
+     (a) in this process, a CProblem on the card with ctypes callbacks (the
+     67-point exponential fit of tests/test_c_api.py, one more block under
+     a stock Huber loss and one under a C loss callback) against the same
+     CProblem on the CPU (CERES_TPU_TORCH_C_API_DEVICE=cpu), float64: the
+     same iterations, cost within 1e-9 per iteration, ms per iteration,
+     host round trips per evaluation and device reads; (b) the unchanged
+     examples/curve_fitting.c linked against the shim and run as a
+     program with the device variable unset (on the card): exit 0, its
+     final m and c as %g prints them those of a CProblem on the CPU on the
+     C file's data.
 Then a JSON line describing the kernels, the card's name and power limit,
 and the last line {"ok": true, "device": {...}}.
 
@@ -3393,6 +3411,208 @@ def phase_tiny_multistart():
         raise AssertionError("tiny_solve_batched on the card disagrees with the CPU")
 
 
+def write_bal_text(bal, path):
+    """`bal` as a BAL text file, every value in %.17g (a double's round
+    trip: tests/test_native.py's format)."""
+    with open(path, "w") as f:
+        f.write(f"{bal.num_cameras} {bal.num_points} {bal.num_observations}\n")
+        f.write("".join(f"{c} {p} {u:.17g} {v:.17g}\n" for c, p, (u, v) in zip(
+            bal.camera_index.tolist(), bal.point_index.tolist(), bal.observations.tolist())))
+        f.write("".join(f"{x:.17g}\n" for x in np.concatenate(
+            [bal.cameras.reshape(-1), bal.points.reshape(-1)]).tolist()))
+
+
+def phase_native_loader_run(tmp):
+    """Phase 4, the loaded-file run: Dubrovnik-356's shape written as a BAL
+    file, parsed by the native parser and by numpy (bitwise equal), and
+    the main configuration solved on it for 3 iterations, bitwise the same
+    solve of the in-memory problem (B1-B5 launched)."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.io import bal as tbal
+    from ceres_tpu_torch.io import native
+
+    if not native.available():
+        raise AssertionError("no C++ compiler on PATH: the native BAL loader cannot build")
+    t_phase = time.time()
+    bal = ct.synthetic_bal(*DUBROVNIK_356, seed=0)
+    path = os.path.join(tmp, "dubrovnik-356-shape.txt")
+    t0 = time.time()
+    write_bal_text(bal, path)
+    t_write = time.time() - t0
+    t0 = time.time()
+    native.load_bal_native(path)  # builds the library
+    t_build = time.time() - t0
+    t0 = time.time()
+    loaded = ct.load_bal(path)
+    t_native = time.time() - t0
+    t0 = time.time()
+    plain = tbal.load_bal_numpy(path)
+    t_numpy = time.time() - t0
+    fields = ("cameras", "points", "camera_index", "point_index", "observations")
+    same = all(getattr(loaded, f).dtype == getattr(plain, f).dtype
+               and getattr(loaded, f).tobytes() == getattr(plain, f).tobytes() for f in fields)
+    exact = all(np.array_equal(getattr(loaded, f), getattr(bal, f)) for f in fields)
+    print(f"phase 4: BAL file at Dubrovnik-356's shape ({os.path.getsize(path) / 1e6:.1f} MB, "
+          f"written in {t_write:.1f} s): native parser {t_native:.3f} s (library built or "
+          f"found in {t_build:.1f} s), numpy parser {t_numpy:.3f} s ({t_numpy / t_native:.1f}x); "
+          f"arrays bitwise equal {same}, equal to the in-memory problem {exact}", flush=True)
+    if not (same and exact):
+        raise AssertionError("the native and numpy BAL parsers disagree")
+    memory, _ = run_main_path(bal, "SCHUR_JACOBI", label="in memory, Dubrovnik-356's shape",
+                              fused_execution_chunk_iters=1, max_num_iterations=3)
+    del bal, plain
+    from_file, launches = run_main_path(loaded, "SCHUR_JACOBI",
+                                        label="loaded from the file, Dubrovnik-356's shape",
+                                        fused_execution_chunk_iters=1, max_num_iterations=3)
+    for a, b in zip(memory.iterations, from_file.iterations, strict=True):
+        print(f"phase 4: Dubrovnik-356's shape: iter {a.iteration}: in memory "
+              f"{_iteration_line(a)} | loaded {_iteration_line(b)}", flush=True)
+    if [(it.cost, it.linear_solver_iterations) for it in memory.iterations] != [
+            (it.cost, it.linear_solver_iterations) for it in from_file.iterations]:
+        raise AssertionError("the loaded problem's solve is not bitwise the in-memory one's")
+    missing = [k for k in ("eval_snavely", "gather_contract", "contract_reduce", "schur_sy",
+                           "schur_p0") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the loaded-file run: {missing}")
+    print(f"phase 4: the loaded-file run took {time.time() - t_phase:.1f} s", flush=True)
+
+
+def _c_api_problem(capi, rows, losses=()):
+    """A capi.CProblem fitting (m, c) to rows (the C example's callback:
+    user_data points at (x, y)), plus one block per (row, loss kind, C loss
+    callback or None) of `losses`; returns (CProblem, m, c, what the caller
+    keeps alive)."""
+    import ctypes
+
+    dptr = ctypes.POINTER(ctypes.c_double)
+
+    @capi.COST_FUNC_T
+    def exponential_residual(user_data, parameters, residuals, jacobians):
+        x, y = ctypes.cast(user_data, dptr)[0:2]
+        m, c = parameters[0][0], parameters[1][0]
+        e = math.exp(m * x + c)
+        residuals[0] = y - e
+        if jacobians:
+            if jacobians[0]:
+                jacobians[0][0] = -x * e
+            if jacobians[1]:
+                jacobians[1][0] = -e
+        return 1
+
+    data = np.ascontiguousarray(np.concatenate(
+        [rows, np.reshape([r for r, _, _ in losses], (-1, 2))]), dtype=np.float64)
+    m, c = np.array([0.0]), np.array([0.0])
+    cp = capi.CProblem()
+    fn = ctypes.cast(exponential_residual, ctypes.c_void_p).value
+    kinds = [(-1, None)] * len(rows) + [(k, cb) for _, k, cb in losses]
+    for i, (kind, cb) in enumerate(kinds):
+        cp.add_residual_block_c(fn, data[i].ctypes.data, kind, 1.0, 0.0, 1,
+                                [m.ctypes.data, c.ctypes.data], [1, 1],
+                                ctypes.cast(cb, ctypes.c_void_p).value if cb else 0, 0)
+    return cp, m, c, (exponential_residual, data)
+
+
+def _lcg_rows(n=67):
+    """examples/curve_fitting.c's make_data in numpy."""
+    out, s = np.empty((n, 2)), 12345
+    for i in range(n):
+        s = (s * 6364136223846793005 + 1442695040888963407) % (1 << 64)
+        x = 0.075 * i
+        out[i] = x, math.exp(0.3 * x + 0.1) + ((s >> 11) / 9007199254740992.0 - 0.5) * 0.2
+    return out
+
+
+def phase_c_api_run(tmp):
+    """Phase 4, the C API: (a) a CProblem with ctypes callbacks on the card
+    against the same on the CPU; (b) the unchanged examples/curve_fitting.c
+    linked against the shim, run on the card, against a CProblem on the
+    CPU."""
+    import ctypes
+
+    from ceres_tpu_torch import capi
+
+    t_phase = t0 = time.time()
+    shim = capi.build_shim()
+    print(f"phase 4: C API shim {shim.name} built or found in {time.time() - t0:.1f} s "
+          f"(g++, {os.path.basename(str(shim.parent))})", flush=True)
+
+    @capi.LOSS_FUNC_T
+    def log_loss(user_data, s, out):
+        out[0], out[1], out[2] = math.log1p(s), 1.0 / (1.0 + s), -1.0 / (1.0 + s) ** 2
+
+    rng = np.random.default_rng(5)
+    x = 0.075 * np.arange(67)
+    rows = np.stack([x, np.exp(0.3 * x + 0.1) + rng.normal(0, 0.05, 67)], axis=1)
+    losses = [((5.1, 8.0), 0, None), ((5.2, 2.0), -1, log_loss)]  # Huber(1), the C loss
+    runs = {}
+    for device in ("cpu", None):
+        if device is None:
+            os.environ.pop(capi.DEVICE_ENV, None)
+        else:
+            os.environ[capi.DEVICE_ENV] = device
+        cp, m, c, keep = _c_api_problem(capi, rows, losses)
+        capi.reset_host_stats()
+        t0 = time.time()
+        report = cp.solve()
+        wall = time.time() - t0
+        s = cp.summary
+        evals = s.num_residual_evaluations + s.num_jacobian_evaluations
+        stats = capi.host_stats()
+        runs[str(cp.device)] = (s, float(m[0]), float(c[0]))
+        iters = len(s.iterations) - 1
+        print(f"phase 4: C API CProblem on {cp.device} ({s.num_residual_blocks} blocks, "
+              f"{len(cp.problem.compile(cp.device).groups)} groups, float64, "
+              f"{'fused' if s.used_fused_execution else 'host'} loop): "
+              f"{report.splitlines()[0]}; solve {wall:.2f} s, minimizer "
+              f"{1e3 * s.minimizer_time_in_seconds / max(iters, 1):.1f} ms per iteration "
+              f"({iters} iterations); {stats['round_trips']} host round trips in {evals} "
+              f"evaluations ({stats['round_trips'] / max(evals, 1):.1f} each), "
+              f"{stats['calls']} C calls, {s.num_device_reads} device reads "
+              f"({s.num_device_reads / max(evals, 1):.1f} per evaluation); m {float(m[0])!r} "
+              f"c {float(c[0])!r}", flush=True)
+        del keep
+    os.environ.pop(capi.DEVICE_ENV, None)
+    if set(runs) != {"cpu", "cuda"}:
+        raise AssertionError(f"the C API ran on {sorted(runs)}, not on the card and the CPU")
+    (cs, cm, cc), (gs, gm, gc_) = runs["cpu"], runs["cuda"]
+    gap = max(abs(a.cost - b.cost) / abs(a.cost) for a, b in zip(cs.iterations, gs.iterations))
+    print(f"phase 4: C API card vs CPU: iterations {len(gs.iterations)} vs {len(cs.iterations)}, "
+          f"per-iteration cost max rel diff {gap:.3e} (tol 1e-9), m {abs(gm - cm):.3e} "
+          f"c {abs(gc_ - cc):.3e}", flush=True)
+    if not (len(gs.iterations) == len(cs.iterations) and gap <= 1e-9
+            and abs(gm - cm) <= 1e-9 * abs(cm) and abs(gc_ - cc) <= 1e-9 * abs(cc)):
+        raise AssertionError("the C API's solve on the card disagrees with the CPU")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    exe = capi.link_c_program(os.path.join(root, "examples", "curve_fitting.c"),
+                              os.path.join(tmp, "curve_fitting"), shim)
+    env = {k: v for k, v in os.environ.items() if k != capi.DEVICE_ENV}
+    t0 = time.time()
+    proc = subprocess.run([exe], capture_output=True, text=True, timeout=600, env=env)
+    wall = time.time() - t0
+    found = re.search(r"^Final m: (\S+) c: (\S+)", proc.stdout, re.M)
+    device = re.search(r"^device: (\S+)", proc.stdout, re.M)
+    if proc.returncode != 0 or found is None or device is None:
+        raise AssertionError(f"examples/curve_fitting.c failed (rc {proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    os.environ[capi.DEVICE_ENV] = "cpu"
+    try:
+        cp, m, c, keep = _c_api_problem(capi, _lcg_rows())
+        cp.solve()
+    finally:
+        os.environ.pop(capi.DEVICE_ENV, None)
+    want = ("%g" % m[0], "%g" % c[0])
+    summary_line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("Solver Summary")), "")
+    print(f"phase 4: C API examples/curve_fitting.c (unchanged, linked against the shim) on "
+          f"{device.group(1)}: exit {proc.returncode} in {wall:.1f} s; {summary_line}; "
+          f"Final m: {found.group(1)} c: {found.group(2)}; CProblem on the CPU: m {want[0]} "
+          f"c {want[1]}", flush=True)
+    if device.group(1) != "cuda" or found.groups() != want:
+        raise AssertionError("examples/curve_fitting.c did not run on the card or disagrees "
+                             "with the CPU")
+    print(f"phase 4: the C API runs took {time.time() - t_phase:.1f} s", flush=True)
+
+
 def _iteration_line(it) -> str:
     return (
         f"cost {it.cost!r} pcg {it.linear_solver_iterations} ms "
@@ -3552,6 +3772,11 @@ def main(argv=None) -> int:
     # TinySolver
     cov_launches = phase_covariance_run()
     phase_tiny_multistart()
+    # this slice's runs: the native BAL loader, the C API
+    tmp = tempfile.TemporaryDirectory()
+    phase_native_loader_run(tmp.name)
+    phase_c_api_run(tmp.name)
+    tmp.cleanup()
     launches.update({k: denoising[0][1][k] for k in ("eval_generic",)})
     launches.update({k: analytic_launches[k] for k in ("eval_generic_analytic",)})
     # each kernel's launches on the run that is its main path

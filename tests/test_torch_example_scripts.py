@@ -75,8 +75,33 @@ def test_bundle_adjuster_synthetic(tmp_path, capsys):
     assert ply.read_text().startswith("ply\n") and len(ply.read_text().splitlines()) == 10 + 66
 
 
-def test_bundle_adjuster_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 11"):
+def _final_cost(out):
+    return float(re.search(r"^Final cost\s+(\S+)", out, re.M).group(1))
+
+
+def test_bundle_adjuster_on_a_two_rank_mesh(tmp_path, capsys):
+    """--num_devices 2 under two gloo ranks started as torchrun would
+    (tests/torch_mp.py): both ranks print the final cost of the 1-process
+    run of the same problem, to 1e-10. Every point of the problem is seen
+    by two cameras or more: a point seen by one makes the step depend on
+    the summation order (SCHUR_JACOBI's ridge, ROADMAP Queue C), and on
+    6,60,300, which has one, permuting the observations alone moves the
+    1-process final cost by 5.9e-8."""
+    import torch_mp
+
+    argv = ["--synthetic", "6,60,600", "--num_iterations", "3", "--robustify",
+            "--point_sigma", "0.01"]
+    handle = torch_mp.start_ranks(str(tmp_path), 2, {
+        "script": ["bundle_adjuster", *argv, "--num_devices", "2", "--device", "cpu"]})
+    _run("bundle_adjuster", *argv)
+    single = _final_cost(capsys.readouterr().out)
+    for rank in torch_mp.collect(handle):
+        assert "problem: 6 cameras, 60 points, 600 observations" in rank["stdout"]
+        np.testing.assert_allclose(_final_cost(rank["stdout"]), single, rtol=1e-10)
+
+
+def test_bundle_adjuster_refuses_a_mesh_that_is_not_the_world():
+    with pytest.raises(ValueError, match="--num_devices 2 needs as many ranks"):
         _run("bundle_adjuster", "--synthetic", "6,60,300", "--num_devices", "2")
 
 

@@ -48,7 +48,15 @@ from ceres_tpu_torch.parallel import distributed, sharding
 from ceres_tpu_torch.program import Program as TProgram
 
 import torch_mp
-from torch_mp_worker import EVAL_CASE, SOLVE_CASES, solve_options, summary_record
+from torch_mp_worker import (
+    EVAL_CASE,
+    PORT_ONLY_CASES,
+    SOLVE_CASES,
+    constrain,
+    solve_options,
+    solve_problem,
+    summary_record,
+)
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -215,7 +223,18 @@ def test_solve_refuses_an_options_device_that_is_not_the_meshs():
 
 # ----------------------------------------------- 2 spawned ranks (gloo)
 
-CASES = ["eval"] + list(SOLVE_CASES)
+CASES = ["eval"] + list(SOLVE_CASES) + list(PORT_ONLY_CASES)
+# the per-iteration bar against ceres_tpu's sharded solve: 1e-10, but the
+# mixed-precision solves, whose bfloat16 products round differently in the
+# two packages (test_torch_mixed_precision.py's bar of 1e-3), and the line
+# search, which amplifies summation-order rounding: there 10x ceres_tpu's
+# own gap between its sharded and unsharded solves, measured here (as
+# test_torch_line_search.py holds the port to 10x JAX's permuted gap)
+JAX_RTOL = {"mixed_precision": 1e-3}
+SELF_GAP_CASES = ("line_search",)
+# the bar against the port's unsharded solve: 1e-6, but the mixed-precision
+# solves, whose PCG counts the shards' summation order moves
+PORT_RTOL = {"mixed_precision": 1e-3}
 
 
 @pytest.fixture(scope="module")
@@ -250,13 +269,21 @@ def references(started):
         }}
         for case, (_opts, seed) in SOLVE_CASES.items():
             bal = synthetic_bal(6, 50, 203, seed=seed)
+            jp, _, jpts = j_build(bal, loss=ceres_tpu.HuberLoss(1.0))
             s_jax = ceres_tpu.solve(solve_options(ceres_tpu, case, mesh=mesh),
-                                    j_build(bal, loss=ceres_tpu.HuberLoss(1.0))[0])
+                                    constrain(jp, jpts, case))
             # unsharded, SUBSET needs its rows: the downgrade's JACOBI stands in
             unsharded = "cgnr_jacobi" if case == "subset" else case
             s_port = ct.solve(solve_options(ct, unsharded, device="cpu", dtype=F64),
-                              ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))[0])
+                              solve_problem(ct, case, bal))
             refs[case] = {"jax": summary_record(s_jax), "port": summary_record(s_port)}
+            if case in SELF_GAP_CASES:
+                jp, _, jpts = j_build(bal, loss=ceres_tpu.HuberLoss(1.0))
+                s_one = ceres_tpu.solve(solve_options(ceres_tpu, case), constrain(jp, jpts, case))
+                refs[case]["jax_self_gap"] = _gap(summary_record(s_one), refs[case]["jax"])
+        for case in PORT_ONLY_CASES:
+            refs[case] = {"port": summary_record(ct.solve(
+                solve_options(ct, case, device="cpu", dtype=F64), solve_problem(ct, case)))}
         return refs
     finally:
         JProgram.SEG_REDUCE_THRESHOLD, TProgram.SEG_REDUCE_THRESHOLD = saved
@@ -283,27 +310,50 @@ def test_sharded_evaluation_matches_jax(references, ranks):
         np.testing.assert_array_equal(r["eval"]["gradient"], got["gradient"])
 
 
+def _gap(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got["cost"], want["cost"]))
+
+
 @pytest.mark.parametrize("case", list(SOLVE_CASES))
 def test_sharded_solve_matches_jax_and_unsharded(references, ranks, case):
     got, want, port = ranks[0][case], references[case]["jax"], references[case]["port"]
-    assert got["linear_solver_iterations"] == want["linear_solver_iterations"]
+    print(f"{case}: largest per-iteration gap to ceres_tpu's sharded solve "
+          f"{_gap(got, want):.3e}, to the port's unsharded one {_gap(got, port):.3e}")
+    if case not in JAX_RTOL:
+        assert got["linear_solver_iterations"] == want["linear_solver_iterations"]
     assert got["step_is_successful"] == want["step_is_successful"]
-    gap = max(abs(a - b) / abs(b) for a, b in zip(got["cost"], want["cost"]))
-    print(f"{case}: largest per-iteration gap to ceres_tpu's sharded solve {gap:.3e}")
-    np.testing.assert_allclose(got["cost"], want["cost"], rtol=1e-10)
+    assert len(got["cost"]) == len(want["cost"])
+    rtol = JAX_RTOL.get(case, 1e-10)
+    if case in SELF_GAP_CASES:
+        print(f"{case}: ceres_tpu's own sharded/unsharded gap {references[case]['jax_self_gap']:.3e}")
+        rtol = max(rtol, 10 * references[case]["jax_self_gap"])
+    np.testing.assert_allclose(got["cost"], want["cost"], rtol=rtol)
+    np.testing.assert_allclose(got["cost"], port["cost"], rtol=PORT_RTOL.get(case, 1e-6))
+    assert got["all_reduces"] > 0
+
+
+@pytest.mark.parametrize("case", list(PORT_ONLY_CASES))
+def test_sharded_solve_without_a_jax_counterpart_matches_unsharded(references, ranks, case):
+    got, port = ranks[0][case], references[case]["port"]
+    print(f"{case}: largest per-iteration gap to the port's unsharded solve {_gap(got, port):.3e}")
+    assert got["step_is_successful"] == port["step_is_successful"]
     np.testing.assert_allclose(got["cost"], port["cost"], rtol=1e-6)
     assert got["all_reduces"] > 0
 
 
-@pytest.mark.parametrize("case", list(SOLVE_CASES))
+@pytest.mark.parametrize("case", list(SOLVE_CASES) + list(PORT_ONLY_CASES))
 def test_ranks_stay_in_lockstep(ranks, case):
     assert ranks[0][case] == ranks[1][case]
 
 
-@pytest.mark.parametrize("case", list(SOLVE_CASES))
+# the cases that take the host loop on one process too (fused_loop.eligible)
+HOST_LOOP_CASES = ("line_search", "inner_iterations")
+
+
+@pytest.mark.parametrize("case", list(SOLVE_CASES) + list(PORT_ONLY_CASES))
 def test_gloo_mesh_takes_the_host_loop(references, ranks, case):
     assert not ranks[0][case]["used_fused_execution"]
-    assert references[case]["port"]["used_fused_execution"]
+    assert references[case]["port"]["used_fused_execution"] == (case not in HOST_LOOP_CASES)
 
 
 def test_subset_downgrades_with_warning(ranks):

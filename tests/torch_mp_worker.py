@@ -13,6 +13,11 @@ group over tcp://localhost:<port>, runs every case of the spec in order
 on its shard and writes out_dir/rank<rank>.pkl: per case the numbers the
 parent compares (evaluation outputs, or per-iteration solve summaries),
 and under "replicate" what parallel.distributed.replicate gave the rank.
+
+A spec {"script": [name, arg, ...]} runs instead one example program of
+ceres_tpu_torch/examples/scripts as torchrun would start it (its
+environment: RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) and
+writes what it printed, {"stdout": text}.
 """
 
 import json
@@ -23,8 +28,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# (options by enum name, problem seed); the parent runs the same cases on
-# ceres_tpu's sharded solve and on the port's unsharded one
+# (options, enum values by name; problem seed); the parent runs the same cases on
+# ceres_tpu's sharded solve and on the port's unsharded one. "bounds" puts
+# lower bounds on the problem (`constrain`)
 SOLVE_CASES = {
     "ischur_schur_jacobi": ({"linear_solver_type": "ITERATIVE_SCHUR",
                              "preconditioner_type": "SCHUR_JACOBI"}, 3),
@@ -34,22 +40,53 @@ SOLVE_CASES = {
     "cluster_jacobi": ({"linear_solver_type": "ITERATIVE_SCHUR",
                         "preconditioner_type": "CLUSTER_JACOBI"}, 3),
     "subset": ({"linear_solver_type": "CGNR", "preconditioner_type": "SUBSET"}, 3),
+    "cluster_tridiagonal": ({"linear_solver_type": "ITERATIVE_SCHUR",
+                             "preconditioner_type": "CLUSTER_TRIDIAGONAL"}, 3),
+    "line_search": ({"minimizer_type": "LINE_SEARCH"}, 3),
+    "mixed_precision": ({"linear_solver_type": "ITERATIVE_SCHUR",
+                         "preconditioner_type": "SCHUR_JACOBI",
+                         "use_mixed_precision_solves": True}, 3),
+    "dense_schur": ({"linear_solver_type": "DENSE_SCHUR"}, 3),
+    "bounds": ({"linear_solver_type": "ITERATIVE_SCHUR", "preconditioner_type": "SCHUR_JACOBI",
+                "bounds": True}, 3),
+}
+# cases ceres_tpu cannot run on a mesh (its inner iterations raise NameError
+# "unbound axis name" there): held to the port's unsharded solve only
+PORT_ONLY_CASES = {
+    "inner_iterations": ({"linear_solver_type": "ITERATIVE_SCHUR",
+                          "preconditioner_type": "SCHUR_JACOBI", "use_inner_iterations": True}, 3),
 }
 SOLVE_ITERATIONS = 5
 # (problem seed, observations) of the evaluation cases, as tests/test_sharding.py
 EVAL_CASE = (2, 203)
+_ENUMS = {"linear_solver_type": "LinearSolverType", "preconditioner_type": "PreconditionerType",
+          "trust_region_strategy_type": "TrustRegionStrategyType",
+          "minimizer_type": "MinimizerType"}
+
+
+def case_spec(case):
+    return {**SOLVE_CASES, **PORT_ONLY_CASES}[case]
 
 
 def solve_options(ct_or_jax, case, **extra):
     """SolverOptions of a SOLVE_CASES entry for either package (its module)."""
-    opts, _seed = SOLVE_CASES[case]
+    opts, _seed = case_spec(case)
     kw = {}
     for name, value in opts.items():
-        enum = {"linear_solver_type": "LinearSolverType",
-                "preconditioner_type": "PreconditionerType",
-                "trust_region_strategy_type": "TrustRegionStrategyType"}[name]
-        kw[name] = getattr(getattr(ct_or_jax, enum), value)
+        if name in _ENUMS:
+            kw[name] = getattr(getattr(ct_or_jax, _ENUMS[name]), value)
+        elif name != "bounds":
+            kw[name] = value
     return ct_or_jax.SolverOptions(max_num_iterations=SOLVE_ITERATIONS, **kw, **extra)
+
+
+def constrain(problem, points, case):
+    """The bounds of a case: the depth coordinate of the first 10 points at
+    least -1 (for either package's Problem; binding on the seed-3 problem)."""
+    if case_spec(case)[0].get("bounds"):
+        for h in list(points)[:10]:
+            problem.set_parameter_lower_bound(h, 2, -1.0)
+    return problem
 
 
 def summary_record(s):
@@ -110,8 +147,9 @@ def run_eval(ct, mesh):
 def solve_problem(ct, case, bal=None):
     """The Huber BA problem of a SOLVE_CASES entry (or of `bal`)."""
     if bal is None:
-        bal = ct.synthetic_bal(6, 50, 203, seed=SOLVE_CASES[case][1])
-    return ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))[0]
+        bal = ct.synthetic_bal(6, 50, 203, seed=case_spec(case)[1])
+    problem, _, points = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))
+    return constrain(problem, points, case)
 
 
 def run_solve(ct, mesh, case, bal=None):
@@ -129,12 +167,34 @@ def run_solve(ct, mesh, case, bal=None):
     return out
 
 
+def run_script(argv, rank, world, port):
+    """Run an example program's main(argv[1:]) as rank `rank` of a torchrun
+    group; returns what it printed."""
+    import contextlib
+    import importlib
+    import io
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    mod = importlib.import_module(f"ceres_tpu_torch.examples.scripts.{argv[0]}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        mod.main(argv[1:])
+    return {"stdout": out.getvalue()}
+
+
 def main():
     rank, world, port = (int(a) for a in sys.argv[1:4])
     spec = json.load(open(sys.argv[4]))
     import torch
 
     torch.set_num_threads(1)
+    if spec.get("script"):
+        out = run_script(spec["script"], rank, world, port)
+        with open(os.path.join(sys.argv[5], f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        return
     import ceres_tpu_torch as ct
     from ceres_tpu_torch.parallel import distributed
     from ceres_tpu_torch.program import Program
