@@ -12,6 +12,12 @@
 // dsq is given, the other columns get + dsq·y (y, dsq and out all [k, ncols]),
 // rounded as a product and then a sum (no FMA), as out + dsq·y rounds. B3
 // and B5 pass live_cols = ncols and no y or dsq.
+//
+// chunk_sum_lanes_kernel is the same sum for partials whose chunk axis is
+// outermost, partial [nchunks, w] -> out [ncols, w] (the column-batched
+// B3 of gather_reduce.cu, w = t * k with the column axis innermost): one
+// thread per output, neighbouring threads on neighbouring addresses, each
+// adding its column's chunks in index order from 0 as above.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -54,6 +60,30 @@ void launch_chunk_sum(const T* partial, const int* row_chunks, int k, int nchunk
     const int blocks = static_cast<int>((total + kSumBlock - 1) / kSumBlock);
     chunk_sum_kernel<T><<<blocks, kSumBlock, 0, stream>>>(partial, row_chunks, k, nchunks, ncols,
                                                           live_cols, y, dsq, out);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSumBlock)
+    chunk_sum_lanes_kernel(const T* __restrict__ partial, const int* __restrict__ row_chunks,
+                           int w, int ncols, T* __restrict__ out) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kSumBlock + threadIdx.x;
+  if (idx >= static_cast<long long>(ncols) * w) return;
+  const int c = static_cast<int>(idx / w);
+  const int x = static_cast<int>(idx % w);
+  T s = T(0);
+  for (int m = row_chunks[c]; m < row_chunks[c + 1]; ++m) s += partial[static_cast<size_t>(m) * w + x];
+  out[idx] = s;
+}
+
+template <typename T>
+void launch_chunk_sum_lanes(const T* partial, const int* row_chunks, int w, int ncols, T* out,
+                            cudaStream_t stream) {
+  const long long total = static_cast<long long>(ncols) * w;
+  if (total > 0) {
+    const int blocks = static_cast<int>((total + kSumBlock - 1) / kSumBlock);
+    chunk_sum_lanes_kernel<T><<<blocks, kSumBlock, 0, stream>>>(partial, row_chunks, w, ncols,
+                                                                  out);
   }
 }
 

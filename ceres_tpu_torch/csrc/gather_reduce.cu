@@ -62,13 +62,11 @@
 // contract_reduce_batched_kernel): the contract jax.vmap makes of the TPU
 // kernels for the covariance's batched PCG (ceres_tpu/covariance.py:212),
 // where the table or u carries a column axis and the leaf, rows and twin
-// do not. Bound on an H100: device memory, the leaf once, rows, the k
-// tables or u's and the k outputs. Run column by column, the single-vector
-// kernels would read the leaf k times (at Dubrovnik-356's shape in float64,
-// 181 MB per read); the batched B2 reads it once (a lane's leaf values in
-// registers) and the batched B3 once per group of G columns. Each
-// column is bitwise the single-vector kernel's output: the same sums in the
-// same order.
+// do not. They keep that axis innermost in memory and walk the twin, so
+// each reads the twin once and moves about what its bound counts (the
+// leaf once, rows, the k tables or u's and the k outputs); each column is
+// bitwise the single-vector kernel's output. Their notes are at the
+// kernels.
 //
 // Each is instantiated for float and double, and for bfloat16 leaves
 // (leaf.cuh: the mixed-precision solves, half the leaf bytes): B2 rounds the
@@ -77,6 +75,7 @@
 // are float, and so are the table, u and the outputs.
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -307,176 +306,442 @@ __global__ void __launch_bounds__(kReduceBlock)
   }
 }
 
-// B2 over k columns at once (the contract jax.vmap makes of
-// _gather_contract_kernel for the covariance's batched PCG,
-// ceres_tpu/covariance.py:212): out[e, i, l] = sum_j jac[i*t + j, l] *
-// table[e, j, rows[l]], the table given as [k, ncols, t] (the wrapper's
-// transposed copy of [k, t, ncols]: one column's table is contiguous, and
-// a lane's t values of it too, so the block's lanes, which sweep the
-// columns together, find the column they are on in L1). One thread per
-// lane: with R, T > 0 its R*T leaf values are loaded once into registers
-// and serve all k columns; R = T = 0 takes any r, t and reads the leaf
-// again per column (from L1/L2). Each column's sums run as
-// gather_contract_kernel's (j ascending, the same rounding of the table),
-// so each column is bitwise that kernel's output.
-template <typename L, int R, int T>
-__global__ void __launch_bounds__(kGatherBlock)
-    gather_contract_batched_kernel(const L* __restrict__ jac, const int* __restrict__ rows,
-                                   const typename leaf::Leaf<L>::V* __restrict__ table, int n,
-                                   int r, int t, int ncols, int k,
-                                   typename leaf::Leaf<L>::V* __restrict__ out) {
-  using Lf = leaf::Leaf<L>;
-  using V = typename Lf::V;
-  const int l = blockIdx.x * kGatherBlock + threadIdx.x;
-  if (l >= n) return;
-  const size_t N = static_cast<size_t>(n);
-  const int c = rows[l];
-  if (!(c >= 0 && c < ncols - 1)) {  // the dump column gathers zero
-    for (int q = 0; q < k * r; ++q) out[static_cast<size_t>(q) * N + l] = V(0);
-    return;
-  }
-  const size_t col_stride = static_cast<size_t>(ncols) * t;
-  const V* tc = table + static_cast<size_t>(c) * t;
-  if constexpr (R > 0) {
-    V x[R * T];
-#pragma unroll
-    for (int q = 0; q < R * T; ++q) x[q] = Lf::ld(jac + static_cast<size_t>(q) * N + l);
-    for (int e = 0; e < k; ++e) {
-      const V* te = tc + e * col_stride;
-      V y[T];
-#pragma unroll
-      for (int j = 0; j < T; ++j) y[j] = Lf::round(te[j]);
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        V acc = V(0);
-#pragma unroll
-        for (int j = 0; j < T; ++j) acc += x[i * T + j] * y[j];
-        out[(static_cast<size_t>(e) * R + i) * N + l] = acc;
-      }
-    }
-  } else {
-    for (int e = 0; e < k; ++e) {
-      const V* te = tc + e * col_stride;
-      for (int i = 0; i < r; ++i) {
-        V acc = V(0);
-        for (int j = 0; j < t; ++j) {
-          acc += Lf::ld(jac + static_cast<size_t>(i * t + j) * N + l) * Lf::round(te[j]);
-        }
-        out[(static_cast<size_t>(e) * r + i) * N + l] = acc;
-      }
-    }
-  }
-}
+// ---- B2 and B3 over k columns at once ------------------------------------
+//
+// The contract jax.vmap makes of _gather_contract_kernel and
+// _contract_reduce_kernel for the covariance's batched PCG
+// (ceres_tpu/covariance.py:212): the table or u carries a column axis, the
+// leaf, rows and twin do not. Both keep that axis innermost in memory:
+// residual-space vectors are [n, r, k] (lane l's r*k values one contiguous
+// row: 1,152 bytes at k = 72 in double), class tables [ncols, t, k]
+// (gather_reduce.py: views of those, logical [k, r, n] and [k, t, ncols]).
+// Both walk the twin (the leaf in camera order, a chunk of at most
+// kChunkSlots slots per camera): a chunk's camera table slice is read once
+// per chunk, and a slot's lane is one row. Bound on an H100: device memory,
+// the leaf once, rows, the k tables and the k u's or outputs (1.45 GB of
+// the 1.63 GB at Dubrovnik-356's shape in double; PERF.md §6).
+//
+// Each column is bitwise the single-vector kernel's output on it: the same
+// sums in the same order (below).
 
-// B3 over k columns at once (the vmapped _contract_reduce_kernel): one
-// block per (chunk, group of G columns), the same 256 threads and
-// slot-to-thread map as contract_reduce_kernel. A thread loads each slot's
-// twin values once for the group and forms the products with the group's
-// u values, so the twin is read ceil(k / G) times for k columns (G =
-// kBatchCols = 8: at 200 registers a thread for float64 and 124 for float
-// vectors, no spills; 4 and 16 were slower on the H100). u comes
-// lane-major, [n, r, k] (lanes_major_kernel's copy of [k, r, n]): the
-// slots of a camera gather lanes from all over n, and this way a slot's G
-// values of one row are one contiguous load (32 or 64 bytes) instead of G
-// scattered sectors. Each (column, row) sum runs in the single-vector
-// kernel's order (slots of the thread ascending, i ascending, the same
-// shuffle tree and pass over the warps), and rows are independent, so the
-// passes of kBatchRows rows (not kRows) change nothing: each column is
-// bitwise contract_reduce_kernel's output. partial is [k*t, nchunks].
-constexpr int kBatchCols = 8;
-constexpr int kBatchRows = 9;
-constexpr int kTile = 32;  // lanes_major_kernel's tiles: 32 x 32, 32 x 8 threads
+constexpr int kChunkSlots = 2048;               // program.TWIN_CHUNK
+constexpr int kStreams = kReduceBlock;          // contract_reduce_kernel's slot streams
+constexpr int kMaxP = kChunkSlots / kStreams;   // slots of one stream (8)
+constexpr int kStages = 4;                      // B3 batched: visits in flight
+constexpr int kB3MaxCols = 128;                 // B3 batched: columns of a block
+constexpr int kB2Threads = 256;                 // B2 batched: threads of a block at most
+constexpr int kB2Split = 4;                     // B2 batched: blocks per chunk
+constexpr int kB2Tile = 128;                    // B2 batched: slots per staged tile
+constexpr int kAnyRows = 8;                     // rows per pass of the any-(r, t) B3
+constexpr int kMaxSmem = 232448;                // the H100's 227 KB a block
 
-// u [k, r, n] -> [n, r, k]: for each row i the [k, n] matrix transposed
-// through a shared-memory tile (reads and writes coalesced; torch's strided
-// copy of the same permutation took ~3.5 ms at k = 72, n = 1,255,268 in
-// float64 on the H100)
-template <typename V>
-__global__ void __launch_bounds__(kTile * 8)
-    lanes_major_kernel(const V* __restrict__ u, int k, int r, int n, V* __restrict__ out) {
-  __shared__ V tile[kTile][kTile + 1];
-  const int l0 = blockIdx.x * kTile;
-  const int e0 = blockIdx.y * kTile;
-  const int i = blockIdx.z;
-  const size_t N = static_cast<size_t>(n);
-  for (int y = threadIdx.y; y < kTile; y += 8) {
-    const int e = e0 + y, l = l0 + threadIdx.x;
-    if (e < k && l < n) tile[y][threadIdx.x] = u[(static_cast<size_t>(e) * r + i) * N + l];
-  }
-  __syncthreads();
-  for (int y = threadIdx.y; y < kTile; y += 8) {
-    const int l = l0 + y, e = e0 + threadIdx.x;
-    if (e < k && l < n) out[(static_cast<size_t>(l) * r + i) * k + e] = tile[threadIdx.x][y];
-  }
-}
-
+// A twin element as B3 batched stages it: cp.async copies 4, 8 or 16
+// bytes, so a bfloat16 element travels in the 4-byte word that holds it
+// (its half picked by the slot's parity: rows and chunks start at even
+// slots) and is widened as Leaf<bf16>::ldcs widens it.
 template <typename L>
-__global__ void __launch_bounds__(kReduceBlock)
+struct TwinWord {
+  using W = L;
+  __device__ __forceinline__ static const W* at(const L* p) { return p; }
+  __device__ __forceinline__ static L value(W w, int) { return w; }
+};
+
+template <>
+struct TwinWord<__nv_bfloat16> {
+  using W = unsigned;
+  __device__ __forceinline__ static const W* at(const __nv_bfloat16* p) {
+    return reinterpret_cast<const W*>(reinterpret_cast<uintptr_t>(p) & ~uintptr_t(3));
+  }
+  __device__ __forceinline__ static float value(W w, int odd) {
+    return __bfloat162float(
+        __ushort_as_bfloat16(static_cast<unsigned short>(odd ? w >> 16 : w & 0xffffu)));
+  }
+};
+
+// N words from 16-byte-aligned shared memory, by 16-byte loads (the
+// buffer holds whole 16-byte units past N)
+template <typename W, int N>
+__device__ __forceinline__ void load_words(const W* p, W (&out)[N]) {
+  constexpr int kPer = 16 / sizeof(W);
+#pragma unroll
+  for (int c = 0; c < (N + kPer - 1) / kPer; ++c) {
+    union {
+      uint4 v;
+      W w[kPer];
+    } tmp;
+    tmp.v = reinterpret_cast<const uint4*>(p)[c];
+#pragma unroll
+    for (int z = 0; z < kPer; ++z) {
+      if (c * kPer + z < N) out[c * kPer + z] = tmp.w[z];
+    }
+  }
+}
+
+// B3 over k columns (replaces the vmapped _contract_reduce_kernel; its
+// first version transposed u to [n, r, k] in a pass of its own and
+// read the twin once per group of 8 columns, ~6 GB at Dubrovnik-356's
+// shape for a bound of 1.63):
+//     partial[m, j, e] = sum_{slots s of chunk m} sum_i twin[i*t + j, s] * u[perm[s], i, e]
+// One block per (chunk, row pass, block of up to kB3MaxCols columns), the
+// blocks of a chunk adjacent; H groups of column threads, thread (h, e)
+// owning column e's sums of rows j0 + h*JT ... + JT - 1 of the pass. The
+// block walks the chunk's slots once, so the twin is read once and u (the
+// bound) once, each lane's row by 16-byte cp.async into a ring of kStages
+// buffers in shared memory (the u rows of the slots of one "visit", and
+// their twin values, a visit ahead of use by kStages - 1), with the
+// chunk's perm staged first. Two row groups (the camera shapes in double)
+// halve a thread's sums and registers and double the warps that hide the
+// copies' latency; the u rows they share are staged once.
+//
+// The order: contract_reduce_kernel sums slot stream q (thread q: slots q,
+// q + 256, ... of the chunk, each over i) per thread, adds the 32 streams
+// of a warp by the shuffle tree (offsets 16, 8, 4, 2, 1) and the 8 warps in
+// order from 0. Here visit v is stream 32*(v / 32) + bitrev5(v % 32): in
+// that order the shuffle tree is a left-to-right binary tree over the
+// visits, which each thread folds with one pending sum per level (lv0 ..
+// lv4) and adds each warp's root to its total. So every (column, row) sum
+// is bitwise contract_reduce_kernel's on that column; camera_chunks.cuh's
+// chunk_sum_lanes_kernel adds a camera's chunks in index order. No atomics.
+//
+// R > 0: the camera shapes (r = R, t <= H*JT, one pass, the twin values of
+// a slot by 16-byte shared loads); R = 0: any r, passes of H*JT rows.
+template <typename L, int R, int JT, int H>
+__global__ void __launch_bounds__(H * kB3MaxCols)
     contract_reduce_batched_kernel(const L* __restrict__ twin, const int* __restrict__ perm,
                                    const int* __restrict__ chunk_start,
-                                   const typename leaf::Leaf<L>::V* __restrict__ u, int n,
-                                   int n_pad, int r, int t, int k, int nchunks,
+                                   const typename leaf::Leaf<L>::V* __restrict__ u, int n_pad,
+                                   int r_arg, int t, int k, int ncb, int npass, int cbp, int wide,
                                    typename leaf::Leaf<L>::V* __restrict__ partial) {
   using Lf = leaf::Leaf<L>;
   using V = typename Lf::V;
-  __shared__ V sh[kReduceBlock / 32][kBatchCols][kBatchRows];
-  const int m = blockIdx.x;
-  const int e0 = blockIdx.y * kBatchCols;
-  const int ne = min(kBatchCols, k - e0);
+  using Tw = TwinWord<L>;
+  using W = typename Tw::W;
+  const int r = R > 0 ? R : r_arg;
+  const int cols = blockDim.x / H;  // column threads of a row group
+  const int h = threadIdx.x / cols;
+  const int ct = threadIdx.x - h * cols;
+  const int cb = blockIdx.x % ncb;
+  const int rest = blockIdx.x / ncb;
+  const int jb = (rest % npass) * H * JT;  // the pass's first row
+  const int m = rest / npass;
+  const int j0 = jb + h * JT;              // this thread's first row
+  const int nj = max(0, min(JT, t - j0));
+  const int e0 = cb * cols;
+  const int cbw = min(cols, k - e0);
+  const bool active = ct < cbw;
   const int beg = chunk_start[m];
-  const int end = chunk_start[m + 1];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int S = chunk_start[m + 1] - beg;
+  const int rth = (r * JT + 3) & ~3;  // a slot's staged twin words of one row group (16-byte units)
+  const int rtp = H * rth;
   const size_t NP = static_cast<size_t>(n_pad);
-  for (int j0 = 0; j0 < t; j0 += kBatchRows) {
-    const int nj = min(kBatchRows, t - j0);
-    V acc[kBatchCols][kBatchRows];
-#pragma unroll
-    for (int c = 0; c < kBatchCols; ++c) {
-#pragma unroll
-      for (int q = 0; q < kBatchRows; ++q) acc[c][q] = V(0);
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* perm_sh = reinterpret_cast<int*>(smem);
+  V* ush = reinterpret_cast<V*>(smem + kChunkSlots * sizeof(int));
+  W* tsh = reinterpret_cast<W*>(ush + static_cast<size_t>(kStages) * kMaxP * r * cbp);
+  for (int s = threadIdx.x; s < S; s += blockDim.x) perm_sh[s] = perm[beg + s];
+  __syncthreads();
+  const int per = wide ? 16 / static_cast<int>(sizeof(V)) : 1;  // values per copy
+  const int units = (cbw + per - 1) / per;                       // copies per (slot, row i)
+  // a thread's copies, fixed for every visit: unit `uc` of the u rows
+  // (slot p, row i) = rho0, rho0 + rstep, ... (rstep >= 1: units <= cbw <=
+  // blockDim), and twin word `w0` of slots p0, p0 + pstep, ... (none if its
+  // row is past t)
+  const int rstep = blockDim.x / units;
+  const int uc = threadIdx.x % units;
+  const int rho0 = static_cast<int>(threadIdx.x) < rstep * units ? threadIdx.x / units : kMaxP * r;
+  const int rn = H * r * JT;  // twin words a slot, one per (row group, i, row)
+  const int pstep = blockDim.x / rn;
+  const int w0 = threadIdx.x % rn;
+  const int hw = w0 / (r * JT);
+  const int iw = (w0 - hw * r * JT) / JT;
+  const int jw = w0 - hw * r * JT - iw * JT;
+  const bool real = jb + hw * JT + jw < t;
+  const int p0 = static_cast<int>(threadIdx.x) < pstep * rn && real ? threadIdx.x / rn : kMaxP;
+  const L* trow = twin + static_cast<size_t>(iw * t + jb + hw * JT + jw) * NP + beg;
+  const int tdst = hw * rth + iw * JT + jw;
+
+  auto stream_of = [](int v) { return (v & ~31) | static_cast<int>(__brev(v & 31) >> 27); };
+  auto slots_of = [S](int q) { return q < S ? (S - q + kStreams - 1) / kStreams : 0; };
+  // stage visit v (if any) into buffer v % kStages; always one commit group
+  auto stage_visit = [&](int v) {
+    if (v < kStreams) {
+      const int q = stream_of(v);
+      const int P = slots_of(q);
+      V* ub = ush + static_cast<size_t>(v % kStages) * kMaxP * r * cbp;
+      W* tb = tsh + static_cast<size_t>(v % kStages) * kMaxP * rtp;
+      for (int rho = rho0; rho < P * r; rho += rstep) {
+        const int p = rho / r;
+        const int l = perm_sh[q + kStreams * p];
+        if (l < 0) continue;  // padding: the twin is zero there
+        V* dst = ub + static_cast<size_t>(rho) * cbp + uc * per;
+        const V* src = u + (static_cast<size_t>(l) * r + (rho - p * r)) * k + e0 + uc * per;
+        if (wide) {
+          __pipeline_memcpy_async(dst, src, 16);
+        } else {
+          __pipeline_memcpy_async(dst, src, sizeof(V));
+        }
+      }
+      if (pstep > 0) {
+        for (int p = p0; p < P; p += pstep) {
+          const int s = q + kStreams * p;
+          if (perm_sh[s] < 0) continue;
+          __pipeline_memcpy_async(tb + p * rtp + tdst, Tw::at(trow + s), sizeof(W));
+        }
+      } else {  // more twin words a slot than threads
+        for (int idx = threadIdx.x; idx < P * rn; idx += blockDim.x) {
+          const int p = idx / rn;
+          const int x = idx - p * rn;
+          const int hx = x / (r * JT);
+          const int ix = (x - hx * r * JT) / JT;
+          const int jx = x - hx * r * JT - ix * JT;
+          const int s = q + kStreams * p;
+          if (jb + hx * JT + jx >= t || perm_sh[s] < 0) continue;
+          const L* src = twin + static_cast<size_t>(ix * t + jb + hx * JT + jx) * NP + beg + s;
+          __pipeline_memcpy_async(tb + p * rtp + hx * rth + ix * JT + jx, Tw::at(src),
+                                  sizeof(W));
+        }
+      }
     }
-    for (int s = beg + threadIdx.x; s < end; s += kReduceBlock) {
-      const int l = perm[s];
-      if (l < 0) continue;  // padding: the twin is zero there
-      for (int i = 0; i < r; ++i) {
-        const L* col = twin + static_cast<size_t>(i * t + j0) * NP + s;
-        V x[kBatchRows];
+    __pipeline_commit();
+  };
+
+  // the tree's levels 0-2 in registers; levels 3-4 and the total, touched
+  // every 8th, 16th and 32nd visit, in this thread's own shared memory
+  // ([3][JT][blockDim]: no other thread reads them)
+  V acc[JT], lv0[JT], lv1[JT], lv2[JT];
+  V* lv3 = reinterpret_cast<V*>(tsh + static_cast<size_t>(kStages) * kMaxP * rtp) + threadIdx.x;
+  V* lv4 = lv3 + JT * blockDim.x;
+  V* tot = lv4 + JT * blockDim.x;
 #pragma unroll
-        for (int q = 0; q < kBatchRows; ++q) x[q] = q < nj ? Lf::ldcs(col + q * NP) : V(0);
-        const V* ui = u + (static_cast<size_t>(l) * r + i) * k + e0;
+  for (int jj = 0; jj < JT; ++jj) {
+    tot[jj * blockDim.x] = V(0);
+    lv0[jj] = lv1[jj] = lv2[jj] = V(0);
+  }
 #pragma unroll
-        for (int c = 0; c < kBatchCols; ++c) {
-          if (c < ne) {
-            const V w = Lf::round(ui[c]);
+  for (int v = 0; v < kStages - 1; ++v) stage_visit(v);
+  for (int v = 0; v < kStreams; ++v) {
+    __pipeline_wait_prior(kStages - 2);  // this thread's copies of visit v have landed
+    __syncthreads();                     // everyone's; and buffer (v - 1) % kStages is free
+    stage_visit(v + kStages - 1);
+    const int q = stream_of(v);
+    const int P = slots_of(q);
+    const int odd = q & 1;
+    const V* ub = ush + static_cast<size_t>(v % kStages) * kMaxP * r * cbp + ct;
+    const W* tb = tsh + static_cast<size_t>(v % kStages) * kMaxP * rtp + h * rth;
 #pragma unroll
-            for (int q = 0; q < kBatchRows; ++q) {
-              if (q < nj) acc[c][q] += x[q] * w;
+    for (int jj = 0; jj < JT; ++jj) acc[jj] = V(0);
+    for (int p = 0; p < P; ++p) {
+      if (perm_sh[q + kStreams * p] < 0) continue;
+      if constexpr (R > 0) {
+        W x[R * JT];  // words past nj are never stored: their sums are dropped
+        load_words(tb + p * rtp, x);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const V w = active ? Lf::round(ub[(p * R + i) * cbp]) : V(0);
+#pragma unroll
+          for (int jj = 0; jj < JT; ++jj) acc[jj] += Tw::value(x[i * JT + jj], odd) * w;
+        }
+      } else {
+        for (int i = 0; i < r; ++i) {
+          const V w = active ? Lf::round(ub[(p * r + i) * cbp]) : V(0);
+          const W* x = tb + p * rtp + i * JT;
+#pragma unroll
+          for (int jj = 0; jj < JT; ++jj) {
+            if (jj < nj) acc[jj] += Tw::value(x[jj], odd) * w;
+          }
+        }
+      }
+    }
+    // fold visit v into the warp tree: level b holds a pending left sum
+    const int mm = v & 31;
+#pragma unroll
+    for (int jj = 0; jj < JT; ++jj) {
+      V x = acc[jj];
+      if (!(mm & 1)) {
+        lv0[jj] = x;
+      } else {
+        x = lv0[jj] + x;
+        if (!(mm & 2)) {
+          lv1[jj] = x;
+        } else {
+          x = lv1[jj] + x;
+          if (!(mm & 4)) {
+            lv2[jj] = x;
+          } else {
+            x = lv2[jj] + x;
+            const int o = jj * blockDim.x;
+            if (!(mm & 8)) {
+              lv3[o] = x;
+            } else {
+              x = lv3[o] + x;
+              if (!(mm & 16)) {
+                lv4[o] = x;
+              } else {
+                tot[o] += lv4[o] + x;  // the warp's root, added in warp order
+              }
             }
           }
         }
       }
     }
+  }
+  if (active) {
 #pragma unroll
-    for (int c = 0; c < kBatchCols; ++c) {
-#pragma unroll
-      for (int q = 0; q < kBatchRows; ++q) {
-        V v = acc[c][q];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-        if (lane == 0) sh[warp][c][q] = v;
+    for (int jj = 0; jj < JT; ++jj) {
+      if (jj < nj) {
+        partial[(static_cast<size_t>(m) * t + j0 + jj) * k + e0 + ct] = tot[jj * blockDim.x];
       }
     }
-    __syncthreads();
-    for (int o = threadIdx.x; o < ne * nj; o += kReduceBlock) {
-      const int c = o / nj;
-      const int q = o - c * nj;
-      V s = V(0);
-#pragma unroll
-      for (int w = 0; w < kReduceBlock / 32; ++w) s += sh[w][c][q];
-      partial[(static_cast<size_t>(e0 + c) * t + j0 + q) * nchunks + m] = s;
+  }
+}
+
+// B2 over k columns (replaces the vmapped _gather_contract_kernel; its
+// first version ran in lane order and gathered each lane's camera
+// table per column, ~6.5 GB of scattered table reads at Dubrovnik-356's
+// shape):
+//     out[l, i, e] = sum_j jac[i*t + j, l] * table[rows[l], j, e]
+// on the twin instead: kB2Split blocks per (chunk, block of columns), the
+// blocks of a chunk adjacent, each over whole tiles of `tile` slots of the
+// chunk. A chunk is one camera c (slot_row), so each thread reads its VE
+// (16 bytes of) columns of the camera's [t, k] table slice once, into
+// registers (rounded as the single-vector kernel rounds the table). The
+// tiles' perm and r*t twin rows are staged in shared memory by coalesced
+// 16-byte cp.async, double-buffered: the next tile's loads are in flight
+// while this one is computed. Thread = (slot of the SP at once, row i,
+// group of VE columns): per slot it reads the slot's t twin values of row
+// i (one or two slots a warp: broadcasts) and stores its VE sums with one
+// 16-byte store, so a slot's r*k outputs are one contiguous row
+// out[perm[s], :, :] written whole. Padding slots write nothing; the dump
+// column's chunks write zeros; every lane is one slot, so written once.
+// Each sum runs as gather_contract_kernel's (j ascending from 0, the same
+// rounding of the table): each column is bitwise its output.
+//
+// R, T > 0: the camera shapes; R = T = 0: any r, t (table values read per
+// slot from L1).
+template <typename L, int R, int T>
+__global__ void __launch_bounds__(kB2Threads)
+    gather_contract_batched_kernel(const L* __restrict__ twin, const int* __restrict__ perm,
+                                   const int* __restrict__ chunk_start,
+                                   const int* __restrict__ slot_row,
+                                   const typename leaf::Leaf<L>::V* __restrict__ table, int n_pad,
+                                   int r_arg, int t_arg, int ncols, int k, int ncb, int nev,
+                                   int tile, int wide,
+                                   typename leaf::Leaf<L>::V* __restrict__ out) {
+  using Lf = leaf::Leaf<L>;
+  using V = typename Lf::V;
+  constexpr int VE = 16 / sizeof(V);
+  constexpr int LE = 16 / sizeof(L);  // leaf values per 16-byte copy
+  const int r = R > 0 ? R : r_arg;
+  const int t = T > 0 ? T : t_arg;
+  const int rt = r * t;
+  const int cb = blockIdx.x % ncb;
+  const int rest = blockIdx.x / ncb;
+  const int part = rest % kB2Split;
+  const int m = rest / kB2Split;
+  const int cbeg = chunk_start[m];
+  const int cend = chunk_start[m + 1];
+  const int per_part = ((cend - cbeg + tile - 1) / tile + kB2Split - 1) / kB2Split;  // tiles
+  const int beg = cbeg + part * per_part * tile;
+  const int end = min(cend, beg + per_part * tile);
+  if (beg >= end) return;  // the whole block: no slots in this part
+  const int e0 = cb * nev * VE;
+  const int cbw = min(nev * VE, k - e0);
+  const int ng = (cbw + VE - 1) / VE;  // this block's column groups
+  const int tps = r * ng;              // threads per slot
+  const int sp = blockDim.x / tps;     // slots at once
+  const int sl = threadIdx.x / tps;
+  const int i = (threadIdx.x - sl * tps) / ng;
+  const int g = threadIdx.x - sl * tps - i * ng;
+  const int e = e0 + g * VE;
+  const bool full = wide && e + VE <= k;
+  const int c = slot_row[cbeg];
+  const bool live = c < ncols - 1;  // the dump column gathers zero
+  const size_t NP = static_cast<size_t>(n_pad);
+  const V* tc = table + static_cast<size_t>(c) * t * k + e;  // row j at tc + j*k
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* psh = reinterpret_cast<int*>(smem);                       // [2][tile]
+  L* tsh = reinterpret_cast<L*>(smem + 2 * tile * sizeof(int));  // [2][rt][tile]
+  // tile [t0, t0 + tile) into buffer b: boundaries are multiples of 32 slots
+  auto stage = [&](int t0, int b) {
+    const int nt = min(tile, end - t0);
+    for (int x = threadIdx.x; x < nt / 4; x += blockDim.x) {
+      __pipeline_memcpy_async(psh + b * tile + 4 * x, perm + t0 + 4 * x, 16);
     }
-    __syncthreads();
+    const int upr = nt / LE;
+    for (int x = threadIdx.x; x < rt * upr; x += blockDim.x) {
+      const int row = x / upr;
+      const int u = x - row * upr;
+      __pipeline_memcpy_async(tsh + (static_cast<size_t>(b) * rt + row) * tile + u * LE,
+                              twin + row * NP + t0 + u * LE, 16);
+    }
+    __pipeline_commit();
+  };
+  auto store = [&](V* o, const V (&a)[VE]) {
+    if (full) {
+      if constexpr (VE == 2) {
+        *reinterpret_cast<double2*>(o) = make_double2(a[0], a[1]);
+      } else {
+        *reinterpret_cast<float4*>(o) = make_float4(a[0], a[1], a[2], a[3]);
+      }
+    } else {
+#pragma unroll
+      for (int z = 0; z < VE; ++z) {
+        if (e + z < k) o[z] = a[z];
+      }
+    }
+  };
+  V y[T > 0 ? T : 1][VE];
+  if constexpr (T > 0) {
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+#pragma unroll
+      for (int z = 0; z < VE; ++z) {
+        y[j][z] = live && sl < sp && e + z < k ? Lf::round(__ldg(tc + j * k + z)) : V(0);
+      }
+    }
+  }
+  stage(beg, 0);
+  int b = 0;
+  for (int t0 = beg; t0 < end; t0 += tile, b ^= 1) {
+    if (t0 + tile < end) {
+      stage(t0 + tile, b ^ 1);
+    } else {
+      __pipeline_commit();
+    }
+    __pipeline_wait_prior(1);  // this thread's copies of tile t0
+    __syncthreads();           // everyone's
+    const int nt = min(tile, end - t0);
+    const int* ps = psh + b * tile;
+    const L* ts = tsh + (static_cast<size_t>(b) * rt + i * t) * tile;  // row i*t + j at ts + j*tile
+    for (int s = sl; sl < sp && s < nt; s += sp) {
+      const int l = ps[s];
+      if (l < 0) continue;  // padding
+      V a[VE];
+#pragma unroll
+      for (int z = 0; z < VE; ++z) a[z] = V(0);
+      if (live) {
+        if constexpr (T > 0) {
+          V x[T];
+#pragma unroll
+          for (int j = 0; j < T; ++j) x[j] = Lf::ld(ts + j * tile + s);
+#pragma unroll
+          for (int z = 0; z < VE; ++z) {
+#pragma unroll
+            for (int j = 0; j < T; ++j) a[z] += x[j] * y[j][z];
+          }
+        } else {
+          for (int j = 0; j < t; ++j) {
+            const V x = Lf::ld(ts + j * tile + s);
+#pragma unroll
+            for (int z = 0; z < VE; ++z) {
+              if (e + z < k) a[z] += x * Lf::round(__ldg(tc + j * k + z));
+            }
+          }
+        }
+      }
+      store(out + (static_cast<size_t>(l) * r + i) * k + e, a);
+    }
+    __syncthreads();  // buffer b is free for tile t0 + 2 * tile
   }
 }
 
@@ -537,67 +802,143 @@ int launch_reduce(const L* twin, const int* perm, const int* chunk_start, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-// the batched B2: the leaf in registers for the camera shapes (r = 2 and
-// t = 9: angle-axis or quaternion-on-manifold cameras; t = 10: quaternion
-// cameras without a manifold), else the kernel that reads it per column
+// the batched B2: the camera shapes (r = 2 and t = 9: angle-axis or
+// quaternion-on-manifold cameras; t = 10: quaternion cameras without a
+// manifold) with their table slice in registers, else any r, t; tiles of
+// 128 slots, fewer where two tiles of a large r*t would pass the 227 KB
 template <typename L, typename V = typename leaf::Leaf<L>::V>
-int launch_gather_batched(const L* jac, const int* rows, const V* table, int n, int r, int t,
-                          int ncols, int k, V* out, cudaStream_t stream) {
-  const int blocks = (n + kGatherBlock - 1) / kGatherBlock;
-  if (blocks > 0 && k > 0) {
-    if (r == 2 && t == 9) {
-      gather_contract_batched_kernel<L, 2, 9>
-          <<<blocks, kGatherBlock, 0, stream>>>(jac, rows, table, n, r, t, ncols, k, out);
-    } else if (r == 2 && t == 10) {
-      gather_contract_batched_kernel<L, 2, 10>
-          <<<blocks, kGatherBlock, 0, stream>>>(jac, rows, table, n, r, t, ncols, k, out);
-    } else {
-      gather_contract_batched_kernel<L, 0, 0>
-          <<<blocks, kGatherBlock, 0, stream>>>(jac, rows, table, n, r, t, ncols, k, out);
-    }
+int launch_gather_batched(const L* twin, const int* perm, const int* chunk_start,
+                          const int* slot_row, const V* table, int n_pad, int r, int t, int ncols,
+                          int k, int nchunks, V* out, cudaStream_t stream) {
+  constexpr int VE = 16 / sizeof(V);
+  if (nchunks <= 0 || k <= 0 || r <= 0 || r > kB2Threads) {
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const int wide = (k * sizeof(V)) % 16 == 0 && aligned(table) && aligned(out);
+  const int groups = (k + VE - 1) / VE;
+  const int nev = groups < kB2Threads / r ? groups : kB2Threads / r;  // column groups a block
+  const int ncb = (groups + nev - 1) / nev;
+  const int tps = r * nev;
+  const int threads = (kB2Threads / tps) * tps;
+  int tile = kB2Tile;
+  auto smem = [&](int tl) { return 2 * static_cast<size_t>(tl) * (sizeof(int) + r * t * sizeof(L)); };
+  while (smem(tile) > kMaxSmem && tile > 32) tile /= 2;
+  if (smem(tile) > kMaxSmem) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long blocks = 1LL * nchunks * kB2Split * ncb;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto launch = [&](auto kernel) {
+    cudaError_t rc = cudaSuccess;
+    if (smem(tile) > 48 * 1024) {
+      rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem(tile)));
+    }
+    if (rc != cudaSuccess) return rc;
+    kernel<<<static_cast<unsigned>(blocks), threads, smem(tile), stream>>>(
+        twin, perm, chunk_start, slot_row, table, n_pad, r, t, ncols, k, ncb, nev, tile, wide,
+        out);
+    return cudaGetLastError();
+  };
+  cudaError_t rc;
+  if (r == 2 && t == 9) {
+    rc = launch(gather_contract_batched_kernel<L, 2, 9>);
+  } else if (r == 2 && t == 10) {
+    rc = launch(gather_contract_batched_kernel<L, 2, 10>);
+  } else {
+    rc = launch(gather_contract_batched_kernel<L, 0, 0>);
+  }
+  return static_cast<int>(rc);
+}
+
+// the batched B3 with H row groups of JT rows: block size, shared memory
+// (the chunk's perm, kStages buffers of kMaxP slots' u rows and twin
+// words, three tree levels a thread), the limit raised past 48 KB; fewer
+// columns a block where a large r would pass the 227 KB
+template <typename L, int R, int JT, int H, typename V = typename leaf::Leaf<L>::V>
+cudaError_t launch_reduce_batched_pass(const L* twin, const int* perm, const int* chunk_start,
+                                       const V* u, int n_pad, int r, int t, int k, int nchunks,
+                                       V* partial, cudaStream_t stream) {
+  using W = typename TwinWord<L>::W;
+  auto kernel = contract_reduce_batched_kernel<L, R, JT, H>;
+  const int npass = (t + H * JT - 1) / (H * JT);
+  const int rtp = H * ((r * JT + 3) & ~3);
+  int cols = (k < kB3MaxCols ? (k + 31) / 32 : kB3MaxCols / 32) * 32;
+  int cbp = 0;
+  size_t smem = 0;
+  for (; cols >= 32; cols -= 32) {
+    const int cbw = k < cols ? k : cols;
+    const int vpu = 16 / static_cast<int>(sizeof(V));
+    cbp = (cbw + vpu - 1) / vpu * vpu;
+    smem = kChunkSlots * sizeof(int) + static_cast<size_t>(kStages) * kMaxP * r * cbp * sizeof(V) +
+           static_cast<size_t>(kStages) * kMaxP * rtp * sizeof(W) +
+           3 * static_cast<size_t>(JT) * cols * H * sizeof(V);
+    if (smem <= kMaxSmem) break;
+  }
+  if (cols < 32) return cudaErrorInvalidConfiguration;
+  cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        static_cast<int>(smem));
+  if (rc != cudaSuccess) return rc;
+  const int ncb = (k + cols - 1) / cols;
+  const long long blocks = 1LL * nchunks * npass * ncb;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const int wide = (k * sizeof(V)) % 16 == 0 && (reinterpret_cast<uintptr_t>(u) & 15) == 0;
+  kernel<<<static_cast<unsigned>(blocks), cols * H, smem, stream>>>(
+      twin, perm, chunk_start, u, n_pad, r, t, k, ncb, npass, cbp, wide, partial);
+  return cudaGetLastError();
 }
 
 template <typename L, typename V = typename leaf::Leaf<L>::V>
 int launch_reduce_batched(const L* twin, const int* perm, const int* chunk_start,
-                          const int* row_chunks, const V* u, int n, int n_pad, int r, int t,
-                          int k, int nchunks, int ncols, V* u_lanes, V* partial, V* out,
-                          cudaStream_t stream) {
-  if (t > 0 && k > 0 && nchunks > 0) {
-    if (n > 0 && r > 0) {
-      const dim3 tgrid((n + kTile - 1) / kTile, (k + kTile - 1) / kTile, r);
-      lanes_major_kernel<V><<<tgrid, dim3(kTile, 8), 0, stream>>>(u, k, r, n, u_lanes);
+                          const int* row_chunks, const V* u, int n_pad, int r, int t, int k,
+                          int nchunks, int ncols, V* partial, V* out, cudaStream_t stream) {
+  if (t > 0 && k > 0 && nchunks > 0 && r > 0) {
+    cudaError_t rc;
+    // the camera shapes: double sums in two row groups (rows 0-4, 5-8 or
+    // 5-9), float sums in one. On the H100 at k = 72 the double kernel
+    // waits on its copies and gains from the warps two groups add (1.16-1.22
+    // ms against 1.52-1.60), the float one is bound by its instructions and
+    // loses (2.96 against 2.57-2.59; PERF.md §6)
+    if (r == 2 && (t == 9 || t == 10)) {
+      if constexpr (sizeof(V) == 8) {
+        rc = launch_reduce_batched_pass<L, 2, 5, 2>(twin, perm, chunk_start, u, n_pad, r, t, k,
+                                                    nchunks, partial, stream);
+      } else if (t == 9) {
+        rc = launch_reduce_batched_pass<L, 2, 9, 1>(twin, perm, chunk_start, u, n_pad, r, t, k,
+                                                    nchunks, partial, stream);
+      } else {
+        rc = launch_reduce_batched_pass<L, 2, 10, 1>(twin, perm, chunk_start, u, n_pad, r, t,
+                                                     k, nchunks, partial, stream);
+      }
+    } else {
+      rc = launch_reduce_batched_pass<L, 0, kAnyRows, 1>(twin, perm, chunk_start, u, n_pad, r,
+                                                         t, k, nchunks, partial, stream);
     }
-    const dim3 grid(nchunks, (k + kBatchCols - 1) / kBatchCols);
-    contract_reduce_batched_kernel<L><<<grid, kReduceBlock, 0, stream>>>(
-        twin, perm, chunk_start, u_lanes, n, n_pad, r, t, k, nchunks, partial);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   const cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  camera_chunks::launch_chunk_sum<V>(partial, row_chunks, k * t, nchunks, ncols, ncols, nullptr,
-                                     nullptr, out, stream);
+  camera_chunks::launch_chunk_sum_lanes<V>(partial, row_chunks, t * k, ncols, out, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // the batched B2 and B3 (gather_reduce.gather_contract_batched /
-// contract_reduce_batched): table [k, ncols, t], out [k, r, n]; u [k, r, n],
-// u_lanes [n, r, k] (scratch), partial [k*t, nchunks], out [k, t, ncols]
+// contract_reduce_batched), the column axis innermost: table [ncols, t, k],
+// out [n, r, k]; u [n, r, k], partial [nchunks, t, k], out [ncols, t, k]
 #define CTT_BATCHED(SUFFIX, L, V)                                                                 \
-  extern "C" int ctt_gather_contract_batched##SUFFIX(const L* jac, const int* rows,               \
-                                                     const V* table, int n, int r, int t,         \
-                                                     int ncols, int k, V* out, void* stream) {    \
-    return launch_gather_batched<L>(jac, rows, table, n, r, t, ncols, k, out,                     \
-                                    static_cast<cudaStream_t>(stream));                           \
+  extern "C" int ctt_gather_contract_batched##SUFFIX(                                             \
+      const L* twin, const int* perm, const int* chunk_start, const int* slot_row,               \
+      const V* table, int n_pad, int r, int t, int ncols, int k, int nchunks, V* out,             \
+      void* stream) {                                                                             \
+    return launch_gather_batched<L>(twin, perm, chunk_start, slot_row, table, n_pad, r, t, ncols, \
+                                    k, nchunks, out, static_cast<cudaStream_t>(stream));          \
   }                                                                                               \
   extern "C" int ctt_contract_reduce_batched##SUFFIX(                                             \
       const L* twin, const int* perm, const int* chunk_start, const int* row_chunks, const V* u, \
-      int n, int n_pad, int r, int t, int k, int nchunks, int ncols, V* u_lanes, V* partial,     \
-      V* out, void* stream) {                                                                     \
-    return launch_reduce_batched<L>(twin, perm, chunk_start, row_chunks, u, n, n_pad, r, t, k,   \
-                                    nchunks, ncols, u_lanes, partial, out,                        \
+      int n_pad, int r, int t, int k, int nchunks, int ncols, V* partial, V* out, void* stream) { \
+    return launch_reduce_batched<L>(twin, perm, chunk_start, row_chunks, u, n_pad, r, t, k,      \
+                                    nchunks, ncols, partial, out,                                 \
                                     static_cast<cudaStream_t>(stream));                           \
   }
 CTT_BATCHED(_f32, float, float)

@@ -94,13 +94,12 @@ _SIGNATURES = {
     # twin, perm, chunk_start, row_chunks, u, n, n_pad, r, t, nchunks, ncols,
     # partial, out, stream
     "ctt_contract_reduce": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # the batched B2: jac, rows, table [k, ncols, t], n, r, t, ncols, k, out, stream
-    "ctt_gather_contract_batched": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    # the batched B3: twin, perm, chunk_start, row_chunks, u, n, n_pad, r, t,
-    # k, nchunks, ncols, u_lanes (scratch), partial, out, stream
-    "ctt_contract_reduce_batched": [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-    ],
+    # the batched B2: twin, perm, chunk_start, slot_row, table [ncols, t, k],
+    # n_pad, r, t, ncols, k, nchunks, out [n, r, k], stream
+    "ctt_gather_contract_batched": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # the batched B3: twin, perm, chunk_start, row_chunks, u [n, r, k], n_pad,
+    # r, t, k, nchunks, ncols, partial [nchunks, t, k], out [ncols, t, k], stream
+    "ctt_contract_reduce_batched": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # F, E, rows_f, y, ncols_f, segs, pt_start, nb, num_points, minv, cnt_e,
     # n, r, te, tf, t2, ld, stream
     "ctt_schur_sy_point": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P],
@@ -384,8 +383,10 @@ def check(rc: int, name: str):
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
-def require(name, t, dtype=None, shape=None, device=None):
-    """Raise unless t is a contiguous CUDA tensor of the given dtype/shape."""
+def require(name, t, dtype=None, shape=None, device=None, lanes_major=False):
+    """Raise unless t is a contiguous CUDA tensor of the given dtype/shape;
+    with `lanes_major`, a 3-d tensor whose .permute(2, 1, 0) is contiguous
+    (the batched B2/B3's layout: the leading column axis innermost)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
@@ -394,7 +395,11 @@ def require(name, t, dtype=None, shape=None, device=None):
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if lanes_major:
+        if t.dim() != 3 or not t.permute(2, 1, 0).is_contiguous():
+            raise ValueError(f"{name}: tensor must be lane-major (a .permute(2, 1, 0) view of "
+                             f"a contiguous tensor), got strides {tuple(t.stride())}")
+    elif not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
 
 

@@ -179,78 +179,112 @@ def contract_reduce(twin, layout, u, r):
 # The JAX package runs one PCG per requested covariance column under
 # jax.vmap (ceres_tpu/covariance.py:212), which gives the TPU kernels a
 # table (B2) or u (B3) with a leading column axis over one leaf. These are
-# that contract: each column's output is bitwise the single-vector kernel's
-# on that column (the same sums in the same order, csrc/gather_reduce.cu),
-# while the leaf is read once (B2) or once per group of columns (B3).
+# that contract, with the column axis innermost in memory ("lane-major"):
+# u and B2's output are logical [k, r, n] over [n, r, k] memory, tables
+# logical [k, t, ncols] over [ncols, t, k], so a lane's (or a camera's)
+# values for all k columns are one contiguous row. Both kernels walk the
+# twin in camera order, reading the twin once; each column's output is
+# bitwise the single-vector kernel's on that column (the same sums in the
+# same order, csrc/gather_reduce.cu).
+
+
+def lanes_major(x):
+    """x [a, b, c] in the batched layout: a .permute(2, 1, 0) view of a
+    contiguous [c, b, a] tensor (x itself when it is one already)."""
+    return x.permute(2, 1, 0).contiguous().permute(2, 1, 0)
 
 
 def gather_contract_batched_plain(jac, rows, table_t, r):
-    """The batched B2's plain version: gather_contract_plain per column."""
-    return torch.stack([gather_contract_plain(jac, rows, tab, r) for tab in table_t])
+    """The batched B2's plain version: gather_contract_plain per column,
+    in the kernel's layout (lane-major [k, r, n])."""
+    return torch.stack([gather_contract_plain(jac, rows, tab, r).T for tab in table_t],
+                       dim=2).permute(2, 1, 0)
 
 
-def gather_contract_batched(jac, rows, table_t, r):
-    """F·Y for k columns of a onehot-plan position: [k, r, n] from jac
-    [r*t, n], rows [n] int32 and table_t [k, t, ncols] (the last column of
-    each the dump column); table and output in
+def gather_contract_batched(jac, rows, table_t, r, twin, layout):
+    """F·Y for k columns of a onehot-plan position: lane-major [k, r, n]
+    from jac [r*t, n] (or, on the card, its twin [r*t, n_pad] in the slot
+    order of `layout`, a program.CameraLayout over the table's ncols),
+    rows [n] int32 and lane-major table_t [k, t, ncols] (the last column
+    of each the dump column); table and output in
     cuda_lib.vector_dtype(jac.dtype)."""
     if jac.device.type == "cpu":
         return gather_contract_batched_plain(jac, rows, table_t, r)
     rt, n = jac.shape
     t = rt // r
     k, _, ncols = table_t.shape
+    dev = jac.device
     vdt = cuda_lib.vector_dtype(jac.dtype)
-    cuda_lib.require("jac", jac)
-    cuda_lib.require("rows", rows, torch.int32, (n,), jac.device)
-    cuda_lib.require("table_t", table_t, vdt, (k, t, ncols), jac.device)
-    # [k, ncols, t]: one column's table contiguous, a lane's t values in it
-    # side by side
-    table = table_t.transpose(1, 2).contiguous()
-    out = torch.empty((k, r, n), dtype=vdt, device=jac.device)
+    _require_layout(twin, layout, jac.dtype, rt, ncols, n, dev)
+    cuda_lib.require("slot_row", layout.slot_row, torch.int32, (layout.perm.shape[0],), dev)
+    cuda_lib.require("table_t", table_t, vdt, (k, t, ncols), dev, lanes_major=True)
+    out = torch.empty((n, r, k), dtype=vdt, device=dev)
     fn = cuda_lib.kernel_fn("ctt_gather_contract_batched", jac.dtype)
     rc = fn(
-        cuda_lib.ptr(jac), cuda_lib.ptr(rows), cuda_lib.ptr(table),
-        n, r, t, ncols, k, cuda_lib.ptr(out), cuda_lib.stream(jac.device),
+        cuda_lib.ptr(twin), cuda_lib.ptr(layout.perm), cuda_lib.ptr(layout.chunk_start),
+        cuda_lib.ptr(layout.slot_row), cuda_lib.ptr(table_t), layout.perm.shape[0], r, t, ncols,
+        k, layout.num_chunks, cuda_lib.ptr(out), cuda_lib.stream(dev),
     )
     cuda_lib.check(rc, "gather_contract_batched")
     cuda_lib.count(cuda_lib.counter("gather_contract_batched", jac.dtype))
-    return out
+    return out.permute(2, 1, 0)
+
+
+def _require_layout(twin, layout, leaf_dtype, rt, ncols, n, dev):
+    """The twin and camera layout that the batched kernels walk, over n
+    lanes."""
+    from .program import TWIN_CHUNK
+
+    if twin is None or layout is None:
+        raise ValueError("the batched B2/B3 on a card need the leaf's twin and camera layout")
+    if TWIN_CHUNK != 2048:  # csrc/gather_reduce.cu kChunkSlots
+        raise ValueError(f"the batched B2/B3 take chunks of 2048 slots, not {TWIN_CHUNK}")
+    if len(layout.offsets) - 1 != ncols:
+        raise ValueError(f"layout: {len(layout.offsets) - 1} columns, expected {ncols}")
+    if layout.perm.shape[0] - layout.pad.shape[0] != n:
+        raise ValueError(f"layout: {layout.perm.shape[0] - layout.pad.shape[0]} lanes, "
+                         f"expected {n}")
+    cuda_lib.require("twin", twin, leaf_dtype, (rt, layout.perm.shape[0]), dev)
+    if twin.data_ptr() % 16:
+        raise ValueError("twin: data must be 16-byte aligned")
+    cuda_lib.require("perm", layout.perm, torch.int32, None, dev)
+    if layout.perm.data_ptr() % 16:
+        raise ValueError("perm: data must be 16-byte aligned")
+    cuda_lib.require("chunk_start", layout.chunk_start, torch.int32, None, dev)
+    cuda_lib.require("row_chunks", layout.row_chunks, torch.int32, (ncols + 1,), dev)
 
 
 def contract_reduce_batched_plain(twin, layout, u, r):
-    """The batched B3's plain version: contract_reduce_plain per column."""
-    return torch.stack([contract_reduce_plain(twin, layout, uc, r) for uc in u])
+    """The batched B3's plain version: contract_reduce_plain per column,
+    in the kernel's layout (lane-major [k, t, ncols])."""
+    return torch.stack([contract_reduce_plain(twin, layout, uc, r).T for uc in u],
+                       dim=2).permute(2, 1, 0)
 
 
 def contract_reduce_batched(twin, layout, u, r):
-    """Fᵀu for k columns of a onehot-plan position: [k, t, ncols] from its
-    twin [r*t, n_pad] and u [k, r, n] in lane order; u and the output in
-    cuda_lib.vector_dtype(twin.dtype). The dump column is produced."""
+    """Fᵀu for k columns of a onehot-plan position: lane-major [k, t, ncols]
+    from its twin [r*t, n_pad] and lane-major u [k, r, n]; u and the output
+    in cuda_lib.vector_dtype(twin.dtype). The dump column is produced."""
     if twin.device.type == "cpu":
         return contract_reduce_batched_plain(twin, layout, u, r)
     rt, n_pad = twin.shape
     t = rt // r
-    k, _, n = u.shape
+    k = u.shape[0]
     ncols = len(layout.offsets) - 1
     dev = twin.device
     vdt = cuda_lib.vector_dtype(twin.dtype)
-    cuda_lib.require("twin", twin, None, (r * t, layout.perm.shape[0]), dev)
-    cuda_lib.require("perm", layout.perm, torch.int32, None, dev)
-    cuda_lib.require("chunk_start", layout.chunk_start, torch.int32, None, dev)
-    cuda_lib.require("row_chunks", layout.row_chunks, torch.int32, (ncols + 1,), dev)
-    cuda_lib.require("u", u, vdt, (k, r, n), dev)
+    n = layout.perm.shape[0] - layout.pad.shape[0]
+    _require_layout(twin, layout, twin.dtype, rt, ncols, n, dev)
+    cuda_lib.require("u", u, vdt, (u.shape[0], r, n), dev, lanes_major=True)
     nchunks = layout.num_chunks
-    # scratch for u lane-major, [n, r, k]: a slot's values of one row for a
-    # group of columns are then one contiguous load
-    u_lanes = torch.empty((n, r, k), dtype=vdt, device=dev)
-    partial = torch.empty((k * t, nchunks), dtype=vdt, device=dev)
-    out = torch.empty((k, t, ncols), dtype=vdt, device=dev)
+    partial = torch.empty((nchunks, t, k), dtype=vdt, device=dev)
+    out = torch.empty((ncols, t, k), dtype=vdt, device=dev)
     fn = cuda_lib.kernel_fn("ctt_contract_reduce_batched", twin.dtype)
     rc = fn(
         cuda_lib.ptr(twin), cuda_lib.ptr(layout.perm), cuda_lib.ptr(layout.chunk_start),
-        cuda_lib.ptr(layout.row_chunks), cuda_lib.ptr(u), n, n_pad, r, t, k, nchunks, ncols,
-        cuda_lib.ptr(u_lanes), cuda_lib.ptr(partial), cuda_lib.ptr(out), cuda_lib.stream(dev),
+        cuda_lib.ptr(layout.row_chunks), cuda_lib.ptr(u), n_pad, r, t, k, nchunks, ncols,
+        cuda_lib.ptr(partial), cuda_lib.ptr(out), cuda_lib.stream(dev),
     )
     cuda_lib.check(rc, "contract_reduce_batched")
     cuda_lib.count(cuda_lib.counter("contract_reduce_batched", twin.dtype))
-    return out
+    return out.permute(2, 1, 0)

@@ -137,6 +137,41 @@ def reduce_T(plan, contrib, rows, num_out, csr=None):
     return contrib.new_zeros((k, num_out)).index_add_(1, rows, contrib)
 
 
+def _gather_rows(plan, table, rows):
+    """Rows of a class table [cnt(+1), ...] per lane -> [n, ...]: the
+    batched products' gather (lane axis first, each row whole). Bucket
+    plans slice and broadcast their windows (pad lanes of a shard's window
+    read 0); else index_select."""
+    if not _is_bucket(plan):
+        return table.index_select(0, _clip_rows(rows, table.shape[0]))
+    parts = []
+    for b in plan[1]:
+        width, d, out_row = b[1], b[2], b[3]
+        live = b[4] if plan[0] == "bucket_sharded" else width
+        seg = table[out_row : out_row + live]
+        if live < width:
+            seg = torch.cat([seg, seg.new_zeros((width - live,) + seg.shape[1:])])
+        parts.append(seg[None].expand((d,) + seg.shape).reshape((d * width,) + seg.shape[1:]))
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _reduce_rows(plan, contrib, rows, num_out):
+    """Segment-reduce lane-first contributions [n, ...] -> [num_out, ...]
+    (the dump row included): reduce_T with the lane axis first. Bucket
+    plans reshape+sum over their windows; no plan index_add_."""
+    if not _is_bucket(plan):
+        return contrib.new_zeros((num_out,) + contrib.shape[1:]).index_add_(0, rows, contrib)
+    out = contrib.new_zeros((num_out,) + contrib.shape[1:])
+    for b in plan[1]:
+        lane_start, width, d, out_row = b[:4]
+        live = b[4] if plan[0] == "bucket_sharded" else width
+        seg = contrib[lane_start : lane_start + width * d]
+        if d > 1:
+            seg = seg.reshape((d, width) + seg.shape[1:]).sum(dim=0)
+        out[out_row : out_row + live] = seg[:live]
+    return out
+
+
 class BlockJacobian:
     """Per-(group, position) Jacobian blocks stored as [r*t, n] tensors.
 
@@ -416,30 +451,37 @@ class BlockJacobian:
     # -- over a batch of columns: the covariance's batched PCG ---------- #
     # The JAX package runs jtj_multiply under jax.vmap over the requested
     # columns (ceres_tpu/covariance.py:212). Here the column axis is written
-    # out as a leading dimension k: the onehot positions run the batched
-    # kernels B2/B3, the bucket and no-plan positions carry the axis
-    # through gather_T_t / reduce_T in plain torch (XLA's part in JAX).
+    # out as a leading dimension k and kept innermost in memory
+    # (gather_reduce.lanes_major): class tables are logical [k, s, cnt+1]
+    # over [cnt+1, s, k], residual-space vectors logical [k, r, n] over
+    # [n, r, k]. The onehot positions run the batched kernels B2/B3 on their
+    # twins; the bucket and no-plan positions gather, multiply and reduce
+    # whole [t, k] rows in plain torch (XLA's part in JAX), so no pass of a
+    # product transposes a residual-space array.
 
     def tvec_batched(self, v):
-        """[k, num_eff] -> per class [k, s, cnt+1] tables (dump column zero)."""
+        """[k, num_eff] -> per class lane-major [k, s, cnt+1] tables (dump
+        column zero), made in one copy each."""
         p, k = self.program, v.shape[0]
         out = []
         for cls in range(len(p.tangent_class_sizes)):
             base, cnt, s = p.tangent_class_slice(cls)
-            t = v[:, base : base + cnt * s].reshape(k, cnt, s).transpose(1, 2)
-            out.append(torch.cat([t, v.new_zeros((k, s, 1))], dim=2))
+            t = v[:, base : base + cnt * s].reshape(k, cnt, s).permute(1, 2, 0)
+            out.append(torch.cat([t, v.new_zeros((1, s, k))], dim=0).permute(2, 1, 0))
         return out
 
     def tvec_flat_batched(self, tv):
-        """Per class [k, s, cnt+1] tables -> [k, num_eff] (dump columns dropped)."""
+        """Per class [k, s, cnt+1] tables -> [k, num_eff] (dump columns
+        dropped), in one copy."""
         parts = [
-            t[:, :, :cnt].transpose(1, 2).reshape(t.shape[0], -1)
+            t.permute(2, 1, 0)[:cnt].reshape(cnt * t.shape[1], t.shape[0]).T
             for t, cnt in zip(tv, self.program.tangent_class_counts)
         ]
         return torch.cat(parts, dim=1)
 
     def right_multiply_batched(self, v):
-        """J V for k tangent vectors V [k, num_cols] -> per-group [k, r, n]."""
+        """J V for k tangent vectors V [k, num_cols] -> per-group lane-major
+        [k, r, n]."""
         if self.col_scale is not None:
             v = v * self.col_scale
         acc_dt = self._acc_dtype()
@@ -450,30 +492,34 @@ class BlockJacobian:
             meta = self.program.groups[gi]
             r = meta.num_residuals
             acc = None
-            for pos, pm, jac, tr, _csr in self._iter(gi):
+            for pos, pm, jac, tr, csr in self._iter(gi):
                 if pm.t_cls < 0:
                     continue
                 t = pm.tangent_size
                 plan = self.plan(gi, pos)
                 tab = tv[pm.t_cls]
                 if plan is not None and plan[0] == "onehot":
-                    part = gather_contract_batched(jac, tr, tab.contiguous(), r)
+                    part = gather_contract_batched(jac, tr, tab, r, self.twin(gi, pos), csr)
                 else:
-                    vg = gather_T_t(plan, tab.reshape(k * t, -1), tr).reshape(k, t, -1)
-                    vg = leaf_operand(vg, jac.dtype)
-                    part = (jac.reshape(r, t, -1)[None] * vg[:, None]).sum(dim=2)
+                    # [n, t, k] rows of the class table, times the lane's [r, t] leaf
+                    vg = leaf_operand(_gather_rows(plan, tab.permute(2, 1, 0), tr), jac.dtype)
+                    jl = jac.reshape(r, t, -1).permute(2, 0, 1)
+                    part = (jl[:, :, :, None] * vg[:, None]).sum(dim=2).contiguous()
+                    part = part.permute(2, 1, 0)
                 acc = part if acc is None else acc + part
             if acc is None:
-                acc = torch.zeros((k, r, meta.n), dtype=acc_dt, device=self._device())
+                acc = torch.zeros((meta.n, r, k), dtype=acc_dt,
+                                  device=self._device()).permute(2, 1, 0)
             out.append(acc)
         return out
 
     def left_multiply_batched(self, u_groups):
-        """Jᵀu for k per-group residuals u [k, r, n] -> [k, num_cols]."""
+        """Jᵀu for k per-group lane-major residuals u [k, r, n] -> [k, num_cols]."""
         acc_dt = self._acc_dtype()
         k = u_groups[0].shape[0] if u_groups else 0
-        acc = [torch.zeros((k,) + tuple(t.shape), dtype=acc_dt, device=t.device)
-               for t in self._class_tables_T()]
+        acc = [torch.zeros((cnt + 1, s, k), dtype=acc_dt, device=self._device()).permute(2, 1, 0)
+               for cnt, s in zip(self.program.tangent_class_counts,
+                                 self.program.tangent_class_sizes)]
         for gi in range(len(self.jac_groups)):
             r = self.program.groups[gi].num_residuals
             u = u_groups[gi].to(acc_dt)
@@ -484,12 +530,13 @@ class BlockJacobian:
                 plan = self.plan(gi, pos)
                 width = acc[pm.t_cls].shape[2]
                 if plan is not None and plan[0] == "onehot":
-                    part = contract_reduce_batched(self.twin(gi, pos), csr, u.contiguous(), r)
+                    part = contract_reduce_batched(self.twin(gi, pos), csr, u, r)
                 else:
-                    ul = leaf_operand(u, jac.dtype)
-                    contrib = (jac.reshape(r, t, -1)[None] * ul[:, :, None, :]).sum(dim=1)
-                    part = reduce_T(plan, contrib.reshape(k * t, -1), tr, width, csr)
-                    part = part.reshape(k, t, width)
+                    # the lane's [t, r] leaf times its [r, k] row of u, reduced by class row
+                    ul = leaf_operand(u, jac.dtype).permute(2, 1, 0)
+                    jl = jac.reshape(r, t, -1).permute(2, 0, 1)
+                    contrib = (jl[:, :, :, None] * ul[:, :, None]).sum(dim=1).contiguous()
+                    part = _reduce_rows(plan, contrib, tr, width).permute(2, 1, 0)
                 acc[pm.t_cls] = acc[pm.t_cls] + part
         out = self.tvec_flat_batched(acc)
         if self.col_scale is not None:

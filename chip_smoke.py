@@ -41,9 +41,11 @@ and prints no result):
      bitwise equal to each other, each time with its share of the bound,
      the shared memory per block and ptxas' report; then B2 and B3 over a
      batch of k = 72 columns (the covariance's PCG) at Dubrovnik-356's
-     shape in float64 and BAL-1778's in float32: max rel err against the
-     plain version, bitwise equality with 72 single-vector launches, ms
-     beside the 72 single launches', the bound, one torch.sparse product
+     shape in float64 and BAL-1778's in float32, on lane-major operands
+     (the column axis innermost): max rel err against the plain version,
+     bitwise equality with 72 single-vector launches and from run to run,
+     ms beside the 72 single launches' and the first versions', the
+     bound, one torch.sparse product
      against a dense [., 72] operand, and ptxas' registers and spills;
      then B1 with a seeded lane mask that zeroes ~1/8 of the lanes (a
      sharded group's pad lanes): the angle-axis and quaternion Snavely
@@ -167,8 +169,8 @@ and prints no result):
      (a new Problem, two cameras constant, 3 LM iterations, then the points
      seen by fewer than two cameras constant; ITERATIVE_PCG over 72
      columns at the default tolerance: steps per column, ms per step,
-     reads, peak memory, the batched B2/B3 launched in the PCG and the
-     single-vector ones not; the blocks against S⁻¹ from a dense float64
+     reads, peak memory, the batched B2/B3 launched in the PCG (and per
+     matvec) and the single-vector ones not; the blocks against S⁻¹ from a dense float64
      Cholesky of S assembled at D = 0), and tiny_solve_batched on 2^20
      Freudenstein-Roth starts (ms, reads, iterations, the share of lanes
      at each minimum; 1,024 sampled lanes against the CPU). Then the
@@ -302,6 +304,12 @@ BATCHED_KERNELS = [
     ("contract_reduce_batched", "ceres_tpu_torch/csrc/gather_reduce.cu",
      "ceres_tpu/pallas_onehot.py:248", 1e-12),
 ]
+# the first versions' kernel ms (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md §6), printed beside this run's
+FIRST_BATCHED_MS = {("gather_contract_batched", "Dubrovnik-356"): "1.4345-1.6282",
+                   ("gather_contract_batched", "BAL-1778"): "6.4578-6.8710",
+                   ("contract_reduce_batched", "Dubrovnik-356"): "2.9553-3.0647",
+                   ("contract_reduce_batched", "BAL-1778"): "7.4313-7.5054"}
 BATCHED_TOL = {"gather_contract_batched": {"float64": 1e-12, "float32": 1e-5},
                "contract_reduce_batched": {"float64": 1e-12, "float32": 1e-4}}
 # with their bfloat16 instantiations, which no path of this script runs
@@ -3007,13 +3015,16 @@ def phase_pose_graph_runs(tmp):
 def phase_kernels_batched(bal_program, dev, results):
     """Phase 2: the batched B2 and B3 (the covariance's PCG), k = 72, at
     Dubrovnik-356's shape in float64 (phase 4's covariance run) and at
-    BAL-1778's in float32: max rel err against the plain version, bitwise
-    equality with 72 single-vector launches column by column, the median ms
-    of each over 10 runs (CUDA events) beside the 72 single launches', the
-    bound (the leaf once, rows, the k tables or u's, the k outputs) and its
-    share, one torch.sparse CSR product against a dense [t*ncols, k] or
-    [r*n, k] operand, and ptxas' registers and spills. The Dubrovnik float64
-    numbers go into the kernels line."""
+    BAL-1778's in float32, on lane-major operands (gather_reduce.lanes_major:
+    the column axis innermost, as the PCG gives them): max rel err against
+    the plain version, bitwise equality with 72 single-vector launches
+    column by column and from run to run, the median ms of each over 10
+    runs (CUDA events) beside the 72 single launches' and the first
+    versions' (FIRST_BATCHED_MS), the bound (the leaf once, rows, the k
+    tables or u's, the k outputs) and its share, one torch.sparse CSR
+    product against a dense [t*ncols, k] or [r*n, k] operand, and ptxas'
+    registers and spills. The Dubrovnik float64 numbers go into the
+    kernels line."""
     import torch
 
     import ceres_tpu_torch as ct
@@ -3040,15 +3051,16 @@ def phase_kernels_batched(bal_program, dev, results):
         leaf, rows, layout, twin = jac.leaf(0, 0), garr["t_rows"][0], garr["csr"][0], jac.twin(0, 0)
         n, ncols = leaf.shape[1], layout.offsets.shape[0] - 1
         gen = torch.Generator(device=dev).manual_seed(1)
-        table = torch.randn((k, t, ncols), generator=gen, device=dev, dtype=dtype)
+        # lane-major: [k, t, ncols] over [ncols, t, k], [k, r, n] over [n, r, k]
+        table = torch.randn((ncols, t, k), generator=gen, device=dev, dtype=dtype).permute(2, 1, 0)
         table[:, :, -1] = 0
-        u = torch.randn((k, r, n), generator=gen, device=dev, dtype=dtype)
+        u = torch.randn((n, r, k), generator=gen, device=dev, dtype=dtype).permute(2, 1, 0)
         e = leaf.element_size()
         ops = 2 * r * t * n * k
         flops = F64_FLOPS_PER_S if dtype == torch.float64 else F32_FLOPS_PER_S
         cases = (
             ("gather_contract_batched",
-             lambda: gather_contract_batched(leaf, rows, table, r),
+             lambda: gather_contract_batched(leaf, rows, table, r, twin, layout),
              lambda: torch.stack([gather_contract(leaf, rows, table[c].contiguous(), r)
                                   for c in range(k)]),
              lambda: gather_contract_batched_plain(leaf, rows, table, r),
@@ -3067,6 +3079,7 @@ def phase_kernels_batched(bal_program, dev, results):
         for name, fn, singles, plain, nbytes, lib, as_lib in cases:
             out = fn()
             same = bool(torch.equal(out, singles()))
+            again = bool(torch.equal(out, fn()))
             err = rel_err(out, plain())
             tol = BATCHED_TOL[name][str(dtype)[6:]]
             rec = {"err": err, "ms": median_ms(fn), "plain_ms": median_ms(plain, reps=3, warmup=1),
@@ -3076,18 +3089,19 @@ def phase_kernels_batched(bal_program, dev, results):
             tmp = {name: rec}
             time_library(name, lib, as_lib(out), tmp)
             del out
-            ok = same and err[1] <= tol
+            ok = same and again and err[1] <= tol
             lib_s = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
             print(f"phase 2: {name} {label} {str(dtype)[6:]} k {k}: max rel err {err[1]:.3e} "
                   f"(tol {tol:.0e}, max abs {err[0]:.3e}); bitwise equal to {k} single-vector "
-                  f"launches {same}; kernel {rec['ms']:.4f} ms, {k} single launches "
+                  f"launches {same}, from run to run {again}; kernel {rec['ms']:.4f} ms (first "
+                  f"version: {FIRST_BATCHED_MS[name, label]} ms), {k} single launches "
                   f"{single_ms:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
                   f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
                   f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it), library {lib_s}"
                   f"{'' if ok else '  FAILED'}", flush=True)
             if not ok:
                 raise AssertionError(f"{name}: batched kernel differs from the single launches "
-                                     "or disagrees with its plain version")
+                                     "or between runs, or disagrees with its plain version")
             if dtype == torch.float64:
                 results[name] = rec
         del jac, ev, table, u, leaf, twin
@@ -3329,7 +3343,9 @@ def phase_covariance_run():
           f"compute {ok}; {_steps(cov)}; {1e3 * st['seconds'] / max(steps, 1):.3f} ms per step; "
           f"PCG {st['seconds']:.1f} s, compute {secs:.1f} s; peak device memory "
           f"{peak / 1e9:.2f} GB (estimate {estimate / 1e9:.2f} GB); PCG launches "
-          f"{json.dumps(launches)}", flush=True)
+          f"{json.dumps(launches)}; per matvec (steps + 1) B2 batched "
+          f"{launches.get('gather_contract_batched', 0) / (steps + 1):.3f}, B3 batched "
+          f"{launches.get('contract_reduce_batched', 0) / (steps + 1):.3f}", flush=True)
     if not ok:
         raise AssertionError("covariance at Dubrovnik-356's shape did not converge")
     if st["reads"] > steps + 3:

@@ -42,6 +42,7 @@ from ceres_tpu_torch.gather_reduce import (
     gather_contract_batched,
     gather_contract_batched_plain,
     gather_contract_plain,
+    lanes_major,
 )
 from ceres_tpu_torch.jacobian import make_twin
 from ceres_tpu_torch.linalg.cg import conjugate_gradients
@@ -286,7 +287,10 @@ def test_gather_contract_batched_matches_vmapped_pallas(monkeypatch, n, k):
     jac, rows, table, _ = _batched_inputs(0, n, k)
     want = np.asarray(jax.vmap(lambda tb: po.gather_contract(
         jnp.asarray(jac), jnp.asarray(rows), tb, 2))(jnp.asarray(table)))
-    got = gather_contract_batched(torch.tensor(jac), torch.tensor(rows), torch.tensor(table), 2)
+    layout = camera_layout(rows, table.shape[2]).to("cpu")
+    leaf = torch.tensor(jac)
+    got = gather_contract_batched(leaf, torch.tensor(rows), lanes_major(torch.tensor(table)), 2,
+                                  make_twin(leaf, layout), layout)
     assert got.shape == (k, 2, n)
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL_F32, atol=TOL_F32)
 
@@ -299,7 +303,8 @@ def test_contract_reduce_batched_matches_vmapped_pallas(monkeypatch, n, k):
     want = np.asarray(jax.vmap(lambda uu: po.contract_reduce(
         jnp.asarray(jac), jnp.asarray(rows), uu, ncols, 2))(jnp.asarray(u)))
     layout = camera_layout(rows, ncols).to("cpu")
-    got = contract_reduce_batched(make_twin(torch.tensor(jac), layout), layout, torch.tensor(u), 2)
+    got = contract_reduce_batched(make_twin(torch.tensor(jac), layout), layout,
+                                  lanes_major(torch.tensor(u)), 2)
     assert got.shape == (k, 9, ncols)
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL_F32, atol=TOL_F32 * np.abs(want).max())
 
@@ -347,6 +352,107 @@ def test_batched_jtj_is_single_jtj_per_column(threshold):
     got = scaled.jtj_multiply_batched(v)
     want = torch.stack([scaled.jtj_multiply(v[e]) for e in range(5)])
     torch.testing.assert_close(got, want, rtol=1e-13, atol=1e-13 * float(want.abs().max()))
+
+
+def _lane_major(x, k):
+    """x [k, a, b] is a .permute(2, 1, 0) view of a contiguous [b, a, k]."""
+    return x.shape[0] == k and x.stride() == (1, k, k * x.shape[1])
+
+
+def test_batched_products_are_lane_major(threshold):
+    """The batched layout: tangent tables and J·V are lane-major views (the
+    column axis innermost), Jᵀ takes them as they come, and the batched
+    plain versions return the kernels' layout."""
+    program, jac = _ba_jacobian()
+    n, k = program.num_effective_parameters, 4
+    v = torch.tensor(np.random.default_rng(8).normal(size=(k, n)))
+    assert all(_lane_major(t, k) for t in jac.tvec_batched(v))
+    torch.testing.assert_close(jac.tvec_flat_batched(jac.tvec_batched(v)), v, rtol=0, atol=0)
+    u = jac.right_multiply_batched(v)
+    assert all(_lane_major(x, k) for x in u)
+    for e in range(k):
+        single = jac.right_multiply(v[e])
+        for x, y in zip(u, single):
+            torch.testing.assert_close(x[e], y, rtol=1e-13, atol=1e-13 * float(y.abs().max()))
+    got = jac.left_multiply_batched(u)
+    want = torch.stack([jac.left_multiply([x[e] for x in u]) for e in range(k)])
+    torch.testing.assert_close(got, want, rtol=1e-13, atol=1e-13 * float(want.abs().max()))
+    jac_np, rows, table, uu = _batched_inputs(9, 500, k)
+    layout = camera_layout(rows, table.shape[2]).to("cpu")
+    leaf = torch.tensor(jac_np)
+    twin = make_twin(leaf, layout)
+    g = gather_contract_batched_plain(leaf, torch.tensor(rows), lanes_major(torch.tensor(table)),
+                                      2)
+    c = contract_reduce_batched_plain(twin, layout, lanes_major(torch.tensor(uu)), 2)
+    assert _lane_major(g, k) and g.shape == (k, 2, 500)
+    assert _lane_major(c, k) and c.shape == (k, 9, table.shape[2])
+
+
+def _three_residual_problem(seed=6, ncam=6, npt=120, nobs=600):
+    """A group of 3 residuals over a 4-parameter "camera" and a 2-parameter
+    "point": with the plans engaged the camera position is onehot at r = 3,
+    t = 4 (the batched kernels' any-(r, t) instantiation on a card)."""
+    rng = np.random.default_rng(seed)
+
+    def f(params, data):
+        c, x = params
+        (d,) = data
+        return torch.stack([c[0] * x[0] + c[1] * x[1] - d[0], c[2] * x[0] * x[1] - d[1],
+                            c[3] + x[0] * x[0] - c[0] * x[1] - d[2]])
+
+    p = ct.Problem()
+    cams = np.array([p.add_parameter_block(rng.normal(size=4)) for _ in range(ncam)])
+    pts = np.array([p.add_parameter_block(rng.normal(size=2)) for _ in range(npt)])
+    obs_pt = np.concatenate([np.arange(npt), rng.integers(0, npt, nobs - npt)])
+    handles = np.stack([cams[rng.integers(0, ncam, nobs)], pts[obs_pt]], axis=1)
+    p.add_residual_blocks(ct.CostFunction(f, 3), None, handles, (rng.normal(size=(nobs, 3)),))
+    p.set_parameter_block_constant(int(cams[0]))
+    return p
+
+
+def _constant_point_problem():
+    """Gauge-fixed BA with one point held constant: no class is all free,
+    so no bucket plan; with ONEHOT_MAX_COLS below the point count (the
+    test's stand-in for Dubrovnik-356's 226,730 points) the point position
+    has no plan (index_select / index_add_) and the cameras stay onehot."""
+    tp, _ = _gauge_fixed(ct, BA, loss=ct.HuberLoss(1.0))
+    tp.set_parameter_block_constant(int(BA.num_cameras))  # the first point's block
+    return tp
+
+
+@pytest.mark.parametrize("case", ["quaternion_t10", "three_residuals", "constant_point"])
+def test_batched_jtj_is_single_jtj_per_column_on_other_shapes(case, monkeypatch):
+    """jtj_multiply_batched against jtj_multiply column by column (1e-12
+    relative) where the batched layout meets other shapes: quaternion
+    cameras without a manifold (tangent 10), a onehot position at r = 3,
+    and the no-plan point side of a problem with a constant point."""
+    monkeypatch.setattr(TProgram, "SEG_REDUCE_THRESHOLD", 16)
+    if case == "quaternion_t10":
+        tp, _ = _gauge_fixed(ct, BA, use_quaternions=True, use_manifolds=False)
+    elif case == "three_residuals":
+        tp = _three_residual_problem()
+    else:
+        monkeypatch.setattr(TProgram, "ONEHOT_MAX_COLS", 64)
+        tp = _constant_point_problem()
+    program = tp.compile("cpu")
+    _, _, jac, _ = Evaluator(program, torch.float64).evaluate_groups(
+        program.state_vector(torch.float64))
+    meta = program.groups[0]
+    plans = meta.red_plans
+    if case == "quaternion_t10":
+        assert plans[0] == ("onehot",) and meta.positions[0].tangent_size == 10
+    elif case == "three_residuals":
+        assert plans[0] == ("onehot",) and meta.num_residuals == 3
+        assert meta.positions[0].tangent_size == 4 and plans[1][0] == "bucket"
+    else:
+        assert plans[0] == ("onehot",) and 1 not in plans
+    n = program.num_effective_parameters
+    rng = np.random.default_rng(10)
+    v = torch.tensor(rng.normal(size=(6, n)))
+    dsq = torch.tensor(rng.uniform(0.1, 1.0, n))
+    got = jac.jtj_multiply_batched(v, dsq)
+    want = torch.stack([jac.jtj_multiply(v[e], dsq) for e in range(6)])
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * float(want.abs().max()))
 
 
 def test_batched_pcg_is_k_single_pcgs(threshold):

@@ -18,7 +18,8 @@ plain version sum in other orders, so one of them can land on the other
 side of a bfloat16 rounding boundary (one term off by 2^-8 of itself):
 1e-3. The batched B2 and B3 (k columns, the covariance's PCG) are held to
 their plain versions at the single-vector tolerances and must be bitwise
-equal, column by column, to k single-vector launches. B3, B4's slot pass
+equal, column by column, to k single-vector launches and from run to run,
+on lane-major operands (the column axis innermost). B3, B4's slot pass
 and B5 read camera-ordered twins of the
 leaves; their tests use ragged camera runs (1, 31, 32, 33 and thousands of
 observations, one camera with none) and check that two runs are bitwise
@@ -41,6 +42,7 @@ from ceres_tpu_torch.gather_reduce import (
     gather_contract_batched,
     gather_contract_batched_plain,
     gather_contract_plain,
+    lanes_major,
 )
 from ceres_tpu_torch.linalg import schur as tschur
 from ceres_tpu_torch.linalg.schur_kernels import (
@@ -1037,34 +1039,60 @@ def test_eval_generic_strides_past_the_grid_cap(card):
         assert torch.equal(r1[0], r2[0]) and torch.equal(r1[1], r2[1])
 
 
-# (r, t, n, ncols, k): the camera shapes the batched B2 keeps in registers
-# (t = 9 and t = 10, k = 72 and a k that is no multiple of B3's group of 8
-# columns), and a shape that takes its any-(r, t) kernel
+# (r, t, n, ncols, k): the camera shapes the batched kernels instantiate
+# (t = 9 and t = 10; k = 72, and k = 13, whose f32 rows are no multiple of
+# 16 bytes and go value by value), and a shape that takes their any-(r, t)
+# instantiations
 BATCHED_SHAPES = [(2, 9, 120_000, 357, 72), (2, 10, 40_000, 40, 13), (3, 4, 30_000, 25, 9)]
 
 
-@pytest.mark.parametrize("shape", BATCHED_SHAPES, ids=lambda s: f"r{s[0]}t{s[1]}k{s[4]}")
-@pytest.mark.parametrize("dtype", DTYPES + [BF16])
-def test_batched_gather_reduce_match_plain_and_single_launches(card, dtype, shape):
+def _batched_case(card, dtype, shape, seed=7):
+    """Lane-major table [k, t, ncols] and u [k, r, n] (gather_reduce.lanes_major),
+    the leaf, rows, its camera layout and twin."""
     r, t, n, ncols, k = shape
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     vdt = cuda_lib.vector_dtype(dtype)
     rows_np = rng.integers(0, ncols, n).astype(np.int32)  # includes the dump column
     rows = torch.tensor(rows_np, device=card)
     layout = camera_layout(rows_np, ncols).to(card)
     jac = torch.tensor(rng.normal(size=(r * t, n)), device=card).to(dtype)
-    table = torch.tensor(rng.normal(size=(k, t, ncols)), device=card).to(vdt)
+    table = lanes_major(torch.tensor(rng.normal(size=(k, t, ncols)), device=card).to(vdt))
     table[:, :, -1] = 0
-    u = torch.tensor(rng.normal(size=(k, r, n)), device=card).to(vdt)
-    twin = make_twin(jac, layout)
+    u = lanes_major(torch.tensor(rng.normal(size=(k, r, n)), device=card).to(vdt))
+    return jac, rows, rows_np, layout, make_twin(jac, layout), table, u
+
+
+def _kernel_names(fn):
+    """The names of the device kernels one call of fn launches (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+
+
+@pytest.mark.parametrize("shape", BATCHED_SHAPES, ids=lambda s: f"r{s[0]}t{s[1]}k{s[4]}")
+@pytest.mark.parametrize("dtype", DTYPES + [BF16])
+def test_batched_gather_reduce_match_plain_and_single_launches(card, dtype, shape):
+    """The batched B2 and B3 on lane-major operands: within the single-vector
+    tolerances of their plain versions, bitwise equal column by column to k
+    single-vector launches and from run to run, the outputs lane-major, and
+    one B3 call two launches (the chunk pass and camera_chunks' sum: no
+    transposition of u)."""
+    r, t, n, ncols, k = shape
+    jac, rows, rows_np, layout, twin, table, u = _batched_case(card, dtype, shape)
+    vdt = cuda_lib.vector_dtype(dtype)
     counts = cuda_lib.launch_counts()
-    g = gather_contract_batched(jac, rows, table, r)
+    g = gather_contract_batched(jac, rows, table, r, twin, layout)
     c = contract_reduce_batched(twin, layout, u, r)
     after = cuda_lib.launch_counts()
     for name in ("gather_contract_batched", "contract_reduce_batched"):
         key = cuda_lib.counter(name, dtype)
         assert after[key] == counts[key] + 1
     assert g.shape == (k, r, n) and c.shape == (k, t, ncols) and g.dtype == c.dtype == vdt
+    assert g.stride() == (1, k, r * k) and c.stride() == (1, k, t * k)
     tol = 1e-11 if dtype == torch.float64 else None
     _close(g, gather_contract_batched_plain(jac, rows, table, r), tol or 1e-5)
     _close(c, contract_reduce_batched_plain(twin, layout, u, r), tol or 1e-4)
@@ -1072,15 +1100,28 @@ def test_batched_gather_reduce_match_plain_and_single_launches(card, dtype, shap
                                        for e in range(k)]))
     assert torch.equal(c, torch.stack([contract_reduce(twin, layout, u[e].contiguous(), r)
                                        for e in range(k)]))
+    assert torch.equal(g, gather_contract_batched(jac, rows, table, r, twin, layout))
     assert torch.equal(c, contract_reduce_batched(twin, layout, u, r))
     assert torch.all(g[:, :, torch.tensor(rows_np == ncols - 1, device=card)] == 0)
+    names = _kernel_names(lambda: contract_reduce_batched(twin, layout, u, r))
+    assert len(names) == 2 and not any("lanes_major" in x for x in names), names
+    assert any("contract_reduce_batched" in x for x in names), names
 
 
 def test_batched_wrappers_refuse_bad_operands(card):
-    jac = torch.zeros((18, 100), device=card)
-    rows = torch.zeros(100, dtype=torch.int32, device=card)
+    """Wrong shapes, dtypes and layouts raise (never a silent copy): a table
+    or u in the [k, ., .]-contiguous layout, a missing twin."""
+    jac, rows, _, layout, twin, table, u = _batched_case(card, torch.float32, (2, 9, 3000, 11, 5))
     with pytest.raises(ValueError, match="table_t"):
-        gather_contract_batched(jac, rows, torch.zeros((3, 8, 5), device=card), 2)
+        gather_contract_batched(jac, rows, lanes_major(torch.zeros((5, 8, 11), device=card)), 2,
+                                twin, layout)
     with pytest.raises(TypeError, match="table_t"):
-        gather_contract_batched(jac, rows, torch.zeros((3, 9, 5), device=card,
-                                                       dtype=torch.float64), 2)
+        gather_contract_batched(jac, rows, table.double(), 2, twin, layout)
+    with pytest.raises(ValueError, match="table_t: tensor must be lane-major"):
+        gather_contract_batched(jac, rows, table.contiguous(), 2, twin, layout)
+    with pytest.raises(ValueError, match="twin"):
+        gather_contract_batched(jac, rows, table, 2, None, layout)
+    with pytest.raises(ValueError, match="u: tensor must be lane-major"):
+        contract_reduce_batched(twin, layout, u.contiguous(), 2)
+    with pytest.raises(ValueError, match="u: shape"):
+        contract_reduce_batched(twin, layout, u[:, :, :-1], 2)
