@@ -63,6 +63,46 @@ void launch_chunk_sum(const T* partial, const int* row_chunks, int k, int nchunk
   }
 }
 
+// The same sum when each chunk's sums come in `parts` pieces, partial
+// [k, nchunks * parts] (the bfloat16 B3 and B4 run a block per piece of a
+// chunk): each chunk's pieces added in index order from 0, then the
+// camera's chunks as above, so a chunk's value is that of one block
+// adding its pieces in order.
+template <typename T>
+__global__ void __launch_bounds__(kSumBlock)
+    chunk_parts_sum_kernel(const T* __restrict__ partial, const int* __restrict__ row_chunks,
+                           int k, int nchunks, int parts, int ncols, int live_cols,
+                           const T* __restrict__ y, const T* __restrict__ dsq,
+                           T* __restrict__ out) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kSumBlock + threadIdx.x;
+  if (idx >= static_cast<long long>(k) * ncols) return;
+  const int e = static_cast<int>(idx / ncols);
+  const int c = static_cast<int>(idx % ncols);
+  T s = T(0);
+  if (c < live_cols) {
+    const T* row = partial + static_cast<size_t>(e) * nchunks * parts;
+    for (int m = row_chunks[c]; m < row_chunks[c + 1]; ++m) {
+      T v = T(0);
+      for (int q = 0; q < parts; ++q) v += row[static_cast<size_t>(m) * parts + q];
+      s += v;
+    }
+    if (dsq != nullptr) s = add_rn(s, mul_rn(dsq[idx], y[idx]));
+  }
+  out[idx] = s;
+}
+
+template <typename T>
+void launch_chunk_parts_sum(const T* partial, const int* row_chunks, int k, int nchunks,
+                            int parts, int ncols, int live_cols, const T* y, const T* dsq, T* out,
+                            cudaStream_t stream) {
+  const long long total = static_cast<long long>(k) * ncols;
+  if (total > 0) {
+    const int blocks = static_cast<int>((total + kSumBlock - 1) / kSumBlock);
+    chunk_parts_sum_kernel<T><<<blocks, kSumBlock, 0, stream>>>(
+        partial, row_chunks, k, nchunks, parts, ncols, live_cols, y, dsq, out);
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kSumBlock)
     chunk_sum_lanes_kernel(const T* __restrict__ partial, const int* __restrict__ row_chunks,

@@ -58,6 +58,24 @@
 // with ld.global.cs (evict-first in L2), so its stream does not push u out
 // of L2.
 //
+// B3 on bfloat16 twins has a kernel of its own, contract_reduce_bf16_kernel
+// (replacing _contract_reduce_kernel on bf16 leaves, pallas_onehot.py:
+// 153-162). On contract_reduce_kernel's pattern, 8 slots one after another
+// per thread, each a dependent perm -> u chain and 18 two-byte twin loads,
+// halving the twin's bytes (f32 -> bf16) cut its time by 16% (PERF.md
+// §6). Here a thread takes 8 consecutive slots: one 16-byte load per twin
+// row, perm as two int4 and the 8 x r gathers of u issued together; one
+// warp, a block of its own, takes 256 slots of a chunk, so many are
+// resident per SM and one's loads overlap another's arithmetic, and the
+// combine adds a chunk's 8 warps in order, then its chunks. Alignment:
+// runs and chunks start at multiples of 32 slots, so the loads are aligned
+// when n_pad is a multiple of 8 and the twin and perm are 16-byte aligned;
+// otherwise the launcher returns cudaErrorInvalidValue (no one-slot path).
+// What bounds it next is u: [r, n] float in lane order (the caller's
+// contract), two random 4-byte reads a slot, each a 32-byte sector (about
+// 320 MB of sector traffic per call at BAL-1778, from an array of 40 MB
+// that the twin's stream shares L2 with; PERF.md §6).
+//
 // Both also come batched over k columns (gather_contract_batched_kernel,
 // contract_reduce_batched_kernel): the contract jax.vmap makes of the TPU
 // kernels for the covariance's batched PCG (ceres_tpu/covariance.py:212),
@@ -65,8 +83,8 @@
 // do not. They keep that axis innermost in memory and walk the twin, so
 // each reads the twin once and moves about what its bound counts (the
 // leaf once, rows, the k tables or u's and the k outputs); each column is
-// bitwise the single-vector kernel's output. Their notes are at the
-// kernels.
+// bitwise the single-vector kernel's output (on bfloat16 twins, that of
+// contract_reduce_bf16_kernel). Their notes are at the kernels.
 //
 // Each is instantiated for float and double, and for bfloat16 leaves
 // (leaf.cuh: the mixed-precision solves, half the leaf bytes): B2 rounds the
@@ -79,9 +97,11 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "camera_chunks.cuh"
 #include "leaf.cuh"
+#include "smem_table.cuh"
 
 namespace {
 
@@ -89,6 +109,9 @@ constexpr int kGatherBlock = 256;
 constexpr int kSharedBlock = 512;  // B2's shared-memory kernel
 constexpr int kReduceBlock = 256;
 constexpr int kRows = 16;  // output rows per pass of a B3 block
+constexpr int kSlots = 8;  // consecutive slots a thread of the bfloat16 B3 (16 bytes of a row)
+constexpr int kPieceSlots = 32 * kSlots;     // slots a warp of the bfloat16 B3 (a piece of a chunk)
+constexpr int kPieces = 2048 / kPieceSlots;  // pieces of a chunk of program.TWIN_CHUNK slots
 
 template <typename L>
 __global__ void __launch_bounds__(kGatherBlock)
@@ -125,50 +148,6 @@ __device__ __forceinline__ void load_bf16x8(const __nv_bfloat16* p, float* out) 
   for (int k = 0; k < 8; ++k) out[k] = __bfloat162float(__ushort_as_bfloat16(w.e[k]));
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Stage table[0, count) into shared memory at sh (sh + head 16-byte
-// aligned, head = the elements before table's first 16-byte boundary):
-// the aligned body by one bulk copy that completes on *bar, head and tail
-// by plain loads. Returns the body's bytes (0: nothing to wait for). The
-// caller synchronizes the block, then waits (wait_body) before reading.
-__device__ __forceinline__ int stage_table(const float* table, int count, int head, float* sh,
-                                           unsigned long long* bar) {
-  const int body_bytes = static_cast<int>((static_cast<size_t>(count - head) * 4) & ~size_t(15));
-  const int body = body_bytes / 4;
-  if (threadIdx.x == 0 && body_bytes > 0) {
-    const unsigned b = smem_u32(bar);
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
-                 "r"(body_bytes)
-                 : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-            "r"(smem_u32(sh + head)),
-        "l"(table + head), "r"(body_bytes), "r"(b)
-        : "memory");
-  }
-  for (int k = threadIdx.x; k < head; k += blockDim.x) sh[k] = table[k];
-  for (int k = head + body + threadIdx.x; k < count; k += blockDim.x) sh[k] = table[k];
-  return body_bytes;
-}
-
-__device__ __forceinline__ void wait_body(unsigned long long* bar) {
-  const unsigned b = smem_u32(bar);
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(b)
-        : "memory");
-  }
-}
-
 // B2 on bfloat16 leaves with the float table staged in shared memory
 // (dynamic, t * ncols values plus 16 bytes of alignment slack): a
 // persistent grid of kSharedBlock threads, each taking 8 consecutive lanes
@@ -184,11 +163,8 @@ __global__ void __launch_bounds__(kSharedBlock)
   const size_t N = static_cast<size_t>(n);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned long long bar;
-  const int head = static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(table) & 15)) & 15) / 4);
-  const int count = t * ncols;
-  const int h = head < count ? head : count;
-  float* tbl = reinterpret_cast<float*>(smem + ((16 - h * 4) & 15));
-  bool pending = stage_table(table, count, h, tbl, &bar) > 0;
+  bool pending;
+  const float* tbl = smem_table::begin_stage(table, t * ncols, smem, &bar, &pending);
   __syncthreads();  // the head and tail, and the barrier's initialisation
   const int groups = (n + K - 1) / K;
   for (int g = blockIdx.x * kSharedBlock + threadIdx.x; g < groups;
@@ -205,7 +181,7 @@ __global__ void __launch_bounds__(kSharedBlock)
       for (int v = 0; v < K; ++v) c[v] = l0 + v < n ? rows[l0 + v] : -1;
     }
     if (pending) {  // the block's first lanes: the rows above overlap the copy
-      wait_body(&bar);
+      smem_table::wait_body(&bar);
       pending = false;
     }
     bool live[K];
@@ -243,7 +219,7 @@ __global__ void __launch_bounds__(kSharedBlock)
       }
     }
   }
-  if (pending) wait_body(&bar);  // a block with no lanes: the copy ends before it exits
+  if (pending) smem_table::wait_body(&bar);  // a block with no lanes: the copy ends before it exits
 }
 
 template <typename L>
@@ -303,6 +279,141 @@ __global__ void __launch_bounds__(kReduceBlock)
       partial[static_cast<size_t>(j0 + threadIdx.x) * nchunks + m] = s;
     }
     __syncthreads();
+  }
+}
+
+// B3 on bfloat16 twins, one warp per piece of kPieceSlots slots of a
+// chunk (kPieces warps a chunk, each a block of its own, so that many are
+// resident per SM and one's loads overlap another's arithmetic). Each
+// thread takes kSlots consecutive slots: one 16-byte load per twin row,
+// its lanes as two int4 loads of perm and the kSlots x r gathers of u
+// issued together, so nothing of one slot waits for another. Per output
+// row it adds its slots in order, each over i (a padding slot adds
+// nothing); the warp's shuffle tree gives the piece's sums, written to
+// partial [t, nchunks * kPieces], and camera_chunks.cuh's chunk_parts_sum
+// adds a chunk's pieces in order, then a camera's chunks: the order of one
+// 256-thread block per chunk whose warps are added in order (the batched
+// B3's bfloat16 instantiation visits the same slot streams, so each of its
+// columns is bitwise this kernel's output). R > 0: the camera shapes
+// (r = R, t = T <= kRows: one pass, every word and u value in registers);
+// R = 0: any r and t, passes of kRows rows, one word of a row serving
+// every slot when r == 1, read again (from L1) for each slot when r > 1,
+// which keeps that order.
+template <int R, int T>
+__global__ void __launch_bounds__(32)
+    contract_reduce_bf16_kernel(const __nv_bfloat16* __restrict__ twin,
+                                const int* __restrict__ perm, const int* __restrict__ chunk_start,
+                                const float* __restrict__ u, int n, int n_pad, int r_rt, int t_rt,
+                                int nchunks, float* __restrict__ partial) {
+  using Lf = leaf::Leaf<__nv_bfloat16>;
+  constexpr int K = kSlots;
+  constexpr int kP = R > 0 ? T : kRows;  // rows of a pass
+  const int r = R > 0 ? R : r_rt;
+  const int t = R > 0 ? T : t_rt;
+  const int m = blockIdx.x / kPieces;
+  const int beg = chunk_start[m] + (blockIdx.x - m * kPieces) * kPieceSlots;
+  const int end = chunk_start[m + 1];
+  const size_t pstride = static_cast<size_t>(nchunks) * kPieces;
+  if (beg >= end) {  // no slot in this piece
+    for (int j = threadIdx.x; j < t; j += 32) partial[j * pstride + blockIdx.x] = 0.0f;
+    return;
+  }
+  const int k0 = beg + threadIdx.x * K;
+  const bool mine = k0 < end;  // chunks are whole multiples of 32 slots
+  const size_t NP = static_cast<size_t>(n_pad);
+  const size_t N = static_cast<size_t>(n);
+  auto row = [&](int j) { return twin + static_cast<size_t>(j) * NP + k0; };
+  int l[K];  // the slots' lanes, -1 on padding
+  bool add[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) l[s] = -1;
+  if (mine && u != nullptr) {
+    const int4 a = __ldcs(reinterpret_cast<const int4*>(perm + k0));
+    const int4 b = __ldcs(reinterpret_cast<const int4*>(perm + k0) + 1);
+    l[0] = a.x, l[1] = a.y, l[2] = a.z, l[3] = a.w;
+    l[4] = b.x, l[5] = b.y, l[6] = b.z, l[7] = b.w;
+  }
+#pragma unroll
+  for (int s = 0; s < K; ++s) add[s] = mine && (u == nullptr || l[s] >= 0);
+  // round(u) of the slots, gathered before the twin rows arrive (R > 0)
+  float w[R > 0 ? R : 1][K];
+  if constexpr (R > 0) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        w[i][s] = add[s] ? Lf::round(u[static_cast<size_t>(i) * N + l[s]]) : 0.0f;
+      }
+    }
+  }
+  for (int j0 = 0; j0 < t; j0 += kP) {
+    const int nj = min(kP, t - j0);
+    float acc[kP];
+#pragma unroll
+    for (int q = 0; q < kP; ++q) acc[q] = 0.0f;
+    if (mine) {
+      if constexpr (R > 0) {
+        unsigned x[R][kP][K / 2];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+#pragma unroll
+          for (int q = 0; q < kP; ++q) leaf::ldcs_bf16_words<K>(row(i * T + q), x[i][q]);
+        }
+#pragma unroll
+        for (int s = 0; s < K; ++s) {
+          if (add[s]) {
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+#pragma unroll
+              for (int q = 0; q < kP; ++q) {
+                acc[q] += leaf::bf16_word_value(x[i][q], s) * w[i][s];
+              }
+            }
+          }
+        }
+      } else if (u == nullptr || r == 1) {
+        float ws[K];  // u == nullptr: the segmented sum (x * 1 is x)
+#pragma unroll
+        for (int s = 0; s < K; ++s) {
+          ws[s] = u == nullptr ? 1.0f : add[s] ? Lf::round(u[l[s]]) : 0.0f;
+        }
+#pragma unroll
+        for (int q = 0; q < kP; ++q) {
+          if (q < nj) {
+            unsigned x[K / 2];
+            leaf::ldcs_bf16_words<K>(row(j0 + q), x);
+#pragma unroll
+            for (int s = 0; s < K; ++s) {
+              if (add[s]) acc[q] += leaf::bf16_word_value(x, s) * ws[s];
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kP; ++q) {
+          if (q < nj) {
+#pragma unroll
+            for (int s = 0; s < K; ++s) {
+              if (add[s]) {
+                for (int i = 0; i < r; ++i) {
+                  unsigned x[K / 2];
+                  leaf::ldcs_bf16_words<K>(row(i * t + j0 + q), x);
+                  acc[q] += leaf::bf16_word_value(x, s) *
+                            Lf::round(u[static_cast<size_t>(i) * N + l[s]]);
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kP; ++q) {
+      float v = acc[q];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+      if (threadIdx.x == 0 && q < nj) partial[(j0 + q) * pstride + blockIdx.x] = v;
+    }
   }
 }
 
@@ -394,9 +505,10 @@ __device__ __forceinline__ void load_words(const W* p, W (&out)[N]) {
 // copies' latency; the u rows they share are staged once.
 //
 // The order: contract_reduce_kernel sums slot stream q (thread q: slots q,
-// q + 256, ... of the chunk, each over i) per thread, adds the 32 streams
-// of a warp by the shuffle tree (offsets 16, 8, 4, 2, 1) and the 8 warps in
-// order from 0. Here visit v is stream 32*(v / 32) + bitrev5(v % 32): in
+// q + 256, ... of the chunk, each over i; contract_reduce_bf16_kernel's
+// thread q: slots 8q ... 8q + 7) per thread, adds the 32 streams of a warp
+// by the shuffle tree (offsets 16, 8, 4, 2, 1) and the 8 warps in order
+// from 0. Here visit v is stream 32*(v / 32) + bitrev5(v % 32): in
 // that order the shuffle tree is a left-to-right binary tree over the
 // visits, which each thread folds with one pending sum per level (lv0 ..
 // lv4) and adds each warp's root to its total. So every (column, row) sum
@@ -461,7 +573,15 @@ __global__ void __launch_bounds__(H * kB3MaxCols)
   const int tdst = hw * rth + iw * JT + jw;
 
   auto stream_of = [](int v) { return (v & ~31) | static_cast<int>(__brev(v & 31) >> 27); };
-  auto slots_of = [S](int q) { return q < S ? (S - q + kStreams - 1) / kStreams : 0; };
+  // slot p of stream q, as the single kernel's thread q takes them:
+  // contract_reduce_kernel q, q + 256, ...; contract_reduce_bf16_kernel 8
+  // consecutive slots from 8q on (chunks are whole multiples of 32 slots)
+  constexpr bool kRun = std::is_same<L, __nv_bfloat16>::value;
+  auto slot_of = [](int q, int p) { return kRun ? kMaxP * q + p : q + kStreams * p; };
+  auto slots_of = [S](int q) {
+    if (kRun) return kMaxP * q < S ? kMaxP : 0;
+    return q < S ? (S - q + kStreams - 1) / kStreams : 0;
+  };
   // stage visit v (if any) into buffer v % kStages; always one commit group
   auto stage_visit = [&](int v) {
     if (v < kStreams) {
@@ -471,7 +591,7 @@ __global__ void __launch_bounds__(H * kB3MaxCols)
       W* tb = tsh + static_cast<size_t>(v % kStages) * kMaxP * rtp;
       for (int rho = rho0; rho < P * r; rho += rstep) {
         const int p = rho / r;
-        const int l = perm_sh[q + kStreams * p];
+        const int l = perm_sh[slot_of(q, p)];
         if (l < 0) continue;  // padding: the twin is zero there
         V* dst = ub + static_cast<size_t>(rho) * cbp + uc * per;
         const V* src = u + (static_cast<size_t>(l) * r + (rho - p * r)) * k + e0 + uc * per;
@@ -483,7 +603,7 @@ __global__ void __launch_bounds__(H * kB3MaxCols)
       }
       if (pstep > 0) {
         for (int p = p0; p < P; p += pstep) {
-          const int s = q + kStreams * p;
+          const int s = slot_of(q, p);
           if (perm_sh[s] < 0) continue;
           __pipeline_memcpy_async(tb + p * rtp + tdst, Tw::at(trow + s), sizeof(W));
         }
@@ -494,7 +614,7 @@ __global__ void __launch_bounds__(H * kB3MaxCols)
           const int hx = x / (r * JT);
           const int ix = (x - hx * r * JT) / JT;
           const int jx = x - hx * r * JT - ix * JT;
-          const int s = q + kStreams * p;
+          const int s = slot_of(q, p);
           if (jb + hx * JT + jx >= t || perm_sh[s] < 0) continue;
           const L* src = twin + static_cast<size_t>(ix * t + jb + hx * JT + jx) * NP + beg + s;
           __pipeline_memcpy_async(tb + p * rtp + hx * rth + ix * JT + jx, Tw::at(src),
@@ -525,13 +645,13 @@ __global__ void __launch_bounds__(H * kB3MaxCols)
     stage_visit(v + kStages - 1);
     const int q = stream_of(v);
     const int P = slots_of(q);
-    const int odd = q & 1;
     const V* ub = ush + static_cast<size_t>(v % kStages) * kMaxP * r * cbp + ct;
     const W* tb = tsh + static_cast<size_t>(v % kStages) * kMaxP * rtp + h * rth;
 #pragma unroll
     for (int jj = 0; jj < JT; ++jj) acc[jj] = V(0);
     for (int p = 0; p < P; ++p) {
-      if (perm_sh[q + kStreams * p] < 0) continue;
+      if (perm_sh[slot_of(q, p)] < 0) continue;
+      const int odd = slot_of(q, p) & 1;  // a bfloat16 slot's half of its word
       if constexpr (R > 0) {
         W x[R * JT];  // words past nj are never stored: their sums are dropped
         load_words(tb + p * rtp, x);
@@ -802,6 +922,38 @@ int launch_reduce(const L* twin, const int* perm, const int* chunk_start, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bfloat16 B3 reads kSlots slots of a twin row (and of perm) at once:
+// n_pad a multiple of 8 and the twin and perm 16-byte aligned, or
+// cudaErrorInvalidValue (every twin the port makes is; there is no
+// one-slot-at-a-time path).
+int launch_reduce_bf16(const __nv_bfloat16* twin, const int* perm, const int* chunk_start,
+                       const int* row_chunks, const float* u, int n, int n_pad, int r, int t,
+                       int nchunks, int ncols, float* partial, float* out, cudaStream_t stream) {
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (n_pad % kSlots != 0 || !aligned(twin) || !aligned(perm)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (t > 0 && nchunks > 0) {
+    const long long blocks = 1LL * nchunks * kPieces;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+    if (r == 2 && t == 9) {
+      contract_reduce_bf16_kernel<2, 9><<<blocks, 32, 0, stream>>>(twin, perm, chunk_start, u, n,
+                                                                   n_pad, r, t, nchunks, partial);
+    } else if (r == 2 && t == 10) {
+      contract_reduce_bf16_kernel<2, 10><<<blocks, 32, 0, stream>>>(
+          twin, perm, chunk_start, u, n, n_pad, r, t, nchunks, partial);
+    } else {
+      contract_reduce_bf16_kernel<0, 0><<<blocks, 32, 0, stream>>>(twin, perm, chunk_start, u, n,
+                                                                   n_pad, r, t, nchunks, partial);
+    }
+  }
+  const cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  camera_chunks::launch_chunk_parts_sum<float>(partial, row_chunks, t, nchunks, kPieces, ncols,
+                                               ncols, nullptr, nullptr, out, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the batched B2: the camera shapes (r = 2 and t = 9: angle-axis or
 // quaternion-on-manifold cameras; t = 10: quaternion cameras without a
 // manifold) with their table slice in registers, else any r, t; tiles of
@@ -996,7 +1148,6 @@ extern "C" int ctt_contract_reduce_bf16(const __nv_bfloat16* twin, const int* pe
                                         const float* u, int n, int n_pad, int r, int t,
                                         int nchunks, int ncols, float* partial, float* out,
                                         void* stream) {
-  return launch_reduce<__nv_bfloat16>(twin, perm, chunk_start, row_chunks, u, n, n_pad, r, t,
-                                      nchunks, ncols, partial, out,
-                                      static_cast<cudaStream_t>(stream));
+  return launch_reduce_bf16(twin, perm, chunk_start, row_chunks, u, n, n_pad, r, t, nchunks,
+                            ncols, partial, out, static_cast<cudaStream_t>(stream));
 }

@@ -42,5 +42,31 @@ struct Leaf<__nv_bfloat16> {
   }
 };
 
+// K = 8 or 4 consecutive bfloat16 values of a row as K/2 32-bit words, by
+// one evict-first load of 2K bytes (16 or 8; the address aligned to it)
+template <int K>
+__device__ __forceinline__ void ldcs_bf16_words(const __nv_bfloat16* p, unsigned (&w)[K / 2]) {
+  static_assert(K == 8 || K == 4, "8 or 4 bfloat16 values a load");
+  if constexpr (K == 8) {
+    const uint4 v = __ldcs(reinterpret_cast<const uint4*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else {
+    const uint2 v = __ldcs(reinterpret_cast<const uint2*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+  }
+}
+
+// element e of such words, widened exactly to float (a bfloat16 value is
+// the high half of a float's bits; element e is the low half of word e/2
+// when e is even, its high half when e is odd)
+__device__ __forceinline__ float bf16_word_value(const unsigned* w, int e) {
+  const unsigned x = w[e >> 1];
+  return __uint_as_float((e & 1) ? (x & 0xffff0000u) : (x << 16));
+}
+
 }  // namespace
 }  // namespace leaf

@@ -379,6 +379,9 @@ def stream(device) -> ctypes.c_void_p:
 
 
 def check(rc: int, name: str):
+    if rc == 1:  # cudaErrorInvalidValue: the launcher refused its operands
+        raise RuntimeError(f"{name}: the kernel does not take these operands (cudaErrorInvalidValue;"
+                           " e.g. a bfloat16 twin or its prow/perm not 16-byte aligned)")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 

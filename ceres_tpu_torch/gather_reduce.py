@@ -15,7 +15,10 @@ B2 reads the leaf in lane order: on bfloat16 leaves 16 bytes of a leaf
 row per thread, its table from shared memory (`gather_branch`); else one
 lane per thread, as its first version. B3 reads the leaf's twin: a copy in the
 slot order of the padded camera CSR (program.camera_layout,
-jacobian.make_twin), where each camera's observations are contiguous. One
+jacobian.make_twin), where each camera's observations are contiguous; on
+bfloat16 twins 16 bytes of a twin row per thread (8 consecutive slots),
+which needs the twin and the layout's perm 16-byte aligned (every twin the
+port makes is; a misaligned one raises). One
 block per chunk of a camera's run and a fixed-order combine of the chunks
 make it bitwise deterministic without atomics (the JAX package's decision 3
 in docs/architecture.md). On CPU tensors both run their plain PyTorch
@@ -53,8 +56,8 @@ def widen(leaf):
     return leaf.to(torch.float32) if leaf.dtype == torch.bfloat16 else leaf
 
 
-# B2's shared-memory kernel: the table's bytes that one block may stage in
-# shared memory. An H100 block may use 227 KB (232,448 bytes) of it, as
+# B2's shared-memory kernel (and B4's bfloat16 point pass): the table's
+# bytes that one block may stage in shared memory. An H100 block may use 227 KB (232,448 bytes) of it, as
 # dynamic shared memory after cudaFuncSetAttribute (csrc/gather_reduce.cu);
 # one kilobyte of that is left for the 16 bytes of alignment slack and the
 # kernel's own barrier.
@@ -62,9 +65,10 @@ SHARED_TABLE_MAX_BYTES = 232_448 - 1024
 
 
 def table_fits(t, ncols):
-    """Whether B2's [t, ncols] float32 table (bfloat16 leaves meet a
-    float32 table) fits one block's shared memory: BAL-1778's 9 x 1,779
-    (64 KB) does, BAL-13682's 9 x 13,683 (493 KB) not."""
+    """Whether a [t, ncols] float32 camera table (bfloat16 leaves meet a
+    float32 table) fits one block's shared memory, for B2 and B4's point
+    pass (csrc/smem_table.cuh table_fits): BAL-1778's 9 x 1,779 (64 KB)
+    does, BAL-13682's 9 x 13,683 (493 KB) not."""
     return t * ncols * 4 <= SHARED_TABLE_MAX_BYTES
 
 
@@ -77,6 +81,25 @@ def gather_branch(t, ncols, leaf_dtype):
     and float64 leaves (PERF.md §6)."""
     shared = leaf_dtype == torch.bfloat16 and table_fits(t, ncols)
     return "shared" if shared else "global"
+
+
+# B3 and B4's slot pass on bfloat16 twins run one block per piece of 256
+# slots of a chunk and write one partial sum per piece (csrc: kPieceSlots,
+# kPieces = 2048 / 256), which their combine adds in order.
+PIECE_SLOTS = 256
+
+
+def chunk_pieces(leaf_dtype):
+    """The partial sums per chunk that B3 and B4's slot pass write on twins
+    of `leaf_dtype`: 8 on bfloat16 (the kernels take chunks of 2048
+    slots), else 1."""
+    from .program import TWIN_CHUNK
+
+    if leaf_dtype != torch.bfloat16:
+        return 1
+    if TWIN_CHUNK != 2048:
+        raise ValueError(f"the bfloat16 B3/B4 take chunks of 2048 slots, not {TWIN_CHUNK}")
+    return TWIN_CHUNK // PIECE_SLOTS
 
 
 def gather_contract_plain(jac, rows, table_t, r):
@@ -161,7 +184,7 @@ def contract_reduce(twin, layout, u, r):
         n = u.shape[1]
         cuda_lib.require("u", u, vdt, (r, n), dev)
     nchunks = layout.num_chunks
-    partial = torch.empty((t, nchunks), dtype=vdt, device=dev)
+    partial = torch.empty((t, nchunks * chunk_pieces(twin.dtype)), dtype=vdt, device=dev)
     out = torch.empty((t, ncols), dtype=vdt, device=dev)
     fn = cuda_lib.kernel_fn("ctt_contract_reduce", twin.dtype)
     rc = fn(

@@ -30,7 +30,7 @@ S·y at BAL-1778 in float32, against ~1.2 GB plus a random gather of an
 [r, n] diff buffer by a second (B3) launch in the earlier design.
 
 Under mixed-precision solves F, E and their twins are bfloat16 (the
-`_bf16` instantiation, counted as `schur_sy_bf16`) and everything else is
+`_bf16` entry points, counted as `schur_sy_bf16`) and everything else is
 float32: y, t1, t2 and diff are rounded to bfloat16 where `_sy_kernel`
 casts them to the leaf type (y as gathered, t1 before Eᵀt1, t2 before E t2,
 diff before Fᵀdiff; gather_reduce.leaf_operand), products and sums are
@@ -42,7 +42,16 @@ nearly doubles the error against exact arithmetic on the bfloat16 leaves
 tests/test_torch_mixed_precision.py). `_sy_kernel` also rounds the products
 and some sums to bfloat16 (pallas_schur.py:309); here a product of two
 bfloat16 values is exact in float32, a deliberate deviation toward
-precision.
+precision. The bfloat16 passes have kernels of their own (csrc/schur_sy.cu):
+the point pass gathers y from a copy of the table in shared memory where
+`gather_reduce.table_fits(tf, ncols)` (BAL-1778's 9 x 1,779), else from
+device memory as the float kernel does, bitwise the same t2 either way;
+the slot pass takes 4 consecutive slots a thread with 8-byte twin loads, a
+block a 256-slot piece of a chunk (`gather_reduce.chunk_pieces` partial
+sums a chunk), which needs n_pad a multiple of 8 and the twins and `prow`
+16-byte aligned (every twin the port makes is; a misaligned one raises).
+Device memory bounds both; reading each leaf once per pass, the two
+passes' bounds together are about twice the bound of S·y (PERF.md §6).
 
 Eligibility (`sy_meta`, the counterpart of pallas_schur.sy_meta:65): one
 signature group, a pure class split, one e-position on a bucket plan and
@@ -69,7 +78,9 @@ import numpy as np
 import torch
 
 from .. import cuda_lib
-from ..gather_reduce import contract_reduce_plain, gather_contract_plain, leaf_operand, widen
+from ..gather_reduce import (
+    chunk_pieces, contract_reduce_plain, gather_contract_plain, leaf_operand, widen,
+)
 from ..jacobian import gather_T_t, reduce_T
 from .preconditioners import apply_block_T
 
@@ -239,7 +250,7 @@ def sy_fold_pass(meta, F_twin, E_twin, prow, layout_f, y_table, t2, dsq=None):
     if dsq is not None:
         cuda_lib.require("dsq", dsq, dt, (tf, ncols_f), dev)
     nchunks = layout_f.live_chunks
-    partial = torch.empty((tf, nchunks), dtype=dt, device=dev)
+    partial = torch.empty((tf, nchunks * chunk_pieces(lt)), dtype=dt, device=dev)
     out = torch.empty((tf, ncols_f), dtype=dt, device=dev)
     rc = cuda_lib.kernel_fn("ctt_schur_sy_fold", lt)(
         cuda_lib.ptr(F_twin), cuda_lib.ptr(E_twin), cuda_lib.ptr(prow),

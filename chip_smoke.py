@@ -310,6 +310,20 @@ FIRST_BATCHED_MS = {("gather_contract_batched", "Dubrovnik-356"): "1.4345-1.6282
                    ("gather_contract_batched", "BAL-1778"): "6.4578-6.8710",
                    ("contract_reduce_batched", "Dubrovnik-356"): "2.9553-3.0647",
                    ("contract_reduce_batched", "BAL-1778"): "7.4313-7.5054"}
+# the bfloat16 B3 and B4 before their redesign (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md §6), printed beside this run's: B3, B4 whole, its point
+# pass, its slot pass with the camera combine; this script's phase 2 on
+# the first kernels, and profile_torch_solve.py --kernels sy (device ms a
+# call in one CUDA graph) on them in turns with the redesigned ones
+EARLIER_BF16_MS = {
+    "contract_reduce_bf16": "phase 2 0.3196, graph 0.2247-0.2260",
+    "schur_sy_bf16": "phase 2 0.3200, graph 0.2479-0.2520",
+    "point pass": "phase 2 0.1552, graph 0.1211-0.1243",
+    "slot pass": "phase 2 0.1915, graph 0.1212-0.1233",
+}
+# the redesigned bfloat16 B3 and B4 kernels: phase 1 prints their
+# registers and spills
+BF16_REDESIGNED = ("sy_point_shared_kernel", "sy_fold_bf16_kernel", "contract_reduce_bf16_kernel")
 BATCHED_TOL = {"gather_contract_batched": {"float64": 1e-12, "float32": 1e-5},
                "contract_reduce_batched": {"float64": 1e-12, "float32": 1e-4}}
 # with their bfloat16 instantiations, which no path of this script runs
@@ -411,6 +425,13 @@ def kernel_name(mangled: str) -> str:
                     cam = f",{m.group(2)}" + (f"<{m.group(3)}>" if m.group(3) else "")
                 args = "".join(f",{a}" for a in re.findall(r"L[ib](\d+)E", m.group(4)))
                 return f"{mangled[end - size:end]}<{types[m.group(1)]}{cam}{args}>"
+    # a template over integers and booleans only (the bfloat16-only kernels)
+    for m in re.finditer(r"_kernelI((?:L[ib]\d+E)+)E", mangled):
+        end = m.start() + len("_kernel")
+        for size in range(len("_kernel"), end):
+            if mangled[:end - size].endswith(str(size)):
+                args = ",".join(re.findall(r"L[ib](\d+)E", m.group(1)))
+                return f"{mangled[end - size:end]}<{args}>"
     return mangled
 
 
@@ -801,7 +822,7 @@ def phase_kernels_bf16(results, sy, F, E, rows_f, layout, y, u, e_twin, prow, se
     import torch
 
     from ceres_tpu_torch.gather_reduce import (
-        contract_reduce, contract_reduce_plain, gather_contract, gather_contract_plain,
+        contract_reduce, contract_reduce_plain, gather_contract, gather_contract_plain, table_fits,
     )
     from ceres_tpu_torch.jacobian import make_twin
     from ceres_tpu_torch.linalg.schur_kernels import (
@@ -837,6 +858,12 @@ def phase_kernels_bf16(results, sy, F, E, rows_f, layout, y, u, e_twin, prow, se
            h * 18 * n + w * (2 * n + n + 9 * ncols_f), 2 * 18 * n)
     time_library("contract_reduce_bf16",
                  lambda: library_b3(F16, rows_f, u.to(bf16), ncols_f, 2), out1, results)
+    res = results["contract_reduce_bf16"]
+    g_ms = graph_ms(lambda: contract_reduce(f_twin16, layout, u, 2))
+    print(f"phase 2: contract_reduce_bf16 (8 consecutive slots a thread, 16-byte twin loads, a "
+          f"warp a 256-slot piece): {res['ms']:.4f} ms, graph replay {g_ms:.4f} ms, "
+          f"{100 * res['bound_ms'] / res['ms']:.1f}% of its bound; before the redesign "
+          f"{EARLIER_BF16_MS['contract_reduce_bf16']} ms", flush=True)
     del out, out1, out2
 
     args = (sy, F16, E16, rows_f, f_twin16, e_twin16, prow, layout, y, minv, segs)
@@ -851,12 +878,23 @@ def phase_kernels_bf16(results, sy, F, E, rows_f, layout, y, u, e_twin, prow, se
     t2 = sy_point_pass(sy, F16, E16, rows_f, y, minv, segs)
     a_ms = median_ms(lambda: sy_point_pass(sy, F16, E16, rows_f, y, minv, segs))
     b_ms = median_ms(lambda: sy_fold_pass(sy, f_twin16, e_twin16, prow, layout, y, t2))
+    a_graph = graph_ms(lambda: sy_point_pass(sy, F16, E16, rows_f, y, minv, segs))
+    b_graph = graph_ms(lambda: sy_fold_pass(sy, f_twin16, e_twin16, prow, layout, y, t2))
     a_bound = bound(b4_in + w * 3 * cnt_e, n * (2 * 18 + 2 * 6) + cnt_e * 2 * 9)
     b_bound = bound(h * 24 * n + w * (n + 9 * ncols_f + 3 * cnt_e + 9 * ncols_f),
                     n * (4 * 18 + 2 * 6))
-    print(f"phase 2: schur_sy_bf16 launches: point pass {a_ms:.4f} ms (bound {a_bound[0]:.4f} ms, "
-          f"{a_bound[1]}), slot pass with its chunk sum {b_ms:.4f} ms (bound {b_bound[0]:.4f} ms, "
-          f"{b_bound[1]}); bfloat16 leaves and twins {h * (24 + 24) * n / 1e9:.3f} GB "
+    whole = results["schur_sy_bf16"]
+    print(f"phase 2: schur_sy_bf16 launches: point pass {a_ms:.4f} ms, graph replay "
+          f"{a_graph:.4f} ms (bound {a_bound[0]:.4f} ms, {a_bound[1]}; {100 * a_bound[0] / a_ms:.1f}% "
+          f"of it, {100 * a_bound[0] / a_graph:.1f}% replayed; before the redesign "
+          f"{EARLIER_BF16_MS['point pass']} ms), slot pass with its chunk sum {b_ms:.4f} ms, graph "
+          f"replay {b_graph:.4f} ms (bound {b_bound[0]:.4f} ms, {b_bound[1]}; "
+          f"{100 * b_bound[0] / b_ms:.1f}% of it, {100 * b_bound[0] / b_graph:.1f}% replayed; "
+          f"before {EARLIER_BF16_MS['slot pass']} ms); S·y {whole['ms']:.4f} ms (before "
+          f"{EARLIER_BF16_MS['schur_sy_bf16']} ms); the two passes' bounds together "
+          f"{a_bound[0] + b_bound[0]:.4f} ms, of which S·y's own bound (each leaf read once) is "
+          f"{100 * whole['bound_ms'] / (a_bound[0] + b_bound[0]):.1f}%; y table in shared memory: "
+          f"{table_fits(9, ncols_f)}; bfloat16 leaves and twins {h * (24 + 24) * n / 1e9:.3f} GB "
           f"against {w * (24 + 24) * n / 1e9:.3f} GB in float32 (not their padding)", flush=True)
     del t2, out1, out2, F16, E16, f_twin16, e_twin16
     torch.cuda.empty_cache()
@@ -3669,6 +3707,9 @@ def main(argv=None) -> int:
     )
     for ln in regs:
         print(f"phase 1: ptxas {ln}", flush=True)
+    redesigned = [ln for ln in regs if ln.split("<")[0] in BF16_REDESIGNED]
+    print(f"phase 1: the bfloat16 B3 and B4 kernels (registers, spills): "
+          f"{' | '.join(redesigned) or 'not in the ptxas report'}", flush=True)
 
     t0 = time.time()
     bal = ct.synthetic_bal(1778, NUM_POINTS, NUM_OBSERVATIONS, seed=0)
@@ -3768,6 +3809,9 @@ def main(argv=None) -> int:
         raise AssertionError("the composed path did not run B2's and B3's bfloat16 instantiations")
     if composed_launches["schur_sy"] or composed_launches["schur_sy_bf16"]:
         raise AssertionError("the composed path launched B4")
+    for label, run in (("float32 main", main), ("mixed", mixed), ("camera prior, mixed", composed)):
+        steps = tuple(it.linear_solver_iterations for it in run.iterations[1:])
+        print(f"phase 4: {label} run: PCG steps {steps}, final cost {run.final_cost!r}", flush=True)
     quat_launches = phase_quaternion_runs(bal, main)
     phase_cluster_runs(bal, main)
     phase_ordering_run(bal, main)

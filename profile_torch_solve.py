@@ -63,18 +63,24 @@ per iteration and the idle share over iterations 2-10
 With --kernels it times B1 generic (chip_smoke.py's Fields-of-Experts
 groups: the 3x3 clique, the data term and the 5x5 clique of FOE_RUNS, and
 the 3x3 clique as an AnalyticCostFunction; with the Jacobian and
-residual-only) and B2 (BAL-1778's shape, n = 5,000,000, t = 9, 1,779
-columns, float32, float64 and bfloat16 leaves) as each runs by default,
-each as the device ms per call of one CUDA graph that holds 20 calls back
-to back, replayed 10 times between two CUDA events (the median of 5), and
-B1 generic's cost, so that two versions' cost sums can be compared: at
-B1 generic's ~10 us a replay of a single call is mostly the graph's own
-launch. It calls only entry points that the parent commit has too, so
---tree DIR times the package of another checkout (say a parent commit
-unpacked with `git archive`) by the same method; run two checkouts in
-turns, in one call:
+residual-only), B2 (BAL-1778's shape, n = 5,000,000, t = 9, 1,779
+columns, float32, float64 and bfloat16 leaves), and B3 and B4 (S·y whole,
+its point pass and its slot pass with the camera combine) at BAL-1778's
+shape on float32 and on bfloat16 leaves and twins (chip_smoke.py's
+Program: its point buckets, camera layout and slot rows; seeded random
+leaves and inverse table), as each runs by default, each as the device ms
+per call of one CUDA graph that holds 20 calls back to back, replayed 10
+times between two CUDA events (the median of 5); with B1 generic's cost
+and a hash of each B3/B4 output's bytes, so that two versions' results
+can be compared: at B1 generic's ~10 us a replay of a single call is
+mostly the graph's own launch. `--kernels generic b2 sy` names the sets
+to time (default all three). It calls only entry points that the parent
+commit has too, so --tree DIR times the package of another checkout (say
+a parent commit unpacked with `git archive`) by the same method; run two
+checkouts in turns, in one call:
 
     python3 profile_torch_solve.py --kernels --tree .chipcheck/base
+    python3 profile_torch_solve.py --kernels sy --tree .chipcheck/base
 
 With --covariance it profiles chip_smoke.py's covariance PCG at
 Dubrovnik-356's shape (gauge_fixed_ba: float64, 72 columns, the batched
@@ -275,14 +281,27 @@ def batched_ms(torch, fn, calls=20, replays=10, repeats=5) -> float:
     return statistics.median(times)
 
 
-def kernel_times(torch, label):
-    """--kernels: B1 generic on chip_smoke's FoE groups and B2 at BAL-1778's
-    shape, as each runs by default, by batched_ms."""
-    import numpy as np
+KERNEL_SETS = ("generic", "b2", "sy")
 
-    from ceres_tpu_torch import cuda_lib, eval_kernel, functor_codegen
+
+def kernel_times(torch, label, sets=KERNEL_SETS):
+    """--kernels: B1 generic on chip_smoke's FoE groups, B2 at BAL-1778's
+    shape and B3/B4 on BAL-1778's Program, as each runs by default, by
+    batched_ms; `sets` names which."""
+    if "generic" in sets:
+        generic_times(torch, label)
+    if "b2" in sets:
+        b2_times(torch, label)
+    if "sy" in sets:
+        sy_times(torch, label)
+
+
+def generic_times(torch, label):
+    """B1 generic on chip_smoke's FoE groups and the sphere2500-shaped pose
+    graph, with the Jacobian and residual-only."""
+    from ceres_tpu_torch import eval_kernel, functor_codegen
+    from ceres_tpu_torch import cuda_lib
     from ceres_tpu_torch.evaluator import Evaluator, state_tables
-    from ceres_tpu_torch.gather_reduce import gather_contract
     from chip_smoke import FOE_RUNS, build_foe
 
     dev = torch.device("cuda")
@@ -326,6 +345,16 @@ def kernel_times(torch, label):
               f"{cost!r}", flush=True)
         del ev, st, program
         torch.cuda.empty_cache()
+
+
+def b2_times(torch, label):
+    """B2 at BAL-1778's shape on float32, float64 and bfloat16 leaves."""
+    import numpy as np
+
+    from ceres_tpu_torch import cuda_lib
+    from ceres_tpu_torch.gather_reduce import gather_contract
+
+    dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     n, ncols, t, r = 5_000_000, 1779, 9, 2
     rows = torch.tensor(rng.integers(0, ncols, n).astype(np.int32), device=dev)
@@ -338,6 +367,71 @@ def kernel_times(torch, label):
         print(f"kernels [{label}]: gather_contract {str(dt).split('.')[-1]}: {ms:.5f} ms",
               flush=True)
         del jac, table
+        torch.cuda.empty_cache()
+
+
+def _digest(x) -> str:
+    """A short hash of a tensor's bytes: equal outputs, bitwise."""
+    import hashlib
+
+    return hashlib.sha256(x.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+
+def sy_times(torch, label):
+    """B3 and B4 at BAL-1778's shape (chip_smoke.py's Program: its buckets,
+    camera layout and slot rows; seeded random leaves, twins and inverse
+    table, float32 y and u) on float32 and on bfloat16 leaves and twins:
+    B3, S·y whole, its point pass and its slot pass, each with a hash of its
+    output."""
+    import ceres_tpu_torch as ct
+    from ceres_tpu_torch.evaluator import Evaluator
+    from ceres_tpu_torch.gather_reduce import contract_reduce
+    from ceres_tpu_torch.jacobian import make_twin
+    from ceres_tpu_torch.linalg.schur_kernels import (
+        sy_apply, sy_fold_pass, sy_meta, sy_point_pass, sy_tables,
+    )
+    from chip_smoke import NUM_OBSERVATIONS, NUM_POINTS
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    t0 = time.time()
+    bal = ct.synthetic_bal(1778, NUM_POINTS, NUM_OBSERVATIONS, seed=0)
+    program = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))[0].compile(dev)
+    meta = sy_meta(program)
+    garr = Evaluator(program, f32).arrays["groups"][0]
+    f_pos, e_pos, r, te, tf = meta["f_pos"], meta["e_pos"], meta["r"], meta["te"], meta["tf"]
+    rows_f, layout = garr["t_rows"][f_pos], garr["csr"][f_pos]
+    n, ncols = rows_f.shape[0], layout.offsets.shape[0] - 1
+    cnt_e = program.tangent_class_counts[meta["e_cls"]]
+    prow = program.slot_rows(0, e_pos, f_pos, dev)
+    segs = sy_tables(meta, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    F = torch.randn((r * tf, n), generator=gen, device=dev)
+    E = torch.randn((r * te, n), generator=gen, device=dev)
+    minv = 0.1 + torch.rand((te * te, cnt_e), generator=gen, device=dev)
+    y = torch.randn((tf, ncols), generator=gen, device=dev)
+    y[:, -1] = 0
+    u = torch.randn((r, n), generator=gen, device=dev)
+    print(f"kernels [{label}]: BAL-1778 Program and operands in {time.time() - t0:.1f} s: n {n}, "
+          f"n_pad {layout.perm.shape[0]}, {layout.num_chunks} chunks, {cnt_e} points",
+          flush=True)
+    del bal
+    for dt in (f32, torch.bfloat16):
+        Fd, Ed = F.to(dt), E.to(dt)
+        f_twin, e_twin = make_twin(Fd, layout), make_twin(Ed, layout)
+        t2 = sy_point_pass(meta, Fd, Ed, rows_f, y, minv, segs)
+        calls = {
+            "contract_reduce": lambda: contract_reduce(f_twin, layout, u, r),
+            "schur_sy": lambda: sy_apply(meta, Fd, Ed, rows_f, f_twin, e_twin, prow, layout, y,
+                                         minv, segs),
+            "schur_sy point pass": lambda: sy_point_pass(meta, Fd, Ed, rows_f, y, minv, segs),
+            "schur_sy slot pass": lambda: sy_fold_pass(meta, f_twin, e_twin, prow, layout, y, t2),
+        }
+        for name, fn in calls.items():
+            ms = batched_ms(torch, fn)
+            print(f"kernels [{label}]: {name} {str(dt).split('.')[-1]}: {ms:.5f} ms; output "
+                  f"{_digest(fn())}", flush=True)
+        del Fd, Ed, f_twin, e_twin, t2, calls
         torch.cuda.empty_cache()
 
 
@@ -402,8 +496,9 @@ def main(argv=None) -> int:
                        help="profile chip_smoke's two Fields-of-Experts denoising runs instead")
     group.add_argument("--line-search", action="store_true",
                        help="profile chip_smoke's L-BFGS line-search run at BAL-1778 instead")
-    group.add_argument("--kernels", action="store_true",
-                       help="time B1 generic and B2 by batched graph replays instead")
+    group.add_argument("--kernels", nargs="*", choices=KERNEL_SETS, default=None,
+                       help="time B1 generic, B2 and B3/B4 (or the sets named) by batched "
+                            "graph replays instead")
     group.add_argument("--covariance", action="store_true",
                        help="profile chip_smoke's covariance PCG at Dubrovnik-356's shape instead")
     parser.add_argument("--tree", default=None,
@@ -416,13 +511,13 @@ def main(argv=None) -> int:
         return 2
     root = os.path.abspath(args.tree) if args.tree else os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    if args.kernels:
+    if args.kernels is not None:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60, check=True,
         ).stdout.strip()
         print(f"{smi} | torch {torch.__version__} cuda {torch.version.cuda} | {root}", flush=True)
-        kernel_times(torch, args.tree or "this checkout")
+        kernel_times(torch, args.tree or "this checkout", args.kernels or KERNEL_SETS)
         return 0
     import ceres_tpu_torch as ct
     from ceres_tpu_torch import cuda_lib

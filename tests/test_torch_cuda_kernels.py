@@ -43,6 +43,8 @@ from ceres_tpu_torch.gather_reduce import (
     gather_contract_batched_plain,
     gather_contract_plain,
     lanes_major,
+    SHARED_TABLE_MAX_BYTES,
+    table_fits,
 )
 from ceres_tpu_torch.linalg import schur as tschur
 from ceres_tpu_torch.linalg.schur_kernels import (
@@ -331,18 +333,34 @@ def test_bf16_gather_reduce_kernels_match_plain(card):
         contract_reduce(twin, layout, u.double(), 2)
 
 
-@pytest.mark.parametrize("t,r,with_u", [(9, 2, True), (6, 2, True), (16, 1, True), (81, 1, False)])
+@pytest.mark.parametrize("t,r,with_u", [(9, 2, True), (6, 2, True), (16, 1, True), (81, 1, False),
+                                        (10, 2, True), (4, 3, True)])
 def test_bf16_contract_reduce_ragged_runs(card, t, r, with_u):
+    """B3 on bfloat16 twins (8 consecutive slots a thread, 16-byte loads):
+    its camera shapes (r = 2, t = 9 or 10) and the any-(r, t) kernel, one
+    launch per call, bitwise from run to run."""
     rows, layout = _ragged_layout(card, t)
     rng = np.random.default_rng(t + r)
     n = rows.size
     twin = make_twin(torch.tensor(rng.normal(size=(r * t, n)), dtype=BF16, device=card), layout)
     u = torch.tensor(rng.normal(size=(r, n)), dtype=torch.float32, device=card) if with_u else None
+    launched = cuda_lib.launch_counts()["contract_reduce_bf16"]
     out = contract_reduce(twin, layout, u, r)
+    assert cuda_lib.launch_counts()["contract_reduce_bf16"] == launched + 1
     assert out.dtype == torch.float32
     assert torch.equal(out, contract_reduce(twin, layout, u, r))
     assert torch.all(out[:, 4] == 0)
     _close(out, contract_reduce_plain(twin, layout, u, r), 1e-4)
+
+
+def _misaligned(x):
+    """x's values in a contiguous tensor whose data starts 2 bytes past a
+    16-byte boundary (an offset slice of a larger buffer)."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    view = buf[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -439,6 +457,8 @@ def test_bf16_schur_sy_passes_ragged_runs(card, r, te, tf):
     fold = sy_fold_pass(meta, F_twin, E_twin, prow, layout, y, t2, dsq)
     assert fold.dtype == torch.float32 and torch.all(fold[:, -1] == 0)
     _close(fold, sy_fold_plain(meta, F_twin, E_twin, prow, layout, y, t2, dsq), 1e-3)
+    assert torch.equal(t2[:npts], sy_point_pass(meta, F, E, rows_f, y, minv, segs)[:npts])
+    assert torch.equal(fold, sy_fold_pass(meta, F_twin, E_twin, prow, layout, y, t2, dsq))
     args = (meta, F, E, rows_f, F_twin, E_twin, prow, layout, y, minv, segs, dsq)
     counts = cuda_lib.launch_counts()
     out = sy_apply(*args)
@@ -447,6 +467,60 @@ def test_bf16_schur_sy_passes_ragged_runs(card, r, te, tf):
     assert after["schur_sy"] == counts["schur_sy"]
     assert torch.equal(out, sy_apply(*args))
     _close(out, sy_apply_plain(meta, F, E, rows_f, F_twin, layout, y, minv, dsq), 1e-3)
+
+
+@pytest.mark.parametrize("r,te,tf", [(2, 3, 9), (1, 1, 1), (2, 8, 16), (4, 3, 8), (3, 5, 6)])
+def test_bf16_schur_sy_point_pass_large_table(card, r, te, tf):
+    """B4's bfloat16 point pass on a y table that does not fit shared
+    memory (the first version's kernel, as at BAL-13682) gives bitwise the
+    t2 of the shared-memory kernel on the same columns."""
+    (meta, F, E, rows_f, _Ft, _Et, _prow, _layout, y, minv,
+     _dsq) = synthetic_sy_case(r, te, tf, torch.float32, card, seed=r * 100 + te * 10 + tf)
+    F, E = F.to(BF16), E.to(BF16)
+    ncols = y.shape[1]
+    wide = SHARED_TABLE_MAX_BYTES // (4 * tf) + 1  # the fewest columns that do not fit
+    assert table_fits(tf, ncols) and not table_fits(tf, wide)
+    y_wide = torch.randn((tf, wide), dtype=torch.float32, device=card)
+    y_wide[:, :ncols - 1] = y[:, :ncols - 1]
+    # the dump column is the last one of either table
+    rows_wide = torch.where(rows_f == ncols - 1, wide - 1, rows_f).to(torch.int32)
+    segs = sy_tables(meta, card)
+    t2 = sy_point_pass(meta, F, E, rows_f, y, minv, segs)
+    t2_wide = sy_point_pass(meta, F, E, rows_wide, y_wide, minv, segs)
+    npts = int(meta["pt_start"][-1])  # the points with observations: the rest is not written
+    assert torch.equal(t2[:npts], t2_wide[:npts])
+    _close(t2_wide[:npts, :te], sy_point_plain(meta, F, E, rows_wide, y_wide, minv)[:npts], 1e-3)
+
+
+@pytest.mark.parametrize("kernel", ["contract_reduce", "schur_sy"])
+def test_bf16_misaligned_twin_raises(card, kernel):
+    """B3's and B4's bfloat16 kernels read 16 bytes of a twin row at once:
+    a twin whose data is not 16-byte aligned raises and launches nothing."""
+    (meta, F, E, rows_f, _Ft, _Et, prow, layout, y, minv,
+     dsq) = synthetic_sy_case(2, 3, 9, torch.float32, card)
+    F, E = F.to(BF16), E.to(BF16)
+    F_twin, E_twin = make_twin(F, layout), make_twin(E, layout)
+    u = torch.randn((2, F.shape[1]), dtype=torch.float32, device=card)
+    segs = sy_tables(meta, card)
+    name = kernel + "_bf16"
+    for bad in range(1 if kernel == "contract_reduce" else 2):
+        launched = cuda_lib.launch_counts()[name]
+        with pytest.raises(RuntimeError):
+            if kernel == "contract_reduce":
+                contract_reduce(_misaligned(F_twin), layout, u, 2)
+            else:
+                twins = [F_twin, E_twin]
+                twins[bad] = _misaligned(twins[bad])
+                sy_apply(meta, F, E, rows_f, *twins, prow, layout, y, minv, segs, dsq)
+        torch.cuda.synchronize()
+        assert cuda_lib.launch_counts()[name] == launched
+    # the aligned twins run
+    if kernel == "contract_reduce":
+        _close(contract_reduce(F_twin, layout, u, 2), contract_reduce_plain(F_twin, layout, u, 2),
+               1e-4)
+    else:
+        _close(sy_apply(meta, F, E, rows_f, F_twin, E_twin, prow, layout, y, minv, segs, dsq),
+               sy_apply_plain(meta, F, E, rows_f, F_twin, layout, y, minv, dsq), 1e-3)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
