@@ -13,7 +13,7 @@ H100 through five hand-written CUDA kernels:
                              (csrc/eval_generic.cuh)
   B2 gather_reduce.py        camera gather-contract F·y (csrc/gather_reduce.cu)
   B3 gather_reduce.py        deterministic camera contract-reduce Fᵀu
-  B4 linalg/schur_kernels.py the fused implicit-Schur matvec (csrc/schur_sy.cu)
+  B4 linalg/schur_kernels.py the fused implicit-Schur matvec (csrc/schur_sy.cuh)
   B5 linalg/schur_kernels.py the SCHUR_JACOBI block build (csrc/schur_p0.cu)
 
 Beside the trust-region solves: the line-search minimizer

@@ -1,6 +1,6 @@
 // A float table staged in a block's shared memory: the camera tables that
 // kernels B2 (gather_contract_shared_kernel, gather_reduce.cu) and B4's
-// point pass (sy_point_shared_kernel, schur_sy.cu) gather from at random
+// point pass (sy_point_shared_kernel, schur_sy.cuh) gather from at random
 // columns. One bulk asynchronous copy (cp.async.bulk, completing on an
 // mbarrier) brings the table's 16-byte-aligned body; the head before its
 // first 16-byte boundary and the tail after its last one go by plain

@@ -17,13 +17,18 @@ accumulators and outputs are float32. Those instantiations count under
 their own names (`counter`): `schur_sy_bf16`, ...
 
 B1's generic instantiation is built per generated source
-(functor_codegen.py fills in csrc/eval_generic.cuh): `build_generated`
-compiles the sources it is given, one nvcc each, all started together,
-into `_build/gen_<hash>.so` keyed by a hash of the source, the template
-and the flags, and `generated_fn` loads one. Each evaluation is one
-launch, counted as `eval_generic` (with the Jacobian),
-`eval_generic_analytic` (with the Jacobian, for a functor that carries an
-analytic rule) and `eval_generic_residual`.
+(functor_codegen.py fills in csrc/eval_generic.cuh), and so is B4 at every
+shape but the BA shape (linalg/schur_kernels.py sy_source instantiates
+csrc/schur_sy.cuh): `build_generated` compiles the sources it is given,
+one nvcc each, all started together, into `_build/gen_<hash>.so` keyed by
+a hash of the source, the headers and the flags, and `generated_fn`
+loads an entry point of one. A build never runs inside a CUDA graph
+capture (it raises there): the Evaluator builds its Program's sources when
+it is made. Each evaluation of B1 generic is one launch, counted as
+`eval_generic` (with the Jacobian), `eval_generic_analytic` (with the
+Jacobian, for a functor that carries an analytic rule) and
+`eval_generic_residual`; B4's generated kernels count as the library's
+(`schur_sy`, `schur_sy_bf16`).
 
 `build_host` compiles the port's host C++ sources (native/: the BAL
 loader and the C API's embedding shim) with g++, the same way: keyed by a
@@ -74,8 +79,10 @@ _launches = {
     + GENERIC_KERNELS + MASKED_KERNELS
 }
 _lib = None
-# generated sources: key -> loaded library; builds and their seconds
+# generated sources: path -> loaded library, (source, entry point) -> its
+# function; builds and their seconds
 _generated = {}
+_generated_fns = {}
 _generated_stats = {"builds": 0, "hits": 0, "seconds": 0.0}
 _generated_seconds = {}
 
@@ -250,9 +257,16 @@ def library():
     return _lib
 
 
+# a generated source's entry points beside the library's (_SIGNATURES):
+# B1 generic's with_jac, ptrs, c, n, res, partials, ticket, cost, stream
+_GENERATED_SIGNATURES = {"ctt_eval_generic": [_I, _P, _P, _I, _P, _P, _P, _P, _P]}
+
+
 def _generated_path(source: str):
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((SRC_DIR / "eval_generic.cuh").read_bytes())
+    for hdr in sorted(SRC_DIR.glob("*.cuh")):  # the templates and what they include
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(source.encode())
     return BUILD_DIR / f"gen_{h.hexdigest()[:16]}.so"
 
@@ -262,7 +276,10 @@ def build_generated(sources) -> float:
     are not built yet, one nvcc each, all started together; returns the
     seconds it took. Raises RuntimeError with the compiler's output when
     one fails. The ptxas report of each goes to _build/gen_<hash>.log.
-    Runs under the build lock."""
+    Runs under the build lock; raises inside a CUDA graph capture."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a kernel build inside a CUDA graph capture: build the sources "
+                           "before capturing (the Evaluator builds its Program's)")
     with _build_lock():
         return _build_generated(sources)
 
@@ -310,24 +327,26 @@ def _build_generated(sources) -> float:
     return seconds
 
 
-def generated_fn(source: str, dtype):
-    """The float32 or float64 entry point of a generated source, built on
-    first use."""
+def generated_fn(source: str, dtype, prefix: str = "ctt_eval_generic"):
+    """The entry point `prefix` of a generated source for leaves of
+    `dtype` (float32 or float64; bfloat16 where the library's kernel of
+    that name has it), built on first use."""
+    fn = _generated_fns.get((source, prefix, dtype))
+    if fn is not None:
+        return fn
     suffix = _SUFFIX.get(dtype)
-    if suffix not in ("_f32", "_f64"):
-        raise TypeError(f"eval_generic: unsupported dtype {dtype} (float32/float64)")
+    if suffix not in _suffixes(prefix):
+        raise TypeError(f"{prefix}: unsupported dtype {dtype}")
     path = _generated_path(source)
     lib = _generated.get(path)
     if lib is None:
         build_generated([source])
-        lib = ctypes.CDLL(str(path))
-        for sfx in ("_f32", "_f64"):
-            fn = getattr(lib, "ctt_eval_generic" + sfx)
-            # with_jac, ptrs, c, n, res, partials, ticket, cost, stream
-            fn.argtypes = [_I, _P, _P, _I, _P, _P, _P, _P, _P]
-            fn.restype = ctypes.c_int
-        _generated[path] = lib
-    return getattr(lib, "ctt_eval_generic" + suffix)
+        lib = _generated[path] = ctypes.CDLL(str(path))
+    fn = getattr(lib, prefix + suffix)
+    fn.argtypes = _GENERATED_SIGNATURES.get(prefix) or _SIGNATURES[prefix]
+    fn.restype = ctypes.c_int
+    _generated_fns[(source, prefix, dtype)] = fn
+    return fn
 
 
 def generated_stats() -> dict:

@@ -252,11 +252,13 @@ def generic_blocks(n):
     return min(GENERIC_MAX_BLOCKS, max(1, -(-n // generic_block(n))))
 
 
-def prepare_generic(program, arrays, dtype):
+def prepare_generic(program, arrays, dtype, extra_sources=()):
     """Build, all at once, the generic kernels of every group of a Program
-    that is not served by the Snavely kernels (the solve's evaluations then
-    find them built); returns the nvcc seconds."""
-    sources = []
+    that is not served by the Snavely kernels, and `extra_sources` (the
+    Evaluator's: B4 at its Program's shape, linalg/schur_kernels.py
+    sy_sources), so that the solve finds them built; returns the nvcc
+    seconds."""
+    sources = list(extra_sources)
     for meta, garr in zip(program.groups, arrays["groups"]):
         if eligible(meta, dtype, True):
             continue

@@ -260,8 +260,16 @@ class Evaluator:
         self.device = program.device
         self.arrays = self._build_arrays()
         if torch.device(self.device).type == "cuda":
-            # the generated kernels of the Program's groups, built at once
-            eval_kernel.prepare_generic(program, self.arrays, self.dtype)
+            # the generated kernels of the Program's groups and of B4 at its
+            # shape, built at once, before any CUDA graph capture
+            eval_kernel.prepare_generic(program, self.arrays, self.dtype, self.sy_sources())
+
+    def sy_sources(self):
+        """The generated B4 sources this Evaluator's solves can launch
+        (linalg/schur_kernels.py sy_sources)."""
+        from .linalg.schur_kernels import sy_sources
+
+        return sy_sources(self.program)
 
     def _build_arrays(self):
         return self.program.arrays(self.dtype)

@@ -12,7 +12,7 @@ implicit_schur_complement.cc:118-165):
 
 The TPU kernel does it in one pass over (d, r·t, n_pad) segment copies.
 On the H100 the per-point sum and the per-camera sum run in two orders
-(csrc/schur_sy.cu), and no [r, n] intermediate reaches device memory:
+(csrc/schur_sy.cuh), and no [r, n] intermediate reaches device memory:
 
 - `sy_point_pass`: one thread per point, in place on the bucket layout of
   the lane-order F and E leaves (observation j of point p at lane
@@ -42,7 +42,7 @@ nearly doubles the error against exact arithmetic on the bfloat16 leaves
 tests/test_torch_mixed_precision.py). `_sy_kernel` also rounds the products
 and some sums to bfloat16 (pallas_schur.py:309); here a product of two
 bfloat16 values is exact in float32, a deliberate deviation toward
-precision. The bfloat16 passes have kernels of their own (csrc/schur_sy.cu):
+precision. The bfloat16 passes have kernels of their own (csrc/schur_sy.cuh):
 the point pass gathers y from a copy of the table in shared memory where
 `gather_reduce.table_fits(tf, ncols)` (BAL-1778's 9 x 1,779), else from
 device memory as the float kernel does, bitwise the same t2 either way;
@@ -62,6 +62,16 @@ composed product, `sy_apply_plain` (the path JAX takes when sy_meta is None,
 schur.py:533-541); `sy_point_plain` and `sy_fold_plain` are the plain
 versions of the two passes.
 
+Every B4 kernel is shape-exact, as `_sy_kernel` is (static d, r, te, tf;
+pallas_schur.py:260-275): the library holds the BA shape (r, tf, te) =
+BA_SHAPE, and every other shape is a source of its own (`sy_source`: a
+few lines that instantiate csrc/schur_sy.cuh), which `sy_meta` records,
+cuda_lib.build_generated compiles into the gitignored _build/ and
+`sy_point_pass` / `sy_fold_pass` launch (`sy_route`). The Evaluator builds
+the source of its Program's shape (`sy_sources`) with B1 generic's, when it
+is made on a card, before any CUDA graph capture; a failed build or launch
+raises, and no shape falls back to another kernel.
+
 B5 (`p0_apply`, csrc/schur_p0.cu; `_p0_kernel` via `p0_apply`:563): per
 camera c, P_c = Σ_l [F_lᵀF_l − (E_lᵀF_l)ᵀ M_p(l)⁻¹ (E_lᵀF_l)] over the
 camera's observations, read from the camera-ordered twins of F and E and
@@ -74,6 +84,8 @@ the per-lane math of `ceres_tpu.linalg.schur.schur_jacobi_blocks`
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -84,10 +96,70 @@ from ..gather_reduce import (
 from ..jacobian import gather_T_t, reduce_T
 from .preconditioners import apply_block_T
 
-MAX_TE = 8  # e-block size bound of csrc/schur_sy.cu and csrc/schur_p0.cu
+MAX_TE = 8  # e-block size bound of csrc/schur_sy.cuh and csrc/schur_p0.cu
 MAX_TF = 16  # f-block size bound of both (schur_p0.cu: its upper triangle)
 MAX_R = 4  # residual bound of both (schur_p0.cu: its r x r Q per slot)
 MAX_RTF = 32  # r·tf bound of both (schur_p0.cu: its shared-memory F and H tiles)
+# the (r, tf, te) of B4's instantiation in the kernel library (csrc/schur_sy.cu)
+BA_SHAPE = (2, 9, 3)
+
+
+def sy_shape_ok(r, tf, te):
+    """Whether B4 takes residual r, f-block tf and e-block te."""
+    return 1 <= r <= MAX_R and 1 <= tf <= MAX_TF and 1 <= te <= MAX_TE and r * tf <= MAX_RTF
+
+
+@functools.lru_cache(maxsize=None)
+def sy_source(r, tf, te):
+    """The CUDA source of B4's kernels at one shape (r, tf, te): the six
+    entry points (point and slot pass; float32, float64 and bfloat16
+    leaves) of csrc/schur_sy.cuh instantiated there, for
+    cuda_lib.build_generated. The same text for the same shape."""
+    if not sy_shape_ok(r, tf, te):
+        raise ValueError(f"schur_sy: shape (r, tf, te) = {(r, tf, te)} is outside "
+                         f"r <= {MAX_R}, tf <= {MAX_TF}, te <= {MAX_TE}, r·tf <= {MAX_RTF}")
+    return (f"// Kernel B4 at (r, tf, te) = ({r}, {tf}, {te}), written by "
+            f"ceres_tpu_torch/linalg/schur_kernels.py sy_source\n"
+            f'#include "schur_sy.cuh"\n\nCTT_SCHUR_SY_ENTRY({r}, {tf}, {te})\n')
+
+
+def sy_route(meta):
+    """The source whose kernels run B4 at meta's shape, or None for the
+    library's (the BA shape)."""
+    shape = (meta["r"], meta["tf"], meta["te"])
+    if shape == BA_SHAPE:
+        return None
+    return meta.get("source") or sy_source(*shape)
+
+
+def _sy_fn(meta, prefix, dtype):
+    """B4's entry point `prefix` for leaves of `dtype` at meta's shape."""
+    source = sy_route(meta)
+    if source is None:
+        return cuda_lib.kernel_fn(prefix, dtype)
+    return cuda_lib.generated_fn(source, dtype, prefix)
+
+
+def sy_sources(program):
+    """The sources of every B4 shape `sy_meta` can give this Program, read
+    from its layout plans without the Schur partition (one group; a
+    bucket-planned e-position and a onehot-planned f-position of other
+    tangent classes): what the Evaluator builds, so that no source is met
+    first inside a CUDA graph capture. [] for the BA shape and for a
+    Program B4 does not serve."""
+    if len(program.groups) != 1:
+        return []
+    meta = program.groups[0]
+    plans = meta.red_plans or {}
+    kind = {pos: plan[0] for pos, plan in plans.items() if plan is not None}
+    out = set()
+    for e_pm in (meta.positions[p] for p in kind if kind[p] == "bucket"):
+        for f_pm in (meta.positions[p] for p in kind if kind[p] == "onehot"):
+            shape = (meta.num_residuals, f_pm.tangent_size, e_pm.tangent_size)
+            if (min(e_pm.t_cls, f_pm.t_cls) >= 0 and e_pm.t_cls != f_pm.t_cls
+                    and shape != BA_SHAPE and sy_shape_ok(*shape)):
+                out.add(sy_source(*shape))
+    return sorted(out)
 
 
 def sy_meta(program):
@@ -116,10 +188,8 @@ def sy_meta(program):
         return None
     if f_plan is None or f_plan[0] != "onehot":
         return None
-    r = meta.num_residuals
-    if e_pm.tangent_size > MAX_TE or f_pm.tangent_size > MAX_TF:
-        return None
-    if r > MAX_R or r * f_pm.tangent_size > MAX_RTF:
+    r, tf, te = meta.num_residuals, f_pm.tangent_size, e_pm.tangent_size
+    if not sy_shape_ok(r, tf, te):
         return None
     buckets = e_plan[1]
     return {
@@ -136,6 +206,8 @@ def sy_meta(program):
         "pt_start": np.concatenate(
             [[0], np.cumsum([b[1] for b in buckets])]
         ).astype(np.int32),
+        # the generated source of B4 at this shape; None: the library's
+        "source": None if (r, tf, te) == BA_SHAPE else sy_source(r, tf, te),
     }
 
 
@@ -217,7 +289,7 @@ def sy_point_pass(meta, F, E, rows_f, y_table, minv, segs):
     cuda_lib.require("minv", minv, dt, (te * te, cnt_e), dev)
     ld = -(-te // 4) * 4
     t2 = torch.empty((cnt_e, ld), dtype=dt, device=dev)
-    rc = cuda_lib.kernel_fn("ctt_schur_sy_point", lt)(
+    rc = _sy_fn(meta, "ctt_schur_sy_point", lt)(
         cuda_lib.ptr(F), cuda_lib.ptr(E), cuda_lib.ptr(rows_f), cuda_lib.ptr(y_table),
         ncols_f, cuda_lib.ptr(seg_t), cuda_lib.ptr(pt_start), nb, int(meta["pt_start"][-1]),
         cuda_lib.ptr(minv), cnt_e, n, r, te, tf, cuda_lib.ptr(t2), ld, cuda_lib.stream(dev),
@@ -252,7 +324,7 @@ def sy_fold_pass(meta, F_twin, E_twin, prow, layout_f, y_table, t2, dsq=None):
     nchunks = layout_f.live_chunks
     partial = torch.empty((tf, nchunks * chunk_pieces(lt)), dtype=dt, device=dev)
     out = torch.empty((tf, ncols_f), dtype=dt, device=dev)
-    rc = cuda_lib.kernel_fn("ctt_schur_sy_fold", lt)(
+    rc = _sy_fn(meta, "ctt_schur_sy_fold", lt)(
         cuda_lib.ptr(F_twin), cuda_lib.ptr(E_twin), cuda_lib.ptr(prow),
         cuda_lib.ptr(layout_f.chunk_start), cuda_lib.ptr(layout_f.row_chunks),
         cuda_lib.ptr(layout_f.slot_row), cuda_lib.ptr(y_table), cuda_lib.ptr(dsq), ncols_f,

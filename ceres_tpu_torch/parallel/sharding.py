@@ -123,6 +123,10 @@ class ShardedEvaluator(Evaluator):
     def _build_arrays(self):
         return build_shard_arrays(self.program, self.mesh, self.dtype)
 
+    def sy_sources(self):
+        """No source: B4 never runs on a shard (linalg/schur._sy_meta)."""
+        return []
+
     @property
     def capturable(self) -> bool:
         """A gloo mesh's all-reduces cannot run inside a CUDA graph: its

@@ -10,7 +10,9 @@ and prints no result):
   1. the device, its name and power limit, and the build of the CUDA
      kernels (ceres_tpu_torch/csrc, compiled here with nvcc), then every
      source the generator of B1 generic makes for the groups this script
-     runs (functor_codegen.py; one nvcc each, all at once);
+     runs (functor_codegen.py) and B4's source at the quaternion cameras'
+     shape without a manifold, (r, tf, te) = (2, 10, 3) (one nvcc each,
+     all at once), with ptxas' registers and spills of B4's kernels there;
   2. each kernel B1-B5 against its plain PyTorch version on the card, at
      BAL-1778 shapes in float32, and B2, B3 and B4 on bfloat16 leaves and
      twins (the mixed-precision solves): max relative error vs a stated tolerance,
@@ -25,9 +27,11 @@ and prints no result):
      with and without mixed-precision solves (which add the bfloat16 casts);
      then the quaternion cameras: B1's quaternion instantiations (on the
      camera's product manifold, tangent 9, and without one, tangent 10),
-     with the Jacobian and residual-only, and B3, B4 (its generic
-     instantiation) and B5 on the 10-wide Jacobian, each against its plain
-     version; then B1 generic (graph-replay ms, eager ms beside) on the
+     with the Jacobian and residual-only, and B3, B4 and B5 on the 10-wide
+     Jacobian, each against its plain version (B4 on the kernels built for
+     its shape, in float32 and on bfloat16 leaves, bitwise across two runs,
+     whole and each launch beside its bound, and beside the times of the
+     generic instantiation it replaced); then B1 generic (graph-replay ms, eager ms beside) on the
      Fields-of-Experts 3x3 clique group at 512 x 512, the data term, the
      5x5 clique group at 213 x 177 and the Snavely group at BAL-1778 (also
      against the hand-written eval_snavely), with and without the
@@ -115,7 +119,8 @@ and prints no result):
      quaternion instantiation and B2-B5), SCHUR_JACOBI on the fused loop at
      chunk 1, 5 iterations, per iteration beside the angle-axis main run,
      its initial cost within 1e-5 relative of that run's; then 3 iterations
-     without the manifold (tangent 10). Then the visibility preconditioners,
+     without the manifold (tangent 10; B4's kernels built for that shape),
+     per iteration beside the manifold run. Then the visibility preconditioners,
      3 iterations each on the fused loop, per iteration beside the main run:
      CLUSTER_JACOBI on canonical views and CLUSTER_TRIDIAGONAL on single
      linkage (B1 and B4 launched, B5 not), each with its clusters, storage,
@@ -257,7 +262,7 @@ KERNELS = [
      "ceres_tpu/pallas_onehot.py:111", 1e-5),
     ("contract_reduce", "ceres_tpu_torch/csrc/gather_reduce.cu",
      "ceres_tpu/pallas_onehot.py:142", 1e-4),
-    ("schur_sy", "ceres_tpu_torch/csrc/schur_sy.cu",
+    ("schur_sy", "ceres_tpu_torch/csrc/schur_sy.cuh",
      "ceres_tpu/linalg/pallas_schur.py:262", 1e-4),
     ("schur_p0", "ceres_tpu_torch/csrc/schur_p0.cu",
      "ceres_tpu/linalg/pallas_schur.py:442", 1e-4),
@@ -266,7 +271,7 @@ KERNELS = [
      "ceres_tpu/pallas_onehot.py:111", 1e-5),
     ("contract_reduce_bf16", "ceres_tpu_torch/csrc/gather_reduce.cu",
      "ceres_tpu/pallas_onehot.py:142", 1e-4),
-    ("schur_sy_bf16", "ceres_tpu_torch/csrc/schur_sy.cu",
+    ("schur_sy_bf16", "ceres_tpu_torch/csrc/schur_sy.cuh",
      "ceres_tpu/linalg/pallas_schur.py:262", 1e-3),
 ]
 BF16_KERNELS = {"gather_contract_bf16", "contract_reduce_bf16", "schur_sy_bf16"}
@@ -324,6 +329,21 @@ EARLIER_BF16_MS = {
 # the redesigned bfloat16 B3 and B4 kernels: phase 1 prints their
 # registers and spills
 BF16_REDESIGNED = ("sy_point_shared_kernel", "sy_fold_bf16_kernel", "contract_reduce_bf16_kernel")
+# B4 at the quaternion cameras' shape without a manifold (r, tf, te): its
+# kernels are built from a source of their own (schur_kernels.sy_source);
+# the kernels line's schur_sy_t10 takes its launches from phase 4's
+# no-manifold quaternion run
+QUAT_SY_SHAPE = (2, 10, 3)
+QUAT_SY_KERNELS = [
+    ("schur_sy_t10", "ceres_tpu_torch/csrc/schur_sy.cuh",
+     "ceres_tpu/linalg/pallas_schur.py:262", 1e-4),
+]
+# B4 at that shape on the generic instantiation it replaced (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md §6-7), printed beside this run's: phase 2's
+# CUDA-event ms (PR 7), and profile_torch_solve.py --kernels sy on the
+# parent tree of the redesign (device ms a call in one CUDA graph, PR 19)
+EARLIER_T10_MS = {"schur_sy": "phase 2 0.7345-0.7561 (PR 7), graph 0.6995-0.7008 (PR 19)",
+                  "schur_sy_bf16": "graph 0.7069-0.7076 (PR 19)"}
 BATCHED_TOL = {"gather_contract_batched": {"float64": 1e-12, "float32": 1e-5},
                "contract_reduce_batched": {"float64": 1e-12, "float32": 1e-4}}
 # with their bfloat16 instantiations, which no path of this script runs
@@ -1003,8 +1023,9 @@ def phase_kernels_quat(bal, dev, results):
     without one, tangent 10) with the Jacobian and residual-only against
     their plain versions, on the tables of the no-manifold quaternion
     Program; then B3, B4 and B5 once on the 10-wide Jacobian the
-    no-manifold launch writes, against theirs (B4 takes its generic
-    instantiation at tangent 10)."""
+    no-manifold launch writes, against theirs (B4 on the kernels built for
+    (r, tf, te) = QUAT_SY_SHAPE, in float32 and on bfloat16 leaves:
+    sy_tangent10)."""
     import torch
 
     import ceres_tpu_torch as ct
@@ -1015,9 +1036,7 @@ def phase_kernels_quat(bal, dev, results):
     from ceres_tpu_torch.linalg.schur import (
         ete_gram_tables, ete_solver_from_gram, ridge_ete_solver, schur_views,
     )
-    from ceres_tpu_torch.linalg.schur_kernels import (
-        p0_apply, p0_apply_plain, sy_apply, sy_apply_plain, sy_meta, sy_tables,
-    )
+    from ceres_tpu_torch.linalg.schur_kernels import p0_apply, p0_apply_plain, sy_meta, sy_tables
 
     f32, w = torch.float32, 4
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1110,13 +1129,7 @@ def phase_kernels_quat(bal, dev, results):
     prow = program.slot_rows(0, sy["e_pos"], sy["f_pos"], dev)
     segs = sy_tables(sy, dev)
     cnt_e = minv.shape[1]
-    sy_args = (sy, j0, j1, rows_f, f_twin, e_twin, prow, layout, y, minv, segs)
-    b4_in = 2 * tf * n + 6 * n + n + segs[0].numel() + segs[1].numel() + tf * ncols_f + 9 * cnt_e
-    check("schur_sy", rel_err(sy_apply(*sy_args),
-                              sy_apply_plain(sy, j0, j1, rows_f, f_twin, layout, y, minv)),
-          lambda: sy_apply(*sy_args),
-          lambda: sy_apply_plain(sy, j0, j1, rows_f, f_twin, layout, y, minv),
-          w * (b4_in + tf * ncols_f), n * (4 * 2 * tf + 4 * 6) + cnt_e * 2 * 9)
+    sy_tangent10(results, sy, j0, j1, rows_f, f_twin, e_twin, prow, layout, y, minv, segs)
     del minv
     minv0 = ridge_ete_solver(program, ete_gram_tables(program, jac_e),
                              jac.squared_column_norms()).inv_records(sy["e_cls"])
@@ -1126,6 +1139,71 @@ def phase_kernels_quat(bal, dev, results):
           w * (r * tf * n + r * te * n + 2 * n + te * te * cnt_e + tf * tf * cnt_f),
           n * (2 * r * te * te + 2 * r * r * te + 2 * r * r * tf + r * tf * (tf + 1)))
     del problem, program, ev, jac, jac_e, f_twin, e_twin, j0, j1, p0_args, minv0
+    torch.cuda.empty_cache()
+
+
+def sy_tangent10(results, sy, F, E, rows_f, f_twin, e_twin, prow, layout, y, minv, segs):
+    """Phase 2, B4 at the no-manifold quaternion shape on the kernels built
+    for it: in float32 (results["schur_sy_t10"], the kernels line's entry)
+    and on bfloat16 copies of the leaves and twins, each against its plain
+    version, bitwise across two runs, S·y and each launch by CUDA events and
+    by a graph replay beside its bound, and S·y beside EARLIER_T10_MS."""
+    import torch
+
+    from ceres_tpu_torch.jacobian import make_twin
+    from ceres_tpu_torch.linalg.schur_kernels import (
+        sy_apply, sy_apply_plain, sy_fold_pass, sy_point_pass,
+    )
+
+    if (sy["r"], sy["tf"], sy["te"]) != QUAT_SY_SHAPE or sy["source"] is None:
+        raise AssertionError(f"B4 at tangent 10: shape {(sy['r'], sy['tf'], sy['te'])}, "
+                             f"source {sy['source'] is not None}")
+    r, tf, te = QUAT_SY_SHAPE
+    n, ncols_f, cnt_e = F.shape[1], y.shape[1], minv.shape[1]
+    w, h = 4, 2  # bytes per float32 / int32, per bfloat16
+    tables = w * (n + segs[0].numel() + segs[1].numel() + tf * ncols_f + te * te * cnt_e)
+    ops = n * (4 * r * tf + 4 * r * te) + cnt_e * 2 * te * te
+    for dt, name, tol in ((torch.float32, "schur_sy", 1e-4), (torch.bfloat16, "schur_sy_bf16", 1e-3)):
+        lw = w if dt == torch.float32 else h
+        Fd, Ed = F.to(dt), E.to(dt)
+        ft, et = (f_twin, e_twin) if dt == torch.float32 else (make_twin(Fd, layout), e_twin.to(dt))
+        args = (sy, Fd, Ed, rows_f, ft, et, prow, layout, y, minv, segs)
+        out1, out2 = sy_apply(*args), sy_apply(*args)
+        same = torch.equal(out1, out2)
+        err = rel_err(out1, sy_apply_plain(sy, Fd, Ed, rows_f, ft, layout, y, minv))
+        del out1, out2
+        t_k = median_ms(lambda: sy_apply(*args))
+        t_p = median_ms(lambda: sy_apply_plain(sy, Fd, Ed, rows_f, ft, layout, y, minv))
+        g_k = graph_ms(lambda: sy_apply(*args))
+        b_ms, b_by = bound(lw * r * (tf + te) * n + tables + w * tf * ncols_f, ops)
+        t2 = sy_point_pass(sy, Fd, Ed, rows_f, y, minv, segs)
+        a_ms = graph_ms(lambda: sy_point_pass(sy, Fd, Ed, rows_f, y, minv, segs))
+        f_ms = graph_ms(lambda: sy_fold_pass(sy, ft, et, prow, layout, y, t2))
+        # pass (a): the leaves, camera rows, buckets, y, the inverse table in,
+        # t2 out; pass (b): the twins (not their padding), the point rows, y
+        # and t2 in, the table out
+        a_b = bound(lw * r * (tf + te) * n + tables + w * te * cnt_e,
+                    n * (2 * r * tf + 2 * r * te) + cnt_e * 2 * te * te)
+        f_b = bound(lw * r * (tf + te) * n + w * (n + 2 * tf * ncols_f + te * cnt_e),
+                    n * (4 * r * tf + 2 * r * te))
+        ok = same and err[1] <= tol
+        earlier = EARLIER_T10_MS.get(name)
+        print(f"phase 2: {name} at tangent 10 (the kernels built for (r, tf, te) = "
+              f"{QUAT_SY_SHAPE}): max rel err {err[1]:.3e} (tol {tol:.0e}, max abs {err[0]:.3e}); "
+              f"bitwise across two runs {same}; S·y {t_k:.4f} ms, graph replay {g_k:.4f} ms, "
+              f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {100 * b_ms / t_k:.1f}% of it, "
+              f"{100 * b_ms / g_k:.1f}% replayed); point pass {a_ms:.4f} ms (bound "
+              f"{a_b[0]:.4f} ms, {100 * a_b[0] / a_ms:.1f}%), slot pass with its chunk sum "
+              f"{f_ms:.4f} ms (bound {f_b[0]:.4f} ms, {100 * f_b[0] / f_ms:.1f}%), graph replays"
+              f"{'' if earlier is None else f'; EARLIER generic instantiation {earlier} ms'}"
+              f"{'' if ok else '  FAILED'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} at tangent 10: kernel disagrees with its plain version "
+                                 f"or is not bitwise reproducible")
+        if dt == torch.float32:
+            results["schur_sy_t10"] = {"err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
+                                       "bound_by": b_by, "library_ms": None}
+        del Fd, Ed, ft, et, t2, args
     torch.cuda.empty_cache()
 
 
@@ -1528,19 +1606,22 @@ def phase_quaternion_runs(bal, main):
     f k1 k2] on Quaternion x Euclidean(6) (B1's quaternion instantiation and
     B2-B5), SCHUR_JACOBI on the fused loop at chunk 1, 5 iterations, per
     iteration beside the angle-axis main run `main`; then 3 iterations
-    without the manifold (tangent 10: B4's generic instantiation). Each
+    without the manifold (tangent 10: B4 built for its shape). Each
     starts within 1e-5 relative of the angle-axis run's cost (the same
     data in another parameterisation) and lowers it. Returns the quaternion
     kernels' launches, each from its run."""
-    out = {}
+    out, sums = {}, {}
     runs = (("quaternion", True, {}), ("quaternion, no manifold", False,
                                       {"max_num_iterations": 3}))
     for label, manifold, extra in runs:
         summary, counts = run_main_path(
             bal, "SCHUR_JACOBI", build=lambda b: build_quaternion_problem(b, manifold),
             label=label, fused_execution_chunk_iters=1, **extra)
+        sums[manifold] = summary
         b1 = "eval_snavely_quat" if manifold else "eval_snavely_quat_nomanifold"
         out[b1] = counts[b1]
+        if not manifold:  # B4 at tangent 10: the kernels built for QUAT_SY_SHAPE
+            out["schur_sy_t10"] = counts["schur_sy"]
         if not summary.used_fused_execution:
             raise AssertionError(f"the {label} run did not take the fused loop")
         missing = [k for k in (b1, "gather_contract", "contract_reduce", "schur_sy", "schur_p0")
@@ -1556,6 +1637,14 @@ def phase_quaternion_runs(bal, main):
               flush=True)
         if not rel <= 1e-5:
             raise AssertionError(f"the {label} run starts at another cost than the angle-axis run")
+    gaps = []
+    for a, b in zip(sums[True].iterations, sums[False].iterations):
+        print(f"phase 4: iter {a.iteration}: quaternion {_iteration_line(a)} | no manifold "
+              f"{_iteration_line(b)}", flush=True)
+        if a.iteration > 0:
+            gaps.append(1000.0 * (b.iteration_time_in_seconds - a.iteration_time_in_seconds))
+    print(f"phase 4: no manifold minus manifold iteration ms (iterations 1-{len(gaps)}): "
+          f"{', '.join(f'{g:.1f}' for g in gaps)}", flush=True)
     return out
 
 
@@ -1856,6 +1945,7 @@ def phase_generic_build(bal_program, dev):
     from ceres_tpu_torch import cuda_lib, functor_codegen
     from ceres_tpu_torch.evaluator import Evaluator
     from ceres_tpu_torch.examples import test_functions
+    from ceres_tpu_torch.linalg.schur_kernels import sy_source
 
     t0 = time.time()
     problems = [build_foe(16, 14, size, 2) for _h, _w, size, _k, _i in FOE_RUNS]
@@ -1885,11 +1975,17 @@ def phase_generic_build(bal_program, dev):
         raise AssertionError("a group of the slice's problems is not eligible for B1 generic")
     t_trace = time.time() - t0
     sources = {p.source for p in progs}
-    seconds = cuda_lib.build_generated(sources)
+    sy_src = sy_source(*QUAT_SY_SHAPE)
+    seconds = cuda_lib.build_generated(sources | {sy_src})
     stats = cuda_lib.generated_stats()
     print(f"phase 1: B1 generic: {len(progs)} group programs traced in {t_trace:.1f} s, "
-          f"{len(sources)} distinct sources: {stats['builds']} built in {seconds:.1f} s (nvcc, "
-          f"in parallel), {stats['hits']} found built", flush=True)
+          f"{len(sources)} distinct sources and B4's at {QUAT_SY_SHAPE}: {stats['builds']} built "
+          f"in {seconds:.1f} s (nvcc, in parallel), {stats['hits']} found built", flush=True)
+    log = cuda_lib._generated_path(sy_src).with_suffix(".log")
+    regs = ptxas_report(log.read_text()) if log.exists() else []
+    print(f"phase 1: B4 at (r, tf, te) = {QUAT_SY_SHAPE} (built in "
+          f"{cuda_lib.generated_build_seconds(sy_src) or 0.0:.1f} s; registers, spills): "
+          f"{' | '.join(regs) or 'found built'}", flush=True)
     return progs
 
 
@@ -3848,7 +3944,7 @@ def main(argv=None) -> int:
 
     kernels = []
     for name, src, replaces, _tol in (KERNELS + QUAT_KERNELS + GENERIC_KERNELS + BATCHED_KERNELS
-                                      + MASKED_KERNELS):
+                                      + MASKED_KERNELS + QUAT_SY_KERNELS):
         res = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -29,10 +29,15 @@ profile (its tables in chiprun_out/profile_solve_mixed.txt) and for
 
     python3 profile_torch_solve.py --mixed --compare 3
 
-With --quaternion they are the fused loop on angle-axis cameras and on
+With --quaternion they are the fused loop on angle-axis cameras, on
 quaternion cameras on Quaternion x Euclidean(6)
-(build_ba_problem(use_quaternions=True, use_manifolds=True); tables in
-chiprun_out/profile_solve_quaternion.txt).
+(build_ba_problem(use_quaternions=True, use_manifolds=True)) and on
+quaternion cameras without a manifold (tangent 10, B4 built for its
+shape); tables in chiprun_out/profile_solve_quaternion.txt. --tree DIR
+runs --compare on the package of another checkout, so that two trees'
+iteration ms can be taken in turns, one process each, in one call:
+
+    python3 profile_torch_solve.py --quaternion --compare 1 --tree .chipcheck/base
 
 With --dogleg they are the fused loop with trust_region_strategy_type=DOGLEG,
 TRADITIONAL and SUBSPACE (its Gauss-Newton point CGNR + JACOBI, B1-B3;
@@ -68,7 +73,8 @@ columns, float32, float64 and bfloat16 leaves), and B3 and B4 (S·y whole,
 its point pass and its slot pass with the camera combine) at BAL-1778's
 shape on float32 and on bfloat16 leaves and twins (chip_smoke.py's
 Program: its point buckets, camera layout and slot rows; seeded random
-leaves and inverse table), as each runs by default, each as the device ms
+leaves and inverse table; angle-axis cameras, tf 9, then quaternion
+cameras without a manifold, tf 10), as each runs by default, each as the device ms
 per call of one CUDA graph that holds 20 calls back to back, replayed 10
 times between two CUDA events (the median of 5); with B1 generic's cost
 and a hash of each B3/B4 output's bytes, so that two versions' results
@@ -207,11 +213,11 @@ def warm_up_profiler(ct, torch, loops):
 
 
 def variants(mixed, quaternion, dogleg=False):
-    """(label, solve options, build_ba_problem options) of the two runs:
+    """(label, solve options, build_ba_problem options) of the runs:
     fused and host loop; with `mixed` the fused loop in float32 and with
     mixed-precision solves; with `quaternion` the fused loop on angle-axis
-    and on quaternion cameras; with `dogleg` the fused loop with DOGLEG,
-    TRADITIONAL and SUBSPACE."""
+    cameras and on quaternion cameras with and without the manifold; with
+    `dogleg` the fused loop with DOGLEG, TRADITIONAL and SUBSPACE."""
     fused = {"fused_execution_chunk_iters": 1}
     if dogleg:
         import ceres_tpu_torch as ct
@@ -227,13 +233,14 @@ def variants(mixed, quaternion, dogleg=False):
                 ("mixed", {**fused, "use_mixed_precision_solves": True}, {}))
     if quaternion:
         return (("fused", fused, {}),
-                ("quaternion", fused, {"use_quaternions": True, "use_manifolds": True}))
+                ("quaternion", fused, {"use_quaternions": True, "use_manifolds": True}),
+                ("quaternion_nomanifold", fused, {"use_quaternions": True}))
     return (("fused", fused, {}), ("host", {"fused_execution": False}, {}))
 
 
 def compare(ct, torch, bal, lm_options, runs, variants):
-    """Iteration ms of the two variants, `runs` times each, in turns, each
-    on a new Problem, no profiler."""
+    """Iteration ms of the variants, `runs` times each, in turns, each on
+    a new Problem, no profiler."""
     ms = {label: [] for label, _, _ in variants}
     for k in range(runs * len(variants)):
         label, extra, problem_kw = variants[k % len(variants)]
@@ -247,6 +254,7 @@ def compare(ct, torch, bal, lm_options, runs, variants):
               + ", ".join(f"{t:.1f}" for t in its)
               + f"; pcg {[it.linear_solver_iterations for it in summary.iterations]}"
               + f"; reads {[it.num_device_reads for it in summary.iterations]}"
+              + f"; costs {[it.cost for it in summary.iterations]!r}"
               + f"; final cost {summary.final_cost!r}", flush=True)
     for label, runs_ms in ms.items():
         med = [statistics.median(col) for col in zip(*runs_ms)]
@@ -382,21 +390,34 @@ def sy_times(torch, label):
     camera layout and slot rows; seeded random leaves, twins and inverse
     table, float32 y and u) on float32 and on bfloat16 leaves and twins:
     B3, S·y whole, its point pass and its slot pass, each with a hash of its
-    output."""
+    output; first on angle-axis cameras (tangent 9), then on quaternion
+    cameras without a manifold (tangent 10, build_ba_problem(
+    use_quaternions=True)) on the same data."""
     import ceres_tpu_torch as ct
+    from chip_smoke import NUM_OBSERVATIONS, NUM_POINTS
+
+    t0 = time.time()
+    bal = ct.synthetic_bal(1778, NUM_POINTS, NUM_OBSERVATIONS, seed=0)
+    print(f"kernels [{label}]: BAL-1778 data in {time.time() - t0:.1f} s", flush=True)
+    for quaternion in (False, True):
+        sy_times_on(torch, label, ct.build_ba_problem(
+            bal, loss=ct.HuberLoss(1.0), use_quaternions=quaternion)[0])
+        torch.cuda.empty_cache()
+
+
+def sy_times_on(torch, label, problem):
+    """sy_times on one BAL-1778 Problem."""
     from ceres_tpu_torch.evaluator import Evaluator
     from ceres_tpu_torch.gather_reduce import contract_reduce
     from ceres_tpu_torch.jacobian import make_twin
     from ceres_tpu_torch.linalg.schur_kernels import (
         sy_apply, sy_fold_pass, sy_meta, sy_point_pass, sy_tables,
     )
-    from chip_smoke import NUM_OBSERVATIONS, NUM_POINTS
 
     dev = torch.device("cuda")
     f32 = torch.float32
     t0 = time.time()
-    bal = ct.synthetic_bal(1778, NUM_POINTS, NUM_OBSERVATIONS, seed=0)
-    program = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))[0].compile(dev)
+    program = problem.compile(dev)
     meta = sy_meta(program)
     garr = Evaluator(program, f32).arrays["groups"][0]
     f_pos, e_pos, r, te, tf = meta["f_pos"], meta["e_pos"], meta["r"], meta["te"], meta["tf"]
@@ -412,10 +433,10 @@ def sy_times(torch, label):
     y = torch.randn((tf, ncols), generator=gen, device=dev)
     y[:, -1] = 0
     u = torch.randn((r, n), generator=gen, device=dev)
-    print(f"kernels [{label}]: BAL-1778 Program and operands in {time.time() - t0:.1f} s: n {n}, "
-          f"n_pad {layout.perm.shape[0]}, {layout.num_chunks} chunks, {cnt_e} points",
+    shape = f"(r, tf, te) = ({r}, {tf}, {te})"
+    print(f"kernels [{label}]: BAL-1778 Program {shape} and operands in {time.time() - t0:.1f} s: "
+          f"n {n}, n_pad {layout.perm.shape[0]}, {layout.num_chunks} chunks, {cnt_e} points",
           flush=True)
-    del bal
     for dt in (f32, torch.bfloat16):
         Fd, Ed = F.to(dt), E.to(dt)
         f_twin, e_twin = make_twin(Fd, layout), make_twin(Ed, layout)
@@ -429,8 +450,8 @@ def sy_times(torch, label):
         }
         for name, fn in calls.items():
             ms = batched_ms(torch, fn)
-            print(f"kernels [{label}]: {name} {str(dt).split('.')[-1]}: {ms:.5f} ms; output "
-                  f"{_digest(fn())}", flush=True)
+            print(f"kernels [{label}]: {name} {str(dt).split('.')[-1]} at tf {tf}: {ms:.5f} ms; "
+                  f"output {_digest(fn())}", flush=True)
         del Fd, Ed, f_twin, e_twin, t2, calls
         torch.cuda.empty_cache()
 
@@ -502,7 +523,7 @@ def main(argv=None) -> int:
     group.add_argument("--covariance", action="store_true",
                        help="profile chip_smoke's covariance PCG at Dubrovnik-356's shape instead")
     parser.add_argument("--tree", default=None,
-                        help="with --kernels: the checkout whose package to time")
+                        help="with --kernels or --compare: the checkout whose package to time")
     args = parser.parse_args(argv)
     import torch
 

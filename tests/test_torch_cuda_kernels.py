@@ -65,6 +65,11 @@ from ceres_tpu_torch.program import camera_layout
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.float64]
 BF16 = torch.bfloat16
+# B4's (r, te, tf): the BA shape (the library's kernels) and shapes built
+# from their own sources (tangent 10: quaternion cameras without a
+# manifold; 6-DoF cameras; stereo observations; homogeneous points)
+SY_SHAPES = [(2, 3, 9), (1, 1, 1), (2, 8, 16), (4, 3, 8), (3, 5, 6), (2, 3, 10), (2, 3, 6),
+             (3, 3, 9), (2, 4, 9)]
 
 
 @pytest.fixture
@@ -414,7 +419,7 @@ def test_schur_sy_kernel_matches_plain(card, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("r,te,tf", [(2, 3, 9), (1, 1, 1), (2, 8, 16), (4, 3, 8), (3, 5, 6)])
+@pytest.mark.parametrize("r,te,tf", SY_SHAPES)
 def test_schur_sy_passes_ragged_runs(card, dtype, r, te, tf):
     """Each launch of B4 against its plain version, and the whole S·y with
     the LM diagonal folded in, on ragged camera runs and point degrees."""
@@ -440,7 +445,7 @@ def test_schur_sy_passes_ragged_runs(card, dtype, r, te, tf):
     _close(out, sy_apply_plain(meta, F, E, rows_f, F_twin, layout, y, minv, dsq), tol)
 
 
-@pytest.mark.parametrize("r,te,tf", [(2, 3, 9), (1, 1, 1), (2, 8, 16), (4, 3, 8), (3, 5, 6)])
+@pytest.mark.parametrize("r,te,tf", SY_SHAPES)
 def test_bf16_schur_sy_passes_ragged_runs(card, r, te, tf):
     """B4 on bfloat16 leaves and twins (float32 y, inverse table, D_f² and
     output): each launch against its plain version, the whole S·y twice
@@ -469,7 +474,7 @@ def test_bf16_schur_sy_passes_ragged_runs(card, r, te, tf):
     _close(out, sy_apply_plain(meta, F, E, rows_f, F_twin, layout, y, minv, dsq), 1e-3)
 
 
-@pytest.mark.parametrize("r,te,tf", [(2, 3, 9), (1, 1, 1), (2, 8, 16), (4, 3, 8), (3, 5, 6)])
+@pytest.mark.parametrize("r,te,tf", SY_SHAPES)
 def test_bf16_schur_sy_point_pass_large_table(card, r, te, tf):
     """B4's bfloat16 point pass on a y table that does not fit shared
     memory (the first version's kernel, as at BAL-13682) gives bitwise the
@@ -592,7 +597,8 @@ def test_cuda_solve_matches_cpu_and_launches_every_kernel(card, precond, num_poi
 def test_cuda_quaternion_solve_matches_cpu(card, manifold):
     """The quaternion BA solve (SCHUR_JACOBI, fused loop) on the card against
     the CPU in float64: B1's quaternion instantiation and B2-B5 launched, the
-    angle-axis B1 not; at tangent 10 B4 takes its generic instantiation."""
+    angle-axis B1 not; at tangent 10 B4 runs the kernels built for its
+    shape."""
     bal = ct.synthetic_bal(32, 4000, 40_000, seed=2)
     sums = {}
     for dev in ("cpu", "cuda"):
@@ -613,6 +619,48 @@ def test_cuda_quaternion_solve_matches_cpu(card, manifold):
     for a, b in zip(sums["cuda"].iterations, sums["cpu"].iterations, strict=True):
         assert a.cost == pytest.approx(b.cost, rel=1e-9)
         assert a.linear_solver_iterations == b.linear_solver_iterations
+
+
+def test_sy_source_is_built_before_the_first_capture(card, monkeypatch):
+    """A fresh Program of another shape than the BA shape (quaternion
+    cameras without a manifold, tangent 10) solved on the fused loop: the
+    Evaluator builds its B4 source before the solve's first CUDA graph
+    capture, no nvcc runs inside a capture, and its S·y runs that source's
+    kernels."""
+    import subprocess
+
+    from ceres_tpu_torch.linalg.schur_kernels import sy_source
+    from ceres_tpu_torch.utils import graphs
+
+    events = []
+    build, popen = cuda_lib.build_generated, subprocess.Popen
+
+    def spy_build(sources):
+        sources = list(sources)
+        events.append(("build", sources, graphs.graph_stats()["captures"]))
+        return build(sources)
+
+    def spy_popen(*args, **kwargs):
+        events.append(("process", torch.cuda.is_current_stream_capturing(), None))
+        return popen(*args, **kwargs)
+
+    monkeypatch.setattr(cuda_lib, "build_generated", spy_build)
+    monkeypatch.setattr(subprocess, "Popen", spy_popen)
+    bal = ct.synthetic_bal(32, 4000, 40_000, seed=4)
+    problem = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0), use_quaternions=True)[0]
+    captures0 = graphs.graph_stats()["captures"]
+    cuda_lib.reset_launch_counts()
+    summary = ct.solve(ct.SolverOptions(
+        linear_solver_type=ct.LinearSolverType.ITERATIVE_SCHUR,
+        preconditioner_type=ct.PreconditionerType.SCHUR_JACOBI, max_num_iterations=2,
+        fused_execution_chunk_iters=1, dtype=torch.float32), problem)
+    assert summary.used_fused_execution
+    assert graphs.graph_stats()["captures"] > captures0
+    src = sy_source(2, 10, 3)
+    builds = [e for e in events if e[0] == "build" and src in e[1]]
+    assert builds and builds[0][2] == captures0  # before the solve's first capture
+    assert not any(e[1] for e in events if e[0] == "process")  # no nvcc inside a capture
+    assert cuda_lib.launch_counts()["schur_sy"] > 0
 
 
 # ---- B1 generic ----------------------------------------------------------
