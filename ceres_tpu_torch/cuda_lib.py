@@ -49,6 +49,8 @@ from pathlib import Path
 
 import torch
 
+from .utils.execution_summary import span
+
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
@@ -294,6 +296,12 @@ def _build_generated(sources) -> float:
             todo[path] = src
     if not todo:
         return 0.0
+    with span("Kernel::Build") as build:
+        build.calls = len(todo)
+        return _run_nvcc(todo)
+
+
+def _run_nvcc(todo) -> float:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}

@@ -22,6 +22,7 @@ from .corrector import correct_batched
 from .jacobian import BlockJacobian, gather_T, group_plans
 from .utils import graphs
 from .utils.dtypes import default_dtype
+from .utils.execution_summary import span
 
 
 def state_tables(program, state):
@@ -258,11 +259,12 @@ class Evaluator:
         self.program = program
         self.dtype = dtype or default_dtype()
         self.device = program.device
-        self.arrays = self._build_arrays()
-        if torch.device(self.device).type == "cuda":
-            # the generated kernels of the Program's groups and of B4 at its
-            # shape, built at once, before any CUDA graph capture
-            eval_kernel.prepare_generic(program, self.arrays, self.dtype, self.sy_sources())
+        with span("Evaluator::Build"):
+            self.arrays = self._build_arrays()
+            if torch.device(self.device).type == "cuda":
+                # the generated kernels of the Program's groups and of B4 at
+                # its shape, built at once, before any CUDA graph capture
+                eval_kernel.prepare_generic(program, self.arrays, self.dtype, self.sy_sources())
 
     def sy_sources(self):
         """The generated B4 sources this Evaluator's solves can launch

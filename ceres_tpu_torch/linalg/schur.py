@@ -40,7 +40,7 @@ from ..types import LinearSolverType, PreconditionerType
 from . import schur_kernels
 from .cg import conjugate_gradients
 from .dense import cholesky_solve_mixed
-from ..utils.graphs import read
+from ..utils.graphs import read, upload
 from .preconditioners import BlockDiagSolver, diag_rows
 
 
@@ -313,7 +313,7 @@ def _masks(program, like):
     return program.cached(
         ("masks", like.dtype, like.device),
         lambda p: tuple(
-            torch.as_tensor(m, dtype=like.dtype, device=like.device)
+            upload(m, dtype=like.dtype, device=like.device)
             for m in p.schur_tangent_masks()
         ),
     )
@@ -547,7 +547,7 @@ def make_power_series_applier(program, jac_e, jac_f, ete, dsq_f, spse_tolerance,
 def _f_positions(program, device):
     return program.cached(
         ("f_positions", device),
-        lambda p: torch.as_tensor(np.nonzero(p.schur_tangent_masks()[1])[0], device=device),
+        lambda p: upload(np.nonzero(p.schur_tangent_masks()[1])[0], device=device),
     )
 
 

@@ -94,6 +94,7 @@ from ..gather_reduce import (
     chunk_pieces, contract_reduce_plain, gather_contract_plain, leaf_operand, widen,
 )
 from ..jacobian import gather_T_t, reduce_T
+from ..utils.graphs import upload
 from .preconditioners import apply_block_T
 
 MAX_TE = 8  # e-block size bound of csrc/schur_sy.cuh and csrc/schur_p0.cu
@@ -357,8 +358,8 @@ def sy_tables(meta, device):
     """The bucket table [nb*4] (lane_start, n_seg, d, out_row) and the point
     offsets [nb+1] as int32 tensors on `device`."""
     return (
-        torch.as_tensor(meta["segs"], device=device),
-        torch.as_tensor(meta["pt_start"], device=device),
+        upload(meta["segs"], device=device),
+        upload(meta["pt_start"], device=device),
     )
 
 

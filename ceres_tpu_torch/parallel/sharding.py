@@ -37,6 +37,7 @@ from ..evaluator import Evaluator
 from ..io.lazy import materialize_rows
 from ..program import camera_layout
 from ..utils.dtypes import default_dtype
+from ..utils.graphs import upload
 
 
 def shard_plans(meta, lay, shard: int):
@@ -101,7 +102,7 @@ def build_shard_arrays(program, mesh, dtype=None):
     local = shard_group_idx(program, mesh.size, mesh.rank)
     arrays = program.arrays(dtype, group_idx=local)
     for garr, idx in zip(arrays["groups"], local):
-        garr["mask"] = torch.as_tensor(idx["mask"], dtype=dtype, device=program.device)
+        garr["mask"] = upload(idx["mask"], dtype=dtype, device=program.device)
         garr["plans"] = idx["plans"]
         garr["mesh"] = mesh
     return arrays

@@ -22,6 +22,7 @@ from .autodiff import CostFunction
 from .io.lazy import is_lazy
 from .loss import LossFunction
 from .manifolds import EuclideanManifold, Manifold
+from .utils.execution_summary import span
 
 
 def _is_euclidean(m) -> bool:
@@ -446,7 +447,8 @@ class Problem:
         from .program import Program
 
         if self._dirty or self._program is None:
-            self._program = Program(self._blocks, self._batches, self.evaluation_callback)
+            with span("Program::Lower"):
+                self._program = Program(self._blocks, self._batches, self.evaluation_callback)
             self._dirty = False
         return self._program
 

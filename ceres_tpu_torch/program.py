@@ -31,6 +31,8 @@ from .autodiff import CostFunction
 from .io.lazy import is_lazy
 from .loss import LossFunction
 from .manifolds import EuclideanManifold, Manifold
+from .utils.execution_summary import span
+from .utils.graphs import upload
 
 
 def _span_indices(starts, lens):
@@ -124,7 +126,7 @@ class CameraLayout(NamedTuple):
 
     def to(self, device):
         def ints(a):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32, device=device)
+            return upload(np.ascontiguousarray(a), dtype=torch.int32, device=device)
 
         return self._replace(**{f: ints(getattr(self, f)) for f in self._fields[:-1]})
 
@@ -166,11 +168,15 @@ class Program:
         # the Problem's EvaluationCallback (Evaluator.notify calls it)
         self.evaluation_callback = evaluation_callback
         self.device = torch.device("cpu")
+        # the stages that take more than 5% of the lowering at BAL sizes
+        # have spans of their own (children of Problem's Program::Lower)
         self._compute_block_degrees()
-        self._build_layout()
+        with span("Program::Layout"):
+            self._build_layout()
         self._build_plus_structure()
         self.block_class = self.t_class
-        self._build_groups()
+        with span("Program::Groups"):
+            self._build_groups()
         # Schur-side tables, computed once per Program (the JAX package
         # computes them once per trace); see `cached`
         self.schur_cache: dict = {}
@@ -204,7 +210,7 @@ class Program:
             idx = p.group_idx[gi]
             perm = idx["csr"][order_pos].perm
             rows = np.where(perm >= 0, idx["t_rows"][pos][np.maximum(perm, 0)], -1)
-            return torch.as_tensor(rows.astype(np.int32), device=device)
+            return upload(rows.astype(np.int32), device=device)
 
         return self.cached(("slot_rows", gi, pos, order_pos, torch.device(device)), build)
 
@@ -755,7 +761,7 @@ class Program:
         dev = self.device
 
         def ints(a):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32, device=dev)
+            return upload(np.ascontiguousarray(a), dtype=torch.int32, device=dev)
 
         groups = []
         for idx in self.group_idx if group_idx is None else group_idx:
@@ -764,7 +770,7 @@ class Program:
                     "a_rows": tuple(ints(a) for a in idx["a_rows"]),
                     "t_rows": tuple(ints(t) for t in idx["t_rows"]),
                     "data": tuple(
-                        torch.as_tensor(
+                        upload(
                             np.ascontiguousarray(d),
                             dtype=dtype if np.issubdtype(d.dtype, np.floating) else None,
                             device=dev,
@@ -786,12 +792,12 @@ class Program:
             ],
         }
         if self.has_bounds:
-            out["lower_bound"] = torch.as_tensor(self.lower_bound, dtype=dtype, device=dev)
-            out["upper_bound"] = torch.as_tensor(self.upper_bound, dtype=dtype, device=dev)
+            out["lower_bound"] = upload(self.lower_bound, dtype=dtype, device=dev)
+            out["upper_bound"] = upload(self.upper_bound, dtype=dtype, device=dev)
         return out
 
     def state_vector(self, dtype):
-        return torch.as_tensor(self.state0, dtype=dtype, device=self.device)
+        return upload(self.state0, dtype=dtype, device=self.device)
 
     def set_block_value(self, block: int, values: np.ndarray):
         o = int(self.x_offsets[block])
@@ -812,6 +818,7 @@ class Program:
 
     def write_state_back(self, state):
         """Copy a solved state vector back into the Problem's blocks."""
-        state = np.asarray(state, dtype=np.float64)
-        self.state0 = state.copy()
-        self._blocks.write_back(state, self.x_offsets)
+        with span("Program::WriteStateBack"):
+            state = np.asarray(state, dtype=np.float64)
+            self.state0 = state.copy()
+            self._blocks.write_back(state, self.x_offsets)

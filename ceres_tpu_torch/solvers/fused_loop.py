@@ -44,8 +44,15 @@ callbacks, no update_state_every_iteration. Bounds run fused: Plus clamps
 to the box, the active-set mask zeroes frozen columns, the projected
 Armijo search and the projected gradient norms are on the card; the
 prepare cache is not used under bounds (the mask changes the scale every
-iteration). Per-iteration times are the
-chunk's time over its iterations (exact at fused_execution_chunk_iters=1).
+iteration).
+
+Each iteration is an `LM::Iteration` span (utils.execution_summary), its
+stages `LM::Step`, `LM::Decide` and `LM::Accept` spans that each close on a
+read, so that their wall times are the stages' elapsed times; the first
+evaluation and prepare are `Minimizer::Start`. IterationSummary's times
+are the iterations' spans, Summary.linear_solver_time_in_seconds the
+steps' and jacobian_evaluation_time_in_seconds the first evaluation's and
+the accepts'.
 """
 
 from __future__ import annotations
@@ -58,8 +65,9 @@ import torch
 from ..evaluator import diagnose_non_finite
 from ..types import IterationSummary, TerminationType
 from ..utils import graphs
+from ..utils.execution_summary import span
 from ..utils.graphs import graph_stats, read, read_count
-from .trust_region import _exec, active_bound_mask, grad_norms, projected_line_search
+from .trust_region import active_bound_mask, grad_norms, projected_line_search
 
 # termination codes inside the fused loop
 _CONTINUE = 0
@@ -129,10 +137,12 @@ def eligible(options, step_fn, program=None) -> bool:
 def make_chunk_fn(minimizer):
     """The chunk runner: chunk_fn(carry, limit) runs up to `limit` LM
     iterations on the carry (a dict of device state, updated in place) and
-    returns (packed, reads, replays): the packed device row of the chunk,
-    and the device reads and graph replays each iteration took, the packed
-    read not included. chunk_fn.use_split says whether it takes the
-    prepare/finish split."""
+    returns (packed, per_it): the chunk's packed row, read to the host, and
+    per iteration (device reads, graph replays, seconds, end in
+    perf_counter_ns), the last iteration's with the packed read. The carry
+    sums the iterations' LM::Step and LM::Accept seconds (step_s,
+    accept_s). chunk_fn.use_split says whether it takes the prepare/finish
+    split."""
     program, options, ev = minimizer.program, minimizer.options, minimizer.evaluator
     step_fn = minimizer._step_fn
     evaluate, prepare = minimizer.evaluate, minimizer.prepare
@@ -252,10 +262,13 @@ def make_chunk_fn(minimizer):
     # first call), as the step's finish and the evaluation do
     decide_graph = ev.fn_graph("decide")
 
-    def body(c):
-        """One LM iteration on the carry. Returns (successful, the
-        termination code before the re-evaluation), read from the card."""
-        state, cost, grad, radius = c["state"], c["cost"], c["grad"], c["radius"]
+    def step(c):
+        """The step of one iteration: the prepare where the cache is due,
+        the step function (on the split the finish's head, its PCG steps
+        with their reads and the tail's launch) and the projected line
+        search. Returns (delta, mcc, lin_iters, valid, line-search
+        evaluations)."""
+        state, grad = c["state"], c["grad"]
         iter_scale = (
             c["scale"] * active_bound_mask(program, arrays, state, grad)
             if has_bounds
@@ -268,36 +281,32 @@ def make_chunk_fn(minimizer):
                 c["pcache"] = prepare(c["jac"], c["res"], grad, c["scale"])
                 c["prepares"] += 1
             delta, mcc, lin_iters, valid = step_fn.finish(
-                c["jac"], c["res"], grad, radius, iter_scale, c["pcache"]
+                c["jac"], c["res"], grad, c["radius"], iter_scale, c["pcache"]
             )
         else:
-            delta, mcc, lin_iters, valid = step_fn(c["jac"], c["res"], grad, radius, iter_scale)
-        nls_new = 0
+            delta, mcc, lin_iters, valid = step_fn(
+                c["jac"], c["res"], grad, c["radius"], iter_scale)
+        nls = 0
         if use_ls:
-            delta, nls_new = projected_line_search(ev, options, state, delta, cost, grad, valid)
-        d = graphs.call(
-            decide_graph, decide, (),
-            state, delta, cost, mcc, valid, lin_iters, radius, c["df"], c["ninv"], c["se"],
-        )
+            delta, nls = projected_line_search(ev, options, state, delta, c["cost"], grad, valid)
+        return delta, mcc, lin_iters, valid, nls
 
-        # the one read that takes the branch
-        succ, term_pre = read(d["flags"]).tolist()
-        succ = bool(succ)
+    def accept(c, d):
+        """After a successful step: the re-evaluation at the candidate and
+        the prepare of the new Jacobian. Returns (res, jac, grad, term,
+        gmax, gnorm)."""
+        cost_j, res2, jac2, grad2, gmax, gnorm = evaluate(d["candidate"])
+        if lazy:
+            c["pcache"] = None
+        elif use_split:
+            c["pcache"] = prepare(jac2, res2, grad2, c["scale"])
+            c["prepares"] += 1
+        term = torch.where(gmax <= gtol, _GRAD_TOL, d["term"])
+        term = torch.where(~torch.isfinite(cost_j), _EVAL_FAIL, term)
+        return res2, jac2, grad2, term, gmax, gnorm
 
-        # ---- conditional re-evaluation (and prepare) ----
-        res2, jac2, grad2, term = c["res"], c["jac"], c["grad"], d["term"]
-        if succ:
-            cost_j, res2, jac2, grad2, gmax, gnorm = evaluate(d["candidate"])
-            if lazy:
-                c["pcache"] = None
-            elif use_split:
-                c["pcache"] = prepare(jac2, res2, grad2, c["scale"])
-                c["prepares"] += 1
-            term = torch.where(gmax <= gtol, _GRAD_TOL, term)
-            term = torch.where(~torch.isfinite(cost_j), _EVAL_FAIL, term)
-        else:
-            gmax, gnorm = grad_norms(program, ev, d["state"], grad2)
-
+    def advance(c, d, res2, jac2, grad2, term, gmax, gnorm, nls):
+        """The iteration's stats row and the carry's next state."""
         row = c["stats"][c["it"]]
         row.copy_(d["row"])
         row[_S_GMAX] = gmax
@@ -310,105 +319,90 @@ def make_chunk_fn(minimizer):
             nsucc=c["nsucc"] + d["successful"],
             nfail=c["nfail"] + d["shrink"],
             njac=c["njac"] + d["successful"],
-            nls=c["nls"] + nls_new,
+            nls=c["nls"] + nls,
         )
         c["it"] += 1
-        return succ, int(term_pre)
+
+    def packed_read(c):
+        """The chunk's one read of everything the host needs: the counts,
+        the cost and the stats rows, in the JAX layout."""
+        dtype = c["state"].dtype
+        return read(torch.cat([
+            torch.stack([c[k].to(dtype) for k in ("n", "term", "nsucc", "nfail", "njac")]
+                        + [c["cost"], c["nls"].to(dtype)]),
+            c["stats"].reshape(-1),
+        ])).double().tolist()
+
+    def iteration(c, limit):
+        """One LM iteration on the carry, each stage a span that closes on
+        a read: LM::Step (its last PCG read), LM::Decide (the flags, which
+        wait for the tail and decide) and, after a successful step,
+        LM::Accept (the final termination code, or the packed read where
+        the iteration ends the chunk). Returns the packed row where the
+        chunk ends here, else None."""
+        with span("LM::Step") as sp:
+            delta, mcc, lin_iters, valid, nls = step(c)
+        c["step_s"] += sp.seconds
+        with span("LM::Decide"):
+            d = graphs.call(
+                decide_graph, decide, (),
+                c["state"], delta, c["cost"], mcc, valid, lin_iters, c["radius"], c["df"],
+                c["ninv"], c["se"],
+            )
+            # the one read that takes the branch
+            succ, term = read(d["flags"]).tolist()
+        last = c["it"] + 1 >= limit
+        if succ:
+            with span("LM::Accept") as sp:
+                advance(c, d, *accept(c, d), nls)
+                # the re-evaluation may end the solve (gradient tolerance,
+                # non-finite cost): its final code, or the packed read
+                # that brings it
+                ends = last or int(read(c["term"])) != _CONTINUE
+                packed = packed_read(c) if ends else None
+            c["accept_s"] += sp.seconds
+            return packed
+        gmax, gnorm = grad_norms(program, ev, d["state"], c["grad"])
+        advance(c, d, c["res"], c["jac"], c["grad"], d["term"], gmax, gnorm, nls)
+        return packed_read(c) if last or int(term) != _CONTINUE else None
 
     def chunk_fn(c, limit):
         dev, dtype = c["state"].device, c["state"].dtype
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         c.update(
-            it=0, prepares=0, n=zero, nsucc=zero, nfail=zero, njac=zero, nls=zero,
-            term=zero, stats=torch.zeros((chunk_iters(options), _N_STATS), dtype=dtype, device=dev),
+            it=0, prepares=0, step_s=0.0, accept_s=0.0,
+            n=zero, nsucc=zero, nfail=zero, njac=zero, nls=zero, term=zero, stats=torch.zeros((chunk_iters(options), _N_STATS), dtype=dtype, device=dev),
         )
-        reads, replays = [], []
-        while True:
+        per_it = []  # (reads, replays, seconds, end) of each iteration
+        packed = None
+        while packed is None:
             r0, g0 = read_count(), graph_stats()["replays"]
-            succ, term = body(c)
-            if succ and c["it"] < limit:
-                # the re-evaluation may end the solve (gradient tolerance,
-                # non-finite cost): its final code
-                term = int(read(c["term"]))
-            elif succ:
-                term = None  # the chunk's packed read brings it
-            reads.append(read_count() - r0)
-            replays.append(graph_stats()["replays"] - g0)
-            if c["it"] >= limit or term != _CONTINUE:
-                break
-        packed = torch.cat([
-            torch.stack([c[k].to(dtype) for k in ("n", "term", "nsucc", "nfail", "njac")]
-                        + [c["cost"], c["nls"].to(dtype)]),
-            c["stats"].reshape(-1),
-        ])
-        return packed, reads, replays
+            with span("LM::Iteration") as it:
+                packed = iteration(c, limit)
+            per_it.append((read_count() - r0, graph_stats()["replays"] - g0, it.seconds,
+                           it.end_ns))
+        return packed, per_it
 
     chunk_fn.use_split = use_split
     chunk_fn.lazy_prepare = lazy
     return chunk_fn
 
 
-def run_fused(minimizer, state, summary):
-    """Drive the fused loop in chunks; fills summary like the host loop."""
-    options = minimizer.options
-    program = minimizer.program
-    ev = minimizer.evaluator
-    chunk_fn = minimizer._fused_chunk_fn
-    summary.used_fused_execution = True
-    exec_sum = _exec(summary)
-    start = time.time()
-    reads0 = read_count()
-
-    t_jac = time.time()
-    cost0, res_groups, jac, grad, gmax0, gnorm0 = minimizer.evaluate(state)
-    cost, gmax0, gnorm0 = read(torch.stack([cost0, gmax0, gnorm0])).tolist()
-    summary.num_jacobian_evaluations += 1
-    summary.jacobian_evaluation_time_in_seconds += time.time() - t_jac
-    exec_sum.record("Evaluator::Jacobian", time.time() - t_jac)
-    if not math.isfinite(cost):
-        summary.termination_type = TerminationType.FAILURE
-        summary.message = (
-            "Initial cost evaluation failed (non-finite).\n" + diagnose_non_finite(program, state)
-        )
-        return state
-    summary.initial_cost = cost + summary.fixed_cost
-
+def _first_carry(minimizer, chunk_fn, state, cost0, res_groups, jac, grad):
+    """The fused loop's carry at the start: the Jacobi scale of the first
+    Jacobian, the radius and step-evaluator state, and the first prepare
+    (where it is not lazy)."""
+    options, program = minimizer.options, minimizer.program
     if options.jacobi_scaling:
         scale = 1.0 / (1.0 + torch.sqrt(jac.squared_column_norms()))
     else:
         scale = torch.ones(program.num_effective_parameters, dtype=state.dtype, device=state.device)
-
-    it0 = IterationSummary(
-        iteration=0,
-        step_is_valid=True,
-        step_is_successful=True,
-        cost=cost + summary.fixed_cost,
-        gradient_max_norm=gmax0,
-        gradient_norm=gnorm0,
-        trust_region_radius=float(options.initial_trust_region_radius),
-        eta=options.eta,
-        num_device_reads=read_count() - reads0,
-        iteration_time_in_seconds=time.time() - start,
-        cumulative_time_in_seconds=time.time() - start,
-    )
-    summary.iterations.append(it0)
-    minimizer._log(it0)
-    if gmax0 <= options.gradient_tolerance:
-        summary.termination_type = TerminationType.CONVERGENCE
-        summary.message = (
-            f"Gradient tolerance reached. Gradient max norm {gmax0:e}"
-            f" <= {options.gradient_tolerance:e}"
-        )
-        summary.final_cost = cost + summary.fixed_cost
-        return state
-
-    use_split = chunk_fn.use_split
     dtype, dev = state.dtype, state.device
     zero = torch.zeros((), dtype=dtype, device=dev)
     # cost0 is the evaluation graph's output, which the next evaluation
     # rewrites: the carry keeps its own copy
     cost0 = cost0.clone()
-    carry = dict(
+    return dict(
         state=state,
         cost=cost0,
         res=res_groups,
@@ -421,33 +415,81 @@ def run_fused(minimizer, state, summary):
         se=[cost0, cost0, cost0, cost0, zero, zero, torch.zeros((), dtype=torch.int32, device=dev)],
         pcache=(
             minimizer.prepare(jac, res_groups, grad, scale)
-            if use_split and not chunk_fn.lazy_prepare else None
+            if chunk_fn.use_split and not chunk_fn.lazy_prepare else None
         ),
     )
+
+
+def run_fused(minimizer, state, summary):
+    """Drive the fused loop in chunks; fills summary like the host loop."""
+    options = minimizer.options
+    program = minimizer.program
+    chunk_fn = minimizer._fused_chunk_fn
+    summary.used_fused_execution = True
+    start_ns = time.perf_counter_ns()
+    reads0 = read_count()
+
+    # the first evaluation and its read, the scale and the first prepare
+    with span("Minimizer::Start") as first:
+        with span("Evaluator::Jacobian") as jac_span:
+            cost0, res_groups, jac, grad, gmax0, gnorm0 = minimizer.evaluate(state)
+            cost, gmax0, gnorm0 = read(torch.stack([cost0, gmax0, gnorm0])).tolist()
+        summary.num_jacobian_evaluations += 1
+        summary.jacobian_evaluation_time_in_seconds += jac_span.seconds
+        if not math.isfinite(cost):
+            summary.termination_type = TerminationType.FAILURE
+            summary.message = (
+                "Initial cost evaluation failed (non-finite).\n"
+                + diagnose_non_finite(program, state)
+            )
+            return state
+        summary.initial_cost = cost + summary.fixed_cost
+        carry = None
+        if not gmax0 <= options.gradient_tolerance:
+            carry = _first_carry(minimizer, chunk_fn, state, cost0, res_groups, jac, grad)
+
+    it0 = IterationSummary(
+        iteration=0,
+        step_is_valid=True,
+        step_is_successful=True,
+        cost=cost + summary.fixed_cost,
+        gradient_max_norm=gmax0,
+        gradient_norm=gnorm0,
+        trust_region_radius=float(options.initial_trust_region_radius),
+        eta=options.eta,
+        num_device_reads=read_count() - reads0,
+        iteration_time_in_seconds=first.seconds,
+        cumulative_time_in_seconds=first.seconds,
+    )
+    summary.iterations.append(it0)
+    minimizer._log(it0)
+    if carry is None:
+        summary.termination_type = TerminationType.CONVERGENCE
+        summary.message = (
+            f"Gradient tolerance reached. Gradient max norm {gmax0:e}"
+            f" <= {options.gradient_tolerance:e}"
+        )
+        summary.final_cost = cost + summary.fixed_cost
+        return state
     cost_host = cost
 
     iters_done = 0
     term_code = _CONTINUE
     while iters_done < options.max_num_iterations:
-        if time.time() - start > options.max_solver_time_in_seconds:
+        if (time.perf_counter_ns() - start_ns) * 1e-9 > options.max_solver_time_in_seconds:
             summary.termination_type = TerminationType.NO_CONVERGENCE
             summary.message = "Maximum solver time reached."
             summary.final_cost = cost_host + summary.fixed_cost
             return carry["state"]
         limit = min(chunk_iters(options), options.max_num_iterations - iters_done)
-        t_chunk = time.time()
-        with torch.profiler.record_function("FusedLoop::Chunk"):
-            packed, reads, replays = chunk_fn(carry, limit)
-            # ONE device->host read of everything the host needs this chunk
-            packed = read(packed).double().tolist()
-        reads[-1] += 1
+        with span("FusedLoop::Chunk"):
+            packed, per_it = chunk_fn(carry, limit)
         n_it = int(packed[0])
         term_chunk = int(packed[1])
         nsucc, nfail, njac = int(packed[2]), int(packed[3]), int(packed[4])
         cost_host = packed[5]
         nls = int(packed[6])
         stats = [packed[7 + k * _N_STATS: 7 + (k + 1) * _N_STATS] for k in range(n_it)]
-        chunk_time = time.time() - t_chunk
 
         summary.num_successful_steps += nsucc
         summary.num_unsuccessful_steps += nfail
@@ -455,20 +497,11 @@ def run_fused(minimizer, state, summary):
         summary.num_residual_evaluations += n_it + nls
         summary.num_line_search_steps += nls
         summary.num_linear_solves += n_it
-        summary.linear_solver_time_in_seconds += chunk_time
-        # per-call stats: the chunk's wall time under FusedLoop::Chunk, the
-        # calls it made under their names (run with
-        # fused_execution_chunk_iters=1 for per-iteration times)
-        exec_sum.record("FusedLoop::Chunk", chunk_time)
-        exec_sum.record("Evaluator::Residual [fused]", 0.0, calls=n_it + nls)
-        exec_sum.record("Evaluator::Jacobian [fused]", 0.0, calls=njac)
-        exec_sum.record("LinearSolver::Solve [fused]", 0.0, calls=n_it)
-        if use_split:
-            # the prepares the chunk ran (after accepted steps, or lazily
-            # at the start of the iteration that takes the cache)
-            exec_sum.record("Preconditioner::Update [fused]", 0.0, calls=carry["prepares"])
+        # the stages' times, from their spans
+        summary.linear_solver_time_in_seconds += carry["step_s"]
+        summary.jacobian_evaluation_time_in_seconds += carry["accept_s"]
 
-        for k, row in enumerate(stats):
+        for k, (row, (reads, replays, seconds, end_ns)) in enumerate(zip(stats, per_it)):
             flags = int(row[_S_FLAGS])
             it_sum = IterationSummary(
                 iteration=iters_done + k + 1,
@@ -483,10 +516,10 @@ def run_fused(minimizer, state, summary):
                 trust_region_radius=row[_S_RADIUS],
                 eta=options.eta,
                 linear_solver_iterations=int(row[_S_LINITERS]),
-                num_device_reads=reads[k],
-                num_graph_replays=replays[k],
-                iteration_time_in_seconds=chunk_time / max(n_it, 1),
-                cumulative_time_in_seconds=time.time() - start,
+                num_device_reads=reads,
+                num_graph_replays=replays,
+                iteration_time_in_seconds=seconds,
+                cumulative_time_in_seconds=(end_ns - start_ns) * 1e-9,
             )
             summary.iterations.append(it_sum)
             minimizer._log(it_sum)

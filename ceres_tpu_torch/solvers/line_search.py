@@ -46,6 +46,7 @@ from ..types import (
     NonlinearConjugateGradientType,
     TerminationType,
 )
+from ..utils.execution_summary import span
 from ..utils.graphs import graph_stats, read, read_count
 from .polynomial import FunctionSample, minimize_interpolating_polynomial
 
@@ -271,7 +272,7 @@ class LineSearchDriver:
             return state
 
         for iteration in range(1, opts.max_num_iterations + 1):
-            with torch.profiler.record_function("LineSearch::Iteration"):
+            with span("LineSearch::Iteration"):
                 it_start = time.time()
                 reads0, replays0 = read_count(), graph_stats()["replays"]
                 if time.time() - start > opts.max_solver_time_in_seconds:

@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import copy
 import logging
-import time
 
 import torch
 
@@ -21,7 +20,7 @@ from ..types import (
     LinearSolverType, MinimizerType, PreconditionerType, Summary, TerminationType,
 )
 from ..utils.dtypes import default_dtype, resolve_device
-from ..utils.execution_summary import ExecutionSummary
+from ..utils.execution_summary import ExecutionSummary, record, recording, span
 from ..utils.graphs import graph_stats, read_count
 
 
@@ -77,18 +76,77 @@ def _normalized(device):
 
 
 def solve(options, problem) -> Summary:
+    """Solve `problem`; its Summary's execution_summary holds the solve's
+    spans and counters (utils.execution_summary): the whole under `Solve`,
+    its parts under `Solve::Preprocess`, `Solve::Minimize` and
+    `Solve::WriteBack`, and on a card the growth of the allocator's
+    reserved memory under `Device::Reserved`."""
     summary = Summary()
     summary.execution_summary = ExecutionSummary()
-    total_start = time.time()
+    with recording(summary.execution_summary), span("Solve") as whole:
+        _solve(options, problem, summary)
+    summary.total_time_in_seconds = whole.seconds
+    return summary
 
+
+def _reserved():
+    """The allocator's reserved bytes on each card (none before CUDA is
+    initialized)."""
+    if not torch.cuda.is_initialized():
+        return [0] * torch.cuda.device_count()
+    return [torch.cuda.memory_reserved(i) for i in range(torch.cuda.device_count())]
+
+
+def _solve(options, problem, summary):
+    reserved0 = _reserved()
+    # ---- preprocess (reference: trust_region_preprocessor.cc:373-405) ----
+    with span("Solve::Preprocess") as pre:
+        ready = _preprocess(options, problem, summary)
+    summary.preprocessor_time_in_seconds = pre.seconds
+    if ready is None:
+        return
+    options, program, evaluator, state = ready
+
+    # ---- minimize ----
+    with span("Solve::Minimize") as mini:
+        reads0, graphs0 = read_count(), graph_stats()
+        if options.minimizer_type == MinimizerType.TRUST_REGION:
+            from .trust_region import TrustRegionMinimizer
+
+            minimizer = TrustRegionMinimizer(program, options, evaluator)
+        else:
+            from .line_search import LineSearchMinimizer
+
+            minimizer = LineSearchMinimizer(program, options, evaluator)
+        final_state = minimizer.minimize(state, summary)
+    summary.minimizer_time_in_seconds = mini.seconds
+    graphs1 = graph_stats()
+    summary.num_device_reads = read_count() - reads0
+    summary.num_graph_replays = graphs1["replays"] - graphs0["replays"]
+    for name, n in (graphs1["replays_by"] - graphs0["replays_by"]).items():
+        record(f"CUDAGraph::Replay {name}", calls=n)
+
+    # ---- postprocess ----
+    with span("Solve::WriteBack") as post:
+        program.write_state_back(final_state.double().cpu().numpy())
+    summary.postprocessor_time_in_seconds = post.seconds
+    device = program.device
+    if device.type == "cuda":
+        # what the solve left reserved: its CUDA graphs' private pools
+        i = torch.cuda.current_device() if device.index is None else device.index
+        record("Device::Reserved", nbytes=torch.cuda.memory_reserved(i) - reserved0[i])
+
+
+def _preprocess(options, problem, summary):
+    """Validate, lower and bind: (options, program, evaluator, state), the
+    options as the solve runs them, or None with the summary filled where
+    the solve ends here."""
     ok, msg = options.is_valid()
     if not ok:
         summary.termination_type = TerminationType.FAILURE
         summary.message = f"Invalid options: {msg}"
-        return summary
+        return None
 
-    # ---- preprocess (reference: trust_region_preprocessor.cc:373-405) ----
-    t0 = time.time()
     mesh = options.mesh
     if mesh is not None and options.preconditioner_type == PreconditionerType.SUBSET:
         # SUBSET's apply is a host sparse solve over the whole Q (ceres_tpu/
@@ -134,17 +192,14 @@ def solve(options, problem) -> Summary:
     if program.num_residuals == 0:
         summary.termination_type = TerminationType.CONVERGENCE
         summary.message = "Problem has no residual blocks."
-        summary.preprocessor_time_in_seconds = time.time() - t0
-        summary.total_time_in_seconds = time.time() - total_start
-        return summary
+        return None
 
     if options.check_gradients:
         message = _check_gradients(options, program)
         if message is not None:
             summary.termination_type = TerminationType.FAILURE
             summary.message = message
-            summary.total_time_in_seconds = time.time() - total_start
-            return summary
+            return None
 
     if options.linear_solver_type in (
         LinearSolverType.ITERATIVE_SCHUR, LinearSolverType.DENSE_SCHUR,
@@ -152,43 +207,12 @@ def solve(options, problem) -> Summary:
     ):
         # the elimination ordering is preprocessing (reference:
         # trust_region_preprocessor.cc, ReorderProgram); cached per Program
-        program.schur_tangent_masks()
+        with span("Program::SchurOrdering"):
+            program.schur_tangent_masks()
     if mesh is not None:
         from ..parallel.sharding import ShardedEvaluator
 
         evaluator = ShardedEvaluator(program, mesh, dtype=dtype)
     else:
         evaluator = Evaluator(program, dtype=dtype)
-    state = program.state_vector(dtype)
-    summary.preprocessor_time_in_seconds = time.time() - t0
-
-    # ---- minimize ----
-    t1 = time.time()
-    reads0, graphs0 = read_count(), graph_stats()
-    if options.minimizer_type == MinimizerType.TRUST_REGION:
-        from .trust_region import TrustRegionMinimizer
-
-        minimizer = TrustRegionMinimizer(program, options, evaluator)
-    else:
-        from .line_search import LineSearchMinimizer
-
-        minimizer = LineSearchMinimizer(program, options, evaluator)
-    final_state = minimizer.minimize(state, summary)
-    summary.minimizer_time_in_seconds = time.time() - t1
-    graphs1 = graph_stats()
-    summary.num_device_reads = read_count() - reads0
-    summary.num_graph_replays = graphs1["replays"] - graphs0["replays"]
-    summary.execution_summary.record("Device::Read", 0.0, calls=summary.num_device_reads)
-    summary.execution_summary.record(
-        "CUDAGraph::Capture", graphs1["capture_seconds"] - graphs0["capture_seconds"],
-        calls=graphs1["captures"] - graphs0["captures"],
-    )
-    for name, n in (graphs1["replays_by"] - graphs0["replays_by"]).items():
-        summary.execution_summary.record(f"CUDAGraph::Replay {name}", 0.0, calls=n)
-
-    # ---- postprocess ----
-    t2 = time.time()
-    program.write_state_back(final_state.double().cpu().numpy())
-    summary.postprocessor_time_in_seconds = time.time() - t2
-    summary.total_time_in_seconds = time.time() - total_start
-    return summary
+    return options, program, evaluator, program.state_vector(dtype)

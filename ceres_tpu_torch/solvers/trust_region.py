@@ -31,8 +31,8 @@ from ..types import (
     CallbackReturnType, IterationSummary, LoggingType, TerminationType, TrustRegionStrategyType,
 )
 from ..utils import graphs
-from ..utils.execution_summary import NullExecutionSummary
-from ..utils.graphs import graph_stats, read, read_count
+from ..utils.execution_summary import NullExecutionSummary, span
+from ..utils.graphs import graph_stats, read, read_count, upload
 from .strategies import TrustRegionStepEvaluator, make_lm_step_fn
 
 
@@ -62,7 +62,7 @@ def active_bound_mask(program, arrays, state, grad):
     coordinate-wise pairing and keep 1 (Plus still clamps them)."""
     t_idx, a_idx = program.cached(
         ("bound_maps", state.device),
-        lambda p: tuple(torch.as_tensor(m, device=state.device) for m in p.bound_coordinate_maps()),
+        lambda p: tuple(upload(m, device=state.device) for m in p.bound_coordinate_maps()),
     )
     x, g = state[a_idx], grad[t_idx]
     lo, hi = arrays["lower_bound"][a_idx], arrays["upper_bound"][a_idx]
@@ -300,7 +300,7 @@ class TrustRegionMinimizer:
             return state
 
         for iteration in range(1, options.max_num_iterations + 1):
-            with torch.profiler.record_function("TrustRegion::Iteration"):
+            with span("TrustRegion::Iteration"):
                 iter_start = time.time()
                 if time.time() - start > options.max_solver_time_in_seconds:
                     summary.termination_type = TerminationType.NO_CONVERGENCE

@@ -3,11 +3,14 @@
 `read` is the one way the solver loops bring a device value to the host.
 Every read drains the stream: the card idles until the host has decided and
 launched the next work. So each read is counted (`read_count`; the solve
-reports the count in `Summary.num_device_reads` and per iteration), and a
-read is allowed to synchronize even under
+reports the count in `Summary.num_device_reads` and per iteration) and
+timed as a `Device::Read` span (the host's wait, utils.execution_summary),
+and a read is allowed to synchronize even under
 `torch.cuda.set_sync_debug_mode("error")`, so that a loop run in that mode
 fails on any other synchronization. Reads of CPU tensors are counted the
-same way, so the CPU tests check the loops' read budgets too.
+same way, so the CPU tests check the loops' read budgets too. `upload` is
+the other direction: a host array made a tensor on the device, its bytes
+counted under `Device::Upload`.
 
 `FnGraph` captures one call of a function of tensors and replays it;
 `StepGraph` captures one call of a step that advances a list of state
@@ -40,12 +43,12 @@ from __future__ import annotations
 
 import collections
 import gc
-import time
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from .. import cuda_lib
+from .execution_summary import record, span
 
 _reads = 0
 # a sharded solve's all-reduces and the bytes they move (parallel.
@@ -53,7 +56,7 @@ _reads = 0
 # its capture and adds them per replay as it does the kernels' launches
 _collectives = {"all_reduce": 0, "all_reduce_bytes": 0}
 _graph_stats = {
-    "captures": 0, "replays": 0, "capture_seconds": 0.0,
+    "captures": 0, "replays": 0,
     "replays_by": collections.Counter(),
 }
 
@@ -62,14 +65,23 @@ def read(t):
     """The tensor `t` on the host (a CPU tensor), counted as one read."""
     global _reads
     _reads += 1
-    if t.device.type != "cuda":
-        return t.detach()
-    mode = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(0)
-    try:
-        return t.detach().cpu()
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
+    with span("Device::Read"):
+        if t.device.type != "cuda":
+            return t.detach()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return t.detach().cpu()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+
+def upload(a, dtype=None, device=None):
+    """torch.as_tensor(a, dtype, device) of a host array, its bytes counted
+    under `Device::Upload` (on the CPU too: the bytes a card would take)."""
+    t = torch.as_tensor(a, dtype=dtype, device=device)
+    record("Device::Upload", nbytes=t.numel() * t.element_size())
+    return t
 
 
 def read_count() -> int:
@@ -106,8 +118,8 @@ def _add(counts, sign):
 
 
 def graph_stats() -> dict:
-    """Captures, replays (in all and by graph name) and capture seconds of
-    every graph so far."""
+    """Captures and replays (in all and by graph name) of every graph so
+    far; a capture's seconds are its `CUDAGraph::Capture <graph>` span."""
     out = dict(_graph_stats)
     out["replays_by"] = collections.Counter(_graph_stats["replays_by"])
     return out
@@ -171,7 +183,6 @@ class _Graph:
         could destroy another graph, which CUDA forbids during a capture
         and which then invalidates it."""
         before = _counts()
-        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         main = torch.cuda.current_stream()
         side = torch.cuda.Stream()
@@ -189,7 +200,6 @@ class _Graph:
             if collecting:
                 gc.enable()
         main.wait_stream(side)
-        _graph_stats["capture_seconds"] += time.perf_counter() - t0
         _graph_stats["captures"] += 1
         after = _counts()
         # the wrappers counted while capturing, but nothing ran
@@ -230,8 +240,9 @@ class StepGraph(_Graph):
         stream the first time (which then captures the step), later by
         replaying the capture."""
         if not self.captured:
-            self._warm_up(lambda: self._advance(fn))
-            self._capture(lambda: self._advance(fn))
+            with span(f"CUDAGraph::Capture {self.name}"):
+                self._warm_up(lambda: self._advance(fn))
+                self._capture(lambda: self._advance(fn))
             return
         self._replay()
 
@@ -259,11 +270,12 @@ class FnGraph(_Graph):
             leaves[i] = t
         s_args = tree_unflatten(leaves, spec)
         if not self.captured:
-            warm = tree_flatten(self._warm_up(lambda: fn(fixed, *s_args)))[0]
-            out_leaves, out_spec = tree_flatten(self._capture(lambda: fn(fixed, *s_args)))
-            for o, w in zip(out_leaves, warm):
-                if isinstance(o, torch.Tensor):
-                    o.copy_(w)
+            with span(f"CUDAGraph::Capture {self.name}"):
+                warm = tree_flatten(self._warm_up(lambda: fn(fixed, *s_args)))[0]
+                out_leaves, out_spec = tree_flatten(self._capture(lambda: fn(fixed, *s_args)))
+                for o, w in zip(out_leaves, warm):
+                    if isinstance(o, torch.Tensor):
+                        o.copy_(w)
             self._out = (out_leaves, out_spec)
         else:
             self._replay()

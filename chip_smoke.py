@@ -1359,15 +1359,16 @@ def run_main_path(bal, precond, build=None, label=None, **overrides):
         loop += ", mixed"
     if label is not None:
         loop += ", " + label
-    capture = summary.execution_summary
+    ex = summary.execution_summary
+    captures = [n for n in ex.names() if n.startswith("CUDAGraph::Capture ")]
     print(
         f"phase 4: {precond} ({loop}): Problem built in {t_problem:.1f} s; solve {wall:.1f} s "
         f"(preprocess {summary.preprocessor_time_in_seconds:.1f} s: Program, Schur ordering, "
         f"uploads), initial cost {summary.initial_cost!r}, final cost {summary.final_cost!r}, "
         f"{summary.termination_type.value}, launches {json.dumps(launches)}; device reads "
         f"{summary.num_device_reads}, graph replays {summary.num_graph_replays}, graph "
-        f"captures {capture.calls('CUDAGraph::Capture')} in "
-        f"{1000.0 * capture.seconds('CUDAGraph::Capture'):.1f} ms",
+        f"captures {sum(ex.calls(n) for n in captures)} in "
+        f"{1000.0 * sum(ex.seconds(n) for n in captures):.1f} ms",
         flush=True,
     )
     if not finite:

@@ -136,7 +136,9 @@ def test_solve_writes_state_back_and_reports():
     assert s.linear_solver_type_used == ct.LinearSolverType.ITERATIVE_SCHUR
     assert not np.array_equal(problem.parameter_block_value(pts[0]), bal.points[0])
     report = s.full_report()
-    assert "Evaluator::Jacobian" in report and "LinearSolver::Solve" in report
+    # the fused loop's linear solves are its LM::Step spans
+    assert s.used_fused_execution
+    assert "Evaluator::Jacobian" in report and "LM::Step" in report
     # re-solving starts from the written-back state
     s2 = ct.solve(_options(ct, device="cpu", max_num_iterations=1), problem)
     assert s2.initial_cost == pytest.approx(s.final_cost, rel=1e-12)
