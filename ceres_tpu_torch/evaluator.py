@@ -247,20 +247,52 @@ def flatten_residuals(program, res_groups):
     return torch.cat([r.T.reshape(-1) for r in res_groups])
 
 
+class Workspace:
+    """What an Evaluator builds on the device and a Program may keep for
+    its next solve under `key` (solvers/solver.py): the Program's tables as
+    tensors (`arrays`), the solver's CUDA graphs by name and the tensors
+    that only they read in place (`buffers`). It refers to no Program, so
+    it goes with its Program by reference counting."""
+
+    def __init__(self):
+        self.key = None
+        self.arrays = None
+        self.graphs = {}
+        self.buffers = {}
+
+    def release(self):
+        """Drop the graphs (their memory pools), the buffers and the tables
+        now, rather than when the last reference goes."""
+        for graph in self.graphs.values():
+            if graph is not None:
+                graph.release()
+        self.graphs.clear()
+        self.buffers.clear()
+        self.arrays = None
+
+
 class Evaluator:
     """Evaluation entry points bound to one Program, its dtype and its
     device (the Program's). Each entry point first calls the Program's
     evaluation callback, with (True, whether it evaluates the Jacobian),
     as ceres_tpu/evaluator.py:412-437 does; a minimizer that replays an
     evaluation from a CUDA graph calls `notify` itself before each
-    replay (trust_region.make_evaluate)."""
+    replay (trust_region.make_evaluate).
 
-    def __init__(self, program, dtype=None):
+    Its tables, the solver's graphs (`fn_graph`, `step_graph`: one per
+    name) and their buffers live in its Workspace; an Evaluator given a
+    built one takes them from there and builds nothing."""
+
+    def __init__(self, program, dtype=None, workspace=None):
         self.program = program
         self.dtype = dtype or default_dtype()
         self.device = program.device
+        if workspace is not None:  # built by an earlier Evaluator
+            self.workspace, self.arrays = workspace, workspace.arrays
+            return
+        self.workspace = Workspace()
         with span("Evaluator::Build"):
-            self.arrays = self._build_arrays()
+            self.arrays = self.workspace.arrays = self._build_arrays()
             if torch.device(self.device).type == "cuda":
                 # the generated kernels of the Program's groups and of B4 at
                 # its shape, built at once, before any CUDA graph capture
@@ -289,14 +321,31 @@ class Evaluator:
         )
 
     def fn_graph(self, name):
-        """A utils.graphs.FnGraph for the solver's functions over this
-        evaluator's tensors: on a card whose work can be captured; None
-        (run eagerly) elsewhere."""
-        return graphs.fn_graph(name, self.device) if self.capturable else None
+        """The utils.graphs.FnGraph `name` for the solver's functions over
+        this evaluator's tensors, the same one at every request: on a card
+        whose work can be captured; None (run eagerly) elsewhere."""
+        return self._graph(name, graphs.fn_graph)
 
     def step_graph(self, name):
-        """A utils.graphs.StepGraph, where fn_graph gives an FnGraph."""
-        return graphs.step_graph(name, self.device) if self.capturable else None
+        """The utils.graphs.StepGraph `name`, where fn_graph gives an
+        FnGraph."""
+        return self._graph(name, graphs.step_graph)
+
+    def _graph(self, name, make):
+        if not self.capturable:
+            return None
+        kept = self.workspace.graphs
+        if name not in kept:
+            kept[name] = make(name, self.device)
+        return kept[name]
+
+    def buffer(self, key, make):
+        """The tensor make() gave at the first request of `key`, at every
+        request: a graph's fixed operand that no other graph writes."""
+        kept = self.workspace.buffers
+        if key not in kept:
+            kept[key] = make()
+        return kept[key]
 
     def notify(self, evaluate_jacobians: bool):
         """Run the Program's evaluation callback, if it has one, on the

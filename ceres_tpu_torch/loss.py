@@ -199,3 +199,16 @@ class ComposedLoss(LossFunction):
         g0, g1, g2 = self.g.rho(s)
         f0, f1, f2 = self.f.rho(g0)
         return f0, f1 * g1, f2 * g1 * g1 + f1 * g2
+
+
+def current_value(loss):
+    """`loss` as a value of what it computes now, which compares equal
+    only to a loss of the same kind and parameters: a LossFunctionWrapper
+    stands for the loss it wraps at the time of the call (reset() swaps it
+    in place), a composed loss for its parts."""
+    if isinstance(loss, LossFunctionWrapper):
+        return ("LossFunctionWrapper", current_value(loss._loss))
+    if dataclasses.is_dataclass(loss):
+        return (type(loss),) + tuple(
+            current_value(getattr(loss, f.name)) for f in dataclasses.fields(loss))
+    return loss

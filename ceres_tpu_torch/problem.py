@@ -447,6 +447,9 @@ class Problem:
         from .program import Program
 
         if self._dirty or self._program is None:
+            if self._program is not None:
+                # the old Program's solve workspace goes with it, now
+                self._program.release_workspace()
             with span("Program::Lower"):
                 self._program = Program(self._blocks, self._batches, self.evaluation_callback)
             self._dirty = False

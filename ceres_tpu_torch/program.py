@@ -186,6 +186,16 @@ class Program:
         # the global residual rows of the SUBSET preconditioner's Q (each
         # solve sets them from residual_blocks_for_subset_preconditioner)
         self.subset_rows = None
+        # the solve workspace (evaluator.Workspace) of the last unsharded
+        # solve: its tables, graphs and buffers, kept for the next
+        # (solvers/solver.py)
+        self.workspace = None
+
+    def release_workspace(self):
+        """Drop the solve workspace's graphs and tables now."""
+        if self.workspace is not None:
+            self.workspace.release()
+            self.workspace = None
 
     def to(self, device):
         """Re-target the Program's tensors (arrays, state) at `device`."""
@@ -656,10 +666,12 @@ class Program:
         """Pin the eliminated set to the free blocks among `handles` (the
         first group of linear_solver_ordering), or with None go back to the
         automatic partition; the Schur-side caches, which derive from the
-        partition, are dropped when it changes."""
+        partition, are dropped when it changes, and so is the solve
+        workspace, whose graphs read them."""
         user = None if handles is None else frozenset(int(h) for h in handles)
         if user != self.user_e_blocks:
             self.user_e_blocks = user
+            self.release_workspace()
             self.schur_cache.clear()
 
     def compute_schur_partition(self, user_e_override=None):

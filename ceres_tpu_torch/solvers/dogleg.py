@@ -23,7 +23,8 @@ the PCG reads one flag per step, so prepare runs its own graphs
 (`step_fn.prepare_reads`); the finish, SUBSPACE's 80 bisection steps
 included, is one graph. The dense GN runs eagerly. Each finish writes the
 kind of step it took (STEP_KINDS) into `step_fn.step_kinds`, a device log
-of one entry per finish that a caller may read after the solve.
+of one entry per finish that a caller may read after the solve (the
+Evaluator's buffer: the next step function over it starts it over).
 """
 
 from __future__ import annotations
@@ -174,9 +175,17 @@ def make_dogleg_step_fn(program, options, evaluator):
     min_diag, max_diag = options.min_lm_diagonal, options.max_lm_diagonal
     garrs = evaluator.arrays["groups"]
     dev = evaluator.device
-    # one entry per finish (a finish per iteration): the STEP_KINDS codes
-    kinds = torch.full((max(options.max_num_iterations, 1),), -1, dtype=torch.int32, device=dev)
-    count = torch.zeros((), dtype=torch.long, device=dev)
+    # one entry per finish (a finish per iteration): the STEP_KINDS codes;
+    # the finish graph reads both in place, so they are the evaluator's
+    # and start over with each step function
+    n_kinds = max(options.max_num_iterations, 1)
+    kinds = evaluator.buffer(
+        ("dogleg_kinds", n_kinds),
+        lambda: torch.empty((n_kinds,), dtype=torch.int32, device=dev),
+    ).fill_(-1)
+    count = evaluator.buffer(
+        "dogleg_count", lambda: torch.empty((), dtype=torch.long, device=dev)
+    ).zero_()
     head_graph = evaluator.fn_graph("dogleg_head")
     pcg_graph = evaluator.step_graph("pcg")
     cauchy_graph = evaluator.fn_graph("dogleg_cauchy")

@@ -10,12 +10,15 @@ ShardedEvaluator (parallel/sharding.py).
 from __future__ import annotations
 
 import copy
+import dataclasses
 import logging
 
+import numpy as np
 import torch
 
 from ..evaluator import Evaluator
-from ..ordering import eliminated_handles
+from ..loss import current_value
+from ..ordering import ParameterBlockOrdering, eliminated_handles
 from ..types import (
     LinearSolverType, MinimizerType, PreconditionerType, Summary, TerminationType,
 )
@@ -80,7 +83,17 @@ def solve(options, problem) -> Summary:
     spans and counters (utils.execution_summary): the whole under `Solve`,
     its parts under `Solve::Preprocess`, `Solve::Minimize` and
     `Solve::WriteBack`, and on a card the growth of the allocator's
-    reserved memory under `Device::Reserved`."""
+    reserved memory under `Device::Reserved`.
+
+    The Problem keeps its solve workspace on the card between solves: the
+    Program's device tables, the CUDA graphs and their memory pools (about
+    6.5 GB at BAL Venice-1778's size in float32; evaluator.Workspace). A
+    later solve of the unchanged Problem with the same dtype, device and
+    options uploads only the state and replays the graphs (a
+    `Solve::Reuse` counter); any other solve builds a new workspace and
+    drops the old one at once. A change to the Problem drops it with its
+    Program; so does dropping the Problem. A sharded solve (`mesh`) builds
+    its own every time."""
     summary = Summary()
     summary.execution_summary = ExecutionSummary()
     with recording(summary.execution_summary), span("Solve") as whole:
@@ -214,5 +227,45 @@ def _preprocess(options, problem, summary):
 
         evaluator = ShardedEvaluator(program, mesh, dtype=dtype)
     else:
-        evaluator = Evaluator(program, dtype=dtype)
+        evaluator = _evaluator(options, program, dtype)
     return options, program, evaluator, program.state_vector(dtype)
+
+
+def _evaluator(options, program, dtype):
+    """The solve's Evaluator over the Program's kept workspace (its tables,
+    graphs and their buffers) where the Program's last solve had an equal
+    key, counted as `Solve::Reuse`; else over a new one, which replaces
+    it."""
+    # the losses as they are now: a LossFunctionWrapper's reset() swaps its
+    # loss inside the same Program
+    key = (dtype, _normalized(program.device), _options_key(options), program.user_e_blocks,
+           None if program.subset_rows is None else program.subset_rows.tobytes(),
+           tuple(current_value(meta.loss) for meta in program.groups))
+    kept = program.workspace
+    if kept is not None and kept.key == key:
+        record("Solve::Reuse")
+        return Evaluator(program, dtype=dtype, workspace=kept)
+    program.release_workspace()
+    evaluator = Evaluator(program, dtype=dtype)
+    evaluator.workspace.key = key
+    program.workspace = evaluator.workspace
+    return evaluator
+
+
+def _options_key(options):
+    """Every field of `options` as a value that compares by content: the
+    captured functions bake option values into their graphs, so any field
+    may change what a kept graph computes."""
+    return tuple((f.name, _frozen(getattr(options, f.name))) for f in dataclasses.fields(options))
+
+
+def _frozen(value):
+    if isinstance(value, ParameterBlockOrdering):
+        return tuple(sorted((g, tuple(els)) for g, els in value.group_to_elements().items()))
+    if isinstance(value, (set, frozenset)):
+        return frozenset(value)
+    if isinstance(value, np.ndarray):
+        value = value.tolist()
+    if isinstance(value, (list, tuple)):
+        return tuple(_frozen(v) for v in value)
+    return value

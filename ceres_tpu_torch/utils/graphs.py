@@ -25,11 +25,15 @@ its operands come in two kinds:
   `bind` copies into the graph's own buffers on every call.
 
 A call whose fixed tensors are not those of the capture, or whose copied
-shapes or other arguments differ, captures anew. An FnGraph's outputs are
-the same tensors from its first call on, rewritten by every replay: the
-Jacobian an `evaluate` graph returns is the one later graphs read in place,
-and the caller is done with an output before the next call. The first call
-runs eagerly on a side stream (the warm-up PyTorch's graph docs ask for; it
+shapes or other arguments differ, captures anew. A solve's graphs are its
+Evaluator's, one per name (evaluator.Evaluator.fn_graph), in the workspace
+a Program keeps from its last solve (solvers/solver.py), so that the next
+solve with the same key replays them: every fixed tensor is another graph's
+output, a workspace buffer or table, or a table of the Program. An
+FnGraph's outputs are the same tensors from its first call on, rewritten by
+every replay: the Jacobian an `evaluate` graph returns is the one later
+graphs read in place, and the caller is done with an output before the next
+call. The first call runs eagerly on a side stream (the warm-up PyTorch's graph docs ask for; it
 also fills the Program's lazy device tables, whose uploads a capture would
 refuse), then captures; an FnGraph copies the warm-up's results into its
 outputs. Later calls replay. The kernels' ctypes wrappers launch on
@@ -165,6 +169,11 @@ class _Graph:
     def captured(self) -> bool:
         return self._graph is not None
 
+    def release(self):
+        """Drop the capture (and with it its private memory pool), the
+        buffers and the fixed tensors it holds."""
+        self._graph = self._fixed = self._key = self.copies = None
+
     def _warm_up(self, fn):
         main = torch.cuda.current_stream()
         side = torch.cuda.Stream()
@@ -256,6 +265,10 @@ class FnGraph(_Graph):
 
     def __init__(self, name: str):
         super().__init__(name)
+        self._out = None
+
+    def release(self):
+        super().release()
         self._out = None
 
     def __call__(self, fn, fixed, *args):

@@ -265,20 +265,26 @@ class _EagerFnGraph(FnGraph):
     """An FnGraph whose calls all run eagerly, with a capture's effects: its
     copies of the inputs, the fixed inputs read where they are, and every
     "replay" writing into the same output tensors, which the caller sees
-    change in place."""
+    change in place. The captured function, which a replay calls again, is
+    kept in `fns` (it holds the solve's Evaluator, and so the workspace
+    that holds this graph)."""
 
     replays = 0
+
+    def __init__(self, name, fns):
+        super().__init__(name)
+        self._fns = fns
 
     def _warm_up(self, fn):
         return fn()
 
     def _capture(self, fn):
-        self._fn = fn
+        self._fns[self.name] = fn
         self._graph = "eager"
         return fn()
 
     def _replay(self):
-        new = [t for t in torch.utils._pytree.tree_flatten(self._fn())[0]
+        new = [t for t in torch.utils._pytree.tree_flatten(self._fns[self.name]())[0]
                if isinstance(t, torch.Tensor)]
         old = [t for t in self._out[0] if isinstance(t, torch.Tensor)]
         for o, n in zip(old, new, strict=True):
@@ -288,10 +294,10 @@ class _EagerFnGraph(FnGraph):
 
 def _graph_bookkeeping(monkeypatch, names, **kw):
     plain = _solve(ct, **kw)[0]
-    made = []
+    made, fns = [], {}
 
     def fn_graph(name, device):
-        made.append(_EagerFnGraph(name))
+        made.append(_EagerFnGraph(name, fns))
         return made[-1]
 
     monkeypatch.setattr(tgraphs, "fn_graph", fn_graph)
@@ -301,10 +307,11 @@ def _graph_bookkeeping(monkeypatch, names, **kw):
         used = [g for g in made if g.captured]
         assert sorted(g.name for g in used) == names
         assert all(g.replays > 0 for g in used)
-        # the graphs (and on a card their memory pools) go with the solve,
-        # without waiting for a gc pass
+        # the graphs (and on a card their memory pools) go with the solved
+        # Problem's workspace, without waiting for a gc pass
         refs = [weakref.ref(g) for g in made]
         made.clear()
+        fns.clear()
         del used
         assert all(r() is None for r in refs)
     finally:

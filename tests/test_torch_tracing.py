@@ -94,7 +94,9 @@ def test_a_second_solve_lowers_nothing():
     ct.solve(_options(max_num_iterations=1), problem)
     s = ct.solve(_options(max_num_iterations=1), problem)
     names = set(s.execution_summary.names())
-    assert "Program::Lower" not in names and "Evaluator::Build" in names
+    # nor builds an Evaluator: the Program kept the first solve's workspace
+    assert "Program::Lower" not in names and "Evaluator::Build" not in names
+    assert s.execution_summary.calls("Solve::Reuse") == 1
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -136,16 +138,22 @@ def test_iteration_spans_are_the_iterations_times(chunk):
 def test_uploads_count_the_bytes_of_the_tensors_made(dtype):
     problem = _problem()
     ct.solve(_options(dtype=dtype, max_num_iterations=1), problem)  # fills the cached tables
-    s = ct.solve(_options(dtype=dtype, max_num_iterations=1), problem)
+    # another key: a new Evaluator uploads the Program's tables and the state
+    s = ct.solve(_options(dtype=dtype, max_num_iterations=2), problem)
     program = problem.compile("cpu")
     made = ExecutionSummary()
     with recording(made):
         tensors = torch.utils._pytree.tree_leaves(program.arrays(dtype))
-        tensors.append(program.state_vector(dtype))
+        state = program.state_vector(dtype)
     nbytes = sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
-    assert made.nbytes("Device::Upload") == nbytes
-    assert s.execution_summary.nbytes("Device::Upload") == nbytes
+    state_nbytes = state.numel() * state.element_size()
+    assert made.nbytes("Device::Upload") == nbytes + state_nbytes
+    assert s.execution_summary.nbytes("Device::Upload") == nbytes + state_nbytes
     assert s.execution_summary.calls("Device::Upload") == made.calls("Device::Upload")
+    # the same key again: the kept workspace, so the state alone
+    again = ct.solve(_options(dtype=dtype, max_num_iterations=2), problem)
+    assert again.execution_summary.nbytes("Device::Upload") == state_nbytes
+    assert again.execution_summary.calls("Device::Upload") == 1
 
 
 def test_host_loop_iterations_are_spans():
