@@ -68,5 +68,13 @@ __device__ __forceinline__ float bf16_word_value(const unsigned* w, int e) {
   return __uint_as_float((e & 1) ? (x & 0xffff0000u) : (x << 16));
 }
 
+// The inverse: two floats rounded to bfloat16 (round-to-nearest-even, as
+// Tensor.to(torch.bfloat16) rounds on the card) as one 32-bit word, `lo` the
+// element of the lower address
+__device__ __forceinline__ unsigned bf16_word(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
 }  // namespace
 }  // namespace leaf

@@ -30,6 +30,10 @@ Jacobian, for a functor that carries an analytic rule) and
 `eval_generic_residual`; B4's generated kernels count as the library's
 (`schur_sy`, `schur_sy_bf16`).
 
+The mixed-precision solves' bfloat16 copy of a Jacobian's leaves and twins
+(jacobian.bf16_copies, csrc/leaf_to_bf16.cu; float32 or float64 sources)
+is one launch, counted as `leaf_to_bf16`.
+
 `build_host` compiles the port's host C++ sources (native/: the BAL
 loader and the C API's embedding shim) with g++, the same way: keyed by a
 hash, under the build lock, installed with os.replace.
@@ -69,6 +73,8 @@ BF16_KERNELS = ("gather_contract", "contract_reduce", "schur_sy") + BATCHED_KERN
 # B1's generic instantiation (eval_kernel.generic_evaluate): with the
 # Jacobian (autodiff by Jets, or an analytic rule's) and residual-only
 GENERIC_KERNELS = ("eval_generic", "eval_generic_analytic", "eval_generic_residual")
+# the bfloat16 copy of a Jacobian's leaves and twins (mixed-precision solves)
+COPY_KERNELS = ("leaf_to_bf16",)
 # B1's launches with a lane mask (a sharded group's pad lanes: the mask_T
 # operand of the JAX kernel) count under their own names: "<name>_masked"
 MASKED_KERNELS = tuple(
@@ -78,7 +84,7 @@ _launches = {
     name: 0
     for name in KERNELS + QUAT_KERNELS + BATCHED_KERNELS
     + tuple(k + "_bf16" for k in BF16_KERNELS)
-    + GENERIC_KERNELS + MASKED_KERNELS
+    + GENERIC_KERNELS + MASKED_KERNELS + COPY_KERNELS
 }
 _lib = None
 # generated sources: path -> loaded library, (source, entry point) -> its
@@ -120,6 +126,9 @@ _SIGNATURES = {
     # F twin, E twin, point rows, chunk_start, row_chunks, minv, cnt_e, n_pad,
     # r, te, tf, nchunks, ncols_out, partial, out, stream
     "ctt_schur_p0": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # host arrays of the sources, the destinations and the counts (int64),
+    # the number of tensors, out: the launches made (int32), stream
+    "ctt_leaf_to_bf16": [_P, _P, _P, _I, _P, _P],
 }
 _BF16_PREFIXES = (
     "ctt_gather_contract", "ctt_contract_reduce", "ctt_schur_sy_point", "ctt_schur_sy_fold",

@@ -28,7 +28,8 @@ Leaves may be bfloat16 (`astype`, the mixed-precision solves' matvec
 copy): the products then round their vector operand to bfloat16, form each
 product exactly in float32 and accumulate and return float32 (`_acc_dtype`,
 as ceres_tpu/jacobian.py:430-434), through the `_bf16` kernels B2 and B3 on
-the onehot plan.
+the onehot plan. On a card the copy of every leaf and twin is one launch
+(`bf16_copies`).
 
 The one-hot MXU machinery of the JAX package (ceres_tpu/jacobian.py:71-143)
 exists only to serve a TPU and has no counterpart here.
@@ -36,9 +37,12 @@ exists only to serve a TPU and has no counterpart here.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from . import cuda_lib
 from .gather_reduce import (
     contract_reduce,
     contract_reduce_batched,
@@ -172,6 +176,34 @@ def _reduce_rows(plan, contrib, rows, num_out):
     return out
 
 
+def bf16_copies(tensors):
+    """`[t.to(torch.bfloat16) for t in tensors]`. On a card, float32 or
+    float64 tensors (one dtype, each contiguous) are rounded by
+    `leaf_to_bf16` (csrc/leaf_to_bf16.cu: one launch for up to 32 tensors,
+    counted per launch; bitwise Tensor.to on finite values), into outputs allocated as Tensor.to allocates them: one each,
+    of its source's shape, in the list's order, from the current pool.
+    Elsewhere, and for bfloat16 sources, Tensor.to itself."""
+    tensors = list(tensors)
+    if not tensors or tensors[0].device.type != "cuda" or tensors[0].dtype == torch.bfloat16:
+        return [t.to(torch.bfloat16) for t in tensors]
+    dtype, device = tensors[0].dtype, tensors[0].device
+    for i, t in enumerate(tensors):
+        cuda_lib.require(f"tensors[{i}]", t, dtype, device=device)
+    out = [torch.empty_like(t, dtype=torch.bfloat16) for t in tensors]
+    fn = cuda_lib.kernel_fn("ctt_leaf_to_bf16", dtype)
+    k = len(tensors)
+    launches = ctypes.c_int(0)
+    rc = fn(
+        ctypes.cast((ctypes.c_void_p * k)(*[t.data_ptr() for t in tensors]), ctypes.c_void_p),
+        ctypes.cast((ctypes.c_void_p * k)(*[t.data_ptr() for t in out]), ctypes.c_void_p),
+        ctypes.cast((ctypes.c_longlong * k)(*[t.numel() for t in tensors]), ctypes.c_void_p),
+        k, ctypes.c_void_p(ctypes.addressof(launches)), cuda_lib.stream(device),
+    )
+    cuda_lib.check(rc, "leaf_to_bf16")
+    cuda_lib.count("leaf_to_bf16", launches.value)
+    return out
+
+
 class BlockJacobian:
     """Per-(group, position) Jacobian blocks stored as [r*t, n] tensors.
 
@@ -277,17 +309,24 @@ class BlockJacobian:
     def astype(self, dtype):
         """The same operator with its leaves, and the twins they already
         have, cast to `dtype` (the mixed-precision solves' bfloat16 copy
-        for the PCG matvec; ceres_tpu/jacobian.py:436-458); the lazy column
-        scale stays."""
+        for the PCG matvec, `bf16_copies`: one launch on a card;
+        ceres_tpu/jacobian.py:436-458); the lazy column scale stays."""
         if dtype == self._dtype():
             return self
+        leaves = [j for jacs in self.jac_groups for j in jacs]
+        twins = list(self.twins.values())
+        if dtype == torch.bfloat16:
+            copies = bf16_copies(leaves + twins)
+        else:
+            copies = [t.to(dtype) for t in leaves + twins]
+        it = iter(copies)
         return BlockJacobian(
             self.program,
-            tuple(tuple(j.to(dtype) for j in jacs) for jacs in self.jac_groups),
+            tuple(tuple(next(it) for _ in jacs) for jacs in self.jac_groups),
             self.garrs,
             self.positions,
             self.col_scale,
-            {k: t.to(dtype) for k, t in self.twins.items()},
+            {k: next(it) for k in self.twins},
         )
 
     def _device(self):

@@ -21,7 +21,12 @@ and prints no result):
      and, for B2 and B3, the time of one PyTorch sparse product for the same
      function; B1's residual-only launch beside the one with the Jacobian;
      B4 (S·y) whole and each of its two launches, also with D_f² y folded
-     in; B3, B4 and B5 bitwise equal across two runs; the time to build the
+     in; B3, B4 and B5 bitwise equal across two runs; leaf_to_bf16 (the
+     mixed solves' bfloat16 copy of the F and E leaves and twins, one
+     launch) bitwise against Tensor.to, its plain version and the library
+     call it replaced, both timed in a CUDA graph of 20 calls (the device
+     time a call, as the prepare graph runs it) and eagerly, in turns;
+     the time to build the
      camera-ordered twins of one new Jacobian (B3's, B4's and B5's inputs);
      then schur_prepare's time per new Jacobian for JACOBI and SCHUR_JACOBI,
      with and without mixed-precision solves (which add the bfloat16 casts);
@@ -108,7 +113,8 @@ and prints no result):
      iterations), its PCG counts and iteration ms beside the main run's.
      Then the mixed-precision main run: the same solve with
      use_mixed_precision_solves=True on a new Problem, its PCG on B4's
-     bfloat16 instantiation (and never the float32 one), per iteration
+     bfloat16 instantiation (and never the float32 one), one
+     leaf_to_bf16 launch per run of the prepare graph, per iteration
      beside the float32 run, and its final cost's gap to it. Last the
      composed-path problem: BAL-1778 with a camera prior as a second
      residual group, where B4 does not apply and the mixed PCG runs the
@@ -273,8 +279,13 @@ KERNELS = [
      "ceres_tpu/pallas_onehot.py:142", 1e-4),
     ("schur_sy_bf16", "ceres_tpu_torch/csrc/schur_sy.cuh",
      "ceres_tpu/linalg/pallas_schur.py:262", 1e-3),
+    # the bfloat16 copy of the leaves and twins that the mixed PCG reads:
+    # no Pallas kernel (ceres_tpu's astype, XLA's copy); bitwise Tensor.to
+    ("leaf_to_bf16", "ceres_tpu_torch/csrc/leaf_to_bf16.cu",
+     "none: ceres_tpu/jacobian.py:436 (astype)", 0.0),
 ]
-BF16_KERNELS = {"gather_contract_bf16", "contract_reduce_bf16", "schur_sy_bf16"}
+# with the bfloat16 copy of the leaves and twins that their PCG reads
+BF16_KERNELS = {"gather_contract_bf16", "contract_reduce_bf16", "schur_sy_bf16", "leaf_to_bf16"}
 # B1's quaternion instantiations: on the camera's product manifold (tangent
 # 9; the quaternion main run) and without a manifold (tangent 10)
 QUAT_KERNELS = [
@@ -917,6 +928,66 @@ def phase_kernels_bf16(results, sy, F, E, rows_f, layout, y, u, e_twin, prow, se
           f"{table_fits(9, ncols_f)}; bfloat16 leaves and twins {h * (24 + 24) * n / 1e9:.3f} GB "
           f"against {w * (24 + 24) * n / 1e9:.3f} GB in float32 (not their padding)", flush=True)
     del t2, out1, out2, F16, E16, f_twin16, e_twin16
+    torch.cuda.empty_cache()
+    copy_bf16(results, [F, E, make_twin(F, layout), e_twin], 24 * 2 * n)
+
+
+def copy_bf16(results, tensors, values):
+    """Phase 2: leaf_to_bf16 (jacobian.bf16_copies) on the main path's
+    float32 leaves and twins against Tensor.to(torch.bfloat16), its plain
+    version and the library call it replaced: bitwise equal (tolerance 0),
+    each timed as the prepare graph runs it (device ms a call of 20 calls
+    in one CUDA graph) and eagerly with its host side, five rounds in
+    turns; the bound moves
+    `values` (the leaves and twins, not the twins' padding) at 4 bytes
+    read and 2 written each."""
+    import torch
+
+    from ceres_tpu_torch.jacobian import bf16_copies
+
+    bf16 = torch.bfloat16
+    got, want = bf16_copies(tensors), [t.to(bf16) for t in tensors]
+    same = all(a.shape == b.shape and torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(got, want, strict=True))
+    err = max(rel_err(a, b) for a, b in zip(got, want))
+    del got, want
+    if not same:
+        raise AssertionError(f"leaf_to_bf16 is not bitwise Tensor.to (max abs {err[0]:.3e})")
+
+    def kernel():
+        return bf16_copies(tensors)
+
+    def plain():
+        return [t.to(bf16) for t in tensors]
+
+    def graph_ms_a_call(fn, calls=20):
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+        t = median_ms(g.replay) / calls
+        del g
+        return t
+
+    graph = {"kernel": [], "plain": []}
+    eager = {"kernel": [], "plain": []}
+    for _ in range(5):
+        for name, fn in (("kernel", kernel), ("plain", plain)):
+            graph[name].append(graph_ms_a_call(fn))
+            eager[name].append(median_ms(fn))
+    b_ms, b_by = bound(6 * values, 0)
+    t_k, t_p = statistics.median(graph["kernel"]), statistics.median(graph["plain"])
+    results["leaf_to_bf16"] = {"err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
+                               "bound_by": b_by, "library_ms": t_p}
+    print(f"phase 2: leaf_to_bf16 on {len(tensors)} tensors ({sum(t.numel() for t in tensors)} "
+          f"values): bitwise Tensor.to; in a graph {t_k:.4f} ms a call against Tensor.to's "
+          f"{t_p:.4f} ms (rounds {[round(t, 5) for t in graph['kernel']]} / "
+          f"{[round(t, 5) for t in graph['plain']]}), eager "
+          f"{statistics.median(eager['kernel']):.4f} ms against "
+          f"{statistics.median(eager['plain']):.4f} ms; bound {b_ms:.4f} ms "
+          f"({100 * b_ms / t_k:.1f}% of it, Tensor.to {100 * b_ms / t_p:.1f}%)", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -3788,6 +3859,7 @@ def main(argv=None) -> int:
     import ceres_tpu_torch as ct
     from ceres_tpu_torch import cuda_lib
     from ceres_tpu_torch.utils.dtypes import resolve_device
+    from ceres_tpu_torch.utils.graphs import graph_stats
 
     t_start = time.time()
     dev = resolve_device("cuda")
@@ -3874,10 +3946,19 @@ def main(argv=None) -> int:
         print(f"phase 4: iter {a.iteration}: SCHUR_JACOBI {_iteration_line(a)} | JACOBI "
               f"{_iteration_line(b)}", flush=True)
 
-    # the mixed-precision main run: B4's bfloat16 instantiation is its PCG
+    # the mixed-precision main run: B4's bfloat16 instantiation is its PCG,
+    # and each Schur prepare makes the bfloat16 copy with one leaf_to_bf16
+    prepares = graph_stats()["replays_by"]["prepare"]
     mixed, mixed_launches = run_main_path(
         bal, "SCHUR_JACOBI", fused_execution_chunk_iters=1, use_mixed_precision_solves=True
     )
+    # a graph's first call runs its function once (the warm-up) and captures it
+    prepares = (graph_stats()["replays_by"]["prepare"] - prepares
+                + mixed.execution_summary.calls("CUDAGraph::Capture prepare"))
+    print(f"phase 4: mixed run: leaf_to_bf16 {mixed_launches['leaf_to_bf16']} launches, "
+          f"prepare graph {prepares} runs", flush=True)
+    if mixed_launches["leaf_to_bf16"] != prepares or prepares <= 0:
+        raise AssertionError("the mixed run did not copy once per Schur prepare")
     if not mixed.used_fused_execution:
         raise AssertionError("the mixed run did not take the fused loop")
     for a, b in zip(main.iterations, mixed.iterations):
@@ -3938,7 +4019,7 @@ def main(argv=None) -> int:
     launches.update({k: analytic_launches[k] for k in ("eval_generic_analytic",)})
     # each kernel's launches on the run that is its main path
     launches.update(quat_launches)
-    launches.update({k: mixed_launches[k] for k in ("schur_sy_bf16",)})
+    launches.update({k: mixed_launches[k] for k in ("schur_sy_bf16", "leaf_to_bf16")})
     launches.update({k: composed_launches[k] for k in ("gather_contract_bf16", "contract_reduce_bf16")})
     launches.update({name: cov_launches.get(name, 0) for name, *_ in BATCHED_KERNELS})
     launches["eval_snavely_masked"] = sharded_launches["eval_snavely_masked"]

@@ -581,8 +581,10 @@ def test_cuda_solve_matches_cpu_and_launches_every_kernel(card, precond, num_poi
             fused_execution=fused, device=dev, dtype=torch.float64), problem)
     # the bfloat16 instantiations run only under mixed-precision solves, B1's
     # quaternion ones only on quaternion cameras, the batched B2/B3 only in
-    # the covariance's PCG
+    # the covariance's PCG; the bfloat16 copy of the leaves only under
+    # mixed-precision solves
     unused = {k + "_bf16" for k in cuda_lib.BF16_KERNELS} | set(cuda_lib.QUAT_KERNELS)
+    unused |= set(cuda_lib.COPY_KERNELS)
     unused |= set(cuda_lib.GENERIC_KERNELS) | set(cuda_lib.BATCHED_KERNELS)
     unused |= set(cuda_lib.MASKED_KERNELS)  # B1's masked launches: sharded solves only
     unused |= {"schur_p0"} if precond == "JACOBI" else set()
