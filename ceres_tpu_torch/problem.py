@@ -159,24 +159,20 @@ class _BlockStore:
                 o = int(x_offsets[b])
                 out[o : o + vals.size] = vals
 
-    def _live_rows(self, x_offsets):
-        """Per range: (its live blocks as range rows, their state rows)."""
+    def ranges(self):
+        """(first handle, values [n, size]) of each add, in handle order:
+        the arrays the blocks' values live in, written in place."""
+        return [(r["start"], r["values"]) for r in self._ranges]
+
+    def fill_state(self, state0: np.ndarray, x_offsets: np.ndarray):
+        """state0 at each live block's offset = the block's values (a
+        removed block has no offset and writes nothing)."""
         gone = self.removed_mask()
         for r in self._ranges:
             st, n, s = r["start"], r["n"], r["size"]
             keep = ~gone[st : st + n]
             rows = x_offsets[st : st + n][keep, None] + np.arange(s)[None, :]
-            yield r, keep, rows.reshape(-1)
-
-    def fill_state(self, state0: np.ndarray, x_offsets: np.ndarray):
-        """state0 at each live block's offset = the block's values (a
-        removed block has no offset and writes nothing)."""
-        for r, keep, rows in self._live_rows(x_offsets):
-            state0[rows] = r["values"][keep].reshape(-1)
-
-    def write_back(self, state: np.ndarray, x_offsets: np.ndarray):
-        for r, keep, rows in self._live_rows(x_offsets):
-            r["values"][keep] = state[rows].reshape(-1, r["size"])
+            state0[rows.reshape(-1)] = r["values"][keep].reshape(-1)
 
 
 @dataclasses.dataclass

@@ -22,6 +22,7 @@ point row of each slot, read by kernels B4 and B5).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -31,7 +32,7 @@ from .autodiff import CostFunction
 from .io.lazy import is_lazy
 from .loss import LossFunction
 from .manifolds import EuclideanManifold, Manifold
-from .utils.execution_summary import span
+from .utils.execution_summary import record, span
 from .utils.graphs import upload
 
 
@@ -190,6 +191,9 @@ class Program:
         # solve: its tables, graphs and buffers, kept for the next
         # (solvers/solver.py)
         self.workspace = None
+        # the row index write_state_back gathers the blocks' values by,
+        # built at its first call (`_build_write_back_plan`)
+        self._write_back_plan = None
 
     def release_workspace(self):
         """Drop the solve workspace's graphs and tables now."""
@@ -829,8 +833,57 @@ class Program:
         )
 
     def write_state_back(self, state):
-        """Copy a solved state vector back into the Problem's blocks."""
+        """Copy a solved state vector back into the Problem's blocks. The
+        Program's state becomes a copy of it: a new array each call, never
+        one written in place, since callers keep the one they had."""
         with span("Program::WriteStateBack"):
-            state = np.asarray(state, dtype=np.float64)
-            self.state0 = state.copy()
-            self._blocks.write_back(state, self.x_offsets)
+            self._take_state(np.array(state, dtype=np.float64))
+
+    def adopt_state(self, state: np.ndarray):
+        """write_state_back of a float64 array that nothing else holds (a
+        solve's final state fresh from the device): kept as the Program's
+        state uncopied."""
+        with span("Program::WriteStateBack"):
+            self._take_state(state)
+
+    def _take_state(self, state: np.ndarray):
+        """state becomes the Program's state; each add's values gather
+        their rows of it, in place."""
+        if self._write_back_plan is None:
+            self._write_back_plan = self._build_write_back_plan()
+        self.state0 = state
+        for values, base, count, size, rows, kept in self._write_back_plan:
+            view = state[base : base + count * size].reshape(count, size)
+            if kept is None:
+                # the rows are in range; under the default mode ("raise")
+                # numpy gathers into a buffer and copies that into `out`
+                np.take(view, rows, axis=0, out=values, mode="clip")
+            else:
+                values[kept] = view[rows]
+
+    def _build_write_back_plan(self):
+        """Per add of the block store with a live block: (its values, its
+        ambient class's base, count and size, its live blocks' rows in the
+        class's [count, size] view of the state, and only where the add
+        lost blocks their positions in it, else None). An add's blocks
+        share one size, so one class; the layout is fixed for the Program's
+        life (a structural change lowers a new one)."""
+        t0 = time.perf_counter()
+        plan, nbytes = [], 0
+        for start, values in self._blocks.ranges():
+            n, size = values.shape
+            live = ~self._col_removed[start : start + n]
+            if not live.any():
+                continue
+            base, count, _ = self.ambient_class_slice(self.ambient_class_of_size[size])
+            rows = self.a_row[start : start + n]
+            kept = None
+            if not live.all():
+                kept = np.nonzero(live)[0]
+                rows = rows[kept]
+                nbytes += kept.nbytes
+            rows = np.ascontiguousarray(rows)
+            nbytes += rows.nbytes
+            plan.append((values, base, count, size, rows, kept))
+        record("Program::WriteBackPlan", time.perf_counter() - t0, nbytes=nbytes)
+        return plan

@@ -141,7 +141,11 @@ def _solve(options, problem, summary):
 
     # ---- postprocess ----
     with span("Solve::WriteBack") as post:
-        program.write_state_back(final_state.double().cpu().numpy())
+        host = final_state.double().cpu()
+        if host is final_state:  # the solve's own memory: copy it
+            program.write_state_back(host.numpy())
+        else:  # a fresh host copy that nothing else holds
+            program.adopt_state(host.numpy())
     summary.postprocessor_time_in_seconds = post.seconds
     device = program.device
     if device.type == "cuda":

@@ -166,6 +166,53 @@ def test_dropping_the_problem_drops_the_workspace(collect):
         gc.enable()
 
 
+def _blocks_match_the_state(problem, program, handles):
+    for b in handles:
+        o = int(program.x_offsets[b])
+        value = problem.parameter_block_value(int(b))
+        assert np.array_equal(value, program.state0[o : o + value.size]), b
+
+
+@pytest.mark.parametrize("change", ["none", "set_parameter_block_constant",
+                                    "remove_parameter_block"])
+def test_the_write_back_plan_is_built_once_per_program(change):
+    """The first solve of a Problem builds the Program's write-back plan
+    (`Program::WriteBackPlan`: one build, its index bytes); a later solve of
+    the same Program reuses it, and a structural change, which lowers a new
+    Program, builds it again."""
+    problem, cams, pts = _problem()
+    options = _options()
+    first = ct.solve(options, problem)
+    ex = first.execution_summary
+    assert ex.calls("Program::WriteBackPlan") == 1
+    assert ex.nbytes("Program::WriteBackPlan") == 8 * (len(cams) + len(pts))
+    assert "Program::WriteBackPlan" in first.full_report()
+    _blocks_match_the_state(problem, problem.compile("cpu"), (*cams, *pts))
+    live = list(pts)
+    if change == "set_parameter_block_constant":
+        problem.set_parameter_block_constant(int(cams[0]))
+    elif change == "remove_parameter_block":
+        problem.remove_parameter_block(int(pts[0]))
+        live = live[1:]
+    start = problem.compile("cpu").state0.copy()
+    again = ct.solve(options, problem)
+    ex = again.execution_summary
+    assert ex.calls("Program::WriteBackPlan") == (change != "none")
+    if change == "remove_parameter_block":  # the points' add holds its kept positions too
+        assert ex.nbytes("Program::WriteBackPlan") == 8 * (len(cams) + 2 * len(live))
+    program = problem.compile("cpu")
+    _blocks_match_the_state(problem, program, (*cams, *live))
+    # the same solve on a Problem lowered afresh gives the same state
+    twin, twin_cams, twin_pts = _problem()
+    if change == "set_parameter_block_constant":
+        twin.set_parameter_block_constant(int(twin_cams[0]))
+    elif change == "remove_parameter_block":
+        twin.remove_parameter_block(int(twin_pts[0]))
+    twin.compile("cpu").write_state_back(start)
+    ct.solve(options, twin)
+    assert np.array_equal(program.state0, twin.compile("cpu").state0)
+
+
 def _card_options(**kw):
     return ct.SolverOptions(**{**dict(
         **SCHUR, eta=0.1, max_linear_solver_iterations=25, max_num_iterations=5,
