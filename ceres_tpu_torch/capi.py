@@ -12,9 +12,11 @@ evaluation of a whole signature group is one host round trip: one
 device->host copy of the group's [B, sum of sizes] parameter rows
 (utils.graphs.read, so `num_device_reads` counts it), B calls of the C
 function, and one upload of [B, r] residuals with their [B, r, sizes]
-Jacobians. `_HostCall` is the torch.autograd.Function that does it: its
-`vmap` rule is the JAX package's `pure_callback(vmap_method="sequential")`,
-its `jvp` and `backward` apply the callback's Jacobians (the JAX package's
+Jacobians; each round trip counts as `CAPI::RoundTrip` and each call of a
+C function as `CAPI::Call` (utils.execution_summary.count). `_HostCall`
+is the torch.autograd.Function that does it: its `vmap` rule is the JAX
+package's `pure_callback(vmap_method="sequential")`, its `jvp` and
+`backward` apply the callback's Jacobians (the JAX package's
 custom_jvp), and it asks the callback for Jacobians only under a transform
 that differentiates (torch.func's jvp or grad, or autograd). The
 generator cannot lower a C function into B1 generic: the functor and
@@ -65,6 +67,7 @@ from .solvers.solver import solve
 from .types import SolverOptions
 from .utils import graphs
 from .utils.dtypes import resolve_device
+from .utils.execution_summary import count
 
 DEVICE_ENV = "CERES_TPU_TORCH_C_API_DEVICE"
 SHIM_SOURCE = Path(__file__).resolve().parent / "native" / "ceres_tpu_torch_c_api.cc"
@@ -79,20 +82,6 @@ COST_FUNC_T = ctypes.CFUNCTYPE(
     ctypes.POINTER(ctypes.c_double),
     ctypes.POINTER(ctypes.POINTER(ctypes.c_double)),
 )
-
-# host round trips (one per group per evaluation, and one per loss
-# evaluation) and C function calls, since the last reset
-_host_stats = {"round_trips": 0, "calls": 0}
-
-
-def host_stats() -> dict:
-    return dict(_host_stats)
-
-
-def reset_host_stats():
-    for k in _host_stats:
-        _host_stats[k] = 0
-
 
 def _f64p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
@@ -119,7 +108,7 @@ class _CCallbackCost:
         jacs = [np.zeros((self.num_residuals, s)) for s in self.sizes] if want_jac else []
         jac_ptrs = (ctypes.POINTER(ctypes.c_double) * k)(*[_f64p(j) for j in jacs]) \
             if want_jac else None
-        _host_stats["calls"] += 1
+        count("CAPI::Call")
         if not self.fn(self.user_data, param_ptrs, _f64p(res), jac_ptrs):
             res[:] = np.nan
             for j in jacs:
@@ -169,7 +158,7 @@ class _HostCall(torch.autograd.Function):
         r, total = cb.num_residuals, x.shape[-1]
         lead = tuple(x.shape[:-1])
         host = graphs.read(x).to(torch.float64).reshape(-1, total).numpy()
-        _host_stats["round_trips"] += 1
+        count("CAPI::RoundTrip")
         out = torch.from_numpy(cb.batch(host, want_jac)).to(device=x.device, dtype=x.dtype)
         res = out[:, :r].reshape(*lead, r)
         jac = out[:, r:].reshape(*lead, r, total if want_jac else 0)
@@ -293,14 +282,14 @@ class CCallbackLoss(LossFunction):
         for i, si in enumerate(s):
             self.fn(self.user_data, float(si), buf)
             out[:, i] = buf[0], buf[1], buf[2]
-        _host_stats["calls"] += s.size
+        count("CAPI::Call", s.size)
         return out
 
     def rho(self, s):
         if functor_codegen.generating():
             raise functor_codegen.Ineligible("a host loss callback")
         host = graphs.read(s).to(torch.float64).numpy()
-        _host_stats["round_trips"] += 1
+        count("CAPI::RoundTrip")
         out = torch.from_numpy(self._rho_host(host)).to(device=s.device, dtype=s.dtype)
         return tuple(o.reshape(s.shape) for o in out)
 

@@ -42,7 +42,8 @@ from .linalg.cg import conjugate_gradients
 from .linalg.preconditioners import BlockDiagSolver
 from .linalg.sparse import host_crs
 from .types import CovarianceAlgorithmType
-from .utils.graphs import read, read_count
+from .utils.execution_summary import counts
+from .utils.graphs import read
 
 
 @dataclasses.dataclass
@@ -182,7 +183,7 @@ class Covariance:
         k = len(cols_wanted)
         es = torch.zeros((k, n), dtype=dtype, device=dev)
         es[torch.arange(k, device=dev), torch.as_tensor(cols_wanted, device=dev)] = 1.0
-        t0, reads0, launches0 = time.perf_counter(), read_count(), cuda_lib.launch_counts()
+        t0, before = time.perf_counter(), counts()
         res = conjugate_gradients(
             matvec=jac.jtj_multiply_batched,
             b=es,
@@ -192,12 +193,11 @@ class Covariance:
             batched=True,
         )
         xs, its, converged, breakdown = _read_result(res)
-        launches = cuda_lib.launch_counts()
+        counted = counts() - before
         self.pcg_stats = {
-            "iterations": its.numpy().copy(), "reads": read_count() - reads0,
+            "iterations": its.numpy().copy(), "reads": counted["Device::Read"],
             "seconds": time.perf_counter() - t0,
-            "launches": {name: c - launches0[name] for name, c in launches.items()
-                         if c != launches0[name]},
+            "launches": {name: n for name, n in counted.items() if name in cuda_lib.LAUNCHES},
         }
         if bool(breakdown.any()):
             return False  # JᵀJ (numerically) rank deficient

@@ -6,10 +6,12 @@ takes seconds, not minutes). The build happens on first use, into
 `ceres_tpu_torch/_build/`, keyed by a hash of the sources and flags; nothing
 is built or loaded when the package is imported.
 
-Each kernel wrapper calls `count(name)` once per launch of its kernel, and
-a replayed CUDA graph adds the launches it captured once per replay
-(utils/graphs.py); `launch_counts()` / `reset_launch_counts()` let a run
-show which kernels its main path went through.
+Each kernel wrapper calls `count(name)` once per launch of its kernel,
+which adds to the counter of that name in the process-wide table
+(utils.execution_summary.counts), and a replayed CUDA graph adds the
+launches it captured once per replay (utils/graphs.py). `LAUNCHES` names
+every launch counter, so a run shows which kernels its main path went
+through.
 
 Every kernel is instantiated for float32 and float64; B2, B3 and B4 also
 for bfloat16 leaves (the mixed-precision solves), whose vectors,
@@ -21,10 +23,11 @@ B1's generic instantiation is built per generated source
 shape but the BA shape (linalg/schur_kernels.py sy_source instantiates
 csrc/schur_sy.cuh): `build_generated` compiles the sources it is given,
 one nvcc each, all started together, into `_build/gen_<hash>.so` keyed by
-a hash of the source, the headers and the flags, and `generated_fn`
-loads an entry point of one. A build never runs inside a CUDA graph
-capture (it raises there): the Evaluator builds its Program's sources when
-it is made. Each evaluation of B1 generic is one launch, counted as
+a hash of the source, the headers and the flags (counted as
+`Kernel::GeneratedBuild`, or `Kernel::GeneratedHit` when found built),
+and `generated_fn` loads an entry point of one. A build never runs inside
+a CUDA graph capture (it raises there): the Evaluator builds its
+Program's sources when it is made. Each evaluation of B1 generic is one launch, counted as
 `eval_generic` (with the Jacobian), `eval_generic_analytic` (with the
 Jacobian, for a functor that carries an analytic rule) and
 `eval_generic_residual`; B4's generated kernels count as the library's
@@ -53,6 +56,7 @@ from pathlib import Path
 
 import torch
 
+from .utils import execution_summary
 from .utils.execution_summary import span
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -80,19 +84,17 @@ COPY_KERNELS = ("leaf_to_bf16",)
 MASKED_KERNELS = tuple(
     k + "_masked" for k in ("eval_snavely",) + QUAT_KERNELS + GENERIC_KERNELS
 )
-_launches = {
-    name: 0
-    for name in KERNELS + QUAT_KERNELS + BATCHED_KERNELS
-    + tuple(k + "_bf16" for k in BF16_KERNELS)
+# every launch counter: the names count() takes
+LAUNCHES = (
+    KERNELS + QUAT_KERNELS + BATCHED_KERNELS + tuple(k + "_bf16" for k in BF16_KERNELS)
     + GENERIC_KERNELS + MASKED_KERNELS + COPY_KERNELS
-}
+)
+_LAUNCH_SET = frozenset(LAUNCHES)
 _lib = None
 # generated sources: path -> loaded library, (source, entry point) -> its
-# function; builds and their seconds
+# function
 _generated = {}
 _generated_fns = {}
-_generated_stats = {"builds": 0, "hits": 0, "seconds": 0.0}
-_generated_seconds = {}
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # C signatures: every function returns cudaGetLastError() as an int
@@ -300,7 +302,7 @@ def _build_generated(sources) -> float:
     for src in sources:
         path = _generated_path(src)
         if path.exists():
-            _generated_stats["hits"] += 1
+            execution_summary.count("Kernel::GeneratedHit")
         else:
             todo[path] = src
     if not todo:
@@ -321,24 +323,17 @@ def _run_nvcc(todo) -> float:
         cmd = [nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-shared", "-o", str(tmp), str(cu)]
         with open(path.with_suffix(".log"), "w") as log:
             procs[path] = (cu, tmp, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
-    failed, pending = [], set(procs)
-    while pending:  # each source's own nvcc seconds, as they finish
-        for path in list(pending):
-            cu, tmp, proc = procs[path]
-            if proc.poll() is None:
-                continue
-            pending.discard(path)
-            _generated_seconds[path] = time.perf_counter() - t0
-            cu.unlink(missing_ok=True)
-            if proc.returncode != 0:
-                log = path.with_suffix(".log").read_text()
-                failed.append(f"{path.name} (rc {proc.returncode}):\n{log[-3000:]}")
-            else:
-                os.replace(tmp, path)
-        time.sleep(0.05)
+    failed = []
+    for path, (cu, tmp, proc) in procs.items():
+        proc.wait()
+        cu.unlink(missing_ok=True)
+        if proc.returncode != 0:
+            log = path.with_suffix(".log").read_text()
+            failed.append(f"{path.name} (rc {proc.returncode}):\n{log[-3000:]}")
+        else:
+            os.replace(tmp, path)
     seconds = time.perf_counter() - t0
-    _generated_stats["builds"] += len(todo) - len(failed)
-    _generated_stats["seconds"] += seconds
+    execution_summary.count("Kernel::GeneratedBuild", len(todo) - len(failed))
     if failed:
         raise RuntimeError("nvcc failed on a generated kernel: " + "\n".join(failed))
     return seconds
@@ -364,17 +359,6 @@ def generated_fn(source: str, dtype, prefix: str = "ctt_eval_generic"):
     fn.restype = ctypes.c_int
     _generated_fns[(source, prefix, dtype)] = fn
     return fn
-
-
-def generated_stats() -> dict:
-    """Generated sources built (and their nvcc seconds) and found built."""
-    return dict(_generated_stats)
-
-
-def generated_build_seconds(source: str):
-    """The nvcc seconds of a generated source built in this process, or
-    None (found built)."""
-    return _generated_seconds.get(_generated_path(source))
 
 
 def _suffixes(prefix: str):
@@ -443,13 +427,7 @@ def require(name, t, dtype=None, shape=None, device=None, lanes_major=False):
 
 
 def count(name: str, n: int = 1):
-    _launches[name] += n
-
-
-def launch_counts() -> dict:
-    return dict(_launches)
-
-
-def reset_launch_counts():
-    for name in _launches:
-        _launches[name] = 0
+    """Count n launches of the kernel counter `name` (one of LAUNCHES)."""
+    if name not in _LAUNCH_SET:
+        raise KeyError(f"{name} is not a launch counter (cuda_lib.LAUNCHES)")
+    execution_summary.count(name, n)

@@ -21,7 +21,7 @@ from torch.func import grad_and_value
 from .manifolds import EuclideanManifold, Manifold
 from .types import MinimizerType, Summary
 from .utils.dtypes import default_dtype, resolve_device
-from .utils.graphs import read_count
+from .utils.execution_summary import counts
 
 
 class GradientProblem:
@@ -74,10 +74,10 @@ def solve_gradient_problem(options, problem: GradientProblem, x0) -> tuple:
 
         plus_fn = manifold.plus
 
-    reads0 = read_count()
+    before = counts()
     driver = LineSearchDriver(options, f, grad_fn, plus_fn, problem.tangent_size)
     x = driver.minimize(x0, summary)
-    summary.num_device_reads = read_count() - reads0
+    summary.num_device_reads = (counts() - before)["Device::Read"]
     summary.total_time_in_seconds = time.time() - total_start
     summary.minimizer_time_in_seconds = summary.total_time_in_seconds
     return x.detach().cpu().numpy(), summary

@@ -35,7 +35,7 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 
-from ..utils.execution_summary import NullExecutionSummary
+from ..utils.execution_summary import record
 from ..utils.graphs import read
 from .visibility import PAIR_CHUNK, _camera_streams, _sum_products
 
@@ -171,16 +171,15 @@ class ExplicitSchurPlan:
 
     # ---------------- host factor + solve ---------------- #
 
-    def host_solve(self, s_blocks, rhs_cam, records=None):
+    def host_solve(self, s_blocks, rhs_cam):
         """Factor the block-sparse S with SuperLU and solve for the camera
         part: S's blocks and rhs_cam [n_cams * tf] cross in one read; the
         solution [n_cams * tf] comes back as float64 numpy."""
-        records = records or NullExecutionSummary()
         t0 = time.perf_counter()
         flat = torch.cat([s_blocks.reshape(-1), rhs_cam])
         host = read(flat).double().numpy()
         t1 = time.perf_counter()
-        records.record("SparseSchur::Read", t1 - t0, nbytes=flat.numel() * flat.element_size())
+        record("SparseSchur::Read", t1 - t0, nbytes=flat.numel() * flat.element_size())
         tf = self.tf
         s = sp.bsr_matrix(
             (host[: s_blocks.numel()].reshape(self.n_slots, tf, tf), self.bsr_cols,
@@ -188,18 +187,17 @@ class ExplicitSchurPlan:
             shape=(self.n_cams * tf, self.n_cams * tf),
         ).tocsc()
         x = spla.splu(s).solve(host[s_blocks.numel():])
-        records.record("SparseSchur::HostSolve", time.perf_counter() - t1)
+        record("SparseSchur::HostSolve", time.perf_counter() - t1)
         return x
 
 
-def solve_sparse_schur(program, options, jac_s, res_groups, grad_s, dsq, records=None):
+def solve_sparse_schur(program, options, jac_s, res_groups, grad_s, dsq):
     """The SPARSE_SCHUR linear solve (ceres_tpu/linalg/explicit_schur.py
     :184-231): the reduced rhs and S assembled on the device, S factored on
     the host, the back-substitution on the device. Returns (step [num_eff],
     1); raises ValueError when the problem is not BA-shaped."""
     from .schur import _back_substitute, _masks, make_ete_solver, schur_views
 
-    records = records or NullExecutionSummary()
     e_mask, f_mask = _masks(program, grad_s)
     jac_e, jac_f = schur_views(program, jac_s)
     plan = ExplicitSchurPlan.get(program, jac_e, jac_f)
@@ -216,9 +214,9 @@ def solve_sparse_schur(program, options, jac_s, res_groups, grad_s, dsq, records
 
     base = int(program.tangent_class_bases[plan.cam_cls])
     ncoord = plan.n_cams * plan.tf
-    x_cam = plan.host_solve(s_blocks, rhs[base : base + ncoord], records)
+    x_cam = plan.host_solve(s_blocks, rhs[base : base + ncoord])
     dx_f = torch.zeros_like(grad_s)
     dx_f[base : base + ncoord] = torch.as_tensor(x_cam, dtype=grad_s.dtype, device=grad_s.device)
     step = _back_substitute(jac_e, jac_f, ete, g_e, e_mask, dx_f * f_mask)
-    records.record("SparseSchur::Explicit", 0.0)
+    record("SparseSchur::Explicit")
     return step, torch.ones((), dtype=torch.int32, device=grad_s.device)

@@ -11,7 +11,8 @@ The evaluation, the Jacobian, the PCG and the model cost stay on the
 device. The factorizations are float64 whatever the working dtype, and
 `use_mixed_precision_solves` changes nothing here, as in the JAX package.
 
-Each host factorization records into an execution summary (`records`):
+Each host factorization records into the current sink
+(utils.execution_summary.record; in a solve, its summary's):
 its read, with the seconds (the wait for the device included) and the
 bytes, and its factorization and solve, with the host seconds.
 """
@@ -25,7 +26,7 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 
-from ..utils.execution_summary import NullExecutionSummary
+from ..utils.execution_summary import record
 from ..utils.graphs import read
 
 
@@ -87,17 +88,17 @@ def host_crs(jac, *extra):
 
 
 def solve_sparse_normal_cholesky(
-    jac, res_groups, grad, dsq, refinement_iterations: int = 2, records=None
+    jac, res_groups, grad, dsq, refinement_iterations: int = 2
 ):
     """Solve (JᵀJ + diag(dsq)) step = -grad with a host sparse factorization
     and iterative refinement (ceres_tpu/linalg/sparse.py:26-53). The
     Jacobian, dsq and grad cross to the host in one read; the step comes
-    back as a tensor on grad's device, in grad's dtype."""
-    records = records or NullExecutionSummary()
+    back as a tensor on grad's device, in grad's dtype. Its read and
+    factorization are recorded in the current sink."""
     t0 = time.perf_counter()
     (vals, cols, row_ptr), (dsq_h, grad_h), nbytes = host_crs(jac, dsq, grad)
     t1 = time.perf_counter()
-    records.record("SparseCholesky::Read", t1 - t0, nbytes=nbytes)
+    record("SparseCholesky::Read", t1 - t0, nbytes=nbytes)
     n = jac.num_cols
     j = sp.csr_matrix((vals, cols, row_ptr), shape=(jac.num_rows, n))
     a = (j.T @ j).tocsc() + sp.diags(dsq_h)
@@ -108,7 +109,7 @@ def solve_sparse_normal_cholesky(
     for _ in range(refinement_iterations):
         r = rhs - a @ x
         x = x + solver.solve(r)
-    records.record("SparseCholesky::Factorize", time.perf_counter() - t1)
+    record("SparseCholesky::Factorize", time.perf_counter() - t1)
     return torch.as_tensor(x, dtype=grad.dtype, device=grad.device)
 
 
@@ -120,24 +121,23 @@ class SubsetPreconditioner:
     `jax.pure_callback` does and the reference's
     RightMultiplyAndAccumulate -> sparse_cholesky_->Solve."""
 
-    def __init__(self, jac, subset_rows, dsq, records=None):
-        self._records = records or NullExecutionSummary()
+    def __init__(self, jac, subset_rows, dsq):
         t0 = time.perf_counter()
         (vals, cols, row_ptr), (dsq_h,), nbytes = host_crs(jac, dsq)
         t1 = time.perf_counter()
-        self._records.record("SubsetPreconditioner::Read", t1 - t0, nbytes=nbytes)
+        record("SubsetPreconditioner::Read", t1 - t0, nbytes=nbytes)
         n = jac.num_cols
         j = sp.csr_matrix((vals, cols, row_ptr), shape=(jac.num_rows, n))
         q = j[np.asarray(subset_rows)]
         a = (q.T @ q).tocsc() + sp.diags(dsq_h)
         self._solver = spla.splu(a)
-        self._records.record("SubsetPreconditioner::Factorize", time.perf_counter() - t1)
+        record("SubsetPreconditioner::Factorize", time.perf_counter() - t1)
 
     def __call__(self, r):
         t0 = time.perf_counter()
         x = read(r).double().numpy()
         y = torch.as_tensor(self._solver.solve(x), dtype=r.dtype, device=r.device)
-        self._records.record(
+        record(
             "SubsetPreconditioner::Apply", time.perf_counter() - t0,
             nbytes=r.numel() * r.element_size(),
         )

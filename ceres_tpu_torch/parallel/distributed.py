@@ -41,7 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..utils import graphs
+from ..utils.execution_summary import count
 
 _device = None  # the device `initialize` gave this rank
 
@@ -85,12 +85,13 @@ class Mesh:
         """The sum of x over every rank of the mesh (a new tensor; x is
         left as it is): one all_reduce over a 1-D mesh; over a 2-D one the
         inner axis first, then the outer (ceres_tpu's psum_hierarchical). Each
-        all-reduce is counted (utils.graphs.collective_counts, which a
-        replayed graph adds once per replay)."""
+        all-reduce is counted with its bytes (`Mesh::AllReduce` in
+        utils.execution_summary's counter table, which a replayed graph
+        adds to once per replay)."""
         out = x.contiguous().clone()
         for name in reversed(self.axis_names):
             dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.groups[name])
-            graphs.count_all_reduce(out.numel() * out.element_size())
+            count("Mesh::AllReduce", nbytes=out.numel() * out.element_size())
         return out
 
     def all_gather_lanes(self, x):

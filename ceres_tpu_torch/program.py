@@ -332,6 +332,7 @@ class Program:
             self.ambient_class_bases[self.a_class[live]] + self.a_row[live] * sizes[live]
         )
         self.num_parameters = int(self.ambient_class_bases[-1])
+        self.num_parameter_blocks = int(live.sum())
         self.tangent_class_bases = np.concatenate(
             [[0], np.cumsum([c * s for c, s in zip(t_counts, self.tangent_class_sizes)])]
         ).astype(np.int64)

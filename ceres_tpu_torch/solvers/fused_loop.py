@@ -65,8 +65,8 @@ import torch
 from ..evaluator import diagnose_non_finite
 from ..types import IterationSummary, TerminationType
 from ..utils import graphs
-from ..utils.execution_summary import span
-from ..utils.graphs import graph_stats, read, read_count
+from ..utils.execution_summary import counts, span
+from ..utils.graphs import read
 from .trust_region import active_bound_mask, grad_norms, projected_line_search
 
 # termination codes inside the fused loop
@@ -376,10 +376,11 @@ def make_chunk_fn(minimizer):
         per_it = []  # (reads, replays, seconds, end) of each iteration
         packed = None
         while packed is None:
-            r0, g0 = read_count(), graph_stats()["replays"]
+            before = counts()
             with span("LM::Iteration") as it:
                 packed = iteration(c, limit)
-            per_it.append((read_count() - r0, graph_stats()["replays"] - g0, it.seconds,
+            counted = counts() - before
+            per_it.append((counted["Device::Read"], counted["CUDAGraph::Replay"], it.seconds,
                            it.end_ns))
         return packed, per_it
 
@@ -427,7 +428,7 @@ def run_fused(minimizer, state, summary):
     chunk_fn = minimizer._fused_chunk_fn
     summary.used_fused_execution = True
     start_ns = time.perf_counter_ns()
-    reads0 = read_count()
+    before = counts()
 
     # the first evaluation and its read, the scale and the first prepare
     with span("Minimizer::Start") as first:
@@ -457,7 +458,7 @@ def run_fused(minimizer, state, summary):
         gradient_norm=gnorm0,
         trust_region_radius=float(options.initial_trust_region_radius),
         eta=options.eta,
-        num_device_reads=read_count() - reads0,
+        num_device_reads=(counts() - before)["Device::Read"],
         iteration_time_in_seconds=first.seconds,
         cumulative_time_in_seconds=first.seconds,
     )

@@ -46,8 +46,8 @@ from ..types import (
     NonlinearConjugateGradientType,
     TerminationType,
 )
-from ..utils.execution_summary import span
-from ..utils.graphs import graph_stats, read, read_count
+from ..utils.execution_summary import counts, span
+from ..utils.graphs import read
 from .polynomial import FunctionSample, minimize_interpolating_polynomial
 
 
@@ -233,8 +233,8 @@ class LineSearchDriver:
 
     def minimize(self, state, summary):
         opts = self.options
-        start = time.time()
-        reads0 = read_count()
+        start = time.perf_counter()
+        before = counts()
         cost_t, grad = self.grad_fn(state)
         grad = grad.clone()
         summary.num_jacobian_evaluations += 1
@@ -262,8 +262,8 @@ class LineSearchDriver:
             cost=cost + summary.fixed_cost,
             gradient_max_norm=grad_max,
             gradient_norm=grad_norm,
-            cumulative_time_in_seconds=time.time() - start,
-            num_device_reads=read_count() - reads0,
+            cumulative_time_in_seconds=time.perf_counter() - start,
+            num_device_reads=(counts() - before)["Device::Read"],
         ))
         if grad_max <= opts.gradient_tolerance:
             summary.termination_type = TerminationType.CONVERGENCE
@@ -273,9 +273,9 @@ class LineSearchDriver:
 
         for iteration in range(1, opts.max_num_iterations + 1):
             with span("LineSearch::Iteration"):
-                it_start = time.time()
-                reads0, replays0 = read_count(), graph_stats()["replays"]
-                if time.time() - start > opts.max_solver_time_in_seconds:
+                it_start = time.perf_counter()
+                before = counts()
+                if it_start - start > opts.max_solver_time_in_seconds:
                     summary.termination_type = TerminationType.NO_CONVERGENCE
                     summary.message = "Maximum solver time reached."
                     break
@@ -341,6 +341,7 @@ class LineSearchDriver:
                 summary.num_successful_steps += 1
                 summary.num_line_search_steps += 1
 
+                counted = counts() - before
                 it_sum = IterationSummary(
                     iteration=iteration,
                     step_is_valid=True,
@@ -352,10 +353,10 @@ class LineSearchDriver:
                     step_norm=step_norm,
                     step_size=alpha,
                     line_search_iterations=trials,
-                    iteration_time_in_seconds=time.time() - it_start,
-                    cumulative_time_in_seconds=time.time() - start,
-                    num_device_reads=read_count() - reads0,
-                    num_graph_replays=graph_stats()["replays"] - replays0,
+                    iteration_time_in_seconds=time.perf_counter() - it_start,
+                    cumulative_time_in_seconds=time.perf_counter() - start,
+                    num_device_reads=counted["Device::Read"],
+                    num_graph_replays=counted["CUDAGraph::Replay"],
                 )
                 if opts.line_search_type == LineSearchType.ARMIJO:
                     it_sum.line_search_function_evaluations = trials

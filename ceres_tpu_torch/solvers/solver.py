@@ -23,8 +23,7 @@ from ..types import (
     LinearSolverType, MinimizerType, PreconditionerType, Summary, TerminationType,
 )
 from ..utils.dtypes import default_dtype, resolve_device
-from ..utils.execution_summary import ExecutionSummary, record, recording, span
-from ..utils.graphs import graph_stats, read_count
+from ..utils.execution_summary import ExecutionSummary, counts, record, recording, span
 
 
 def _check_gradients(options, program):
@@ -122,7 +121,7 @@ def _solve(options, problem, summary):
 
     # ---- minimize ----
     with span("Solve::Minimize") as mini:
-        reads0, graphs0 = read_count(), graph_stats()
+        before = counts()
         if options.minimizer_type == MinimizerType.TRUST_REGION:
             from .trust_region import TrustRegionMinimizer
 
@@ -133,11 +132,12 @@ def _solve(options, problem, summary):
             minimizer = LineSearchMinimizer(program, options, evaluator)
         final_state = minimizer.minimize(state, summary)
     summary.minimizer_time_in_seconds = mini.seconds
-    graphs1 = graph_stats()
-    summary.num_device_reads = read_count() - reads0
-    summary.num_graph_replays = graphs1["replays"] - graphs0["replays"]
-    for name, n in (graphs1["replays_by"] - graphs0["replays_by"]).items():
-        record(f"CUDAGraph::Replay {name}", calls=n)
+    counted = counts() - before
+    summary.num_device_reads = counted["Device::Read"]
+    summary.num_graph_replays = counted["CUDAGraph::Replay"]
+    for name, n in counted.items():
+        if name.startswith("CUDAGraph::Replay "):
+            record(name, calls=n)
 
     # ---- postprocess ----
     with span("Solve::WriteBack") as post:
@@ -176,17 +176,18 @@ def _preprocess(options, problem, summary):
         options.preconditioner_type = PreconditionerType.JACOBI
     device = resolve_device(options.device) if mesh is None else _rank_device(options, mesh)
     dtype = options.dtype or default_dtype()
-    summary.num_parameter_blocks = problem.num_parameter_blocks()
-    summary.num_parameters = problem.num_parameters()
-    summary.num_effective_parameters = problem.num_effective_parameters()
-    summary.num_residual_blocks = problem.num_residual_blocks()
-    summary.num_residuals = problem.num_residuals()
     summary.minimizer_type = options.minimizer_type
     summary.trust_region_strategy_type = options.trust_region_strategy_type
     summary.linear_solver_type_used = options.linear_solver_type
     summary.preconditioner_type_used = options.preconditioner_type
 
     program = problem.compile(device)
+    # the counts of what the Program lowered (the Problem's, counted once)
+    summary.num_parameter_blocks = program.num_parameter_blocks
+    summary.num_parameters = program.num_parameters
+    summary.num_effective_parameters = program.num_effective_parameters
+    summary.num_residual_blocks = program.num_residual_blocks
+    summary.num_residuals = program.num_residuals
     # the user's linear_solver_ordering pins the eliminated set (reference:
     # reorder_program.cc; ceres_tpu/solvers/solver.py:47-58): a flat handle
     # sequence or a ParameterBlockOrdering, whose first group is eliminated

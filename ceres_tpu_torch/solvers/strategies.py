@@ -28,6 +28,7 @@ import torch
 
 from ..types import LinearSolverType, PreconditionerType
 from ..utils import graphs
+from ..utils.execution_summary import record
 
 
 def _model_cost_change(jac_scaled, step, res_groups):
@@ -252,38 +253,34 @@ def _host_step_fn(program, options, solve):
     """A step function whose linear solve factors on the host
     (ceres_tpu/solvers/strategies.py:189-296): the Jacobi-scaled Jacobian,
     the LM diagonal and the model cost stay on the device, and
-    solve(program, options, jac_s, res_groups, grad_s, dsq, records) ->
+    solve(program, options, jac_s, res_groups, grad_s, dsq) ->
     (step, linear iterations) brings what it factors over in counted reads.
-    Not `jittable`, as there: the loops run it on the host loop. It
-    records its reads and factorizations into `step_fn.records[0]`, which
-    the minimizer sets to the solve's execution summary."""
-    from ..utils.execution_summary import NullExecutionSummary
-
+    Not `jittable`, as there: the loops run it on the host loop. Its reads
+    and factorizations are recorded in the current sink
+    (utils.execution_summary), the solve's summary."""
     min_diag, max_diag = options.min_lm_diagonal, options.max_lm_diagonal
-    records = [NullExecutionSummary()]
 
     def step_fn(jac, res_groups, grad, radius, scale):
         jac_s = jac.scale_columns(scale)
         grad_s = grad * scale
         dsq = torch.clamp(jac_s.squared_column_norms(), min_diag, max_diag) / radius
-        step, lin_iters = solve(program, options, jac_s, res_groups, grad_s, dsq, records[0])
+        step, lin_iters = solve(program, options, jac_s, res_groups, grad_s, dsq)
         return _step_result(jac_s, step, res_groups, scale, lin_iters)
 
     step_fn.jittable = False
-    step_fn.records = records
     return step_fn
 
 
-def _sparse_cholesky_solve(program, options, jac_s, res_groups, grad_s, dsq, records):
+def _sparse_cholesky_solve(program, options, jac_s, res_groups, grad_s, dsq):
     """SPARSE_NORMAL_CHOLESKY: JᵀJ + D² factored on the host, refined twice
     (linalg/sparse.py)."""
     from ..linalg.sparse import solve_sparse_normal_cholesky
 
-    step = solve_sparse_normal_cholesky(jac_s, res_groups, grad_s, dsq, records=records)
+    step = solve_sparse_normal_cholesky(jac_s, res_groups, grad_s, dsq)
     return step, torch.ones((), dtype=torch.int32, device=grad_s.device)
 
 
-def _sparse_schur_solve(program, options, jac_s, res_groups, grad_s, dsq, records):
+def _sparse_schur_solve(program, options, jac_s, res_groups, grad_s, dsq):
     """SPARSE_SCHUR: the explicit S assembled on the device and factored on
     the host (linalg/explicit_schur.py); a problem that is not BA-shaped
     takes schur_solve's dense S, as in the JAX package, recorded as
@@ -294,12 +291,12 @@ def _sparse_schur_solve(program, options, jac_s, res_groups, grad_s, dsq, record
     try:
         ExplicitSchurPlan.get(program, *schur_views(program, jac_s))
     except ValueError:
-        records.record("SparseSchur::Fallback", 0.0)
+        record("SparseSchur::Fallback")
         return schur_solve(program, options, jac_s, res_groups, grad_s, dsq)
-    return solve_sparse_schur(program, options, jac_s, res_groups, grad_s, dsq, records)
+    return solve_sparse_schur(program, options, jac_s, res_groups, grad_s, dsq)
 
 
-def _subset_solve(program, options, jac_s, res_groups, grad_s, dsq, records):
+def _subset_solve(program, options, jac_s, res_groups, grad_s, dsq):
     """CGNR with the SUBSET preconditioner: QᵀQ + D² of the user's residual
     rows factored on the host, each application a host solve (one read),
     the PCG run eagerly on the device (linalg/sparse.py)."""
@@ -314,7 +311,7 @@ def _subset_solve(program, options, jac_s, res_groups, grad_s, dsq, records):
     result = conjugate_gradients(
         matvec=lambda v: jac_s.jtj_multiply(v, dsq),
         b=-grad_s,
-        preconditioner=SubsetPreconditioner(jac_s, rows, dsq, records),
+        preconditioner=SubsetPreconditioner(jac_s, rows, dsq),
         max_iterations=min(options.max_linear_solver_iterations,
                            program.num_effective_parameters),
         min_iterations=options.min_linear_solver_iterations,

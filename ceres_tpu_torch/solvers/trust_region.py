@@ -31,13 +31,9 @@ from ..types import (
     CallbackReturnType, IterationSummary, LoggingType, TerminationType, TrustRegionStrategyType,
 )
 from ..utils import graphs
-from ..utils.execution_summary import NullExecutionSummary, span
-from ..utils.graphs import graph_stats, read, read_count, upload
+from ..utils.execution_summary import counts, span
+from ..utils.graphs import read, upload
 from .strategies import TrustRegionStepEvaluator, make_lm_step_fn
-
-
-def _exec(summary):
-    return getattr(summary, "execution_summary", None) or NullExecutionSummary()
 
 
 def grad_norms(program, evaluator, state, grad):
@@ -209,7 +205,7 @@ class TrustRegionMinimizer:
         self.evaluate = make_evaluate(program, evaluator)
         self.prepare = make_prepare(program, evaluator, self._step_fn) if self.has_split else None
         self._prepare_cache = self._prepare_key = None
-        self._iter_reads = (0, 0)
+        self._iter_counts = None
         from .fused_loop import eligible, make_chunk_fn
 
         self.inner = None
@@ -224,9 +220,6 @@ class TrustRegionMinimizer:
             self._fused_chunk_fn = make_chunk_fn(self)
 
     def minimize(self, state, summary):
-        if hasattr(self._step_fn, "records"):
-            # the host step functions record their reads and factorizations
-            self._step_fn.records[0] = _exec(summary)
         if self._fused_chunk_fn is not None:
             from .fused_loop import run_fused
 
@@ -234,8 +227,8 @@ class TrustRegionMinimizer:
         options = self.options
         ev = self.evaluator
         program = self.program
-        start = time.time()
-        self._iter_reads = (read_count(), graph_stats()["replays"])
+        start = time.perf_counter()
+        self._iter_counts = counts()
 
         radius = float(options.initial_trust_region_radius)
         decrease_factor = 2.0
@@ -244,13 +237,11 @@ class TrustRegionMinimizer:
         inner_iterations_enabled = self.inner is not None
         self._prepare_key = None
 
-        exec_sum = _exec(summary)
-        t_jac = time.time()
-        cost, res_groups, jac, grad, gmax, gnorm = self.evaluate(state)
-        cost, grad_max_norm, grad_norm = read(torch.stack([cost, gmax, gnorm])).tolist()
+        with span("Evaluator::Jacobian") as jac_span:
+            cost, res_groups, jac, grad, gmax, gnorm = self.evaluate(state)
+            cost, grad_max_norm, grad_norm = read(torch.stack([cost, gmax, gnorm])).tolist()
         summary.num_jacobian_evaluations += 1
-        summary.jacobian_evaluation_time_in_seconds += time.time() - t_jac
-        exec_sum.record("Evaluator::Jacobian", time.time() - t_jac)
+        summary.jacobian_evaluation_time_in_seconds += jac_span.seconds
         if not math.isfinite(cost):
             summary.termination_type = TerminationType.FAILURE
             summary.message = (
@@ -283,8 +274,8 @@ class TrustRegionMinimizer:
             gradient_norm=grad_norm,
             trust_region_radius=radius,
             eta=options.eta,
-            iteration_time_in_seconds=time.time() - start,
-            cumulative_time_in_seconds=time.time() - start,
+            iteration_time_in_seconds=time.perf_counter() - start,
+            cumulative_time_in_seconds=time.perf_counter() - start,
         )
         self._count_reads(it_sum)
         summary.iterations.append(it_sum)
@@ -301,46 +292,45 @@ class TrustRegionMinimizer:
 
         for iteration in range(1, options.max_num_iterations + 1):
             with span("TrustRegion::Iteration"):
-                iter_start = time.time()
-                if time.time() - start > options.max_solver_time_in_seconds:
+                iter_start = time.perf_counter()
+                if iter_start - start > options.max_solver_time_in_seconds:
                     summary.termination_type = TerminationType.NO_CONVERGENCE
                     summary.message = "Maximum solver time reached."
                     break
 
-                t_solve = time.time()
-                iter_scale = scale
-                if program.has_bounds:
-                    mask = active_bound_mask(program, ev.arrays, state, grad)
-                    if bool(read((mask == 0).any())):
-                        iter_scale = scale * mask
-                if iteration in options.trust_region_minimizer_iterations_to_dump:
-                    dump_problem(options, iteration, jac, res_groups, grad, iter_scale, radius)
-                if not self.host_split:
-                    delta, mcc, lin_iters, valid = self._step_fn(
-                        jac, res_groups, grad, radius, iter_scale
-                    )
-                else:
-                    # reuse the cached prepare while the Jacobian is unchanged
-                    # (rejected steps only shrink the radius); an active bound
-                    # mask changes iter_scale per iteration, so the cache is
-                    # rebuilt every time it is in effect
-                    key = iteration_of_last_jacobian
-                    if iter_scale is not scale:
-                        key = ("masked", iteration)
-                    if self._prepare_key != key:
-                        self._prepare_cache = self.prepare(jac, res_groups, grad, iter_scale)
-                        self._prepare_key = key
-                    delta, mcc, lin_iters, valid = self._step_fn.finish(
-                        jac, res_groups, grad, radius, iter_scale, self._prepare_cache
-                    )
-                valid, mcc, lin_iters = read(
-                    torch.stack([valid.to(mcc.dtype), mcc, lin_iters.to(mcc.dtype)])
-                ).tolist()
+                with span("LinearSolver::Solve") as solve_span:
+                    iter_scale = scale
+                    if program.has_bounds:
+                        mask = active_bound_mask(program, ev.arrays, state, grad)
+                        if bool(read((mask == 0).any())):
+                            iter_scale = scale * mask
+                    if iteration in options.trust_region_minimizer_iterations_to_dump:
+                        dump_problem(options, iteration, jac, res_groups, grad, iter_scale, radius)
+                    if not self.host_split:
+                        delta, mcc, lin_iters, valid = self._step_fn(
+                            jac, res_groups, grad, radius, iter_scale
+                        )
+                    else:
+                        # reuse the cached prepare while the Jacobian is unchanged
+                        # (rejected steps only shrink the radius); an active bound
+                        # mask changes iter_scale per iteration, so the cache is
+                        # rebuilt every time it is in effect
+                        key = iteration_of_last_jacobian
+                        if iter_scale is not scale:
+                            key = ("masked", iteration)
+                        if self._prepare_key != key:
+                            self._prepare_cache = self.prepare(jac, res_groups, grad, iter_scale)
+                            self._prepare_key = key
+                        delta, mcc, lin_iters, valid = self._step_fn.finish(
+                            jac, res_groups, grad, radius, iter_scale, self._prepare_cache
+                        )
+                    valid, mcc, lin_iters = read(
+                        torch.stack([valid.to(mcc.dtype), mcc, lin_iters.to(mcc.dtype)])
+                    ).tolist()
                 valid = bool(valid)
-                step_solver_time = time.time() - t_solve
+                step_solver_time = solve_span.seconds
                 summary.num_linear_solves += 1
                 summary.linear_solver_time_in_seconds += step_solver_time
-                exec_sum.record("LinearSolver::Solve", step_solver_time)
 
                 it_sum = IterationSummary(
                     iteration=iteration,
@@ -371,38 +361,36 @@ class TrustRegionMinimizer:
 
                 num_consecutive_invalid = 0
                 if self.use_line_search:
-                    t_ls = time.time()
-                    delta, ls_evals = projected_line_search(ev, options, state, delta, cost, grad)
+                    with span("LineSearch::CostEvaluation") as ls_span:
+                        delta, ls_evals = projected_line_search(
+                            ev, options, state, delta, cost, grad
+                        )
+                        ls_span.calls = ls_evals
                     summary.num_residual_evaluations += ls_evals
                     summary.num_line_search_steps += ls_evals
-                    if ls_evals:
-                        exec_sum.record(
-                            "LineSearch::CostEvaluation", time.time() - t_ls, calls=ls_evals
-                        )
 
                 candidate = ev.plus(state, delta)
-                t_res = time.time()
-                new_cost = ev.cost(candidate)
-                # with bounds the projected candidate can move less than |delta|:
-                # the realized ambient step, as the reference measures it
-                # (trust_region_minimizer.cc ComputeCandidatePointAndEvaluateCost)
-                step = state - candidate if program.has_bounds else delta
-                new_cost, step_norm, x_norm = read(
-                    torch.stack([new_cost, torch.linalg.norm(step), torch.linalg.norm(state)])
-                ).tolist()
+                with span("Evaluator::Residual") as res_span:
+                    new_cost = ev.cost(candidate)
+                    # with bounds the projected candidate can move less than
+                    # |delta|: the realized ambient step, as the reference
+                    # measures it (trust_region_minimizer.cc
+                    # ComputeCandidatePointAndEvaluateCost)
+                    step = state - candidate if program.has_bounds else delta
+                    new_cost, step_norm, x_norm = read(
+                        torch.stack([new_cost, torch.linalg.norm(step), torch.linalg.norm(state)])
+                    ).tolist()
                 summary.num_residual_evaluations += 1
-                summary.residual_evaluation_time_in_seconds += time.time() - t_res
-                exec_sum.record("Evaluator::Residual", time.time() - t_res)
+                summary.residual_evaluation_time_in_seconds += res_span.seconds
 
                 if inner_iterations_enabled and math.isfinite(new_cost):
                     # refine the candidate (DoInnerIterationsIfNeeded,
                     # trust_region_minimizer.cc:504-583), credit its decrease
                     # to the model (:558-560), and stop refining once its
                     # relative progress falls below the tolerance (:564-570)
-                    t_inner = time.time()
-                    candidate, refined_cost = self.inner.refine(candidate, new_cost)
+                    with span("InnerIterations::Refine"):
+                        candidate, refined_cost = self.inner.refine(candidate, new_cost)
                     summary.num_inner_iteration_steps += 1
-                    exec_sum.record("InnerIterations::Refine", time.time() - t_inner)
                     mcc += new_cost - refined_cost
                     rel_progress = 1.0 - refined_cost / new_cost if new_cost > 0 else 0.0
                     inner_iterations_enabled = rel_progress > options.inner_iteration_tolerance
@@ -454,12 +442,11 @@ class TrustRegionMinimizer:
                     if options.update_state_every_iteration:
                         self.program.write_state_back(read(state).double().numpy())
 
-                    t_jac = time.time()
-                    cost_j, res_groups, jac, grad, gmax, gnorm = self.evaluate(state)
+                    with span("Evaluator::Jacobian") as jac_span:
+                        cost_j, res_groups, jac, grad, gmax, gnorm = self.evaluate(state)
                     iteration_of_last_jacobian = iteration
                     summary.num_jacobian_evaluations += 1
-                    summary.jacobian_evaluation_time_in_seconds += time.time() - t_jac
-                    exec_sum.record("Evaluator::Jacobian", time.time() - t_jac)
+                    summary.jacobian_evaluation_time_in_seconds += jac_span.seconds
                     cost_j, grad_max_norm, grad_norm = read(
                         torch.stack([cost_j, gmax, gnorm])
                     ).tolist()
@@ -514,13 +501,14 @@ class TrustRegionMinimizer:
     def _count_reads(self, it_sum):
         """The device reads and graph replays since the last iteration's
         record."""
-        reads, replays = read_count(), graph_stats()["replays"]
-        it_sum.num_device_reads = reads - self._iter_reads[0]
-        it_sum.num_graph_replays = replays - self._iter_reads[1]
-        self._iter_reads = (reads, replays)
+        now = counts()
+        counted = now - self._iter_counts
+        it_sum.num_device_reads = counted["Device::Read"]
+        it_sum.num_graph_replays = counted["CUDAGraph::Replay"]
+        self._iter_counts = now
 
     def _finish_iteration(self, summary, it_sum, iter_start, start):
-        now = time.time()
+        now = time.perf_counter()
         it_sum.iteration_time_in_seconds = now - iter_start
         it_sum.cumulative_time_in_seconds = now - start
         self._count_reads(it_sum)

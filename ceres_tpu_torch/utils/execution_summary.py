@@ -1,24 +1,25 @@
-"""Per-call execution statistics: the spans and counters of a solve.
+"""The port's one place for counts and timings: the spans and counters of
+a solve, and the process-wide counter table.
 
 reference: ExecutionSummary + ScopedExecutionTimer (execution_summary.h:89),
 which accumulate cumulative call counts and seconds per call-site name
 ("Evaluator::Residual", "Evaluator::Jacobian", "LinearSolver::Solve") and
 surface them through Evaluator::Statistics() into Summary::FullReport.
 
-Here the statistics come from two kinds of entry:
+A solve's statistics come from two kinds of entry into the current sink:
 
 - spans: `with span(name):` times its block on the host's clock
   (`time.perf_counter_ns`) and keeps one record (name, start, end, the
   index of the enclosing span's record) in the current sink. `solve` makes
   its Summary's ExecutionSummary the current sink for its duration
-  (`recording`); outside a solve the sink is a NullExecutionSummary, which
-  keeps nothing. A span's own seconds are there either way (`.seconds`).
-  While torch.profiler records, each span also enters
-  `torch.profiler.record_function(name)`, so it shows as a
-  `user_annotation` on the profiler's clock, beside the device's events;
-  otherwise that costs one flag check. While a sink records, each run of
-  Python's cyclic collector is a `Python::GC` span (it frees the earlier
-  solves' CUDA graphs and tables, wherever it lands);
+  (`recording`); outside a solve the sink keeps nothing. A span's own
+  seconds are there either way (`.seconds`). While torch.profiler records,
+  each span also enters `torch.profiler.record_function(name)`, so it
+  shows as a `user_annotation` on the profiler's clock, beside the
+  device's events; otherwise that costs one flag check. While a sink
+  records, each run of Python's cyclic collector is a `Python::GC` span
+  (it frees the earlier solves' CUDA graphs and tables, wherever it
+  lands);
 - counters: `record(name, seconds, calls=..., nbytes=...)`, cumulative per
   name: what a step counts rather than times (the device reads' bytes of a
   host factorization, the bytes uploaded, the growth of the allocator's
@@ -26,10 +27,23 @@ Here the statistics come from two kinds of entry:
 
 `calls`, `seconds`, `nbytes`, `names` and `report_lines` add the two up by
 name; `spans` and `self_seconds` read the records.
+
+Beside the sink, `count(name)` adds to one process-wide table what the
+port counts whether or not a solve records: each kernel launch under the
+kernel's counter name (cuda_lib.LAUNCHES), `Device::Read`,
+`CUDAGraph::Capture`, `CUDAGraph::Replay` and `CUDAGraph::Replay <graph>`
+(utils/graphs.py), `Mesh::AllReduce` and its `Mesh::AllReduce::Bytes`
+(parallel.distributed), `CAPI::RoundTrip` and `CAPI::Call` (capi.py),
+and `Kernel::GeneratedBuild` and `Kernel::GeneratedHit` (cuda_lib). A
+snapshot (`counts()`) is a Counter, and `counts() - before` is what was
+counted since `before`: a solve's Summary takes its reads and replays so,
+and a CUDA graph's capture takes back what its capture counted
+(`add_counts(diff, -1)`) and adds it once per replay.
 """
 
 from __future__ import annotations
 
+import collections
 import gc
 import time
 from contextlib import contextmanager
@@ -106,7 +120,7 @@ class ExecutionSummary:
     def _totals(self) -> dict:
         out = {k: list(v) for k, v in self._counters.items()}
         for name, t0, t1, _, calls in self._records:
-            if t1:
+            if t1 and calls:  # a span that stood for no calls counts nothing
                 ent = out.setdefault(name, [0, 0.0, 0])
                 ent[0] += calls
                 ent[1] += (t1 - t0) * 1e-9
@@ -141,9 +155,8 @@ class ExecutionSummary:
         return lines
 
 
-class NullExecutionSummary:
-    """Records nothing: the sink outside `solve`, and the host step
-    functions' before a solve points them at its summary."""
+class _Idle:
+    """Records nothing: the sink outside `solve`."""
 
     def record(self, name, seconds, calls=1, nbytes=0):
         pass
@@ -155,7 +168,7 @@ class NullExecutionSummary:
         pass
 
 
-_NULL = NullExecutionSummary()
+_NULL = _Idle()
 _sink = _NULL
 
 
@@ -228,3 +241,33 @@ class span:
     @property
     def seconds(self) -> float:
         return (self.end_ns - self.start_ns) * 1e-9
+
+
+_table = collections.Counter()  # the process-wide counter table
+
+
+def count(name: str, n: int = 1, nbytes: int = 0) -> None:
+    """Add n to the counter `name` of the process-wide table, and nbytes
+    to `<name>::Bytes`."""
+    _table[name] += n
+    if nbytes:
+        _table[name + "::Bytes"] += nbytes
+
+
+def counts() -> collections.Counter:
+    """A snapshot of the counter table; `counts() - before` is what was
+    counted since the snapshot `before`."""
+    return collections.Counter(_table)
+
+
+def add_counts(diff, sign: int = 1) -> None:
+    """Add a diff of two snapshots to the table (sign -1: take it back)."""
+    if sign > 0:
+        _table.update(diff)
+    else:
+        _table.subtract(diff)
+
+
+def reset_counts() -> None:
+    """Zero the table (tests)."""
+    _table.clear()

@@ -2,12 +2,12 @@
 
 `read` is the one way the solver loops bring a device value to the host.
 Every read drains the stream: the card idles until the host has decided and
-launched the next work. So each read is counted (`read_count`; the solve
-reports the count in `Summary.num_device_reads` and per iteration) and
-timed as a `Device::Read` span (the host's wait, utils.execution_summary),
-and a read is allowed to synchronize even under
-`torch.cuda.set_sync_debug_mode("error")`, so that a loop run in that mode
-fails on any other synchronization. Reads of CPU tensors are counted the
+launched the next work. So each read is counted (`Device::Read` in the
+counter table of utils.execution_summary; the solve reports the count in
+`Summary.num_device_reads` and per iteration) and timed as a
+`Device::Read` span (the host's wait), and a read is allowed to
+synchronize even under `torch.cuda.set_sync_debug_mode("error")`, so that
+a loop run in that mode fails on any other synchronization. Reads of CPU tensors are counted the
 same way, so the CPU tests check the loops' read budgets too. `upload` is
 the other direction: a host array made a tensor on the device, its bytes
 counted under `Device::Upload`.
@@ -38,37 +38,27 @@ also fills the Program's lazy device tables, whose uploads a capture would
 refuse), then captures; an FnGraph copies the warm-up's results into its
 outputs. Later calls replay. The kernels' ctypes wrappers launch on
 `torch.cuda.current_stream()`, which is the capture stream during capture.
-Their launch counts (cuda_lib), and the all-reduces of a sharded solve, are
-taken back after the capture and added once per replay, so the counts stay
-those of the work the card did.
+What the capture counted in the counter table (the kernels' launches, the
+all-reduces of a sharded solve) is taken back after the capture and added
+once per replay, so the counts stay those of the work the card did. Each
+capture counts as `CUDAGraph::Capture`, each replay as `CUDAGraph::Replay`
+and `CUDAGraph::Replay <graph>`; a capture's seconds are its
+`CUDAGraph::Capture <graph>` span.
 """
 
 from __future__ import annotations
 
-import collections
 import gc
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
-from .. import cuda_lib
-from .execution_summary import record, span
-
-_reads = 0
-# a sharded solve's all-reduces and the bytes they move (parallel.
-# distributed.Mesh.psum), kept here so that a graph takes them back after
-# its capture and adds them per replay as it does the kernels' launches
-_collectives = {"all_reduce": 0, "all_reduce_bytes": 0}
-_graph_stats = {
-    "captures": 0, "replays": 0,
-    "replays_by": collections.Counter(),
-}
+from .execution_summary import add_counts, count, counts, record, span
 
 
 def read(t):
     """The tensor `t` on the host (a CPU tensor), counted as one read."""
-    global _reads
-    _reads += 1
+    count("Device::Read")
     with span("Device::Read"):
         if t.device.type != "cuda":
             return t.detach()
@@ -88,47 +78,6 @@ def upload(a, dtype=None, device=None):
     return t
 
 
-def read_count() -> int:
-    return _reads
-
-
-def count_all_reduce(nbytes: int):
-    """Count one all-reduce of nbytes."""
-    _collectives["all_reduce"] += 1
-    _collectives["all_reduce_bytes"] += nbytes
-
-
-def collective_counts() -> dict:
-    """All-reduces and their bytes so far."""
-    return dict(_collectives)
-
-
-def reset_collective_counts():
-    for name in _collectives:
-        _collectives[name] = 0
-
-
-def _counts():
-    """The launch and all-reduce counts, which a capture takes back."""
-    return cuda_lib.launch_counts(), collective_counts()
-
-
-def _add(counts, sign):
-    launches, collectives = counts
-    for name, n in launches.items():
-        cuda_lib.count(name, sign * n)
-    for name, n in collectives.items():
-        _collectives[name] += sign * n
-
-
-def graph_stats() -> dict:
-    """Captures and replays (in all and by graph name) of every graph so
-    far; a capture's seconds are its `CUDAGraph::Capture <graph>` span."""
-    out = dict(_graph_stats)
-    out["replays_by"] = collections.Counter(_graph_stats["replays_by"])
-    return out
-
-
 def _tensors(leaves):
     return [x for x in leaves if isinstance(x, torch.Tensor)]
 
@@ -143,7 +92,7 @@ class _Graph:
         self._fixed = None
         self._key = None
         self._graph = None
-        self._counted = ({}, {})
+        self._counted = {}
 
     def bind(self, fixed, copied, key=None):
         """Hold the tensors of `fixed` (read in place) and copy those of
@@ -191,7 +140,7 @@ class _Graph:
         collector is off while the stream captures: a collection there
         could destroy another graph, which CUDA forbids during a capture
         and which then invalidates it."""
-        before = _counts()
+        before = counts()
         graph = torch.cuda.CUDAGraph()
         main = torch.cuda.current_stream()
         side = torch.cuda.Stream()
@@ -209,25 +158,23 @@ class _Graph:
             if collecting:
                 gc.enable()
         main.wait_stream(side)
-        _graph_stats["captures"] += 1
-        after = _counts()
         # the wrappers counted while capturing, but nothing ran
-        self._counted = tuple(
-            {k: a[k] - b[k] for k in a if a[k] != b[k]} for a, b in zip(after, before)
-        )
-        _add(self._counted, -1)
+        self._counted = counts() - before
+        add_counts(self._counted, -1)
+        count("CUDAGraph::Capture")
         self._graph = graph
         return out
 
     def _replay(self):
         self._graph.replay()
-        _graph_stats["replays"] += 1
-        _graph_stats["replays_by"][self.name] += 1
-        _add(self._counted, 1)
+        count("CUDAGraph::Replay")
+        count(f"CUDAGraph::Replay {self.name}")
+        add_counts(self._counted)
 
     @property
-    def launches_per_replay(self) -> dict:
-        return dict(self._counted[0])
+    def counts_per_replay(self) -> dict:
+        """What one replay adds to the counter table."""
+        return dict(self._counted)
 
 
 class StepGraph(_Graph):

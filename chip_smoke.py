@@ -432,6 +432,23 @@ SPHERE_RINGS = (50, 50)
 M3500_POSES = 3500
 
 
+def kernel_launches() -> dict:
+    """The kernel launches counted since the counter table's last reset:
+    its launch counters (cuda_lib.LAUNCHES), by name."""
+    from ceres_tpu_torch import cuda_lib
+    from ceres_tpu_torch.utils.execution_summary import counts
+
+    table = counts()
+    return {name: table[name] for name in cuda_lib.LAUNCHES}
+
+
+def reset_counts():
+    """Zero the port's counter table (utils.execution_summary)."""
+    from ceres_tpu_torch.utils import execution_summary
+
+    execution_summary.reset_counts()
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1327,17 +1344,16 @@ def phase_f64_parity():
     import torch
 
     import ceres_tpu_torch as ct
-    from ceres_tpu_torch import cuda_lib
 
     for name, precond, extra, sizes, tol in PARITY_CASES:
         bal = ct.synthetic_bal(*sizes, seed=1)
         sums = {}
         for dev in ("cuda", "cpu"):
             problem, _, _ = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))
-            cuda_lib.reset_launch_counts()
+            reset_counts()
             sums[dev] = ct.solve(lm_options(dev, torch.float64, precond, **extra), problem)
             if dev == "cuda":
-                launches = cuda_lib.launch_counts()
+                launches = kernel_launches()
         worst = 0.0
         for a, b in zip(sums["cuda"].iterations, sums["cpu"].iterations, strict=True):
             worst = max(worst, abs(a.cost - b.cost) / abs(b.cost))
@@ -1405,7 +1421,6 @@ def run_main_path(bal, precond, build=None, label=None, **overrides):
     import torch
 
     import ceres_tpu_torch as ct
-    from ceres_tpu_torch import cuda_lib
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -1416,12 +1431,12 @@ def run_main_path(bal, precond, build=None, label=None, **overrides):
         problem = build(bal)
     t_problem = time.time() - t0
     options = lm_options("cuda", torch.float32, precond, **overrides)
-    cuda_lib.reset_launch_counts()
+    reset_counts()
     t0 = time.time()
     summary = ct.solve(options, problem)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = cuda_lib.launch_counts()
+    launches = kernel_launches()
     finite = all(math.isfinite(it.cost) for it in summary.iterations) and bool(
         np.isfinite(problem.compile().state0).all()
     )
@@ -1458,8 +1473,7 @@ def sharded_solve(bal, mesh):
     import torch
 
     import ceres_tpu_torch as ct
-    from ceres_tpu_torch import cuda_lib
-    from ceres_tpu_torch.utils import graphs
+    from ceres_tpu_torch.utils.execution_summary import counts
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -1469,12 +1483,12 @@ def sharded_solve(bal, mesh):
     t_problem = time.time() - t0
     options = lm_options("cuda", torch.float32, "SCHUR_JACOBI", mesh=mesh,
                          fused_execution_chunk_iters=1, max_num_iterations=SHARDED_ITERATIONS)
-    cuda_lib.reset_launch_counts()
-    graphs.reset_collective_counts()
+    reset_counts()
     t0 = time.time()
     summary = ct.solve(options, problem)
     torch.cuda.synchronize()
     wall = time.time() - t0
+    table = counts()
     program = problem.compile(mesh.device)
     rank, ndev = mesh.rank, mesh.size
     pads = lanes = 0
@@ -1487,8 +1501,9 @@ def sharded_solve(bal, mesh):
                         it.step_is_successful, 1000.0 * it.iteration_time_in_seconds,
                         it.num_device_reads) for it in summary.iterations],
         "initial_cost": summary.initial_cost, "final_cost": summary.final_cost,
-        "fused": summary.used_fused_execution, "launches": cuda_lib.launch_counts(),
-        "collectives": graphs.collective_counts(),
+        "fused": summary.used_fused_execution, "launches": kernel_launches(),
+        "collectives": {"all_reduce": table["Mesh::AllReduce"],
+                        "all_reduce_bytes": table["Mesh::AllReduce::Bytes"]},
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "pad_lanes": pads, "lanes": lanes,
         "problem_s": t_problem, "preprocess_s": summary.preprocessor_time_in_seconds,
         "solve_s": wall, "finite": bool(np.isfinite(program.state0).all()),
@@ -2028,6 +2043,7 @@ def phase_generic_build(bal_program, dev):
                  test_functions.build_curve_fitting_problem()[0], build_rosenbrock()]
     # the pose graphs' functors (their sources depend on no size)
     from ceres_tpu_torch.examples import pose_graph
+    from ceres_tpu_torch.utils.execution_summary import counts
 
     problems.append(pose_graph.build_pose_graph_2d_problem(
         pose_graph.synthetic_pose_graph_2d(n=8)[0])[0])
@@ -2048,15 +2064,16 @@ def phase_generic_build(bal_program, dev):
     t_trace = time.time() - t0
     sources = {p.source for p in progs}
     sy_src = sy_source(*QUAT_SY_SHAPE)
+    reset_counts()
     seconds = cuda_lib.build_generated(sources | {sy_src})
-    stats = cuda_lib.generated_stats()
+    table = counts()
     print(f"phase 1: B1 generic: {len(progs)} group programs traced in {t_trace:.1f} s, "
-          f"{len(sources)} distinct sources and B4's at {QUAT_SY_SHAPE}: {stats['builds']} built "
-          f"in {seconds:.1f} s (nvcc, in parallel), {stats['hits']} found built", flush=True)
+          f"{len(sources)} distinct sources and B4's at {QUAT_SY_SHAPE}: "
+          f"{table['Kernel::GeneratedBuild']} built in {seconds:.1f} s (nvcc, in parallel), "
+          f"{table['Kernel::GeneratedHit']} found built", flush=True)
     log = cuda_lib._generated_path(sy_src).with_suffix(".log")
     regs = ptxas_report(log.read_text()) if log.exists() else []
-    print(f"phase 1: B4 at (r, tf, te) = {QUAT_SY_SHAPE} (built in "
-          f"{cuda_lib.generated_build_seconds(sy_src) or 0.0:.1f} s; registers, spills): "
+    print(f"phase 1: B4 at (r, tf, te) = {QUAT_SY_SHAPE} (registers, spills): "
           f"{' | '.join(regs) or 'found built'}", flush=True)
     return progs
 
@@ -2073,7 +2090,7 @@ def phase_kernels_generic(bal_program, dev, results):
     launches, and the eager time is printed beside them."""
     import torch
 
-    from ceres_tpu_torch import cuda_lib, eval_kernel, functor_codegen
+    from ceres_tpu_torch import eval_kernel, functor_codegen
     from ceres_tpu_torch.evaluator import Evaluator, group_eval_plain, state_tables
 
     f32 = torch.float32
@@ -2131,8 +2148,7 @@ def phase_kernels_generic(bal_program, dev, results):
               f"replay (residual-only {t_r:.4f}; eager, with the wrapper's host side, "
               f"{t_e:.4f}), plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
               f"{100 * b_ms / t_k:.1f}% of it; residual-only {rb_ms:.4f} ms, "
-              f"{100 * rb_ms / t_r:.1f}%); ptxas f32 {generic_ptxas(prog)}; nvcc "
-              f"{cuda_lib.generated_build_seconds(prog.source) or 0.0:.1f} s{extra}"
+              f"{100 * rb_ms / t_r:.1f}%); ptxas f32 {generic_ptxas(prog)}{extra}"
               f"{'' if ok else '  FAILED'}", flush=True)
         if not ok:
             raise AssertionError(f"eval_generic {label}: kernel disagrees with its plain version "
@@ -2159,7 +2175,7 @@ def phase_kernels_generic_analytic(dev, results):
     analytic counter moves."""
     import torch
 
-    from ceres_tpu_torch import cuda_lib, eval_kernel, functor_codegen
+    from ceres_tpu_torch import eval_kernel, functor_codegen
     from ceres_tpu_torch.evaluator import Evaluator, group_eval_plain, state_tables
 
     f32 = torch.float32
@@ -2218,9 +2234,9 @@ def phase_kernels_generic_analytic(dev, results):
                                         "bound_by": b_by, "library_ms": None}
     # the wrong-rule probe
     x3_prog, x3_args, _ = groups["3x rule"]
-    cuda_lib.reset_launch_counts()
+    reset_counts()
     probe = eval_kernel.generic_evaluate(x3_prog, *x3_args, True)
-    moved = cuda_lib.launch_counts()["eval_generic_analytic"]
+    moved = kernel_launches()["eval_generic_analytic"]
     plain = group_eval_plain(*x3_args, True, True)
     e3 = max(rel_err(a, 3.0 * b)[1] for a, b in zip(probe[2], auto[2]))
     e_res = rel_err(probe[1], auto[1])[1]
@@ -2302,7 +2318,6 @@ def phase_f64_rules():
     import torch
 
     import ceres_tpu_torch as ct
-    from ceres_tpu_torch import cuda_lib
     from ceres_tpu_torch.evaluator import Evaluator, state_tables
     from ceres_tpu_torch.examples import denoising, test_functions
 
@@ -2337,10 +2352,10 @@ def phase_f64_rules():
         precond = extra.pop("preconditioner_type", "SCHUR_JACOBI")
         sums = {}
         for dev in ("cuda", "cpu"):
-            cuda_lib.reset_launch_counts()
+            reset_counts()
             sums[dev] = ct.solve(lm_options(dev, torch.float64, precond, **extra), build(dev))
             if dev == "cuda":
-                launches = cuda_lib.launch_counts()
+                launches = kernel_launches()
         worst = _same_iterations(name, sums)
         s = sums["cuda"]
         extra_line = ""
@@ -2366,11 +2381,11 @@ def phase_f64_rules():
     for dev in ("cuda", "cpu"):
         program = numeric_ba_problem(bal).compile(dev)
         ev = Evaluator(program, torch.float64)
-        cuda_lib.reset_launch_counts()
+        reset_counts()
         jacs[dev] = ev.evaluate_groups(program.state_vector(torch.float64))
         sums[dev] = ct.solve(lm_options(dev, torch.float64), numeric_ba_problem(bal))
         if dev == "cuda":
-            launches = cuda_lib.launch_counts()
+            launches = kernel_launches()
     (c_gpu, r_gpu, j_gpu, _), (c_cpu, r_cpu, j_cpu, _) = jacs["cuda"], jacs["cpu"]
     # the parameters and observations in the group's lane order (the CPU
     # Program's, which the card's shares)
@@ -2421,7 +2436,6 @@ def phase_f64_generic():
     import torch
 
     import ceres_tpu_torch as ct
-    from ceres_tpu_torch import cuda_lib
     from ceres_tpu_torch.examples import test_functions
 
     cases = (
@@ -2437,10 +2451,10 @@ def phase_f64_generic():
     for name, build, extra in cases:
         sums = {}
         for dev in ("cuda", "cpu"):
-            cuda_lib.reset_launch_counts()
+            reset_counts()
             sums[dev] = ct.solve(lm_options(dev, torch.float64, "JACOBI", **extra), build())
             if dev == "cuda":
-                launches = cuda_lib.launch_counts()
+                launches = kernel_launches()
         worst = 0.0
         for a, b in zip(sums["cuda"].iterations, sums["cpu"].iterations, strict=True):
             worst = max(worst, abs(a.cost - b.cost) / max(abs(b.cost), 1e-300))
@@ -2471,7 +2485,7 @@ def run_denoising(h, w, size, k, iters, analytic=False):
     import torch
 
     import ceres_tpu_torch as ct
-    from ceres_tpu_torch import cuda_lib
+    from ceres_tpu_torch.utils.execution_summary import counts
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2481,14 +2495,14 @@ def run_denoising(h, w, size, k, iters, analytic=False):
     options = lm_options("cuda", torch.float32, "JACOBI", fused_execution_chunk_iters=1,
                          max_num_iterations=iters,
                          linear_solver_type=ct.LinearSolverType.CGNR)
-    builds0 = cuda_lib.generated_stats()
-    cuda_lib.reset_launch_counts()
+    reset_counts()
     t0 = time.time()
     summary = ct.solve(options, problem)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = cuda_lib.launch_counts()
-    builds = {k_: v - builds0[k_] for k_, v in cuda_lib.generated_stats().items()}
+    launches = kernel_launches()
+    table = counts()
+    builds = {"builds": table["Kernel::GeneratedBuild"], "hits": table["Kernel::GeneratedHit"]}
     groups = k + 1
     label = f"FoE {size}x{size} K={k} {h}x{w}" + (" analytic" if analytic else "")
     print(f"phase 4: {label} (CGNR + JACOBI, fused): {summary.num_residuals} residuals, "
@@ -2557,7 +2571,6 @@ def phase_numeric_ba_run(bal):
     import torch
 
     import ceres_tpu_torch as ct
-    from ceres_tpu_torch import cuda_lib
     from ceres_tpu_torch.evaluator import Evaluator
     from ceres_tpu_torch.solvers import trust_region
 
@@ -2566,9 +2579,9 @@ def phase_numeric_ba_run(bal):
     f64 = torch.float64
     ref = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))[0].compile("cuda")
     ev = Evaluator(ref, f64)
-    cuda_lib.reset_launch_counts()
+    reset_counts()
     ref_cost = float(ev.cost(ref.state_vector(f64)))
-    if cuda_lib.launch_counts()["eval_snavely"] != 1:
+    if kernel_launches()["eval_snavely"] != 1:
         raise AssertionError("numeric BA: the reference cost did not run B1's Snavely kernel")
     del ref, ev
     gc.collect()
@@ -2596,12 +2609,12 @@ def phase_numeric_ba_run(bal):
     trust_region.make_evaluate = timed_make_evaluate
     try:
         torch.cuda.reset_peak_memory_stats()
-        cuda_lib.reset_launch_counts()
+        reset_counts()
         t0 = time.time()
         summary = ct.solve(options, problem)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = cuda_lib.launch_counts()
+        launches = kernel_launches()
     finally:
         trust_region.make_evaluate = make
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2769,7 +2782,6 @@ def phase_f64_host_solvers(tmp):
     import torch
 
     import ceres_tpu_torch as ct
-    from ceres_tpu_torch import cuda_lib
 
     bal = ct.synthetic_bal(96, 4000, 48_000, seed=1)
 
@@ -2806,10 +2818,10 @@ def phase_f64_host_solvers(tmp):
     for name, build, extra, (launched, not_launched) in cases:
         sums = {}
         for dev in ("cuda", "cpu"):
-            cuda_lib.reset_launch_counts()
+            reset_counts()
             sums[dev] = ct.solve(lm_options(dev, torch.float64, **extra), build())
             if dev == "cuda":
-                launches = cuda_lib.launch_counts()
+                launches = kernel_launches()
         worst = _same_iterations(name, sums)
         print(f"phase 3: {name}: float64, CUDA vs CPU: {len(sums['cpu'].iterations)} iterations "
               f"({'fused' if sums['cuda'].used_fused_execution else 'host loop'}), max "
@@ -2880,7 +2892,6 @@ def phase_f64_minimizers(tmp):
     import torch
 
     import ceres_tpu_torch as ct
-    from ceres_tpu_torch import cuda_lib
 
     bal = ct.synthetic_bal(96, 4000, 48_000, seed=1)
     ls = dict(minimizer_type=ct.MinimizerType.LINE_SEARCH, max_num_iterations=5)
@@ -2907,11 +2918,11 @@ def phase_f64_minimizers(tmp):
     for name, extra, (launched, not_launched) in cases:
         sums = {}
         for dev in ("cuda", "cpu"):
-            cuda_lib.reset_launch_counts()
+            reset_counts()
             problem = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))[0]
             sums[dev] = ct.solve(lm_options(dev, torch.float64, **extra), problem)
             if dev == "cuda":
-                launches = cuda_lib.launch_counts()
+                launches = kernel_launches()
         worst = _same_iterations(name, sums)
         s = sums["cuda"]
         print(f"phase 3: {name}: float64, CUDA vs CPU: {len(s.iterations)} iterations "
@@ -3146,16 +3157,15 @@ def run_pose_graph(label, problem, truth_cost, **overrides):
     import torch
 
     import ceres_tpu_torch as ct
-    from ceres_tpu_torch import cuda_lib
 
     options = ct.SolverOptions(logging_type=ct.LoggingType.SILENT, dtype=torch.float64,
                                **overrides)
-    cuda_lib.reset_launch_counts()
+    reset_counts()
     t0 = time.time()
     summary = ct.solve(options, problem)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = cuda_lib.launch_counts()
+    launches = kernel_launches()
     ex = summary.execution_summary
     host = "; ".join(
         f"{name} {ex.calls(name)} calls {ex.seconds(name):.3f} s"
@@ -3377,7 +3387,6 @@ def phase_f64_covariance():
     import torch
 
     import ceres_tpu_torch as ct
-    from ceres_tpu_torch import cuda_lib
     from ceres_tpu_torch.examples.more_garbow_hillstrom import PROBLEMS
 
     cases = (
@@ -3391,10 +3400,10 @@ def phase_f64_covariance():
         covs = {}
         for dev in ("cuda", "cpu"):
             problem, pairs, lone = gauge_fixed_ba(bal)
-            cuda_lib.reset_launch_counts()
+            reset_counts()
             covs[dev] = covariance(problem, pairs, algo, dev, **kw)
             if dev == "cuda":
-                launches = cuda_lib.launch_counts()
+                launches = kernel_launches()
         (cc, ok_c, s_c), (cp, ok_p, s_p) = covs["cuda"], covs["cpu"]
         gap = block_gap(cc, cp, pairs) if ok_c and ok_p else float("nan")
         extra = ""
@@ -3589,7 +3598,7 @@ def phase_tiny_multistart():
 
     import ceres_tpu_torch as ct
     from ceres_tpu_torch.examples.more_garbow_hillstrom import PROBLEMS
-    from ceres_tpu_torch.utils.graphs import read_count
+    from ceres_tpu_torch.utils.execution_summary import counts
 
     spec = next(p for p in PROBLEMS if p.name == "freudenstein_roth")
 
@@ -3601,11 +3610,11 @@ def phase_tiny_multistart():
     x0_dev = torch.tensor(x0, device="cuda")
     ct.tiny_solve_batched(freudenstein_roth, x0_dev[:1024])  # warm-up
     torch.cuda.synchronize()
-    reads0, t0 = read_count(), time.perf_counter()
+    reads0, t0 = counts()["Device::Read"], time.perf_counter()
     res = ct.tiny_solve_batched(freudenstein_roth, x0_dev)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0)
-    reads = read_count() - reads0
+    reads = counts()["Device::Read"] - reads0
     its = res.iterations.cpu().numpy()
     cost = res.cost.cpu().numpy()
     share = {"global (cost < 1e-8)": float(np.mean(cost < 1e-8)),
@@ -3752,6 +3761,7 @@ def phase_c_api_run(tmp):
     import ctypes
 
     from ceres_tpu_torch import capi
+    from ceres_tpu_torch.utils.execution_summary import counts
 
     t_phase = t0 = time.time()
     shim = capi.build_shim()
@@ -3773,13 +3783,14 @@ def phase_c_api_run(tmp):
         else:
             os.environ[capi.DEVICE_ENV] = device
         cp, m, c, keep = _c_api_problem(capi, rows, losses)
-        capi.reset_host_stats()
+        reset_counts()
         t0 = time.time()
         report = cp.solve()
         wall = time.time() - t0
         s = cp.summary
         evals = s.num_residual_evaluations + s.num_jacobian_evaluations
-        stats = capi.host_stats()
+        table = counts()
+        stats = {"round_trips": table["CAPI::RoundTrip"], "calls": table["CAPI::Call"]}
         runs[str(cp.device)] = (s, float(m[0]), float(c[0]))
         iters = len(s.iterations) - 1
         print(f"phase 4: C API CProblem on {cp.device} ({s.num_residual_blocks} blocks, "
@@ -3859,7 +3870,6 @@ def main(argv=None) -> int:
     import ceres_tpu_torch as ct
     from ceres_tpu_torch import cuda_lib
     from ceres_tpu_torch.utils.dtypes import resolve_device
-    from ceres_tpu_torch.utils.graphs import graph_stats
 
     t_start = time.time()
     dev = resolve_device("cuda")
@@ -3948,12 +3958,11 @@ def main(argv=None) -> int:
 
     # the mixed-precision main run: B4's bfloat16 instantiation is its PCG,
     # and each Schur prepare makes the bfloat16 copy with one leaf_to_bf16
-    prepares = graph_stats()["replays_by"]["prepare"]
     mixed, mixed_launches = run_main_path(
         bal, "SCHUR_JACOBI", fused_execution_chunk_iters=1, use_mixed_precision_solves=True
     )
     # a graph's first call runs its function once (the warm-up) and captures it
-    prepares = (graph_stats()["replays_by"]["prepare"] - prepares
+    prepares = (mixed.execution_summary.calls("CUDAGraph::Replay prepare")
                 + mixed.execution_summary.calls("CUDAGraph::Capture prepare"))
     print(f"phase 4: mixed run: leaf_to_bf16 {mixed_launches['leaf_to_bf16']} launches, "
           f"prepare graph {prepares} runs", flush=True)

@@ -49,7 +49,7 @@ from ceres_tpu_torch.linalg.cg import conjugate_gradients
 from ceres_tpu_torch.linalg.preconditioners import BlockDiagSolver
 from ceres_tpu_torch.program import Program as TProgram
 from ceres_tpu_torch.program import camera_layout
-from ceres_tpu_torch.utils.graphs import read_count
+from ceres_tpu_torch.utils.execution_summary import counts
 
 torch.set_num_threads(1)
 TOL_F32 = 5e-4
@@ -468,11 +468,11 @@ def test_batched_pcg_is_k_single_pcgs(threshold):
     b[4:] = torch.tensor(rng.normal(size=(2, n)))
     # b[1] = 0: converged at the start, no step
     kw = dict(max_iterations=200, tolerance=1e-8)
-    reads = read_count()
+    before = counts()
     res = conjugate_gradients(jac.jtj_multiply_batched, b, preconditioner=prec.apply_batched,
                               batched=True, **kw)
     steps = int(res.iterations.max())
-    assert read_count() - reads <= steps
+    assert (counts() - before)["Device::Read"] <= steps
     singles = [conjugate_gradients(jac.jtj_multiply, b[e], preconditioner=prec, **kw)
                for e in range(6)]
     assert res.iterations.tolist() == [int(s.iterations) for s in singles]

@@ -61,6 +61,7 @@ from ceres_tpu_torch.linalg.schur_kernels import (
 )
 from ceres_tpu_torch.jacobian import make_twin
 from ceres_tpu_torch.program import camera_layout
+from ceres_tpu_torch.utils import execution_summary as es
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.float64]
@@ -183,10 +184,11 @@ def test_eval_kernel_quat_matches_plain(card, dtype, manifold):
     for with_jac in (True, False):
         args = (st[cam], g["a_rows"][0], st[pt], g["a_rows"][1], g["data"][0],
                 ct.HuberLoss(1.0), with_jac, manifold)
-        before = cuda_lib.launch_counts()
+        before = es.counts()
         k = eval_kernel.snavely_quat_evaluate(*args)
-        after = cuda_lib.launch_counts()
-        assert {key: after[key] - before[key] for key in after if after[key] != before[key]} == {
+        after = es.counts()
+        assert {key: after[key] - before[key] for key in cuda_lib.LAUNCHES
+                if after[key] != before[key]} == {
             name: 1}
         _check_b1(k, eval_kernel.snavely_quat_evaluate_plain(*args), tol, 18 if manifold else 20)
 
@@ -321,7 +323,7 @@ def test_bf16_gather_reduce_kernels_match_plain(card):
     table[:, -1] = 0
     u = torch.tensor(rng.normal(size=(2, n)), dtype=torch.float32, device=card)
     layout = camera_layout(rows_np, ncols).to(card)
-    counts = cuda_lib.launch_counts()
+    counts = es.counts()
     out = gather_contract(jac, rows, table, 2)
     assert out.dtype == torch.float32
     _close(out, gather_contract_plain(jac, rows, table, 2), 1e-5)
@@ -329,7 +331,7 @@ def test_bf16_gather_reduce_kernels_match_plain(card):
     out = contract_reduce(twin, layout, u, 2)
     assert out.dtype == torch.float32
     _close(out, contract_reduce_plain(twin, layout, u, 2), 1e-4)
-    after = cuda_lib.launch_counts()
+    after = es.counts()
     assert after["gather_contract_bf16"] == counts["gather_contract_bf16"] + 1
     assert after["contract_reduce_bf16"] == counts["contract_reduce_bf16"] + 1
     assert after["gather_contract"] == counts["gather_contract"]
@@ -349,9 +351,9 @@ def test_bf16_contract_reduce_ragged_runs(card, t, r, with_u):
     n = rows.size
     twin = make_twin(torch.tensor(rng.normal(size=(r * t, n)), dtype=BF16, device=card), layout)
     u = torch.tensor(rng.normal(size=(r, n)), dtype=torch.float32, device=card) if with_u else None
-    launched = cuda_lib.launch_counts()["contract_reduce_bf16"]
+    launched = es.counts()["contract_reduce_bf16"]
     out = contract_reduce(twin, layout, u, r)
-    assert cuda_lib.launch_counts()["contract_reduce_bf16"] == launched + 1
+    assert es.counts()["contract_reduce_bf16"] == launched + 1
     assert out.dtype == torch.float32
     assert torch.equal(out, contract_reduce(twin, layout, u, r))
     assert torch.all(out[:, 4] == 0)
@@ -438,9 +440,9 @@ def test_schur_sy_passes_ragged_runs(card, dtype, r, te, tf):
     assert torch.all(fold[:, -1] == 0)
     _close(fold, sy_fold_plain(meta, F_twin, E_twin, prow, layout, y_dump, t2, dsq), tol)
     args = (meta, F, E, rows_f, F_twin, E_twin, prow, layout, y, minv, segs, dsq)
-    launched = cuda_lib.launch_counts()["schur_sy"]
+    launched = es.counts()["schur_sy"]
     out = sy_apply(*args)
-    assert cuda_lib.launch_counts()["schur_sy"] == launched + 1  # one count per S·y
+    assert es.counts()["schur_sy"] == launched + 1  # one count per S·y
     assert torch.equal(out, sy_apply(*args))
     _close(out, sy_apply_plain(meta, F, E, rows_f, F_twin, layout, y, minv, dsq), tol)
 
@@ -465,9 +467,9 @@ def test_bf16_schur_sy_passes_ragged_runs(card, r, te, tf):
     assert torch.equal(t2[:npts], sy_point_pass(meta, F, E, rows_f, y, minv, segs)[:npts])
     assert torch.equal(fold, sy_fold_pass(meta, F_twin, E_twin, prow, layout, y, t2, dsq))
     args = (meta, F, E, rows_f, F_twin, E_twin, prow, layout, y, minv, segs, dsq)
-    counts = cuda_lib.launch_counts()
+    counts = es.counts()
     out = sy_apply(*args)
-    after = cuda_lib.launch_counts()
+    after = es.counts()
     assert after["schur_sy_bf16"] == counts["schur_sy_bf16"] + 1
     assert after["schur_sy"] == counts["schur_sy"]
     assert torch.equal(out, sy_apply(*args))
@@ -509,7 +511,7 @@ def test_bf16_misaligned_twin_raises(card, kernel):
     segs = sy_tables(meta, card)
     name = kernel + "_bf16"
     for bad in range(1 if kernel == "contract_reduce" else 2):
-        launched = cuda_lib.launch_counts()[name]
+        launched = es.counts()[name]
         with pytest.raises(RuntimeError):
             if kernel == "contract_reduce":
                 contract_reduce(_misaligned(F_twin), layout, u, 2)
@@ -518,7 +520,7 @@ def test_bf16_misaligned_twin_raises(card, kernel):
                 twins[bad] = _misaligned(twins[bad])
                 sy_apply(meta, F, E, rows_f, *twins, prow, layout, y, minv, segs, dsq)
         torch.cuda.synchronize()
-        assert cuda_lib.launch_counts()[name] == launched
+        assert es.counts()[name] == launched
     # the aligned twins run
     if kernel == "contract_reduce":
         _close(contract_reduce(F_twin, layout, u, 2), contract_reduce_plain(F_twin, layout, u, 2),
@@ -572,7 +574,7 @@ def test_cuda_solve_matches_cpu_and_launches_every_kernel(card, precond, num_poi
     sums = {}
     for dev in ("cpu", "cuda"):
         problem = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))[0]
-        cuda_lib.reset_launch_counts()
+        es.reset_counts()
         sums[dev] = ct.solve(ct.SolverOptions(
             linear_solver_type=ct.LinearSolverType.ITERATIVE_SCHUR,
             preconditioner_type=getattr(ct.PreconditionerType, precond),
@@ -588,8 +590,8 @@ def test_cuda_solve_matches_cpu_and_launches_every_kernel(card, precond, num_poi
     unused |= set(cuda_lib.GENERIC_KERNELS) | set(cuda_lib.BATCHED_KERNELS)
     unused |= set(cuda_lib.MASKED_KERNELS)  # B1's masked launches: sharded solves only
     unused |= {"schur_p0"} if precond == "JACOBI" else set()
-    assert all(v > 0 for k, v in cuda_lib.launch_counts().items() if k not in unused)
-    assert all(cuda_lib.launch_counts()[k] == 0 for k in unused if k.endswith("_bf16"))
+    assert all(es.counts()[k] > 0 for k in cuda_lib.LAUNCHES if k not in unused)
+    assert all(es.counts()[k] == 0 for k in unused if k.endswith("_bf16"))
     for a, b in zip(sums["cuda"].iterations, sums["cpu"].iterations, strict=True):
         assert a.cost == pytest.approx(b.cost, rel=1e-9)
         assert a.linear_solver_iterations == b.linear_solver_iterations
@@ -606,14 +608,14 @@ def test_cuda_quaternion_solve_matches_cpu(card, manifold):
     for dev in ("cpu", "cuda"):
         problem = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0), use_quaternions=True,
                                       use_manifolds=manifold)[0]
-        cuda_lib.reset_launch_counts()
+        es.reset_counts()
         sums[dev] = ct.solve(ct.SolverOptions(
             linear_solver_type=ct.LinearSolverType.ITERATIVE_SCHUR,
             preconditioner_type=ct.PreconditionerType.SCHUR_JACOBI,
             max_num_iterations=3, max_linear_solver_iterations=25,
             function_tolerance=0.0, gradient_tolerance=0.0, parameter_tolerance=0.0,
             device=dev, dtype=torch.float64), problem)
-    counts = cuda_lib.launch_counts()
+    counts = es.counts()
     b1 = "eval_snavely_quat" if manifold else "eval_snavely_quat_nomanifold"
     assert counts["eval_snavely"] == 0 and counts[b1] > 0
     for k in ("gather_contract", "contract_reduce", "schur_sy", "schur_p0"):
@@ -632,14 +634,13 @@ def test_sy_source_is_built_before_the_first_capture(card, monkeypatch):
     import subprocess
 
     from ceres_tpu_torch.linalg.schur_kernels import sy_source
-    from ceres_tpu_torch.utils import graphs
 
     events = []
     build, popen = cuda_lib.build_generated, subprocess.Popen
 
     def spy_build(sources):
         sources = list(sources)
-        events.append(("build", sources, graphs.graph_stats()["captures"]))
+        events.append(("build", sources, es.counts()["CUDAGraph::Capture"]))
         return build(sources)
 
     def spy_popen(*args, **kwargs):
@@ -650,19 +651,19 @@ def test_sy_source_is_built_before_the_first_capture(card, monkeypatch):
     monkeypatch.setattr(subprocess, "Popen", spy_popen)
     bal = ct.synthetic_bal(32, 4000, 40_000, seed=4)
     problem = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0), use_quaternions=True)[0]
-    captures0 = graphs.graph_stats()["captures"]
-    cuda_lib.reset_launch_counts()
+    es.reset_counts()
+    captures0 = es.counts()["CUDAGraph::Capture"]
     summary = ct.solve(ct.SolverOptions(
         linear_solver_type=ct.LinearSolverType.ITERATIVE_SCHUR,
         preconditioner_type=ct.PreconditionerType.SCHUR_JACOBI, max_num_iterations=2,
         fused_execution_chunk_iters=1, dtype=torch.float32), problem)
     assert summary.used_fused_execution
-    assert graphs.graph_stats()["captures"] > captures0
+    assert es.counts()["CUDAGraph::Capture"] > captures0
     src = sy_source(2, 10, 3)
     builds = [e for e in events if e[0] == "build" and src in e[1]]
     assert builds and builds[0][2] == captures0  # before the solve's first capture
     assert not any(e[1] for e in events if e[0] == "process")  # no nvcc inside a capture
-    assert cuda_lib.launch_counts()["schur_sy"] > 0
+    assert es.counts()["schur_sy"] > 0
 
 
 # ---- B1 generic ----------------------------------------------------------
@@ -709,10 +710,10 @@ def test_eval_generic_matches_plain(card, dtype, case):
         assert prog is not None, meta.cost_function.name
         args = (meta, garr, st)
         for with_jac in (True, False):
-            cuda_lib.reset_launch_counts()
+            es.reset_counts()
             cost, res, leaves = eval_kernel.generic_evaluate(prog, *args, with_jac)
             name = "eval_generic" if with_jac else "eval_generic_residual"
-            assert cuda_lib.launch_counts()[name] == 1
+            assert es.counts()[name] == 1
             cost_p, res_p, leaves_p = group_eval_plain(*args, with_jac, True)
             _close(res, res_p, tol)
             _close(cost.reshape(1), cost_p.reshape(1), tol)
@@ -733,10 +734,10 @@ def test_eval_generic_dispatch_on_the_card(card):
     progs = [functor_codegen.group_program(m, g, torch.float64, True)
              for m, g in zip(program.groups, ev.arrays["groups"])]
     assert progs[1].source == progs[2].source != progs[0].source
-    cuda_lib.reset_launch_counts()
+    es.reset_counts()
     ev.evaluate_groups(program.state_vector(torch.float64))
     ev.cost(program.state_vector(torch.float64))
-    counts = cuda_lib.launch_counts()
+    counts = es.counts()
     assert counts["eval_generic"] == counts["eval_generic_residual"] == len(program.groups)
 
 
@@ -841,11 +842,11 @@ def test_eval_generic_rule_matches_plain(card, dtype, case):
         assert prog.has_rule == (meta.cost_function.name != "foe_data" and "analytic" in case)
         args = (meta, garr, st)
         for with_jac in (True, False):
-            cuda_lib.reset_launch_counts()
+            es.reset_counts()
             cost, res, leaves = eval_kernel.generic_evaluate(prog, *args, with_jac)
             name = ("eval_generic_analytic" if prog.has_rule else "eval_generic") if with_jac \
                 else "eval_generic_residual"
-            assert cuda_lib.launch_counts()[name] == 1
+            assert es.counts()[name] == 1
             cost_p, res_p, leaves_p = group_eval_plain(*args, with_jac, True)
             _close(res, res_p, tol)
             _close(cost.reshape(1), cost_p.reshape(1), tol)
@@ -896,9 +897,9 @@ def test_numeric_group_takes_torch_func_on_the_card(card):
         ev = Evaluator(program, torch.float64)
         assert functor_codegen.group_program(program.groups[0], ev.arrays["groups"][0],
                                              torch.float64, True) is None
-        cuda_lib.reset_launch_counts()
+        es.reset_counts()
         out[dev] = ev.evaluate_groups(program.state_vector(torch.float64))
-        counts = cuda_lib.launch_counts()
+        counts = es.counts()
         assert counts["eval_snavely"] == 0
         assert all(counts[k] == 0 for k in cuda_lib.GENERIC_KERNELS)
     (c_cpu, r_cpu, j_cpu, _), (c_gpu, r_gpu, j_gpu, _) = out["cpu"], out["cuda"]
@@ -1007,9 +1008,9 @@ def test_eval_generic_one_launch_matches_plain(card, dtype, case, tmp_path):
         for with_jac in (True, False):
             name = ("eval_generic_analytic" if prog.has_rule else "eval_generic") if with_jac \
                 else "eval_generic_residual"
-            cuda_lib.reset_launch_counts()
+            es.reset_counts()
             one = eval_kernel.generic_evaluate(prog, *args, with_jac)
-            assert cuda_lib.launch_counts()[name] == 1
+            assert es.counts()[name] == 1
             _close(one[0], cost_p, tol)
             _close(one[1], res_p, tol)
             for a, b in zip(one[2], leaves_p):
@@ -1096,17 +1097,17 @@ def test_gather_contract_branches(card, dtype, n):
     name = cuda_lib.counter("gather_contract", dtype)
     for table in (big[:-1].reshape(9, ncols), big[1:].reshape(9, ncols)):
         want = gather_contract_plain(jac, rows, table, 2)
-        counts = cuda_lib.launch_counts()
+        counts = es.counts()
         glob = gather_contract(jac, rows, table, 2, branch="global")
         _close(glob, want, tol)
         if dtype == BF16:
             shared = gather_contract(jac, rows, table, 2, branch="shared")
-            assert cuda_lib.launch_counts()[name] == counts[name] + 2
+            assert es.counts()[name] == counts[name] + 2
             _close(shared, want, tol)
             assert torch.equal(shared, glob)
             assert torch.equal(shared, gather_contract(jac, rows, table, 2))
         else:
-            assert cuda_lib.launch_counts()[name] == counts[name] + 1
+            assert es.counts()[name] == counts[name] + 1
             assert torch.equal(glob, gather_contract(jac, rows, table, 2))
             with pytest.raises(ValueError):
                 gather_contract(jac, rows, table, 2, branch="shared")
@@ -1208,10 +1209,10 @@ def test_batched_gather_reduce_match_plain_and_single_launches(card, dtype, shap
     r, t, n, ncols, k = shape
     jac, rows, rows_np, layout, twin, table, u = _batched_case(card, dtype, shape)
     vdt = cuda_lib.vector_dtype(dtype)
-    counts = cuda_lib.launch_counts()
+    counts = es.counts()
     g = gather_contract_batched(jac, rows, table, r, twin, layout)
     c = contract_reduce_batched(twin, layout, u, r)
-    after = cuda_lib.launch_counts()
+    after = es.counts()
     for name in ("gather_contract_batched", "contract_reduce_batched"):
         key = cuda_lib.counter(name, dtype)
         assert after[key] == counts[key] + 1

@@ -1,6 +1,7 @@
 """The fused loop's device side on the card: the PCG iteration, the
 finish's head and tail, the evaluation, its prepare and the fused loop's
-decide replayed from CUDA graphs, the launch counts under replay, and the
+decide replayed from CUDA graphs, the launch counts under replay (and
+that a capture takes back what it counted, at BAL-1778's size), and the
 read budget, unbounded, bounded, with the line search and with CGNR on a
 Fields-of-Experts problem (every group B1 generic); DOGLEG's prepare and
 finish graphs and its read budget; SPARSE_SCHUR's S bitwise across
@@ -26,8 +27,9 @@ from ceres_tpu_torch import cuda_lib
 from ceres_tpu_torch.evaluator import Evaluator
 from ceres_tpu_torch.linalg import schur as tschur
 from ceres_tpu_torch.solvers.trust_region import TrustRegionMinimizer
+from ceres_tpu_torch.utils import execution_summary as es
 from ceres_tpu_torch.utils import graphs as tgraphs
-from ceres_tpu_torch.utils.graphs import StepGraph, graph_stats
+from ceres_tpu_torch.utils.graphs import StepGraph
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.float64]
@@ -80,9 +82,9 @@ def _solve_step(program, options, jac_s, grad_s, cache, radius, graph=None):
 def test_pcg_graph_replays_equal_the_eager_iterations(card, dtype):
     case = _finish_case(card, dtype)
     graph = StepGraph("pcg")
-    g0 = graph_stats()
+    g0 = es.counts()
     graphed = [_solve_step(*case, radius, graph) for radius in (1e4, 1e2, 1e4)]
-    g1 = graph_stats()
+    g1 = es.counts()
     eager = [_solve_step(*case, radius) for radius in (1e4, 1e2, 1e4)]
     torch.cuda.synchronize()
     for (s_g, it_g), (s_e, it_e) in zip(graphed, eager):
@@ -91,21 +93,58 @@ def test_pcg_graph_replays_equal_the_eager_iterations(card, dtype):
     # each solve's inverse tables are new tensors here (no head graph), so
     # each solve captures anew: its first iteration is the eager warm-up,
     # every other iteration a replay
-    assert g1["captures"] - g0["captures"] == 3
-    replays = g1["replays_by"]["pcg"] - g0["replays_by"]["pcg"]
+    assert g1["CUDAGraph::Capture"] - g0["CUDAGraph::Capture"] == 3
+    replays = g1["CUDAGraph::Replay pcg"] - g0["CUDAGraph::Replay pcg"]
     assert replays == sum(int(it) for _, it in graphed) - 3
 
 
 def test_launch_counts_under_replay(card):
     case = _finish_case(card, torch.float32)
     graph = StepGraph("pcg")
-    cuda_lib.reset_launch_counts()
+    es.reset_counts()
     iters = [int(_solve_step(*case, radius, graph)[1]) for radius in (1e4, 3e3, 1e3)]
-    counts = cuda_lib.launch_counts()
-    assert graph.launches_per_replay == {"schur_sy": 1}
+    counts = es.counts()
+    assert graph.counts_per_replay == {"schur_sy": 1}
     # one S·y for r0 = b - A x0 per solve, one per PCG iteration (the
     # warm-up eager, the others replayed): N replays count N launches
     assert counts["schur_sy"] == sum(1 + k for k in iters)
+
+
+def test_a_capture_takes_back_what_it_counted_at_bal_1778(card):
+    """chip_smoke's main run (BAL-1778 whole, float32, SCHUR_JACOBI, the
+    fused loop one iteration a chunk) twice from the same start: the first
+    solve warms up and captures its six graphs, the second replays them.
+    Each capture takes back the one counter-table diff it counted and each
+    replay adds it once, so the two solves count the same launches, and
+    each graph's replays in the second are its replays and captures in the
+    first."""
+    from chip_smoke import NUM_OBSERVATIONS, NUM_POINTS, lm_options
+
+    bal = ct.synthetic_bal(1778, NUM_POINTS, NUM_OBSERVATIONS, seed=0)
+    problem = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))[0]
+    program = problem.compile("cuda")
+    x0 = program.state0.copy()
+    options = lm_options("cuda", torch.float32, fused_execution_chunk_iters=1)
+    summaries, launches, graphs = [], [], []
+    for _ in range(2):
+        program.write_state_back(x0)
+        before = es.counts()
+        summaries.append(ct.solve(options, problem))
+        counted = es.counts() - before
+        launches.append({k: n for k, n in counted.items() if k in cuda_lib.LAUNCHES})
+        graphs.append({k: n for k, n in counted.items() if k.startswith("CUDAGraph::")})
+    first, second = summaries
+    assert first.used_fused_execution and second.used_fused_execution
+    assert [(it.cost, it.linear_solver_iterations) for it in second.iterations] == [
+        (it.cost, it.linear_solver_iterations) for it in first.iterations]
+    assert graphs[0]["CUDAGraph::Capture"] == 6 and "CUDAGraph::Capture" not in graphs[1]
+    for name, n in graphs[1].items():
+        if name.startswith("CUDAGraph::Replay "):
+            captured = first.execution_summary.calls(name.replace("Replay", "Capture"))
+            assert n == graphs[0].get(name, 0) + captured, name
+    assert launches[0] == launches[1]
+    assert launches[1]["eval_snavely"] > 0 and launches[1]["schur_sy"] > 0
+    print(f"BAL-1778 launches: {launches[1]}")
 
 
 def _bounded_problem(seed):
@@ -189,14 +228,14 @@ def test_fused_loop_syncs_only_through_counted_reads(card, dtype, case):
     assert warm.used_fused_execution and warm.num_successful_steps >= 2
     state = program.state_vector(dtype)
     summary = ct.Summary()
-    g0 = graph_stats()
+    g0 = es.counts()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         minimizer.minimize(state, summary)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    g1 = graph_stats()
+    g1 = es.counts()
     assert summary.used_fused_execution and len(summary.iterations) == 5
     costs, warm_costs = ([it.cost for it in s.iterations] for s in (summary, warm))
     if case == "cgnr":
@@ -221,12 +260,14 @@ def test_fused_loop_syncs_only_through_counted_reads(card, dtype, case):
             pcg * it.linear_solver_iterations + len(per_iter)
             + len(per_accept) * it.step_is_successful
         )
-    by = g1["replays_by"] - g0["replays_by"]
-    assert by["pcg"] == pcg * sum(it.linear_solver_iterations for it in summary.iterations)
-    assert all(by[name] == 4 for name in per_iter)
+    by = g1 - g0
+    assert by["CUDAGraph::Replay pcg"] == pcg * sum(
+        it.linear_solver_iterations for it in summary.iterations)
+    assert all(by[f"CUDAGraph::Replay {name}"] == 4 for name in per_iter)
     # the first evaluation (and its prepare) replays too
-    assert all(by[name] == summary.num_successful_steps + 1 for name in per_accept)
-    assert g1["captures"] == g0["captures"]
+    assert all(by[f"CUDAGraph::Replay {name}"] == summary.num_successful_steps + 1
+               for name in per_accept)
+    assert by["CUDAGraph::Capture"] == 0
     if dtype == torch.float64:
         problem_cpu = make_problem(3)
         cpu = ct.solve(_options(dtype, **{**extra, "device": "cpu"}), problem_cpu)
@@ -254,16 +295,15 @@ def test_mixed_fused_loop_syncs_only_through_counted_reads(card, dtype):
     assert warm.used_fused_execution and warm.num_successful_steps >= 2
     state = program.state_vector(dtype)
     summary = ct.Summary()
-    g0 = graph_stats()
-    cuda_lib.reset_launch_counts()
+    g0 = es.counts()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         minimizer.minimize(state, summary)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    counts = cuda_lib.launch_counts()
-    assert g0["captures"] == graph_stats()["captures"]
+    counts = es.counts() - g0
+    assert counts["CUDAGraph::Capture"] == 0
     assert [it.cost for it in summary.iterations] == [it.cost for it in warm.iterations]
     for it in summary.iterations[1:]:
         assert it.num_device_reads <= 2 + it.linear_solver_iterations
@@ -355,8 +395,6 @@ def test_dogleg_fused_loop_syncs_only_through_counted_reads(card, dtype, kind):
     iteration reads at most 2 + its PCG steps; the finish and decide replay
     once per iteration; the run repeats the first bitwise; B1-B3 run, B4
     and B5 do not. In float64 it matches the CPU's to 1e-9."""
-    from ceres_tpu_torch import cuda_lib
-
     options = _dogleg(kind, dtype)
     program = _problem(3).compile(card)
     minimizer = TrustRegionMinimizer(program, options, Evaluator(program, dtype))
@@ -364,25 +402,23 @@ def test_dogleg_fused_loop_syncs_only_through_counted_reads(card, dtype, kind):
     minimizer.minimize(program.state_vector(dtype), warm)
     state = program.state_vector(dtype)
     summary = ct.Summary()
-    g0 = graph_stats()
-    cuda_lib.reset_launch_counts()
+    g0 = es.counts()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         minimizer.minimize(state, summary)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    g1 = graph_stats()
-    counts = cuda_lib.launch_counts()
+    counts = es.counts() - g0
     assert summary.used_fused_execution and len(summary.iterations) == 5
     assert [it.cost for it in summary.iterations] == [it.cost for it in warm.iterations]
     for it in summary.iterations[1:]:
         assert it.num_device_reads <= 2 + it.linear_solver_iterations
-    by = g1["replays_by"] - g0["replays_by"]
-    assert by["dogleg_finish"] == by["decide"] == 4
+    assert counts["CUDAGraph::Replay dogleg_finish"] == counts["CUDAGraph::Replay decide"] == 4
     prepares = 1 + sum(it.step_is_successful for it in summary.iterations[1:-1])
-    assert by["dogleg_head"] == by["dogleg_cauchy"] == prepares
-    assert g1["captures"] == g0["captures"]
+    assert counts["CUDAGraph::Replay dogleg_head"] == counts["CUDAGraph::Replay dogleg_cauchy"] \
+        == prepares
+    assert counts["CUDAGraph::Capture"] == 0
     assert all(counts[k] > 0 for k in ("eval_snavely", "gather_contract", "contract_reduce"))
     assert counts["schur_sy"] == counts["schur_p0"] == 0
     if dtype == torch.float64:
@@ -435,7 +471,6 @@ def test_pose_graphs_launch_b1_generic(card, tmp_path, dim):
     CPU's to 1e-9."""
     from chip_smoke import small_sphere_problem
 
-    from ceres_tpu_torch import cuda_lib
     from ceres_tpu_torch.examples import pose_graph
 
     def build():
@@ -445,9 +480,9 @@ def test_pose_graphs_launch_b1_generic(card, tmp_path, dim):
         return small_sphere_problem(str(tmp_path))[0]
 
     options = dict(linear_solver_type=ct.LinearSolverType.SPARSE_NORMAL_CHOLESKY)
-    cuda_lib.reset_launch_counts()
+    es.reset_counts()
     summary = ct.solve(_options(torch.float64, **options), build())
-    counts = cuda_lib.launch_counts()
+    counts = es.counts()
     cpu = ct.solve(_options(torch.float64, device="cpu", **options), build())
     assert counts["eval_generic"] == summary.num_jacobian_evaluations > 0
     assert counts["eval_generic_residual"] == summary.num_residual_evaluations
@@ -518,24 +553,22 @@ def test_line_search_syncs_only_through_counted_reads(card, dtype):
     minimizer.minimize(program.state_vector(dtype), warm)
     state = program.state_vector(dtype)
     summary = ct.Summary()
-    g0 = graph_stats()
-    cuda_lib.reset_launch_counts()
+    g0 = es.counts()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         minimizer.minimize(state, summary)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    g1 = graph_stats()
-    counts = cuda_lib.launch_counts()
+    counts = es.counts() - g0
     assert len(summary.iterations) == 7
     assert [it.cost for it in summary.iterations] == [it.cost for it in warm.iterations]
     for it in summary.iterations[1:]:
         assert it.line_search_iterations >= 1
         assert it.num_device_reads - it.line_search_iterations in (2, 3)
         assert it.num_graph_replays == it.line_search_iterations  # one gradient per trial
-    assert (g1["replays_by"] - g0["replays_by"])["evaluate"] == summary.num_jacobian_evaluations
-    assert g1["captures"] == g0["captures"]
+    assert counts["CUDAGraph::Replay evaluate"] == summary.num_jacobian_evaluations
+    assert counts["CUDAGraph::Capture"] == 0
     assert counts["eval_snavely"] == summary.num_jacobian_evaluations + summary.num_residual_evaluations
     assert counts["contract_reduce"] > 0
     assert counts["schur_sy"] == counts["schur_p0"] == 0
@@ -565,13 +598,13 @@ def test_inner_iteration_sweep_matches_the_cpu(card):
                             torch.tensor(1e-4, dtype=dtype, device=dev)).cpu()
     err = ((sweeps["cuda"] - sweeps["cpu"]).abs().max() / sweeps["cpu"].abs().max()).item()
     assert err <= 1e-10, err
-    g0 = graph_stats()
+    g0 = es.counts()
     summary = ct.solve(options, _problem(3))
-    g1 = graph_stats()
+    g1 = es.counts()
     cpu = ct.solve(dataclasses.replace(options, device="cpu"), _problem(3))
     assert not summary.used_fused_execution
     assert summary.num_inner_iteration_steps == cpu.num_inner_iteration_steps > 0
-    assert (g1["replays_by"] - g0["replays_by"])["inner_sweep"] >= summary.num_inner_iteration_steps
+    assert (g1 - g0)["CUDAGraph::Replay inner_sweep"] >= summary.num_inner_iteration_steps
     for a, b in zip(summary.iterations, cpu.iterations, strict=True):
         assert a.cost == pytest.approx(b.cost, rel=1e-9)
         assert (a.linear_solver_iterations, a.step_is_successful) == (
@@ -624,7 +657,7 @@ def test_batched_pcg_syncs_only_through_counted_reads(card):
     b = torch.zeros((12, program.num_effective_parameters), dtype=torch.float64, device=card)
     b[torch.arange(12, device=card), torch.arange(12, device=card) * 7] = 1.0
     torch.cuda.synchronize()
-    reads = tgraphs.read_count()
+    reads = es.counts()["Device::Read"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         res = conjugate_gradients(jac.jtj_multiply_batched, b, preconditioner=prec.apply_batched,
@@ -632,7 +665,7 @@ def test_batched_pcg_syncs_only_through_counted_reads(card):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     steps = int(res.iterations.max())
-    assert steps < 200 and tgraphs.read_count() - reads == steps
+    assert steps < 200 and es.counts()["Device::Read"] - reads == steps
     assert bool(res.converged.all()) and not bool(res.breakdown.any())
 
 

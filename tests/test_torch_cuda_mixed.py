@@ -16,9 +16,8 @@ import pytest
 import torch
 
 import ceres_tpu_torch as ct
-from ceres_tpu_torch import cuda_lib
 from ceres_tpu_torch.jacobian import bf16_copies
-from ceres_tpu_torch.utils.graphs import graph_stats
+from ceres_tpu_torch.utils import execution_summary as es
 from mixed_reference import mixed_options, port_sy, reference
 
 # BAL-1778's observations (chip_smoke.py's problem), and the width of its
@@ -62,10 +61,10 @@ def test_leaf_to_bf16_is_tensor_to(card, dtype):
     tensors.append(_special(dtype, card))
     # a view that starts 4 bytes into its storage: not 16-byte aligned
     tensors.append(torch.randn(1001, generator=g, device=card, dtype=dtype)[1:])
-    before = cuda_lib.launch_counts()["leaf_to_bf16"]
+    before = es.counts()["leaf_to_bf16"]
     out = bf16_copies(tensors)
     torch.cuda.synchronize()
-    assert cuda_lib.launch_counts()["leaf_to_bf16"] == before + 1
+    assert es.counts()["leaf_to_bf16"] == before + 1
     for t, o in zip(tensors, out, strict=True):
         assert o.dtype == torch.bfloat16 and o.shape == t.shape and o.is_contiguous()
         assert _same(o, t.to(torch.bfloat16))
@@ -74,18 +73,18 @@ def test_leaf_to_bf16_is_tensor_to(card, dtype):
 @pytest.mark.cuda
 def test_leaf_to_bf16_takes_more_tensors_than_a_launch_holds(card):
     tensors = [torch.full((i + 1, 33), i + 0.1, device=card) for i in range(70)]
-    before = cuda_lib.launch_counts()["leaf_to_bf16"]
+    before = es.counts()["leaf_to_bf16"]
     out = bf16_copies(tensors)
-    assert cuda_lib.launch_counts()["leaf_to_bf16"] == before + 3  # 32 + 32 + 6
+    assert es.counts()["leaf_to_bf16"] == before + 3  # 32 + 32 + 6
     assert all(_same(o, t.to(torch.bfloat16)) for t, o in zip(tensors, out))
 
 
 @pytest.mark.cuda
 def test_leaf_to_bf16_launches_nothing_for_empty_tensors(card):
     tensors = [torch.zeros((0, 5), device=card), torch.zeros(0, device=card)]
-    before = cuda_lib.launch_counts()["leaf_to_bf16"]
+    before = es.counts()["leaf_to_bf16"]
     out = bf16_copies(tensors)
-    assert cuda_lib.launch_counts()["leaf_to_bf16"] == before
+    assert es.counts()["leaf_to_bf16"] == before
     assert [o.shape for o in out] == [t.shape for t in tensors]
     assert all(o.dtype == torch.bfloat16 for o in out)
 
@@ -122,14 +121,13 @@ def test_three_mixed_card_solves_capture_once_and_copy_once_a_prepare(card):
     summaries, states, reserved, counts, prepares = [], [], [], [], []
     for _ in range(3):
         program.write_state_back(x0)
-        cuda_lib.reset_launch_counts()
-        replays = graph_stats()["replays_by"]["prepare"]
+        before = es.counts()
         summaries.append(ct.solve(options, problem))
         torch.cuda.synchronize()
         states.append(program.state0.copy())
         reserved.append(torch.cuda.memory_reserved())
-        counts.append(cuda_lib.launch_counts())
-        prepares.append(graph_stats()["replays_by"]["prepare"] - replays)
+        counts.append(es.counts() - before)
+        prepares.append(counts[-1]["CUDAGraph::Replay prepare"])
     assert [_captures(s) for s in summaries] == [6, 0, 0]
     assert reserved[2] == reserved[1]
     assert all(np.array_equal(s, states[0]) for s in states[1:])
@@ -145,10 +143,10 @@ def test_three_mixed_card_solves_capture_once_and_copy_once_a_prepare(card):
 def test_the_float32_path_launches_no_copy(card, mixed):
     bal = ct.synthetic_bal(32, 4000, 40_000, seed=2)
     problem, _, _ = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))
-    cuda_lib.reset_launch_counts()
+    es.reset_counts()
     ct.solve(mixed_options(device="cuda", use_mixed_precision_solves=mixed, max_num_iterations=3,
                            logging_type=ct.LoggingType.SILENT), problem)
-    launched = cuda_lib.launch_counts()["leaf_to_bf16"]
+    launched = es.counts()["leaf_to_bf16"]
     assert launched > 0 if mixed else launched == 0
 
 
@@ -168,9 +166,9 @@ def test_b4_bf16_sy_at_bal_1778_matches_reference(card):
     d_f = np.sqrt(rng.uniform(1e-3, 1e-1, (nc, 9)))
     d_e = np.sqrt(rng.uniform(1e-3, 1e-1, (npt, 3)))
     y = rng.normal(size=(nc, 9)).astype(np.float32).astype(np.float64)
-    launched = cuda_lib.launch_counts()["schur_sy_bf16"]
+    launched = es.counts()["schur_sy_bf16"]
     port = port_sy(bal, d_f, d_e, y, device="cuda")
-    assert cuda_lib.launch_counts()["schur_sy_bf16"] == launched + 1
+    assert es.counts()["schur_sy_bf16"] == launched + 1
     torch.cuda.empty_cache()
     want = reference().schur_matvec(
         bal.cameras, bal.points, bal.camera_index, bal.point_index, bal.observations, d_f, d_e,

@@ -16,6 +16,7 @@ import torch
 import ceres_tpu_torch as ct
 from ceres_tpu_torch import cuda_lib, eval_kernel, functor_codegen
 from ceres_tpu_torch.evaluator import Evaluator, group_eval_plain, state_tables
+from ceres_tpu_torch.utils import execution_summary as es
 
 import torch_mp
 from torch_mp_worker import solve_options, solve_problem, summary_record
@@ -83,9 +84,9 @@ def test_masked_snavely_matches_plain(card, dtype, model, with_jac):
         manifold = model == "quat_manifold"
         launch = lambda m: eval_kernel.snavely_quat_evaluate(*args, manifold, m)  # noqa: E731
         plain = lambda m: eval_kernel.snavely_quat_evaluate_plain(*args, manifold, m)  # noqa: E731
-    before = cuda_lib.launch_counts()
+    before = es.counts()
     _check_masked(launch, plain, mask, tol)
-    after = cuda_lib.launch_counts()
+    after = es.counts()
     assert after[name + "_masked"] == before[name + "_masked"] + 2
     assert after[name] == before[name] + 1
 

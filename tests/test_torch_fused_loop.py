@@ -26,7 +26,8 @@ from ceres_tpu.linalg.cg import conjugate_gradients as j_cg
 from ceres_tpu_torch.linalg.cg import conjugate_gradients as t_cg
 from ceres_tpu_torch.program import Program as TProgram
 from ceres_tpu_torch.utils import graphs as tgraphs
-from ceres_tpu_torch.utils.graphs import FnGraph, StepGraph, read_count
+from ceres_tpu_torch.utils.execution_summary import counts
+from ceres_tpu_torch.utils.graphs import FnGraph, StepGraph
 
 torch.set_num_threads(1)
 
@@ -147,13 +148,13 @@ def test_max_num_iterations_ends_with_no_convergence():
 def test_fused_read_budget(chunk):
     """At most 2 + (PCG iterations) device reads per LM iteration (the CPU
     counts reads as the card does), one for iteration 0."""
-    r0 = read_count()
+    before = counts()
     s = _solve(ct, fused_execution_chunk_iters=chunk, max_num_iterations=8,
                function_tolerance=0.0, gradient_tolerance=0.0, parameter_tolerance=0.0)[0]
     assert s.iterations[0].num_device_reads == 1
     for it in s.iterations[1:]:
         assert 1 <= it.num_device_reads <= 2 + it.linear_solver_iterations
-    assert s.num_device_reads == read_count() - r0 == sum(it.num_device_reads for it in s.iterations)
+    assert s.num_device_reads == (counts() - before)["Device::Read"] == sum(it.num_device_reads for it in s.iterations)
     assert s.num_graph_replays == 0  # graphs run on a card only
 
 
@@ -225,11 +226,11 @@ def test_device_pcg_matches_jax(dtype, tol, stop):
     ja, jd = jnp.asarray(a), jnp.asarray(dinv)
     want = j_cg(lambda v: ja @ v, jnp.asarray(b), preconditioner=lambda r: jd * r, **kw)
     ta, td = torch.as_tensor(a), torch.as_tensor(dinv)
-    r0 = read_count()
+    before = counts()
     got = t_cg(lambda v: ta @ v, torch.as_tensor(b), preconditioner=lambda r: td * r, **kw)
     iters = int(want.iterations)
     assert int(got.iterations) == iters and 0 < iters
-    assert read_count() - r0 <= iters  # one flag per iteration, none after the last
+    assert (counts() - before)["Device::Read"] <= iters  # one flag per iteration, none after the last
     np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), rtol=0,
                                atol=tol * float(np.abs(np.asarray(want.x)).max()))
     assert bool(got.breakdown) == bool(want.breakdown)

@@ -47,8 +47,7 @@ from ceres_tpu_torch.linalg import sparse as tsp
 from ceres_tpu_torch.linalg.schur import make_ete_solver as t_make_ete
 from ceres_tpu_torch.linalg.schur import schur_views as t_views
 from ceres_tpu_torch.program import Program as TProgram
-from ceres_tpu_torch.utils.execution_summary import ExecutionSummary
-from ceres_tpu_torch.utils.graphs import read_count
+from ceres_tpu_torch.utils.execution_summary import ExecutionSummary, counts, recording
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -89,10 +88,12 @@ def test_sparse_normal_cholesky_matches_jax(name):
     e = _evaluated(name)
     want = np.asarray(jsp.solve_sparse_normal_cholesky(e["jjac"], e["jres"], e["jg"], e["jdsq"]))
     records = ExecutionSummary()
-    r0 = read_count()
-    got = tsp.solve_sparse_normal_cholesky(e["tjac"], e["tres"], e["tg"], e["tdsq"], records=records)
+    before = counts()
+    with recording(records):
+        got = tsp.solve_sparse_normal_cholesky(e["tjac"], e["tres"], e["tg"], e["tdsq"])
     # the Jacobian, dsq and the gradient cross in one read
-    assert read_count() - r0 == 1 and records.calls("SparseCholesky::Factorize") == 1
+    assert (counts() - before)["Device::Read"] == 1
+    assert records.calls("SparseCholesky::Factorize") == 1
     assert records.nbytes("SparseCholesky::Read") > 8 * (len(e["tg"]) * 2)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-10 * np.abs(want).max())
 
@@ -104,13 +105,13 @@ def test_subset_preconditioner_matches_jax(name):
     jrows, trows = e["jp"].residual_rows_for_handles(handles), e["tp"].residual_rows_for_handles(handles)
     np.testing.assert_array_equal(jrows, trows)
     jprec = jsp.SubsetPreconditioner(e["jjac"], jrows, e["jdsq"])
-    r0 = read_count()
+    before = counts()
     tprec = tsp.SubsetPreconditioner(e["tjac"], trows, e["tdsq"])
     v = np.random.default_rng(1).normal(size=e["tprog"].num_effective_parameters)
     want = np.asarray(jprec(jnp.asarray(v)))
     got = tprec(torch.tensor(v))
     # one read for the factorization, one per application
-    assert read_count() - r0 == 2
+    assert (counts() - before)["Device::Read"] == 2
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12 * np.abs(want).max())
 
 
@@ -269,7 +270,7 @@ def test_solve_matches_jax_per_iteration(case):
         extra = dict(extra, residual_blocks_for_subset_preconditioner=list(
             range(0, tp.num_residual_blocks(), 2)))
     js = ceres_tpu.solve(_lm(ceres_tpu, solver, precond, **extra), jp)
-    r0 = read_count()
+    before = counts()
     ts = ct.solve(_lm(ct, solver, precond, device="cpu", **extra), tp)
     assert not ts.used_fused_execution and not js.used_fused_execution
     _assert_same_iterations(ts, js)
@@ -279,7 +280,7 @@ def test_solve_matches_jax_per_iteration(case):
     name = {"SPARSE_NORMAL_CHOLESKY": "SparseCholesky", "SPARSE_SCHUR": "SparseSchur",
             "CGNR": "SubsetPreconditioner"}[solver]
     assert ex.calls(f"{name}::Read") == 5 and ex.nbytes(f"{name}::Read") > 0
-    assert ex.calls("Device::Read") == ts.num_device_reads == read_count() - r0
+    assert ex.calls("Device::Read") == ts.num_device_reads == (counts() - before)["Device::Read"]
     if solver == "CGNR":
         pcg = sum(it.linear_solver_iterations for it in ts.iterations)
         assert ex.calls("SubsetPreconditioner::Apply") >= pcg

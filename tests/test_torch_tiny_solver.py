@@ -20,7 +20,7 @@ import ceres_tpu
 import ceres_tpu_torch as ct
 from ceres_tpu.tiny_solver import cost_function_adapter as j_adapter
 from ceres_tpu_torch.tiny_solver import cost_function_adapter as t_adapter
-from ceres_tpu_torch.utils.graphs import read_count
+from ceres_tpu_torch.utils.execution_summary import counts
 
 torch.set_num_threads(1)
 
@@ -96,11 +96,11 @@ def test_batched_lanes_match_jax(name, opts):
     x0 = np.random.default_rng(len(name)).uniform(-box, box, (24, p))
     jo, to = ceres_tpu.TinySolverOptions(**OPTIONS[opts]), ct.TinySolverOptions(**OPTIONS[opts])
     j = ceres_tpu.tiny_solve_batched(make(jnp), jnp.asarray(x0), jo)
-    reads = read_count()
+    before = counts()
     t = ct.tiny_solve_batched(make(torch), torch.tensor(x0), to)
     # one read per iteration of the slowest lane, and one to see it done
     its = t.iterations.numpy()
-    assert read_count() - reads == its.max() + (its.max() < to.max_num_iterations)
+    assert (counts() - before)["Device::Read"] == its.max() + (its.max() < to.max_num_iterations)
     assert t.x.shape == (24, p) and t.iterations.dtype == torch.int32
     _assert_same(j, t)
     if opts == "default":

@@ -12,8 +12,7 @@ import torch
 
 import ceres_tpu_torch as ct
 from ceres_tpu_torch.utils import execution_summary as es_mod
-from ceres_tpu_torch.utils.execution_summary import ExecutionSummary, recording, span
-from ceres_tpu_torch.utils.graphs import graph_stats
+from ceres_tpu_torch.utils.execution_summary import ExecutionSummary, counts, recording, span
 
 F64 = torch.float64
 
@@ -99,14 +98,34 @@ def test_a_second_solve_lowers_nothing():
     assert s.execution_summary.calls("Solve::Reuse") == 1
 
 
-@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("fused", [True, False, "sparse_schur"])
 def test_device_read_spans_are_the_counted_reads(fused):
-    s = ct.solve(_options(fused_execution=fused), _problem())
-    assert s.used_fused_execution == fused
+    """The fused loop, the host loop and a host loop whose step factors on
+    the host (SPARSE_SCHUR): the Summary's reads and replays are the
+    counter table's, the spans' and the iterations'; the host
+    factorization's records land in the solve's summary, which nothing
+    passed it."""
+    if fused == "sparse_schur":
+        options = _options(fused_execution=False,
+                           linear_solver_type=ct.LinearSolverType.SPARSE_SCHUR,
+                           preconditioner_type=ct.PreconditionerType.JACOBI)
+    else:
+        options = _options(fused_execution=fused)
+    before = counts()
+    s = ct.solve(options, _problem())
+    counted = counts() - before
+    assert s.used_fused_execution == (fused is True)
     ex = s.execution_summary
-    assert ex.calls("Device::Read") == s.num_device_reads > 0
+    assert ex.calls("Device::Read") == s.num_device_reads == counted["Device::Read"] > 0
     assert sum(it.num_device_reads for it in s.iterations) == s.num_device_reads
+    replays = sum(ex.calls(n) for n in ex.names() if n.startswith("CUDAGraph::Replay "))
+    assert replays == s.num_graph_replays == counted["CUDAGraph::Replay"]
+    assert sum(it.num_graph_replays for it in s.iterations) == s.num_graph_replays
     assert "Device::Read" in "\n".join(ex.report_lines())
+    if fused == "sparse_schur":
+        assert ex.calls("SparseSchur::Read") == ex.calls("SparseSchur::HostSolve") \
+            == ex.calls("SparseSchur::Explicit") == s.num_linear_solves > 0
+        assert ex.nbytes("SparseSchur::Read") > 0
 
 
 @pytest.mark.parametrize("chunk", [1, 4, 20])
@@ -308,12 +327,12 @@ def test_card_solve_records_captures_and_the_pools_it_left():
     bal = ct.synthetic_bal(32, 4000, 40_000, seed=2)
     problem = ct.build_ba_problem(bal, loss=ct.HuberLoss(1.0))[0]
     kw = dict(device="cuda", dtype=torch.float32, max_num_iterations=4)
-    g0 = graph_stats()
+    before = counts()
     s = ct.solve(_options(**kw), problem)
-    g1 = graph_stats()
+    counted = counts() - before
     ex = s.execution_summary
     captures = {n: ex.calls(n) for n in ex.names() if n.startswith("CUDAGraph::Capture ")}
-    assert sum(captures.values()) == g1["captures"] - g0["captures"] == 6
+    assert sum(captures.values()) == counted["CUDAGraph::Capture"] == 6
     assert set(captures) == {f"CUDAGraph::Capture {g}" for g in (
         "evaluate", "prepare", "finish_head", "pcg", "finish_tail", "decide")}
     parents = dict(_parent_names(ex))

@@ -7,7 +7,8 @@ Every live block reads its slice of the state, `state[x_offsets[b] :
 x_offsets[b] + size]`, bitwise (the per-block rule of the JAX package's
 `Program.write_state_back`), a removed block keeps its values, the
 Program's state is a new array on every call, and a solve's final state is
-one no later solve writes into.
+one no later solve writes into. A solve's Summary counts what the Program
+holds, which are the Problem's counts.
 
 The file imports no JAX: `python -m pytest --noconftest
 tests/test_torch_write_back.py` runs it on a machine that has only PyTorch."""
@@ -106,6 +107,22 @@ def test_each_live_block_reads_its_slice_of_the_state(case):
     rows = program.a_row[47:77]
     assert np.array_equal(np.sort(rows), np.arange(30)) and not np.array_equal(rows, np.arange(30))
 
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_the_summary_counts_are_the_problems(case):
+    """A solve takes its Summary's block, parameter and residual counts
+    from the Program it compiled: the Problem's on every layout, removed,
+    constant and manifold blocks included."""
+    problem, _ = _build(CASES[case])
+    s = ct.solve(ct.SolverOptions(linear_solver_type=ct.LinearSolverType.DENSE_QR,
+                                  max_num_iterations=1, logging_type=ct.LoggingType.SILENT,
+                                  device="cpu", dtype=F64), problem)
+    assert (s.num_parameter_blocks, s.num_parameters, s.num_effective_parameters,
+            s.num_residual_blocks, s.num_residuals) == (
+        problem.num_parameter_blocks(), problem.num_parameters(),
+        problem.num_effective_parameters(), problem.num_residual_blocks(),
+        problem.num_residuals())
 
 def test_the_state_is_a_new_array_on_every_write_back():
     problem, handles = _build(set())

@@ -198,7 +198,7 @@ def main():
     import ceres_tpu_torch as ct
     from ceres_tpu_torch.parallel import distributed
     from ceres_tpu_torch.program import Program
-    from ceres_tpu_torch.utils import graphs
+    from ceres_tpu_torch.utils.execution_summary import counts, reset_counts
 
     Program.SEG_REDUCE_THRESHOLD = spec["threshold"]
     distributed.initialize(spec.get("backend", "gloo"), f"tcp://localhost:{port}", world, rank,
@@ -211,9 +211,9 @@ def main():
     # every rank offers its own value; replicate hands each rank 0's
     out = {"replicate": distributed.replicate([rank, 1.5, 2.5], mesh).tolist()}
     for case in spec["cases"]:
-        graphs.reset_collective_counts()
+        reset_counts()
         out[case] = run_eval(ct, mesh) if case == "eval" else run_solve(ct, mesh, case, bal)
-        out[case]["all_reduces"] = graphs.collective_counts()["all_reduce"]
+        out[case]["all_reduces"] = counts()["Mesh::AllReduce"]
     with open(os.path.join(sys.argv[5], f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     torch.distributed.destroy_process_group()
